@@ -5,12 +5,15 @@ JAX package's layout so that each module has its counterpart under the same
 name:
 
   core/    — SoA path state, bit-exact TEA/LCG RNG, camera, math
-  scene/   — meshes, BVH build, cluster tables, lights, procedural scenes
-  ops/     — the resident closest-hit / any-hit trace (hand-written CUDA
-             kernels in csrc/, plain PyTorch versions beside them)
-  render/  — the composed wavefront frame: camera paths, trace, shade + NEE,
-             shadow trace, accumulation
-  utils/   — EXR IO
+  scene/   — meshes, BVH build, cluster tables, textures, lights,
+             procedural scenes
+  ops/     — the resident closest-hit / any-hit trace and the fused
+             whole-sample frame (hand-written CUDA kernels in csrc/, plain
+             PyTorch versions beside them)
+  render/  — the frame: the fused path (one kernel launch) and the composed
+             wavefront path (camera paths, trace, shade + NEE, shadow trace,
+             accumulation)
+  utils/   — EXR IO, the per-frame device profile
 
 The package imports torch and never JAX or the JAX package. Entry points put
 tensors on CUDA unless the caller passes device="cpu"; without CUDA and

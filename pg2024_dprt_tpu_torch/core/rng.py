@@ -35,6 +35,17 @@ def tea(val0, val1, rounds: int = 4) -> torch.Tensor:
     return v0
 
 
+def tea_int(val0: int, val1: int, rounds: int = 4) -> int:
+    """tea() of two Python ints, in Python ints: the host-side form for the
+    scalar salts (sample, bounce, stream ids), with no tensor op."""
+    v0, v1, s0 = val0 & _MASK, val1 & _MASK, 0
+    for _ in range(rounds):
+        s0 = (s0 + 0x9E3779B9) & _MASK
+        v0 = (v0 + ((((v1 << 4) + 0xA341316C) ^ (v1 + s0)) ^ ((v1 >> 5) + 0xC8013EA4))) & _MASK
+        v1 = (v1 + ((((v0 << 4) + 0xAD90777D) ^ (v0 + s0)) ^ ((v0 >> 5) + 0x7E95761E))) & _MASK
+    return v0
+
+
 def _lcg(prev):
     """LCG step; returns (new_state, 24 random bits)."""
     nxt = (1664525 * prev + 1013904223) & _MASK

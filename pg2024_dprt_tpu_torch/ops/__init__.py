@@ -1,3 +1,9 @@
+from .frame import (
+    fused_frame_supported,
+    render_frame_fused,
+    render_frame_fused_plain,
+    render_sample_fused,
+)
 from .resident import (
     LAUNCHES,
     reset_launch_counts,

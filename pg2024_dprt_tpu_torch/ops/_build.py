@@ -3,8 +3,10 @@
 Each source in csrc/ is compiled by nvcc for sm_90a into a shared library
 with a plain C interface, in the gitignored directory
 pg2024_dprt_tpu_torch/build/, at first use, and loaded with ctypes. The
-sources include no PyTorch header, so a build takes seconds. A build failure
-raises with nvcc's output; nothing falls back.
+sources include no PyTorch header, so a build takes seconds. Sources share
+headers (csrc/*.cuh), so a library is rebuilt when any file of csrc/ is
+newer than it. A build failure raises with nvcc's output; nothing falls
+back.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # library name -> CUDA source in csrc/
-SOURCES = {"resident_trace": "resident_trace.cu"}
+SOURCES = {"resident_trace": "resident_trace.cu", "frame": "frame.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,9 +52,14 @@ def _so_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than any file of csrc/
+    (a changed shared header rebuilds every source that may include it)."""
     so = _so_path(name)
-    src = os.path.join(SRC_DIR, SOURCES[name])
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    if not os.path.exists(so):
+        return True
+    newest = max(os.path.getmtime(os.path.join(SRC_DIR, f))
+                 for f in os.listdir(SRC_DIR))
+    return os.path.getmtime(so) < newest
 
 
 def build(names=None, force: bool = False) -> dict:
@@ -84,8 +91,8 @@ def build(names=None, force: bool = False) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, built first if missing or older than its
-    source."""
+    """The loaded library `name`, built first if missing or older than the
+    sources."""
     lib = _LIBS.get(name)
     if lib is None:
         if _stale(name):

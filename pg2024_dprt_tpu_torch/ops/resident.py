@@ -12,7 +12,7 @@ Beside each kernel is its plain PyTorch version: a dense Moller-Trumbore
 over ray chunks x triangle-slot chunks with the same formulas and no cull.
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `LAUNCHES` counts the kernel
-launches of each wrapper.
+launches of each wrapper (the frame kernel's, ops/frame.py, as well).
 
 The closest-hit winner is the lexicographic minimum of (t, slot) with slot =
 cluster * C + lane, so kernel and plain version agree whatever order the
@@ -33,7 +33,7 @@ from . import _build
 F32_MAX = 3.402823466e38
 
 # kernel launches of each wrapper (reset by callers that count a run)
-LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0}
+LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0, "frame_sample": 0}
 
 # elements per (ray, slot) chunk of the plain versions' dense test
 _PLAIN_CHUNK = {"cpu": 1 << 21, "cuda": 1 << 25}
@@ -101,38 +101,49 @@ def resident_anyhit(scene, o, d, tmin, tmax, active) -> torch.Tensor:
     return occ
 
 
+def _checked(name: str, x: torch.Tensor, dtype, shape, device) -> torch.Tensor:
+    """`x`, contiguous, if it has the dtype, shape and device a kernel reads;
+    raises otherwise (broadcast or strided inputs are materialized, since the
+    kernels index densely)."""
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)} on {device}, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return x.contiguous()
+
+
+def scene_tables(scene, device):
+    """The cluster tables the kernels read, validated, by name, with K and C."""
+    k, _, c = scene.cl_mt_table.shape
+    if k * c >= 2**31:
+        raise ValueError("slot count exceeds int32")
+    spec = {"cl_boxes": (torch.float32, (8, k)),
+            "cl_mt_table": (torch.float32, (k, 16, c)),
+            "cl_tri_map": (torch.int32, (k * c,)),
+            "cl_count": (torch.int32, (k,)),
+            "scene_aabb": (torch.float32, (2, 3))}
+    return {name: _checked(name, getattr(scene, name), dtype, shape, device)
+            for name, (dtype, shape) in spec.items()}, k, c
+
+
 def _kernel_inputs(scene, o, d, tmin, tmax, active):
-    """Validate what the kernels read; raise on anything they do not take.
-    Returns (rays, tables, N, K, C): the five ray tensors and the scene
-    tables by name, all contiguous (broadcast or strided inputs are
-    materialized, since the kernels index densely). The caller holds them
-    until the launch is enqueued; after that the caching allocator orders
-    any reuse of their memory behind the stream."""
+    """Validate what the trace kernels read; raise on anything they do not
+    take. Returns (rays, tables, N, K, C): the five ray tensors and the scene
+    tables by name, all contiguous. The caller holds them until the launch is
+    enqueued; after that the caching allocator orders any reuse of their
+    memory behind the stream."""
     if o.device.type != "cuda":
         raise ValueError(f"rays on {o.device}: the kernels take CUDA tensors")
     n = o.shape[0]
-    k, _, c = scene.cl_mt_table.shape
-    rays = {"origin": (o, torch.float32, (n, 3)),
-            "direction": (d, torch.float32, (n, 3)),
-            "t_min": (tmin, torch.float32, (n,)),
-            "t_max": (tmax, torch.float32, (n,)),
-            "active": (active, torch.bool, (n,))}
-    tables = {"cl_boxes": (torch.float32, (8, k)),
-              "cl_mt_table": (torch.float32, (k, 16, c)),
-              "cl_tri_map": (torch.int32, (k * c,)),
-              "cl_count": (torch.int32, (k,)),
-              "scene_aabb": (torch.float32, (2, 3))}
-    want = {**rays, **{name: (getattr(scene, name), *spec)
-                       for name, spec in tables.items()}}
-    for name, (x, dtype, shape) in want.items():
-        if x.device != o.device or x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(
-                f"{name}: want {dtype} {shape} on {o.device}, got "
-                f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    if n >= 2**31 or k * c >= 2**31:
-        raise ValueError("ray or slot count exceeds int32")
-    return ([x.contiguous() for x, _, _ in rays.values()],
-            {name: want[name][0].contiguous() for name in tables}, n, k, c)
+    if n >= 2**31:
+        raise ValueError("ray count exceeds int32")
+    rays = [_checked(name, x, dtype, shape, o.device) for name, x, dtype, shape in (
+        ("origin", o, torch.float32, (n, 3)),
+        ("direction", d, torch.float32, (n, 3)),
+        ("t_min", tmin, torch.float32, (n,)),
+        ("t_max", tmax, torch.float32, (n,)),
+        ("active", active, torch.bool, (n,)))]
+    tab, k, c = scene_tables(scene, o.device)
+    return rays, tab, n, k, c
 
 
 def _lib():

@@ -6,10 +6,13 @@ What the port does with each field today:
   * `tracer`: "auto" and "resident" run the resident trace (CUDA kernels on
     CUDA tensors, plain versions on CPU tensors); "stackless" and "cluster"
     are not ported and raise.
-  * `fused_frame`: "auto" and "off" both run the composed path (closest
-    trace, shade + NEE, any-hit shadow trace, accumulation per bounce);
-    "on" asks for the whole-sample megakernel, which is not ported yet, and
-    raises.
+  * `fused_frame`: "off" runs the composed path (closest trace, shade +
+    NEE, any-hit shadow trace, accumulation per bounce). "on" runs the
+    fused frame (ops/frame.py: all spp in one launch of the frame kernel
+    for CUDA tensors, its plain version for CPU tensors) and raises for a
+    scene its gate rejects. "auto" is fused when the tensors are on CUDA,
+    `tracer` is "auto" or "resident" and the gate accepts the scene (no
+    cutout textures, at least one light, bounces <= 8), else composed.
   * `use_neural_proxies`, `max_proxy_hits`, `max_migrations`,
     `bucket_fraction` and `use_visibility_grids` serve the distributed and
     neural paths, not ported yet; the single-device frame ignores them,
@@ -39,7 +42,7 @@ class RenderConfig:
     max_migrations: int = 32
     # Traversal backend: "auto" | "resident" (see module docstring).
     tracer: str = "auto"
-    # Whole-sample frame megakernel: "auto" | "off" (composed path) | "on".
+    # Whole-sample fused frame: "auto" | "off" (composed path) | "on".
     fused_frame: str = "auto"
     # Per-destination bucket capacity as a fraction of path capacity.
     bucket_fraction: float = 1.0

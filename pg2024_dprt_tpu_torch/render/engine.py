@@ -1,21 +1,28 @@
 """Single-device render loop (counterpart of
-pg2024_dprt_tpu/render/engine.py, its composed path): frame -> spp ->
-bounces, a plain Python loop.
+pg2024_dprt_tpu/render/engine.py): frame -> spp -> bounces.
 
-Per bounce:
-  1. closest hit of every live path (K1, ops/resident.py);
-  2. shade: env on miss, BSDF sample, next paths + NEE shadow paths;
-  3. any-hit of the shadow paths (K2); unoccluded ones add their
-     contribution / shadow_path_count to the direct image.
+Two paths render a frame, chosen by `cfg.fused_frame` (`_fused_active`):
 
-Each stage runs under a `torch.profiler.record_function` range
-("camera_paths", "closest_trace", "shade", "shadow_trace", "accumulate"), so
-one profiled frame attributes device time to the stages
-(utils/profile.py); without a profiler the ranges do nothing.
+  * the fused frame (ops/frame.py): all spp of the frame in ONE launch of
+    the frame kernel; the default on CUDA tensors for every scene its gate
+    accepts;
+  * the composed path, a plain Python loop. Per bounce:
+      1. closest hit of every live path (K1, ops/resident.py), with the
+         cutout re-trace for scenes with cutout textures (ops/trace_api.py);
+      2. shade: env on miss, BSDF sample, next paths + NEE shadow paths;
+      3. any-hit of the shadow paths (K2); unoccluded ones add their
+         contribution / shadow_path_count to the direct image.
 
-Accumulation is `index_add_`, which on CUDA adds with atomics: the order of
-the adds, and so the last bits of a pixel that several paths reach in one
-bounce, changes from run to run.
+Each composed stage runs under a `torch.profiler.record_function` range
+("camera_paths", "closest_trace", "shade", "shadow_trace", "accumulate"),
+and the fused frame under "fused_frame", so one profiled frame attributes
+device time to the stages (utils/profile.py); without a profiler the ranges
+do nothing.
+
+The composed path accumulates with `index_add_`, which on CUDA adds with
+atomics: the order of the adds, and so the last bits of a pixel that several
+paths reach in one bounce, changes from run to run. The fused frame has one
+owner per pixel and is deterministic.
 """
 from __future__ import annotations
 
@@ -33,21 +40,33 @@ from .pathgen import generate_camera_paths
 from .shade import shade
 
 
-def _check_config(cfg: RenderConfig):
-    if cfg.fused_frame == "on":
-        raise NotImplementedError(
-            "fused_frame='on' (the whole-sample megakernel) is not ported yet; "
-            "'auto' and 'off' run the composed path")
-    if cfg.fused_frame not in ("auto", "off"):
+def _fused_active(scene, lights, env, cfg: RenderConfig) -> bool:
+    """Whether the frame goes through the fused frame (ops/frame.py), as the
+    JAX engine decides it: "on" always (the plain version for CPU tensors,
+    as interpret mode there); "auto" when the tensors are on CUDA, the
+    tracer selection is the resident family and the gate accepts the scene;
+    "off" never."""
+    from ..ops.frame import fused_frame_supported
+
+    if cfg.fused_frame not in ("auto", "on", "off"):
         raise ValueError(f"unknown fused_frame {cfg.fused_frame!r}")
+    return cfg.fused_frame == "on" or (
+        cfg.fused_frame == "auto"
+        and scene.cl_mt_table.is_cuda
+        and cfg.tracer in ("auto", "resident")
+        and fused_frame_supported(scene, lights, env, cfg))
 
 
 def render_sample(scene, lights, env, camera: Camera, sample_count: int,
                   cfg: RenderConfig):
     """One spp: returns (direct_image, env_image, diag) — the images are
     (npix, 3) accumulators; diag counts rays whose result may be affected by
-    tracer residue (always 0 for the resident tracer)."""
-    _check_config(cfg)
+    tracer residue (the cutout re-trace's; 0 otherwise)."""
+    if _fused_active(scene, lights, env, cfg):
+        from ..ops.frame import render_sample_fused
+
+        with record_function("fused_frame"):
+            return render_sample_fused(scene, lights, env, camera, sample_count, cfg)
     npix = cfg.frame_buffer_size
     dev = camera.origin.device
     with record_function("camera_paths"):
@@ -85,8 +104,10 @@ def render_sample(scene, lights, env, camera: Camera, sample_count: int,
 
 
 def _on(device, record):
-    """Move a record's tensors to `device` (no copy when already there)."""
-    move = lambda x: x.to(device) if torch.is_tensor(x) else x
+    """Move a record's tensors to `device` (no copy when already there),
+    nested records (the scene's textures) included."""
+    move = lambda x: (x.to(device) if torch.is_tensor(x)
+                      else _on(device, x) if isinstance(x, tuple) else x)
     if dataclasses.is_dataclass(record):
         return dataclasses.replace(record, **{
             f.name: move(getattr(record, f.name)) for f in dataclasses.fields(record)})
@@ -97,19 +118,27 @@ def render_image(scene, lights, env, camera, cfg: RenderConfig, base_sample: int
                  return_stats: bool = False, device=None):
     """Full frame: the average over spp. Returns (height, width, 3) float32,
     or (image, {"tracer_diag": int}) with return_stats. Runs on `device`
-    (CUDA unless the caller passes another); the inputs are moved there."""
-    _check_config(cfg)
+    (CUDA unless the caller passes another); the inputs are moved there.
+
+    On the fused path all spp run in ONE kernel launch."""
     dev = resolve_device(device)
     scene, lights, env, camera = (_on(dev, r) for r in (scene, lights, env, camera))
     npix = cfg.frame_buffer_size
-    direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
-    env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
-    diag = 0
-    for s in range(cfg.spp):
-        d, e, dg = render_sample(scene, lights, env, camera, base_sample + s, cfg)
-        direct += d
-        env_img += e
-        diag += dg
+    if _fused_active(scene, lights, env, cfg):
+        from ..ops.frame import render_frame_fused
+
+        with record_function("fused_frame"):
+            direct, env_img, diag = render_frame_fused(
+                scene, lights, env, camera, base_sample, cfg, spp=cfg.spp)
+    else:
+        direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+        env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+        diag = 0
+        for s in range(cfg.spp):
+            d, e, dg = render_sample(scene, lights, env, camera, base_sample + s, cfg)
+            direct += d
+            env_img += e
+            diag += dg
     img = ((direct + env_img) / cfg.spp).reshape(cfg.height, cfg.width, 3)
     if return_stats:
         return img, {"tracer_diag": int(diag)}

@@ -15,8 +15,9 @@ from typing import NamedTuple
 import torch
 
 from ..core import math as cmath
-from ..core.rng import rnd, rnd2, rnd3, tea
+from ..core.rng import rnd, rnd2, rnd3, tea, tea_int
 from ..core.types import BSDF_WATER, PathState
+from ..scene.textures import sample_textures
 
 F32_MAX = 3.402823466e38
 # TEA stream id for the RIS reservoir u draw ("RIS1")
@@ -48,6 +49,13 @@ def surface_attributes(scene, origin, direction, hits) -> SurfaceAttributes:
     bsdf_type = row[:, 18].to(torch.int32)
     # barycentric convention: u weights n1, v weights n2
     normal = cmath.normalize(w * n0 + u * n1 + v * n2)
+
+    # albedo-texture fetch at the interpolated uv
+    if scene.textured:
+        tex_idx = row[:, 19].to(torch.int32)
+        uv = w * row[:, 9:11] + u * row[:, 11:13] + v * row[:, 13:15]
+        rgba = sample_textures(scene.albedo_textures, tex_idx, uv[:, 0], uv[:, 1])
+        albedo = torch.where((tex_idx >= 0)[:, None], rgba[:, :3], albedo)
 
     t = torch.where(hits.is_hit, hits.t, 0.0)
     point = origin + t[:, None] * direction
@@ -124,7 +132,7 @@ def shade(scene, lights, env, paths: PathState, hits, sample_count: int,
     env_image_add.index_add_(0, paths.pixel_index, env_contrib)
 
     # --- BSDF sample ---
-    bounce_salt = int(tea(int(sample_count), int(bounce)))
+    bounce_salt = tea_int(int(sample_count), int(bounce))
     _, xi1, xi2 = rnd2(tea(paths.pixel_index, bounce_salt))
     wi_local, weight, is_delta = bsdf_sample(xi1, xi2, attrs, wo_world)
     wi_world = cmath.normalize(cmath.to_world(attrs.normal, wi_local))
@@ -133,7 +141,7 @@ def shade(scene, lights, env, paths: PathState, hits, sample_count: int,
     next_throughput = paths.throughput * (weight * cos_theta)[:, None] * attrs.albedo
     next_live = hit
     if rr:
-        _, u_rr = rnd(tea(paths.pixel_index, int(tea(bounce_salt, RR_SALT))))
+        _, u_rr = rnd(tea(paths.pixel_index, tea_int(bounce_salt, RR_SALT)))
         p = torch.clamp(next_throughput.amax(dim=1), RR_FLOOR, 1.0)
         next_live = hit & (u_rr < p)
         next_throughput = next_throughput / p[:, None]
@@ -185,7 +193,7 @@ def shade(scene, lights, env, paths: PathState, hits, sample_count: int,
         w_all = torch.where(shadow_valid, c_sum, 0.0).reshape(n, s)
         cum = _running_sum(w_all)
         w_tot = cum[:, -1]
-        _, u_draw = rnd(tea(paths.pixel_index, int(tea(bounce_salt, RIS_SALT))))
+        _, u_draw = rnd(tea(paths.pixel_index, tea_int(bounce_salt, RIS_SALT)))
         thresh = u_draw * w_tot
         pick = (cum > thresh[:, None]).to(torch.int32).argmax(dim=1)   # first True
         row = torch.arange(n, device=dev) * s + pick

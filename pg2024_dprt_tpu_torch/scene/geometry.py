@@ -1,9 +1,10 @@
 """Scene geometry containers (counterpart of pg2024_dprt_tpu/scene/geometry.py).
 
 `MeshGeometry` (numpy, host) is one object's triangle soup and material.
-`DeviceScene` (tensors) holds the tables the composed frame reads: the
-cluster tables that the resident trace kernels stream (ops/resident.py) and
-the per-triangle shading rows that shading gathers (render/shade.py).
+`DeviceScene` (tensors) holds the tables both frame paths read: the cluster
+tables that the trace kernels and the frame kernel stream (ops/resident.py,
+ops/frame.py), the per-triangle shading rows that shading gathers
+(render/shade.py) and the packed albedo textures (scene/textures.py).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.types import BSDF_DIFFUSE
 from .bvh import FlatBVH, build_bvh
+from .textures import PackedTextures, build_textures
 
 
 @dataclass
@@ -96,12 +98,14 @@ class DeviceScene(NamedTuple):
     tri_shade (T, 24) per-triangle row in BVH order: n0 xyz, n1, n2, uv0,
     uv1, uv2, albedo rgb (15:18), bsdf_type (18), texture_index (19), mesh
     id (20), pad.
+    albedo_textures: the packed texel pool that tri_shade's texture_index
+    points into, or None for an untextured scene.
 
     Left out of the port so far (callers that ask for them get
-    NotImplementedError): instancing (cl_xf), textures and cutouts, curves,
-    the stackless tracer's BVH node arrays, and the tables only TPU kernels
-    read (cl_woop_table, cl_mt_table_t, cl_gboxes/cl_mboxes,
-    cl_shade_table(_t))."""
+    NotImplementedError): instancing (cl_xf), curves, the stackless tracer's
+    BVH node arrays, and the tables only TPU kernels read (cl_woop_table,
+    cl_mt_table_t, cl_gboxes/cl_mboxes, cl_shade_table(_t), the texture
+    scanline pool)."""
 
     cl_aabb_min: torch.Tensor  # (K, 3) f32 (+inf/-inf for empty clusters)
     cl_aabb_max: torch.Tensor  # (K, 3) f32
@@ -111,6 +115,15 @@ class DeviceScene(NamedTuple):
     cl_boxes: torch.Tensor     # (8, K) f32
     scene_aabb: torch.Tensor   # (2, 3) f32
     tri_shade: torch.Tensor    # (T, 24) f32
+    albedo_textures: Optional[PackedTextures] = None
+
+    @property
+    def textured(self) -> bool:
+        return self.albedo_textures is not None and self.albedo_textures.count > 0
+
+    @property
+    def has_cutout(self) -> bool:
+        return self.textured and self.albedo_textures.has_cutout
 
     @property
     def num_triangles(self) -> int:
@@ -139,8 +152,6 @@ def device_scene_from_meshes(
 
     tris_per_cluster=None scales the cluster size with the scene, by the
     JAX package's rule, so both packages cut the same clusters."""
-    if textures:
-        raise NotImplementedError("textures are not ported yet")
     if curves is not None:
         raise NotImplementedError("curves are not ported yet")
     dev = resolve_device(device)
@@ -152,8 +163,9 @@ def device_scene_from_meshes(
     bvh = build_bvh(host["v0"], host["v1"], host["v2"])
     arrays = _pack_device_scene(host, bvh, tri_capacity, tris_per_cluster,
                                 cluster_capacity)
-    return DeviceScene(**{k: torch.as_tensor(v, device=dev)
-                          for k, v in arrays.items()})
+    return DeviceScene(
+        **{k: torch.as_tensor(v, device=dev) for k, v in arrays.items()},
+        albedo_textures=build_textures(textures, device=dev) if textures else None)
 
 
 def _pack_device_scene(host: dict, bvh: FlatBVH, tri_capacity=None,

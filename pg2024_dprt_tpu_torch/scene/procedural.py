@@ -74,6 +74,30 @@ def cornell_box(with_water_sphere: bool = False, device=None):
     return meshes, LightTable.from_arrays(light_tris, radiance, device=device)
 
 
+def textured_cornell_box(floor_tex: int = 0, back_tex: int = -1, uv_scale: float = 1.0,
+                         with_water_sphere: bool = False, device=None):
+    """cornell_box with a uv-mapped floor (texture `floor_tex`) and, when
+    `back_tex` >= 0, the second wall mesh textured too; uv spans
+    [0, uv_scale], so a scale above 1 exercises wrap addressing. The texture
+    images go to device_scene_from_meshes(textures=...). Returns (meshes,
+    light_table)."""
+    meshes, lights = cornell_box(with_water_sphere, device=device)
+    uv = uv_scale * np.asarray(
+        [[0, 0], [0, 1], [1, 1], [0, 0], [1, 1], [1, 0]], np.float32)
+
+    def retex(m, ti):
+        reps = (m.num_triangles // 2, 1)
+        return MeshGeometry(
+            v0=m.v0, v1=m.v1, v2=m.v2, uv0=np.tile(uv[0::3], reps),
+            uv1=np.tile(uv[1::3], reps), uv2=np.tile(uv[2::3], reps),
+            base_color=m.base_color, texture_index=ti, name=m.name)
+
+    meshes[0] = retex(meshes[0], floor_tex)
+    if back_tex >= 0:
+        meshes[1] = retex(meshes[1], back_tex)
+    return meshes, lights
+
+
 def random_tri_soup(n: int, seed: int = 0, extent: float = 1.0, jitter: float = 0.08):
     """n random small triangles in [0, extent]^3 — the BVH stress and
     benchmark scene."""

@@ -4,12 +4,14 @@ pg2024_dprt_tpu/utils/profile.py).
     python -m pg2024_dprt_tpu_torch.utils.profile [size] [n_tris]
 
 Prints one JSON object for the exact-frame benchmark configuration
-(scene/procedural.py::soup_frame), from one render_image run under
-torch.profiler and unprofiled runs of the same frame:
+(scene/procedural.py::soup_frame) with two entries, "fused" (the default
+config: the whole frame in one launch of the frame kernel) and "composed"
+(fused_frame="off"), each from one render_image run under torch.profiler
+and unprofiled runs of the same frame:
   * stages_ms: device ms of the kernels that run inside the device-side
-    extent of each of render_sample's record_function ranges (camera_paths,
-    closest_trace, shade, shadow_trace, accumulate), summed over bounces,
-    and of the kernels outside every range;
+    extent of each of the engine's record_function ranges (fused_frame; or
+    camera_paths, closest_trace, shade, shadow_trace, accumulate, summed
+    over bounces), and of the kernels outside every range;
   * the profiled frame's wall ms (CUDA events), the union of its kernels'
     busy intervals, and the device idle share (1 - busy / wall) against that
     wall and against the unprofiled frame's median wall ms (the profiler's
@@ -19,6 +21,7 @@ Needs CUDA.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import sys
@@ -28,7 +31,8 @@ import torch
 
 from ..render.engine import render_image
 
-STAGES = ("camera_paths", "closest_trace", "shade", "shadow_trace", "accumulate")
+STAGES = ("fused_frame", "camera_paths", "closest_trace", "shade", "shadow_trace",
+          "accumulate")
 
 
 def _frame_ms(fn, reps: int) -> float:
@@ -115,9 +119,12 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile: needs CUDA", file=sys.stderr)
         return 2
-    frame = soup_frame(size, n_tris, device="cuda")
+    *frame, cfg = soup_frame(size, n_tris, device="cuda")
+    composed = dataclasses.replace(cfg, fused_frame="off")
     print(json.dumps({"device": torch.cuda.get_device_name(0), "size": size,
-                      "n_tris": n_tris, "frame": frame_device_profile(*frame)}))
+                      "n_tris": n_tris,
+                      "fused": frame_device_profile(*frame, cfg),
+                      "composed": frame_device_profile(*frame, composed)}))
     return 0
 
 

@@ -33,6 +33,8 @@ def test_tea_bit_exact_at_wrap_points(v1):
     got = tcore.tea(torch.as_tensor(v0.astype(np.int64)), v1).numpy()
     np.testing.assert_array_equal(got.astype(np.uint32), want)
     assert got.min() >= 0 and got.max() < 2**32
+    # the host-side scalar form gives the same bits
+    assert [tcore.tea_int(int(a), v1) for a in v0] == got.tolist()
 
 
 def test_rnd_sequences_bit_exact():
@@ -138,6 +140,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 if root in ("jax", "jaxlib", "pg2024_dprt_tpu"):
                     bad.append(f"{os.path.relpath(path, ROOT)}:{node.lineno} {name}")
     assert not bad, bad
+
+
+def test_kernel_sources_include_only_cuda_and_their_own_headers():
+    """Every source in csrc/ includes CUDA toolkit and C headers and the
+    port's own headers only: no Python, PyTorch or JAX header, so the kernels
+    build with nvcc alone. Every library of ops/_build.py has its source, and
+    the fused-frame and texture modules are in the import scan above."""
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    csrc = os.path.join(ROOT, "pg2024_dprt_tpu_torch", "csrc")
+    own = set(os.listdir(csrc))
+    assert {"resident_trace.cu", "resident_trace.cuh", "frame.cu"} <= own
+    assert set(_build.SOURCES.values()) <= own
+    allowed = {"cuda_runtime.h", "math_constants.h", "stdint.h"}
+    bad = []
+    for f in sorted(own):
+        for n, line in enumerate(open(os.path.join(csrc, f)), 1):
+            if line.lstrip().startswith("#include"):
+                name = line.split()[1].strip('<>"')
+                if name not in allowed | own:
+                    bad.append(f"{f}:{n} {name}")
+    assert not bad, bad
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert {"pg2024_dprt_tpu_torch/ops/frame.py",
+            "pg2024_dprt_tpu_torch/scene/textures.py"} <= scanned
 
 
 def test_entry_points_need_cuda_unless_told(monkeypatch):

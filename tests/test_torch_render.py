@@ -6,6 +6,7 @@ with Russian roulette.
 Tolerance for images: rtol 1e-3 / atol 1e-4 (the golden bar of
 tests/test_render_single.py). Both packages draw the same TEA/LCG numbers,
 so the images differ only by float32 rounding (operation order, libm)."""
+import dataclasses
 import os
 
 import jax
@@ -128,9 +129,9 @@ def test_renderer_and_unported_options():
                                   render_image(ts, tl, te, tc, cfg, device="cpu").numpy())
     img, stats = render_image(ts, tl, te, tc, cfg, return_stats=True, device="cpu")
     assert stats == {"tracer_diag": 0}
-    with pytest.raises(NotImplementedError):
-        render_image(ts, tl, te, tc, RenderConfig(width=16, height=16, fused_frame="on"),
-                     device="cpu")
+    # fused_frame="on" runs the fused frame's plain version on CPU tensors
+    fused = render_image(ts, tl, te, tc, dataclasses.replace(cfg, fused_frame="on"), device="cpu")
+    np.testing.assert_allclose(fused.numpy(), img.numpy(), rtol=1e-3, atol=1e-4)
     with pytest.raises(NotImplementedError):
         render_image(ts, tl, te, tc, RenderConfig(width=16, height=16, tracer="stackless"),
                      device="cpu")

@@ -16,6 +16,11 @@ from pg2024_dprt_tpu_torch import scene as tscene
 from pg2024_dprt_tpu_torch.scene import native_bvh as t_native
 
 
+# the tensor tables of a DeviceScene (albedo_textures is a record of its own,
+# held against JAX in tests/test_torch_textures.py)
+_TABLES = [f for f in tscene.DeviceScene._fields if f != "albedo_textures"]
+
+
 def jax_arrays(rec) -> dict:
     """A JAX record's array fields as numpy (what the port's convert takes)."""
     return {k: np.asarray(v) for k, v in rec._asdict().items() if isinstance(v, jax.Array)}
@@ -42,7 +47,8 @@ def test_packed_tables_equal(kind, tpc):
     js = j_build(jm, tris_per_cluster=tpc)
     ts = tscene.device_scene_from_meshes(tm, tris_per_cluster=tpc, device="cpu")
     ja = jax_arrays(js)
-    for name in tscene.DeviceScene._fields:
+    assert ts.albedo_textures is None
+    for name in _TABLES:
         got = getattr(ts, name).numpy()
         assert got.shape == ja[name].shape, name
         np.testing.assert_array_equal(got, ja[name], err_msg=name)
@@ -55,7 +61,7 @@ def test_convert_carries_jax_scene_across():
     js = j_build(jm)
     ts = tscene.device_scene_from_arrays(jax_arrays(js), device="cpu")
     own = tscene.device_scene_from_meshes(tscene.cornell_box(device="cpu")[0], device="cpu")
-    for name in tscene.DeviceScene._fields:
+    for name in _TABLES:
         np.testing.assert_array_equal(getattr(ts, name).numpy(), getattr(own, name).numpy())
     tl = tscene.light_table_from_arrays(jax_arrays(lights), device="cpu")
     for name in tl._fields:
@@ -89,7 +95,9 @@ def test_environment_lookup_matches_jax():
 
 def test_unported_scene_features_raise():
     meshes, _ = tscene.cornell_box(device="cpu")
-    with pytest.raises(NotImplementedError):
-        tscene.device_scene_from_meshes(meshes, textures=[np.zeros((2, 2, 4))], device="cpu")
+    # textures are ported: the scene carries the packed pool
+    textured = tscene.device_scene_from_meshes(meshes, textures=[np.zeros((2, 2, 4))],
+                                               device="cpu")
+    assert textured.textured and textured.has_cutout
     with pytest.raises(NotImplementedError):
         tscene.device_scene_from_meshes(meshes, curves=object(), device="cpu")
