@@ -7,12 +7,14 @@ name:
   core/    — SoA path state, bit-exact TEA/LCG RNG, camera, math
   scene/   — meshes, BVH build, cluster tables, textures, lights,
              procedural scenes
-  ops/     — the resident closest-hit / any-hit trace and the fused
-             whole-sample frame (hand-written CUDA kernels in csrc/, plain
-             PyTorch versions beside them)
+  models/  — the neural proxies' MLP family and the grouped inference engine
+  ops/     — the resident closest-hit / any-hit trace, the fused
+             whole-sample frame, the proxy march, the vis/depth net pair and
+             the fused routing stage (hand-written CUDA kernels in csrc/,
+             plain PyTorch versions beside them)
   render/  — the frame: the fused path (one kernel launch) and the composed
              wavefront path (camera paths, trace, shade + NEE, shadow trace,
-             accumulation)
+             accumulation); the neural-proxy routing stages
   utils/   — EXR IO, the per-frame device profile
 
 The package imports torch and never JAX or the JAX package. Entry points put

@@ -44,6 +44,13 @@ def cartesian_to_spherical(d):
     return phi, theta
 
 
+def spherical_for_train(d):
+    """Spherical parameterization of the proxy nets' inputs: the same
+    convention as `cartesian_to_spherical`, kept under its own name so that
+    training data and inference featurization stay in lockstep."""
+    return cartesian_to_spherical(d)
+
+
 def make_frame(n):
     """Branchless orthonormal basis around normal n (Duff et al. 2017).
     Returns (t, b): tangent/bitangent with n as +z."""

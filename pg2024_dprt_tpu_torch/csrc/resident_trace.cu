@@ -1,5 +1,6 @@
-// Resident closest-hit (K1) and any-hit (K2) ray-triangle traversal for
-// Hopper (sm_90a), bound to PyTorch through a plain C interface (ctypes).
+// Resident closest-hit (K1) and any-hit (K2) ray-triangle traversal and the
+// cluster-schedule sort keys (K8) for Hopper (sm_90a), bound to PyTorch
+// through a plain C interface (ctypes).
 //
 // K1 resident_closest replaces the JAX package's closest-hit Pallas kernels
 // pallas_resident.py::_kernel, _kernel_tiny and _kernel_tiny_t; K2
@@ -43,6 +44,19 @@
 // rays share from cache, each cluster slab test about 30 operations; the
 // bytes every call must move (rays in, records out, the table once) are
 // far below the operations' time at 67 TFLOP/s FP32.
+//
+// K8 schedule_keys replaces pallas_resident.py::_sched_kernel (pallas_call
+// at :1221): for each ray the FIRST and SECOND cluster it enters, by the exact
+// slab enter distance, packed into one sortable key (first << 12) | second.
+// Sorting an incoherent wavefront by this key puts rays that will visit the
+// same clusters in the same order next to each other, so the rays of a warp
+// of K1 / K7 walk the same tables. The order is that of the TPU kernel: a
+// cluster's rank is (enter bits with the low 12 bits cleared) | cluster, so
+// enter distances within 2^12 ulps rank by cluster index; a ray that enters
+// no cluster gets 0xFFF in both halves and an inactive ray 0x7FFFFFFF, which
+// sort last. Needs K < 4096. One thread per ray, one pass over the K boxes
+// that keeps the two smallest ranks in registers. Bound by FP32 operations
+// (K slab tests per active ray).
 //
 // Built with --fmad=false: contracted multiply-adds would round grazing
 // and edge hits differently from the plain version.
@@ -93,6 +107,41 @@ __global__ void __launch_bounds__(kThreads) resident_anyhit_kernel(
   out_occ[i] = occ ? 1 : 0;
 }
 
+constexpr int kClusterBits = 12;
+constexpr int32_t kClusterMask = (1 << kClusterBits) - 1;
+constexpr int32_t kNoRank = 0x7FFFFFFF;
+
+__global__ void __launch_bounds__(kThreads) schedule_keys_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ tmin, const float* __restrict__ tmax,
+    const uint8_t* __restrict__ active, int n, const float* __restrict__ boxes,
+    const float* __restrict__ scene_aabb, int nk, int32_t* __restrict__ out_key) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r;
+  if (!resident::load_ray(i, o, d, tmin, tmax, active, scene_aabb, r)) {
+    out_key[i] = kNoRank;
+    return;
+  }
+  // ranks are distinct (their low bits are the cluster), so the two
+  // smallest are the first and the second entered cluster
+  int32_t r1 = kNoRank, r2 = kNoRank;
+  for (int k = 0; k < nk; ++k) {
+    const float en = resident::cluster_enter(r, boxes, k, nk);
+    if (en == CUDART_INF_F) continue;
+    const int32_t rank = (__float_as_int(en) & ~kClusterMask) | k;
+    if (rank < r1) {
+      r2 = r1;
+      r1 = rank;
+    } else if (rank < r2) {
+      r2 = rank;
+    }
+  }
+  const int32_t first = r1 != kNoRank ? (r1 & kClusterMask) : kClusterMask;
+  const int32_t second = r2 != kNoRank ? (r2 & kClusterMask) : kClusterMask;
+  out_key[i] = (first << kClusterBits) | second;
+}
+
 }  // namespace
 
 // C entry points: launch on the caller's stream and return
@@ -123,6 +172,19 @@ extern "C" int resident_anyhit(
                              static_cast<cudaStream_t>(stream)>>>(
         o, d, tmin, tmax, active, n,
         Tables{boxes, table, nullptr, counts, scene_aabb, nk, c}, out_occ);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int schedule_keys(
+    const float* o, const float* d, const float* tmin, const float* tmax,
+    const uint8_t* active, int n, const float* boxes, const float* scene_aabb,
+    int nk, int32_t* out_key, void* stream) {
+  if (nk < 1 || nk > kClusterMask) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    schedule_keys_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmin, tmax, active, n, boxes, scene_aabb, nk, out_key);
   }
   return static_cast<int>(cudaGetLastError());
 }

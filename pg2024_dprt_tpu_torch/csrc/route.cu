@@ -1,0 +1,299 @@
+// Fused neural routing (K7 route) for Hopper (sm_90a): local trace + proxy
+// march + vis/depth nets + prediction consumption in ONE launch, bound to
+// PyTorch through a plain C interface (ctypes). Two entry points over one
+// templated kernel: route_secondary (closest hit; the routing decision of a
+// secondary ray) and route_shadow (any-hit; the light weight of a shadow
+// ray).
+//
+// Replaces the JAX package's Pallas kernel pallas_route.py::_route_kernel
+// (pallas_call at :729). It is built from the device functions of the
+// composed stage's kernels, so both paths share their arithmetic:
+// resident_trace.cuh (closest_hit / any_hit of K1 / K2; closest_hit already
+// returns the exact winner t, so the TPU kernel's _trace_exact_t scratch has
+// no counterpart), proxy_march.cuh (K4) and proxy_mlp.cuh (K5 / K6).
+//
+// One block takes a tile of 256 rays, in two phases:
+//   1. one thread per ray: the local trace against the ray's tmax capped at
+//      the scene exit; then the march, bounded by the local hit's t or, on a
+//      miss, by the caller's UNCAPPED tmax (proxies lie outside the local
+//      scene). A shadow ray that is occluded locally does not march;
+//      survivors march against their full tmax. The ray's records go to
+//      shared memory (features, table row, inside flag, t, ratio).
+//   2. the block groups the tile's valid records by object (counting sort in
+//      shared memory) and runs each present object's vis and depth net over
+//      chunks of its records only; invalid records cost nothing (the TPU
+//      kernel's rank-compaction helpers lane_cumsum_exclusive / chunk_onehot
+//      exist to skip matrix-unit work on zeroed rows; here such rows are
+//      simply not in any chunk). Then each ray's thread consumes its
+//      max_hits predictions:
+//        secondary: pred_t per record (entry t + length, or inside: t -
+//        length clamped at 0), the nearest visible prediction below the
+//        local bound settles the ray on that record's node, else a local
+//        hit settles it on this partition; no local hit and no record at all
+//        is an environment miss; the rest is "no route".
+//        shadow: a record occludes when vis > 0.5 and, for an inside hit,
+//        depth <= the object-space entry depth; weight = survives * (1 -
+//        any occluding record).
+//
+// Decisions are per ray, so the order of the wavefront changes no result,
+// only the time: the wrapper launches this kernel on secondary rays in the
+// schedule order of K8 (resident_trace.cu schedule_keys), which puts rays
+// that visit the same clusters into the same warp and tile.
+//
+// What bounds it on an H100: operations — the ray-triangle and slab tests of
+// the trace plus 2 x 286,944 multiply-adds per valid record at the
+// production width; the nets run on the FP32 pipes in this first version.
+//
+// Built with --fmad=false for the trace and march arithmetic; the nets'
+// sums use explicit fmaf (proxy_mlp.cuh).
+
+#include "proxy_march.cuh"
+#include "proxy_mlp.cuh"
+#include "resident_trace.cuh"
+
+namespace {
+
+using mlp::Dims;
+using mlp::Nets;
+using resident::Ray;
+using resident::Tables;
+
+constexpr int kRays = mlp::kThreads;  // rays of a tile, one per thread
+constexpr float kF32Max = 3.402823466e38f;
+
+struct Rays {
+  const float* __restrict__ o;        // (N, 3)
+  const float* __restrict__ d;        // (N, 3)
+  const float* __restrict__ tmin;     // (N,)
+  const float* __restrict__ tmax;     // (N,) uncapped
+  const uint8_t* __restrict__ active; // (N,)
+  int n;
+};
+
+// Secondary: node (my_node for a local settle, -1 none), t, has_node,
+// env_miss, no_route, local_hit. Shadow: weight in t, occluded_local in
+// local_hit, survives in has_node.
+struct Out {
+  int32_t* __restrict__ node;
+  float* __restrict__ t;
+  uint8_t* __restrict__ has_node;
+  uint8_t* __restrict__ env_miss;
+  uint8_t* __restrict__ no_route;
+  uint8_t* __restrict__ local_hit;
+};
+
+// Bytes of dynamic shared memory of a tile.
+size_t smem_bytes(const Dims& d, int max_hits, int n_obj) {
+  const size_t rows = (size_t)kRays * max_hits;
+  return mlp::smem_floats(d) * sizeof(float) + rows * 11 * 4 + (size_t)3 * n_obj * 4;
+}
+
+template <bool kShadow>
+__global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
+    Rays rays, Tables scene, march::Table tb, int max_hits, float eps, int n_obj,
+    Dims dm, Nets vis, Nets depth, Out out) {
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  const int rows = kRays * max_hits;
+  // the tile's records, row = thread * max_hits + slot
+  float* q_feat = smem + mlp::smem_floats(dm);        // (rows, 5)
+  float* q_t = q_feat + 5 * rows;
+  float* q_ratio = q_t + rows;
+  float* q_vis = q_ratio + rows;
+  float* q_depth = q_vis + rows;
+  int* q_code = reinterpret_cast<int*>(q_depth + rows);  // row | inside << 8, -1 none
+  int* list = q_code + rows;                              // records grouped by object
+  int* cnt = list + rows;                                 // (n_obj,)
+  int* start = cnt + n_obj;
+  int* fill = start + n_obj;
+
+  const int tid = threadIdx.x;
+  const int i = blockIdx.x * kRays + tid;
+  const int base = tid * max_hits;
+  for (int o = tid; o < n_obj; o += blockDim.x) cnt[o] = 0;
+  for (int k = 0; k < max_hits; ++k) {
+    q_code[base + k] = -1;
+    q_vis[base + k] = 0.0f;   // a record whose object has no net predicts 0
+    q_depth[base + k] = 0.0f;
+  }
+
+  // ---- 1. local trace and march, one thread per ray
+  bool act = false, local_hit = false, march_act = false;
+  float cmp_t = 0.0f;
+  if (i < rays.n) {
+    Ray r;
+    act = resident::load_ray(i, rays.o, rays.d, rays.tmin, rays.tmax, rays.active,
+                             scene.scene_aabb, r);
+    const float tmax_raw = rays.tmax[i];
+    cmp_t = tmax_raw;
+    if (act) {
+      if (kShadow) {
+        local_hit = resident::any_hit(r, scene);
+        march_act = !local_hit;
+      } else {
+        const resident::Hit h = resident::closest_hit(r, scene);
+        local_hit = h.hit;
+        if (local_hit) cmp_t = h.t;
+        march_act = true;
+      }
+    }
+    if (march_act) {
+      march::march_ray(tb, r.o, r.d, cmp_t, max_hits, eps,
+                       [&](int slot, const march::Record& rec) {
+                         const int q = base + slot;
+#pragma unroll
+                         for (int f = 0; f < 5; ++f) q_feat[5 * q + f] = rec.feat[f];
+                         q_t[q] = rec.t;
+                         q_ratio[q] = rec.ratio;
+                         q_code[q] = rec.row | (rec.inside ? 256 : 0);
+                       });
+    }
+  }
+  __syncthreads();
+
+  // ---- 2. the nets over the tile's valid records, grouped by object
+  for (int k = 0; k < max_hits; ++k) {
+    const int code = q_code[base + k];
+    const int ob = code >= 0 ? tb.obj[code & 255] : -1;
+    if (ob >= 0 && ob < n_obj) atomicAdd(&cnt[ob], 1);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int acc = 0;
+    for (int o = 0; o < n_obj; ++o) {
+      start[o] = acc;
+      fill[o] = acc;
+      acc += cnt[o];
+    }
+  }
+  __syncthreads();
+  for (int k = 0; k < max_hits; ++k) {
+    const int code = q_code[base + k];
+    const int ob = code >= 0 ? tb.obj[code & 255] : -1;
+    if (ob >= 0 && ob < n_obj) list[atomicAdd(&fill[ob], 1)] = base + k;
+  }
+  __syncthreads();
+  for (int o = 0; o < n_obj; ++o) {
+    const int total = cnt[o];
+    for (int b0 = 0; b0 < total; b0 += mlp::kRows) {
+      const int* chunk = list + start[o] + b0;
+      mlp::pair_chunk(
+          dm, vis, depth, o, min(mlp::kRows, total - b0), smem,
+          [&](int r, int f) { return q_feat[5 * chunk[r] + f]; },
+          [&](int r, float v, float dp) {
+            q_vis[chunk[r]] = v;
+            q_depth[chunk[r]] = dp;
+          });
+    }
+  }
+
+  // ---- 3. consumption, one thread per ray
+  if (i >= rays.n) return;
+  if (kShadow) {
+    bool occluded = false;
+    for (int k = 0; k < max_hits; ++k) {
+      const int code = q_code[base + k];
+      if (code < 0) continue;
+      const int row = code & 255;
+      const bool inside = (code & 256) != 0;
+      const float ml = tb.max_length[row];
+      const float norm_t = q_t[base + k] / fmaxf(q_ratio[base + k] * ml, 1e-12f);
+      if (q_vis[base + k] > 0.5f && (!inside || q_depth[base + k] <= norm_t)) {
+        occluded = true;
+      }
+    }
+    out.t[i] = march_act ? (occluded ? 0.0f : 1.0f) : 0.0f;
+    out.local_hit[i] = local_hit ? 1 : 0;
+    out.has_node[i] = march_act ? 1 : 0;
+    return;
+  }
+  float best_t = kF32Max;
+  int best_node = -1;
+  bool any_query = false;
+  for (int k = 0; k < max_hits; ++k) {
+    const int code = q_code[base + k];
+    if (code < 0) continue;
+    any_query = true;
+    const int row = code & 255;
+    const bool inside = (code & 256) != 0;
+    const float t = q_t[base + k];
+    const float pred_len = q_ratio[base + k] * tb.max_length[row] * q_depth[base + k];
+    float pred_t = inside ? (pred_len > t ? 0.0f : t - pred_len) : t + pred_len;
+    if (!(q_vis[base + k] > 0.5f && pred_t > 1.1920929e-7f)) pred_t = kF32Max;
+    if (pred_t < best_t) {
+      best_t = pred_t;
+      best_node = tb.node[row];
+    }
+  }
+  const bool use_pred = act && best_t < cmp_t;
+  // a local settle is written as this partition's id; "no node" as -1
+  const bool has_node = use_pred || local_hit;
+  const bool env_miss = act && !local_hit && !any_query && !has_node;
+  out.node[i] = use_pred ? best_node : (local_hit ? tb.my_node : -1);
+  out.t[i] = has_node ? (use_pred ? best_t : cmp_t) : 0.0f;
+  out.has_node[i] = has_node ? 1 : 0;
+  out.env_miss[i] = env_miss ? 1 : 0;
+  out.no_route[i] = (act && !has_node && !env_miss) ? 1 : 0;
+  out.local_hit[i] = local_hit ? 1 : 0;
+}
+
+template <bool kShadow>
+int launch(const Rays& rays, const Tables& scene, const march::Table& tb,
+           int max_hits, float eps, int n_obj, const Dims& dm, const Nets& vis,
+           const Nets& depth, const Out& out, void* stream) {
+  if (!mlp::dims_ok(dm) || dm.in_features != 5 || n_obj < 1 || max_hits < 1 ||
+      tb.p < 1 || tb.p > march::kMaxRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rays.n <= 0) return 0;
+  const size_t bytes = smem_bytes(dm, max_hits, n_obj);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      route_kernel<kShadow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  route_kernel<kShadow><<<(rays.n + kRays - 1) / kRays, mlp::kThreads, bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      rays, scene, tb, max_hits, eps, n_obj, dm, vis, depth, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entry points: launch on the caller's stream and return the first CUDA
+// error (0 = launched). Arguments in groups: the rays; the scene's cluster
+// tables; the proxy table (xf, omin, ospan null unless instanced); the
+// march's and the nets' parameters; the outputs.
+#define ROUTE_ARGS                                                              \
+  const float *o, const float *d, const float *tmin, const float *tmax,         \
+      const uint8_t *active, int n, const float *boxes, const float *table,     \
+      const int32_t *tri_map, const int32_t *counts, const float *scene_aabb,   \
+      int nk, int c, const float *bmin, const float *bmax,                      \
+      const float *max_length, const int32_t *node, const int32_t *obj,         \
+      const float *xf, const float *omin, const float *ospan, int p,            \
+      int my_node, int max_hits, float eps, int n_obj, const void *vis_w,       \
+      const float *vis_b, const void *depth_w, const float *depth_b, int width, \
+      int depth, int in_features, int head_hidden, int vis_act, int depth_act
+
+#define ROUTE_LAUNCH(SHADOW, OUT)                                                \
+  launch<SHADOW>(                                                                \
+      Rays{o, d, tmin, tmax, active, n},                                         \
+      Tables{boxes, table, tri_map, counts, scene_aabb, nk, c},                  \
+      march::Table{bmin, bmax, max_length, node, obj, xf, omin, ospan, p,        \
+                   my_node},                                                     \
+      max_hits, eps, n_obj, Dims{width, depth, in_features, head_hidden, 1},     \
+      Nets{static_cast<const __nv_bfloat16*>(vis_w), vis_b, vis_act},            \
+      Nets{static_cast<const __nv_bfloat16*>(depth_w), depth_b, depth_act}, OUT, \
+      stream)
+
+extern "C" int route_secondary(ROUTE_ARGS, int32_t* out_node, float* out_t,
+                               uint8_t* has_node, uint8_t* env_miss,
+                               uint8_t* no_route, uint8_t* local_hit, void* stream) {
+  return ROUTE_LAUNCH(false, (Out{out_node, out_t, has_node, env_miss, no_route,
+                                  local_hit}));
+}
+
+extern "C" int route_shadow(ROUTE_ARGS, float* weight, uint8_t* occluded_local,
+                            uint8_t* survives, void* stream) {
+  return ROUTE_LAUNCH(true, (Out{nullptr, weight, survives, nullptr, nullptr,
+                                 occluded_local}));
+}

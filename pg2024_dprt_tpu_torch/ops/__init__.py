@@ -4,6 +4,16 @@ from .frame import (
     render_frame_fused_plain,
     render_sample_fused,
 )
+from .march import march_proxies_plain, proxy_march
+from .mlp import (
+    DENSE_WEIGHT_LIMIT,
+    grouped_mlp_dense,
+    grouped_mlp_dense_plain,
+    grouped_mlp_pair,
+    grouped_mlp_pair_plain,
+    pack_nets,
+    packed_pair,
+)
 from .resident import (
     LAUNCHES,
     reset_launch_counts,
@@ -11,7 +21,19 @@ from .resident import (
     resident_anyhit_plain,
     resident_closest,
     resident_closest_plain,
+    schedule_keys,
+    schedule_keys_plain,
+    schedule_order,
     trace_resident,
+)
+from .route import (
+    consume_secondary,
+    consume_shadow,
+    fused_route_takes,
+    route_fused,
+    route_fused_plain,
+    shadow_route_fused,
+    shadow_route_fused_plain,
 )
 from .trace_api import (
     resolve_tracer,

@@ -21,7 +21,9 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 # library name -> CUDA source in csrc/
-SOURCES = {"resident_trace": "resident_trace.cu", "frame": "frame.cu"}
+SOURCES = {"resident_trace": "resident_trace.cu", "frame": "frame.cu",
+           "proxy_march": "proxy_march.cu", "proxy_mlp": "proxy_mlp.cu",
+           "route": "route.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,18 +1,23 @@
 """Resident-table closest-hit and any-hit trace (counterpart of
 pg2024_dprt_tpu/ops/pallas_resident.py::trace_resident).
 
-Two kernels written by hand for Hopper, in csrc/resident_trace.cu:
+Three kernels written by hand for Hopper, in csrc/resident_trace.cu:
   * `resident_closest` (K1) replaces the closest-hit Pallas kernels
     _kernel, _kernel_tiny and _kernel_tiny_t;
   * `resident_anyhit` (K2) replaces _occl_kernel, _occl_kernel_tiny and
-    _occl_kernel_tiny_t.
+    _occl_kernel_tiny_t;
+  * `schedule_keys` (K8) replaces _sched_kernel: the per-ray sort key of the
+    wavefront sort (`sort_rays=True`, `schedule_order`), which puts rays that
+    visit the same clusters next to each other before K1, K2 or the fused
+    route kernel runs on them.
 The source's header says what each computes, how, and what bounds it.
 
 Beside each kernel is its plain PyTorch version: a dense Moller-Trumbore
 over ray chunks x triangle-slot chunks with the same formulas and no cull.
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. `LAUNCHES` counts the kernel
-launches of each wrapper (the frame kernel's, ops/frame.py, as well).
+launches of each wrapper (those of ops/frame.py, ops/march.py, ops/mlp.py and
+ops/route.py as well; the route kernel counts each of its two entry points).
 
 The closest-hit winner is the lexicographic minimum of (t, slot) with slot =
 cluster * C + lane, so kernel and plain version agree whatever order the
@@ -33,7 +38,13 @@ from . import _build
 F32_MAX = 3.402823466e38
 
 # kernel launches of each wrapper (reset by callers that count a run)
-LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0, "frame_sample": 0}
+LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0, "schedule_keys": 0,
+            "frame_sample": 0, "proxy_march": 0, "mlp_pair": 0, "mlp_dense": 0,
+            "route_secondary": 0, "route_shadow": 0}
+
+# the schedule key holds two cluster indices of this many bits
+SCHEDULE_CLUSTER_BITS = 12
+_NO_KEY = 0x7FFFFFFF
 
 # elements per (ray, slot) chunk of the plain versions' dense test
 _PLAIN_CHUNK = {"cpu": 1 << 21, "cuda": 1 << 25}
@@ -48,16 +59,21 @@ def trace_resident(scene, origin, direction, t_min, t_max, active,
                    any_hit: bool = False, sort_rays: bool = False):
     """Closest hit -> (HitRecord, dropped) or, with any_hit=True,
     ((N,) bool occluded, dropped). dropped is always 0: nothing has a static
-    budget to drop from (the JAX contract). t_min/t_max are scalars or (N,)."""
-    if sort_rays:
-        raise NotImplementedError(
-            "sort_rays (the cluster-schedule sort, _sched_kernel) is not ported yet")
+    budget to drop from (the JAX contract). t_min/t_max are scalars or (N,).
+    sort_rays runs the kernel on the wavefront in schedule order
+    (`schedule_order`) and returns the result in the caller's order; the
+    result is the same per ray either way."""
     n = origin.shape[0]
     t_min = torch.as_tensor(t_min, dtype=torch.float32, device=origin.device).expand(n)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device).expand(n)
-    if any_hit:
-        return resident_anyhit(scene, origin, direction, t_min, t_max, active), 0
-    return resident_closest(scene, origin, direction, t_min, t_max, active), 0
+    rays = (origin, direction, t_min, t_max, active)
+    perm = schedule_order(scene, *rays) if sort_rays else None
+    if perm is not None:
+        rays = tuple(x[perm] for x in rays)
+    out = resident_anyhit(scene, *rays) if any_hit else resident_closest(scene, *rays)
+    if perm is not None:
+        out = unsorted(out, perm) if any_hit else HitRecord(*(unsorted(x, perm) for x in out))
+    return out, 0
 
 
 # --------------------------------------------------------------------------
@@ -99,6 +115,42 @@ def resident_anyhit(scene, o, d, tmin, tmax, active) -> torch.Tensor:
     if n:
         LAUNCHES["resident_anyhit"] += 1
     return occ
+
+
+def schedule_keys(scene, o, d, tmin, tmax, active) -> torch.Tensor:
+    """(N,) int32 cluster-schedule sort keys, (first entered cluster << 12) |
+    second entered cluster: K8 for CUDA tensors, the plain version for CPU
+    tensors. Needs K < 4096."""
+    if scene.num_clusters >= 1 << SCHEDULE_CLUSTER_BITS:
+        raise ValueError(f"{scene.num_clusters} clusters: the schedule key holds "
+                         f"{SCHEDULE_CLUSTER_BITS}-bit cluster indices")
+    if o.device.type == "cpu":
+        return schedule_keys_plain(scene, o, d, tmin, tmax, active)
+    rays, tab, n, k, _ = _kernel_inputs(scene, o, d, tmin, tmax, active)
+    key = torch.empty(n, dtype=torch.int32, device=o.device)
+    rc = _lib().schedule_keys(*map(_ptr, rays), n, _ptr(tab["cl_boxes"]),
+                              _ptr(tab["scene_aabb"]), k, _ptr(key), _stream(o))
+    _check(rc, "schedule_keys")
+    if n:
+        LAUNCHES["schedule_keys"] += 1
+    return key
+
+
+def schedule_order(scene, o, d, tmin, tmax, active):
+    """(N,) int64 permutation that puts a wavefront in schedule order (one
+    key, one stable sort; inactive rays last): by `schedule_keys` where the
+    key can hold the scene's cluster indices (K < 4096), else by
+    `morton_key`."""
+    if scene.num_clusters < 1 << SCHEDULE_CLUSTER_BITS:
+        key = schedule_keys(scene, o, d, tmin, tmax, active)
+    else:
+        key = torch.where(active, morton_key(scene, o, d), 0xFFFFFFFF)
+    return torch.sort(key, stable=True)[1]
+
+
+def unsorted(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Undo `x = y[perm]`."""
+    return torch.empty_like(x).index_copy_(0, perm, x)
 
 
 def _checked(name: str, x: torch.Tensor, dtype, shape, device) -> torch.Tensor:
@@ -155,6 +207,8 @@ def _lib():
         lib.resident_closest.restype = i
         lib.resident_anyhit.argtypes = [p, p, p, p, p, i, p, p, p, p, i, i, p, p]
         lib.resident_anyhit.restype = i
+        lib.schedule_keys.argtypes = [p, p, p, p, p, i, p, p, i, p, p]
+        lib.schedule_keys.restype = i
         lib._pg_typed = True
     return lib
 
@@ -205,6 +259,50 @@ def cluster_enters_plain(scene, o, inv, tmax):
     ok = (boxes[6][None, :] > 0.0) & (enter <= exit_g) & (exit_g > 0.0) \
         & (enter < tmax[:, None])
     return torch.where(ok, torch.clamp(enter, min=0.0), float("inf"))
+
+
+def schedule_keys_plain(scene, o, d, tmin, tmax, active) -> torch.Tensor:
+    """Plain version of K8: the dense enter matrix, each cluster ranked by
+    (enter bits with the low 12 bits cleared) | cluster, the two smallest
+    ranks' clusters packed as (first << 12) | second; 0xFFF for a half with
+    no entered cluster, 0x7FFFFFFF for an inactive ray."""
+    inv, _, tcap = ray_limits(scene, o, d, tmin, tmax, active)
+    cmask = (1 << SCHEDULE_CLUSTER_BITS) - 1
+    lanes = torch.arange(scene.num_clusters, dtype=torch.int32, device=o.device)[None, :]
+    rc, _ = _chunks(o, scene.num_clusters)
+    keys = []
+    for r0 in range(0, o.shape[0], rc):
+        r = slice(r0, r0 + rc)
+        en = cluster_enters_plain(scene, o[r], inv[r], tcap[r])
+        rank = torch.where(torch.isfinite(en), (en.view(torch.int32) & ~cmask) | lanes, _NO_KEY)
+        k1 = rank.amin(dim=1)
+        first = torch.where(k1 != _NO_KEY, k1 & cmask, cmask)
+        k2 = torch.where(lanes == first[:, None], _NO_KEY, rank).amin(dim=1)
+        second = torch.where(k2 != _NO_KEY, k2 & cmask, cmask)
+        keys.append((first << SCHEDULE_CLUSTER_BITS) | second)
+    key = torch.cat(keys) if keys else torch.empty(0, dtype=torch.int32, device=o.device)
+    return torch.where(active, key, _NO_KEY).to(torch.int32)
+
+
+def morton_key(scene, o, d) -> torch.Tensor:
+    """(N,) int64 24-bit sort key for scenes whose cluster indices the
+    schedule key cannot hold: interleaved 6-bit-per-axis origin cells (major)
+    and interleaved 2-bit-per-axis direction bins (minor). Plain PyTorch, as
+    it is plain XLA in the JAX package (pallas_tracer.py::_morton_key)."""
+    lo, hi = scene.scene_aabb[0], scene.scene_aabb[1]
+    span = torch.clamp(hi - lo, min=1e-12)
+    q = torch.clamp(((o - lo) / span) * 63.0, 0.0, 63.0).to(torch.int64)
+    dq = torch.clamp((d * 0.5 + 0.5) * 3.0, 0.0, 3.0).to(torch.int64)
+
+    def spread(x):  # up to 8 bits -> every third bit
+        x = (x | (x << 8)) & 0x00F00F
+        x = (x | (x << 4)) & 0x0C30C3
+        x = (x | (x << 2)) & 0x249249
+        return x
+
+    morton = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    dmorton = spread(dq[:, 0]) | (spread(dq[:, 1]) << 1) | (spread(dq[:, 2]) << 2)
+    return (morton << 6) | dmorton
 
 
 def _mt_dense(o, d, tmin, tab):

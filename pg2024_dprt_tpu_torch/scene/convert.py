@@ -1,10 +1,13 @@
-"""Carry scene state across from the JAX package, as numpy arrays.
+"""Carry state across from the JAX package, as numpy arrays.
 
-The slice has no network weights: its state is the scene. These functions
-build the port's records from the JAX records' fields given as numpy arrays
-(e.g. `{k: np.asarray(v) for k, v in jax_scene._asdict().items()}`), so
-both packages can trace and shade identical tables whatever each builder
-would produce. Nothing here imports the JAX package.
+These functions build the port's records from the JAX records' fields given
+as numpy arrays (e.g. `{k: np.asarray(v) for k, v in
+jax_scene._asdict().items()}`), so both packages can trace and shade
+identical tables whatever each package's scene build would produce, and run identical
+nets: the scene, lights, environment and camera; the proxy-box table; the
+vis/depth nets' weights (param dicts under the JAX names, weights (in, out),
+also as the flat .npz checkpoints the JAX trainer writes). Nothing here
+imports the JAX package.
 """
 from __future__ import annotations
 
@@ -13,7 +16,9 @@ import torch
 
 from ..core.camera import Camera
 from ..core.device import resolve_device
-from .geometry import DeviceScene
+from ..models.mlp import MLPConfig, PROD_DEPTH, PROD_VIS, param_shapes, bias_name
+from ..models.proxy import ProxyModels
+from .geometry import DeviceScene, ProxyTable
 from .lights import EnvironmentMap, LightTable
 from .textures import PackedTextures
 
@@ -67,3 +72,61 @@ def camera_from_arrays(arrays: dict, width: int, height: int,
     f32 = lambda name: torch.as_tensor(np.array(arrays[name], np.float32), device=dev)
     return Camera(f32("origin"), f32("forward"), f32("right"), f32("up"),
                   f32("tan_half_fov"), width, height)
+
+
+def proxy_table_from_arrays(arrays: dict, device=None) -> ProxyTable:
+    """Port ProxyTable from the JAX ProxyTable's fields (unset instancing
+    fields stay None). A table with a `vis_grid` raises: the conservative
+    visibility grids are not ported yet."""
+    if arrays.get("vis_grid") is not None:
+        raise NotImplementedError("vis_grid is not ported yet")
+    dev = resolve_device(device)
+    dtypes = {"obj_id": np.int32, "node_id": np.int32}
+    fields = {}
+    for name in ProxyTable._fields:
+        a = arrays.get(name)
+        if a is not None and name != "vis_grid":
+            fields[name] = torch.as_tensor(
+                np.array(a, dtypes.get(name, np.float32)), device=dev)
+    return ProxyTable(**fields)
+
+
+def mlp_params_from_arrays(arrays: dict, cfg: MLPConfig = None, device=None) -> dict:
+    """Param dict of tensors from a dict of numpy arrays under the JAX names
+    (one net, or nets stacked along a leading object axis). With `cfg`, the
+    names and trailing shapes are checked against the architecture."""
+    dev = resolve_device(device)
+    params = {k: torch.as_tensor(np.array(v, np.float32), device=dev)
+              for k, v in arrays.items()}
+    if cfg is not None:
+        for wn, fi, fo in param_shapes(cfg):
+            for name, shape in ((wn, (fi, fo)), (bias_name(wn), (fo,))):
+                if name not in params or tuple(params[name].shape[-len(shape):]) != shape:
+                    got = tuple(params[name].shape) if name in params else None
+                    raise ValueError(f"{name}: want trailing shape {shape}, got {got}")
+        if len(params) != 2 * len(param_shapes(cfg)):
+            raise ValueError("arrays hold names the architecture does not have")
+    return params
+
+
+def proxy_models_from_arrays(vis: dict, depth: dict, num_objects: int,
+                             vis_cfg: MLPConfig = PROD_VIS,
+                             depth_cfg: MLPConfig = PROD_DEPTH,
+                             multi_geo: bool = False, combined: bool = False,
+                             device=None) -> ProxyModels:
+    """Port ProxyModels from the JAX ProxyModels' param dicts (`depth` is
+    empty for combined nets) and its static fields."""
+    return ProxyModels(
+        mlp_params_from_arrays(vis, vis_cfg, device),
+        mlp_params_from_arrays(depth, None if combined else depth_cfg, device),
+        num_objects, vis_cfg, depth_cfg, multi_geo=multi_geo, combined=combined)
+
+
+def load_mlp_checkpoint(path: str, cfg: MLPConfig = None, device=None) -> dict:
+    """One net's params from a flat .npz checkpoint under the JAX names, as
+    the JAX trainer's save_checkpoint writes it
+    (artifacts/proxies/vis_prod-*.npz, depth_prod-*.npz, combined_prod-*.npz)."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    with np.load(path) as data:
+        return mlp_params_from_arrays({k: data[k] for k in data.files}, cfg, device)

@@ -5,6 +5,8 @@
 tables that the trace kernels and the frame kernel stream (ops/resident.py,
 ops/frame.py), the per-triangle shading rows that shading gathers
 (render/shade.py) and the packed albedo textures (scene/textures.py).
+`ProxyTable` (tensors) is the global table of proxy boxes that the neural
+routing stage marches (render/proxy_stages.py).
 """
 from __future__ import annotations
 
@@ -81,6 +83,39 @@ def concat_geometry(meshes: list) -> dict:
     out["mesh_bsdf_type"] = np.asarray([m.bsdf_type for m in meshes], np.int32)
     out["mesh_texture_index"] = np.asarray([m.texture_index for m in meshes], np.int32)
     return out
+
+
+class ProxyTable(NamedTuple):
+    """Global proxy-AABB table, the same on every device. Row p describes
+    partition p.
+
+    Instancing (optional): when `world_to_obj` is set, each row is an
+    instance of an object. The march then transforms hits to object space
+    for the net's features, selects the net by `obj_id`, routes to
+    `node_id`, and emits the world/object depth scale `t_ratio`;
+    `max_length` is then the object-space diagonal. The JAX record's
+    `vis_grid` (the non-neural culling fallback) is not ported yet."""
+
+    aabb_min: torch.Tensor    # (P, 3) f32 world-space box
+    aabb_max: torch.Tensor    # (P, 3) f32
+    max_length: torch.Tensor  # (P,) f32 box diagonal; 0 marks an empty partition
+    obj_id: Optional[torch.Tensor] = None        # (P,) i32 net/object index
+    node_id: Optional[torch.Tensor] = None       # (P,) i32 owning partition
+    world_to_obj: Optional[torch.Tensor] = None  # (P, 3, 4) f32 affine world -> object
+    obj_min: Optional[torch.Tensor] = None       # (P, 3) f32 object-space box min
+    obj_span: Optional[torch.Tensor] = None      # (P, 3) f32 object-space box extent
+    vis_grid: None = None
+
+    @property
+    def num_partitions(self) -> int:
+        return self.aabb_min.shape[0]
+
+    @property
+    def instanced(self) -> bool:
+        return self.world_to_obj is not None
+
+    def to(self, device) -> "ProxyTable":
+        return ProxyTable(*(None if x is None else x.to(device) for x in self))
 
 
 class DeviceScene(NamedTuple):

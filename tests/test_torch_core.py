@@ -146,14 +146,16 @@ def test_kernel_sources_include_only_cuda_and_their_own_headers():
     """Every source in csrc/ includes CUDA toolkit and C headers and the
     port's own headers only: no Python, PyTorch or JAX header, so the kernels
     build with nvcc alone. Every library of ops/_build.py has its source, and
-    the fused-frame and texture modules are in the import scan above."""
+    the fused-frame, texture and neural-proxy modules are in the import scan
+    above."""
     from pg2024_dprt_tpu_torch.ops import _build
 
     csrc = os.path.join(ROOT, "pg2024_dprt_tpu_torch", "csrc")
     own = set(os.listdir(csrc))
-    assert {"resident_trace.cu", "resident_trace.cuh", "frame.cu"} <= own
+    assert {"resident_trace.cu", "resident_trace.cuh", "frame.cu", "proxy_march.cu",
+            "proxy_march.cuh", "proxy_mlp.cu", "proxy_mlp.cuh", "route.cu"} <= own
     assert set(_build.SOURCES.values()) <= own
-    allowed = {"cuda_runtime.h", "math_constants.h", "stdint.h"}
+    allowed = {"cuda_runtime.h", "cuda_bf16.h", "math_constants.h", "stdint.h"}
     bad = []
     for f in sorted(own):
         for n, line in enumerate(open(os.path.join(csrc, f)), 1):
@@ -164,7 +166,13 @@ def test_kernel_sources_include_only_cuda_and_their_own_headers():
     assert not bad, bad
     scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {"pg2024_dprt_tpu_torch/ops/frame.py",
-            "pg2024_dprt_tpu_torch/scene/textures.py"} <= scanned
+            "pg2024_dprt_tpu_torch/scene/textures.py",
+            "pg2024_dprt_tpu_torch/models/mlp.py",
+            "pg2024_dprt_tpu_torch/models/proxy.py",
+            "pg2024_dprt_tpu_torch/ops/march.py",
+            "pg2024_dprt_tpu_torch/ops/mlp.py",
+            "pg2024_dprt_tpu_torch/ops/route.py",
+            "pg2024_dprt_tpu_torch/render/proxy_stages.py"} <= scanned
 
 
 def test_entry_points_need_cuda_unless_told(monkeypatch):

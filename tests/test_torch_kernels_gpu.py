@@ -93,6 +93,37 @@ def test_kernels_match_plain_on_gpu(offset_ids):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tpc,n_tris", [(128, 5000), (16, 3000), (None, 30)])
+def test_schedule_keys_kernel_matches_plain_on_gpu(tpc, n_tris):
+    """K8 on the card equals its plain version on every ray (integer keys;
+    the same slab arithmetic without FMA contraction), counts its own launch,
+    and the sorted traces return every ray's own result."""
+    _need_cuda()
+    _, rays = _case("cuda")
+    scene = device_scene_from_meshes([random_tri_soup(n_tris, seed=60)],
+                                     tris_per_cluster=tpc, device="cuda")
+    before = dict(tops.LAUNCHES)
+    key = tops.schedule_keys(scene, *rays)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == {**before, "schedule_keys": before["schedule_keys"] + 1}
+    assert key.dtype == torch.int32
+    assert torch.equal(key, tops.schedule_keys_plain(scene, *rays))
+    act = rays[4]
+    assert (key[~act] == 0x7FFFFFFF).all() and ((key[act] >> 12) != 0xFFF).sum() > 1000
+    if scene.num_clusters == 1:
+        assert ((key[act] & 0xFFF) == 0xFFF).all()
+    perm = tops.schedule_order(scene, *rays)
+    assert (key[perm][1:] >= key[perm][:-1]).all()
+    o, d, tmin, tmax, _ = rays
+    for any_hit in (False, True):
+        want, _ = tops.trace_resident(scene, o, d, tmin, tmax, act, any_hit=any_hit)
+        got, _ = tops.trace_resident(scene, o, d, tmin, tmax, act, any_hit=any_hit,
+                                     sort_rays=True)
+        for a, b in ([(got, want)] if any_hit else zip(got, want)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """A CUDA wrapper launches its kernel or raises: wrong dtypes or rays on
     another device than the scene raise before any launch."""
@@ -185,4 +216,294 @@ def test_frame_wrapper_refuses_what_the_kernel_does_not_take():
                                 lights, env, cam, 0, cfg)
     with pytest.raises(ValueError):
         tops.render_frame_fused(scene, lights, env, cam, 0, RenderConfig(width=16, height=16))
+    assert tops.LAUNCHES == before
+
+
+# --------------------------------------------------------------------------
+# the neural-proxy kernels: K4 proxy_march, K5 mlp_pair, K6 mlp_dense, K7 route
+# (K7's secondary entry point after K8 schedule_keys and the sort)
+#
+# Tolerances. K4 is built without FMA contraction and takes the same (t, row)
+# minimum as its plain version: ids, flags and the hit sequence are equal, t
+# within rtol 1e-5 / atol 1e-6, features within rtol 1e-4 / atol 2e-5 (acosf /
+# atan2f against PyTorch's kernels; phi / 2pi is compared modulo 1). K5/K6 sum
+# bf16-rounded products in another order than the plain version, and one
+# flipped bf16 rounding of an activation moves an output by about 2^-8
+# relative: rtol / atol 2e-2. K7's decisions sit on thresholds of net outputs,
+# so its nets' vis bias is shifted by +-10 and then nodes and flags are equal.
+
+from pg2024_dprt_tpu_torch import models as tmodels  # noqa: E402
+from pg2024_dprt_tpu_torch.models import mlp as tmlp  # noqa: E402
+from pg2024_dprt_tpu_torch.render import proxy_stages as tps  # noqa: E402
+from pg2024_dprt_tpu_torch.core.types import PathState  # noqa: E402
+
+MH = 3
+EPS = 1e-3
+SMALL = tmlp.MLPConfig(width=64, depth=2)
+UNIT_OFFS = np.asarray(
+    [[-1.05, 0, 0], [1.05, 0, 0], [0, -1.05, 0], [0, 1.05, 0],
+     [0, 0, -1.05], [0, 0, 1.05], [-1.05, -1.05, 0], [1.05, 1.05, 0]], np.float32)
+
+
+def _proxy_table(kind, device):
+    if kind == "instanced":
+        rng = np.random.RandomState(11)
+        p = 16
+        offs = rng.rand(p, 3).astype(np.float32) * 3.0 - 1.0
+        sc = 0.4 + rng.rand(p).astype(np.float32) * 0.8
+        m = np.zeros((p, 3, 4), np.float32)
+        for i in range(p):
+            m[i, :, :3] = np.eye(3, dtype=np.float32) / sc[i]
+            m[i, :, 3] = -offs[i] / sc[i]
+        arrays = dict(aabb_min=offs, aabb_max=offs + sc[:, None],
+                      max_length=np.full((p,), np.sqrt(3.0), np.float32),
+                      obj_id=(np.arange(p) % 4).astype(np.int32),
+                      node_id=(np.arange(p) % 8).astype(np.int32), world_to_obj=m,
+                      obj_min=np.zeros((p, 3), np.float32), obj_span=np.ones((p, 3), np.float32))
+    else:
+        lo, hi = UNIT_OFFS.copy(), UNIT_OFFS + 1.0
+        ml = np.full((8,), np.sqrt(3.0), np.float32)
+        if kind == "empty_partition":
+            lo[2], hi[2], ml[2] = np.inf, -np.inf, 0.0
+        arrays = dict(aabb_min=lo, aabb_max=hi, max_length=ml)
+    return tscene.proxy_table_from_arrays(arrays, device=device)
+
+
+def _march_rays(n, device, capped):
+    rng = np.random.RandomState(5)
+    o = (rng.rand(n, 3) * 3.0 - 1.0).astype(np.float32)   # many origins inside a box
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_cap = (0.3 + rng.rand(n) * 3.0).astype(np.float32) if capped else np.full(n, 3.4e38, np.float32)
+    act = rng.rand(n) > (0.3 if capped else -1.0)
+    on = lambda a: torch.as_tensor(a, device=device)
+    return on(o), on(d), on(t_cap), on(act)
+
+
+def _queries_agree(got, want):
+    for f in ("aabb_id", "node_id", "hit_sequence", "is_inside", "is_valid", "path_index",
+              "pixel_index", "shadow_path_id"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("aabb_t", "max_length", "t_ratio", "normalized_t"):
+        assert torch.allclose(getattr(got, f), getattr(want, f), rtol=1e-5, atol=1e-6), f
+    gf, wf = got.features, want.features
+    assert torch.allclose(gf[:, [0, 1, 2, 4]], wf[:, [0, 1, 2, 4]], rtol=1e-4, atol=2e-5)
+    dphi = (gf[:, 3] - wf[:, 3]).abs()
+    assert bool((torch.minimum(dphi, 1.0 - dphi) <= 2e-5 + 1e-4 * wf[:, 3].abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,capped,my_node", [
+    ("unit", False, 8), ("unit", True, 2), ("empty_partition", False, 0),
+    ("instanced", False, 31), ("instanced", True, 3)])
+def test_march_kernel_matches_plain_on_gpu(kind, capped, my_node):
+    """K4 on the card against its plain version on the card, every row."""
+    _need_cuda()
+    table = _proxy_table(kind, "cuda")
+    rays = _march_rays(20000, "cuda", capped)
+    before = dict(tops.LAUNCHES)
+    got = tops.proxy_march(table, *rays, my_node, MH, EPS)
+    want = tops.march_proxies_plain(table, *rays, my_node, MH, EPS)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == {**before, "proxy_march": before["proxy_march"] + 1}
+    _queries_agree(got, want)
+    assert got.is_valid.sum() > 1000 and got.is_inside.sum() > 100
+    assert bool(torch.isfinite(got.features).all())
+
+
+def _mlp_case(cfg, vis_cfg, q, o_count, device):
+    m = tmodels.random_proxy_models(7, o_count, vis_cfg, cfg, device=device)
+    # every object's depth net stands 0.5 above the one before it, so that
+    # another object's weights show in the result
+    m.depth_params["head_b1"].add_(0.5 * torch.arange(o_count, device=device)[:, None])
+    rng = np.random.RandomState(8)
+    on = lambda a: torch.as_tensor(a, device=device)
+    feats = on(rng.rand(q, 5).astype(np.float32))
+    obj = on(rng.randint(-1, o_count + 1, q).astype(np.int32))    # some out of range
+    valid = on(rng.rand(q) > 0.3)
+    return m, feats, obj, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["mlp_pair", "mlp_dense"])
+@pytest.mark.parametrize("width,depth,head,q,o_count", [
+    (64, 2, 64, 1777, 5), (256, 4, 64, 4099, 8), (128, 1, 32, 300, 3), (64, 0, 16, 33, 1)])
+def test_mlp_kernels_match_plain_on_gpu(kernel, width, depth, head, q, o_count):
+    """K5 / K6 on the card against their plain version on the card; the vis
+    net ends in a sigmoid and the depth net in a LeakyReLU, so a swap would
+    show. Invalid rows and rows whose object has no net are zero."""
+    _need_cuda()
+    cfg = tmlp.MLPConfig(width=width, depth=depth, head_hidden=head)
+    vis_cfg = tmlp.MLPConfig(width=width, depth=depth, head_hidden=head,
+                             final_activation="sigmoid")
+    m, feats, obj, valid = _mlp_case(cfg, vis_cfg, q, o_count, "cuda")
+    fn = {"mlp_pair": tops.grouped_mlp_pair, "mlp_dense": tops.grouped_mlp_dense}[kernel]
+    before = dict(tops.LAUNCHES)
+    vis, depth_ = fn(m, feats, obj, valid)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == {**before, kernel: before[kernel] + 1}
+    p_vis, p_depth = tops.grouped_mlp_pair_plain(m, feats, obj, valid)
+    assert torch.allclose(vis, p_vis, rtol=2e-2, atol=2e-2)
+    assert torch.allclose(depth_, p_depth, rtol=2e-2, atol=2e-2)
+    dead = ~valid | (obj < 0) | (obj >= o_count)
+    assert (vis[dead] == 0).all() and (depth_[dead] == 0).all()
+    assert 0.0 < float(vis[~dead].min()) and float(vis.max()) < 1.0
+    # a wrong object's nets would show: the plain version with the object
+    # ids rotated by one differs by far more than the tolerance
+    if o_count > 1:
+        _, r_depth = tops.grouped_mlp_pair_plain(m, feats, (obj + 1) % o_count, valid)
+        assert (~torch.isclose(depth_, r_depth, rtol=2e-2, atol=2e-2))[~dead].float().mean() > 0.9
+    # the packed copy kept on the record is reused, and made anew when a
+    # param is written in place: the kernel then follows the plain version
+    again = fn(m, feats, obj, valid)
+    assert torch.equal(again[0], vis) and torch.equal(again[1], depth_)
+    m.depth_params["head_b1"].add_(0.75)
+    moved = fn(m, feats, obj, valid)
+    assert torch.equal(moved[0], vis)
+    assert torch.allclose(moved[1], tops.grouped_mlp_pair_plain(m, feats, obj, valid)[1],
+                          rtol=2e-2, atol=2e-2)
+    assert not torch.allclose(moved[1], depth_, rtol=2e-2, atol=2e-2)
+
+
+def _route_case(device, vis_bias, depth_bias=0.0, n=6000, shadow=False, kind="unit"):
+    import dataclasses
+
+    scene = device_scene_from_meshes([random_tri_soup(5000, seed=60)],
+                                     tris_per_cluster=128, device=device)
+    table = _proxy_table(kind, device)
+    n_obj = 4 if kind == "instanced" else 8
+    m = tmodels.random_proxy_models(3, n_obj, SMALL, SMALL, device=device)
+    shift = lambda d, b: {k: (v + b if k == "head_b1" else v) for k, v in d.items()}
+    m = dataclasses.replace(m, vis_params=shift(m.vis_params, vis_bias),
+                            depth_params=shift(m.depth_params, depth_bias))
+    rng = np.random.RandomState(9)
+    on = lambda a: torch.as_tensor(a, device=device)
+    o = (rng.rand(n, 3) * 1.4 - 0.2).astype(np.float32)
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = (rng.rand(n) * 2.5 + 0.3).astype(np.float32) if shadow else np.full(n, 3.4e38, np.float32)
+    paths = PathState.empty(n, device=device)._replace(
+        origin=on(o), direction=on(d), tmax=on(tmax),
+        throughput=on(rng.rand(n, 3).astype(np.float32)),
+        pixel_index=on((np.arange(n) % 997).astype(np.int64)), is_valid=on(rng.rand(n) > 0.1))
+    return scene, table, m, paths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vis_bias", [10.0, -10.0])
+@pytest.mark.parametrize("kind,my_id", [("unit", 8), ("instanced", 3)])
+def test_route_kernel_secondary_matches_plain_and_composed_on_gpu(vis_bias, kind, my_id,
+                                                                  monkeypatch):
+    """K7 (secondary) against its plain version and, through the stage,
+    against the composed path (K1 + K4 + K6)."""
+    _need_cuda()
+    scene, table, m, paths = _route_case("cuda", vis_bias, kind=kind)
+    live = paths.is_valid
+    args = (paths.origin, paths.direction, EPS, paths.tmax, live, my_id, MH, EPS)
+    before = dict(tops.LAUNCHES)
+    dec = tops.route_fused(scene, table, m, *args)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == {**before, "schedule_keys": before["schedule_keys"] + 1,
+                             "route_secondary": before["route_secondary"] + 1}
+    # in the caller's order, without the schedule sort: the same decisions
+    unsorted = tops.route_fused(scene, table, m, *args, sort_rays=False)
+    assert tops.LAUNCHES["schedule_keys"] == before["schedule_keys"] + 1
+    for key in dec:
+        assert torch.equal(dec[key], unsorted[key]), key
+    ref = tops.route_fused_plain(scene, table, m, *args)
+    for key in ("has_node", "env_miss", "no_route", "local_hit"):
+        assert torch.equal(dec[key], ref[key]), key
+    assert torch.equal(dec["settled_node"].to(torch.int64), ref["settled_node"])
+    assert torch.allclose(dec["new_t"], ref["new_t"], rtol=2e-3, atol=2e-3)
+    assert dec["local_hit"].sum() > 100 and dec["env_miss"].sum() > 10
+    if vis_bias > 0:
+        assert (dec["has_node"] & ~dec["local_hit"]).sum() > 100
+
+    env = tscene.EnvironmentMap.constant((0.4, 0.5, 0.7), device="cuda")
+    tops.reset_launch_counts()
+    fused, env_f, _ = tps.secondary_route(scene, table, m, env, paths, my_id, MH, EPS, 997)
+    assert {k: v for k, v in tops.LAUNCHES.items() if v} == {
+        "schedule_keys": 1, "route_secondary": 1}
+    tops.reset_launch_counts()
+    monkeypatch.setattr(tps, "_use_fused_route", lambda *a: False)
+    composed, env_c, _ = tps.secondary_route(scene, table, m, env, paths, my_id, MH, EPS, 997)
+    assert {k: v for k, v in tops.LAUNCHES.items() if v} == {
+        "schedule_keys": 1, "resident_closest": 1, "proxy_march": 1, "mlp_dense": 1}
+    for f in ("target_node", "current_node", "is_hit", "is_valid", "visited_mask"):
+        assert torch.equal(getattr(fused, f), getattr(composed, f)), f
+    assert torch.allclose(fused.tmax, composed.tmax, rtol=2e-3, atol=2e-3)
+    assert torch.allclose(env_f, env_c, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vis_bias,depth_bias", [(10.0, -10.0), (10.0, 10.0), (-10.0, 0.0)])
+def test_route_kernel_shadow_matches_plain_and_composed_on_gpu(vis_bias, depth_bias,
+                                                               monkeypatch):
+    """K7 (shadow) against its plain version and, through the stage, against
+    the composed path (K2 + K4 + K6)."""
+    _need_cuda()
+    scene, table, m, paths = _route_case("cuda", vis_bias, depth_bias, shadow=True)
+    args = (paths.origin, paths.direction, EPS, paths.tmax * (1.0 - 1e-3), paths.is_valid,
+            8, MH, EPS)
+    before = dict(tops.LAUNCHES)
+    dec = tops.shadow_route_fused(scene, table, m, *args)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == {**before, "route_shadow": before["route_shadow"] + 1}
+    ref = tops.shadow_route_fused_plain(scene, table, m, *args)
+    in_order = tops.shadow_route_fused(scene, table, m, *args, sort_rays=True)
+    for key in ("weight", "occluded_local", "survives"):
+        assert torch.equal(dec[key], ref[key]), key
+        assert torch.equal(dec[key], in_order[key]), key
+    assert dec["survives"].sum() > 100 and dec["occluded_local"].sum() > 100
+    tops.reset_launch_counts()
+    fused, _ = tps.shadow_direct_light_nn(scene, table, m, paths, 8, MH, EPS, 4, 997)
+    assert {k: v for k, v in tops.LAUNCHES.items() if v} == {"route_shadow": 1}
+    tops.reset_launch_counts()
+    monkeypatch.setattr(tps, "_use_fused_route", lambda *a: False)
+    composed, _ = tps.shadow_direct_light_nn(scene, table, m, paths, 8, MH, EPS, 4, 997)
+    assert {k: v for k, v in tops.LAUNCHES.items() if v} == {
+        "schedule_keys": 1, "resident_anyhit": 1, "proxy_march": 1, "mlp_dense": 1}
+    assert torch.allclose(fused, composed, rtol=1e-5, atol=1e-6)
+    assert float(fused.sum()) > 0.0
+
+
+@pytest.mark.cuda
+def test_proxy_wrappers_refuse_what_the_kernels_do_not_take():
+    """A CUDA wrapper launches its kernel or raises before any launch."""
+    _need_cuda()
+    scene, table, m, paths = _route_case("cuda", 0.0, n=256)
+    rays = (paths.origin, paths.direction, paths.tmax, paths.is_valid)
+    before = dict(tops.LAUNCHES)
+    with pytest.raises(ValueError):
+        tops.proxy_march(table, rays[0].double(), *rays[1:], 8, MH, EPS)
+    with pytest.raises(ValueError):
+        tops.proxy_march(table.to("cpu"), *rays, 8, MH, EPS)
+    feats = torch.rand((64, 5), device="cuda")
+    obj = torch.zeros((64,), dtype=torch.int32, device="cuda")
+    ok = torch.ones((64,), dtype=torch.bool, device="cuda")
+    import dataclasses
+
+    wide = tmlp.MLPConfig(width=128, depth=2)
+    for fn in (tops.grouped_mlp_pair, tops.grouped_mlp_dense):
+        with pytest.raises(ValueError):
+            fn(dataclasses.replace(m, vis_cfg=wide), feats, obj, ok)
+        with pytest.raises(ValueError):
+            fn(m, feats.double(), obj, ok)
+        with pytest.raises(ValueError):
+            fn(dataclasses.replace(m, num_objects=7), feats, obj, ok)
+        with pytest.raises(ValueError):
+            fn(m.to("cpu"), feats, obj, ok)
+    args = (paths.origin, paths.direction, EPS, paths.tmax, paths.is_valid, 8, MH, EPS)
+    with pytest.raises(ValueError):
+        tops.route_fused(scene, table, m.to("cpu"), *args)
+    # a proxy row without a net pair, a tile beyond shared memory: the wrapper
+    # raises, and the stage's gate sends them to the composed path instead
+    seven = tmodels.random_proxy_models(3, 7, SMALL, SMALL, device="cuda")
+    with pytest.raises(ValueError):
+        tops.route_fused(scene, table, seven, *args)
+    with pytest.raises(ValueError):
+        tops.shadow_route_fused(scene, table, m, *args[:6], 64, EPS)
+    assert not tps._use_fused_route(scene, seven, "auto", table, MH)
+    assert not tps._use_fused_route(scene, m, "auto", table, 64)
+    assert tps._use_fused_route(scene, m, "auto", table, MH)
     assert tops.LAUNCHES == before

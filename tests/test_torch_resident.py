@@ -16,9 +16,12 @@ import pytest
 import torch
 
 from pg2024_dprt_tpu.core import Camera as JCamera
+from pg2024_dprt_tpu.ops.pallas_resident import schedule_keys as j_schedule_keys
 from pg2024_dprt_tpu.ops.pallas_resident import trace_resident as j_trace
+from pg2024_dprt_tpu.ops.pallas_tracer import _morton_key as j_morton_key
 from pg2024_dprt_tpu.scene import cornell_box, device_scene_from_meshes, random_tri_soup
 from pg2024_dprt_tpu_torch import ops as tops
+from pg2024_dprt_tpu_torch.ops import resident as tres
 from pg2024_dprt_tpu_torch.scene import device_scene_from_arrays
 
 T_MIN = 1e-3
@@ -123,7 +126,88 @@ def test_trace_api_rejects_unported_backends():
             tops.trace_closest_checked(ts, o, d, T_MIN, 1e30, act, tracer=name)
     with pytest.raises(ValueError):
         tops.resolve_tracer("pallas")
-    with pytest.raises(NotImplementedError):
-        tops.trace_resident(ts, o, d, T_MIN, 1e30, act, sort_rays=True)
+    sorted_hits, diag = tops.trace_resident(ts, o + 0.5, d, T_MIN, 1e30, act, sort_rays=True)
+    assert diag == 0 and sorted_hits.is_hit.all()
     hits, diag = tops.trace_closest_checked(ts, o + 0.5, d, T_MIN, 1e30, act)
     assert diag == 0 and hits.is_hit.all()
+
+
+def _prepass(o, d, tmax, act):
+    """The (8, N) packed rays the JAX schedule-key kernel reads."""
+    return jnp.asarray(np.concatenate(
+        [o.T, d.T, np.where(act, T_MIN, 3.402823466e38)[None, :],
+         np.where(act, tmax, 0.0)[None, :]], axis=0).astype(np.float32))
+
+
+@pytest.mark.parametrize("tris,tpc,seed,finite", [
+    (700, 16, 20, False), (2000, 32, 23, True), (36, None, 26, False)])
+def test_schedule_keys_match_the_pallas_kernel(tris, tpc, seed, finite):
+    """The plain version of the schedule-key kernel against the JAX Pallas
+    kernel in interpret mode: equal keys on every ray (both rank a cluster
+    by its enter bits with the low 12 bits cleared, then by index). One
+    cluster only: the second half of every key is 0xFFF."""
+    js, ts = _scenes([random_tri_soup(tris, seed=seed)], tpc)
+    n = 512
+    o, d, rng = _random_rays(n, seed + 1)
+    tmax = (rng.rand(n) * 1.5 + 0.05).astype(np.float32) if finite else np.full(n, 1e30, np.float32)
+    act = rng.rand(n) > (0.25 if finite else -1.0)
+    want = np.asarray(j_schedule_keys(js.cl_boxes, _prepass(o, d, tmax, act), interpret=True))
+    want = np.where(act, want, 0x7FFFFFFF)
+    rays = (torch.as_tensor(o), torch.as_tensor(d), torch.full((n,), T_MIN),
+            torch.as_tensor(tmax), torch.as_tensor(act))
+    got = tops.schedule_keys(ts, *rays)               # CPU tensors: the plain version
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, tops.schedule_keys_plain(ts, *rays))
+    first, second = got[rays[4]] >> 12, got[rays[4]] & 0xFFF
+    k = ts.num_clusters
+    entered = first != 0xFFF
+    assert entered.sum() > n // 4 and (first[entered] < k).all()
+    if k == 1:
+        assert (second == 0xFFF).all()
+    else:
+        two = second != 0xFFF
+        assert two.sum() > n // 8 and (second[two] != first[two]).all()
+    assert (got[~rays[4]] == 0x7FFFFFFF).all()
+
+
+def test_schedule_order_sorts_by_key_and_keeps_results():
+    """sort_rays runs the trace on the wavefront in schedule order and
+    returns every ray's own result: equal to the unsorted trace, closest and
+    any-hit. A scene with more clusters than the key holds sorts by the
+    morton key (equal to the JAX package's)."""
+    js, ts = _scenes([random_tri_soup(900, seed=30)], 32)
+    n = 640
+    o, d, rng = _random_rays(n, 31)
+    tmax = (rng.rand(n) * 2.0 + 0.05).astype(np.float32)
+    act = rng.rand(n) > 0.2
+    to, td, tt, ta = (torch.as_tensor(x) for x in (o, d, tmax, act))
+    rays = (to, td, torch.full((n,), T_MIN), tt, ta)
+    perm = tops.schedule_order(ts, *rays)
+    key = tops.schedule_keys(ts, *rays)
+    assert sorted(perm.tolist()) == list(range(n))
+    assert (key[perm][1:] >= key[perm][:-1]).all() and not ta[perm][int(ta.sum()):].any()
+    np.testing.assert_array_equal(tres.morton_key(ts, to, td).numpy(),
+                                  np.asarray(j_morton_key(js, jnp.asarray(o), jnp.asarray(d))))
+    many = ts._replace(cl_mt_table=ts.cl_mt_table.new_zeros((4096, 16, 16)))
+    m_perm = tops.schedule_order(many, *rays)
+    m_key = torch.where(ta, tres.morton_key(ts, to, td), 0xFFFFFFFF)[m_perm]
+    assert not torch.equal(m_perm, perm) and (m_key[1:] >= m_key[:-1]).all()
+    plain, _ = tops.trace_resident(ts, to, td, T_MIN, tt, ta)
+    occ, _ = tops.trace_resident(ts, to, td, T_MIN, tt, ta, any_hit=True)
+    got, dropped = tops.trace_resident(ts, to, td, T_MIN, tt, ta, sort_rays=True)
+    assert dropped == 0
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    got, _ = tops.trace_resident(ts, to, td, T_MIN, tt, ta, any_hit=True, sort_rays=True)
+    assert torch.equal(got, occ)
+    assert plain.is_hit.sum() > 20 and occ.sum() > 20
+
+
+def test_schedule_keys_refuse_more_clusters_than_the_key_holds():
+    _, ts = _scenes([random_tri_soup(300, seed=33)], 16)
+    big = ts._replace(cl_mt_table=ts.cl_mt_table.new_zeros((4096, 16, 16)))
+    rays = (torch.zeros((4, 3)), torch.ones((4, 3)), torch.zeros(4), torch.ones(4),
+            torch.ones(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="4096"):
+        tops.schedule_keys(big, *rays)
