@@ -45,9 +45,10 @@ Phases, each reported on its own line; any failure exits non-zero:
      object). The main path is secondary_route and shadow_direct_light_nn by
      their default dispatch: launches {schedule_keys: 1, route_secondary: 1}
      (secondary rays are scattered, so K7 runs on them in schedule order) and
-     {route_shadow: 1}. The same stages composed (schedule_keys, K1 or K2,
-     proxy_march, mlp_dense; with a 12-object model set, which is over the
-     dense rule, mlp_pair). Each kernel against its plain version on the
+     {route_shadow: 1}. The same stages composed (schedule_keys, the
+     closest-hit or any-hit kernel the dispatch rule picks, proxy_march,
+     mlp_dense; with a 12-object model set, which is over the dense rule,
+     mlp_pair). Each kernel against its plain version on the
      card: K8 on every ray (integer keys, equal), with the times of K1 and
      K7 on the wavefront as given and in schedule order; K4 on
      every row (ids, flags and sequence equal, t rtol 1e-5 / atol 1e-6,
@@ -65,13 +66,44 @@ Phases, each reported on its own line; any failure exits non-zero:
      within 2e-2 relative of what it is compared with), the size of that set
      printed; predicted t within 2e-2 of the box diagonal. CUDA-event medians
      of 7 for each kernel and stage, the plain versions' times, the bounds,
-     and the per-object bf16 torch.matmul chain as K5/K6's yardstick; then
-     the kernels line (JSON, eight kernels; `disagreements` is the flag
-     disagreements of K1/K2 on the phase-4 wavefronts, K3's outlier pixels
-     against its plain version, K4's rows with another id or flag, K5/K6's
-     values beyond tolerance, K7's decisions outside the knife-edge set, K8's
-     rays with another key), the
-     card line, and the final {"ok": true, "device": {...}} line.
+     and the per-object bf16 torch.matmul chain as K5/K6's yardstick;
+  7. large scenes (the rows of scripts/bench_suite.py, not cut): the 1M soup
+     (random_tri_soup(1 << 20, seed=3), 512 per cluster) and the instanced
+     scene (8 grid instances of random_tri_soup(1 << 19, seed=9): 4,194,304
+     effective triangles over one shared table), with their host build
+     seconds, K, KB, Kg, C and device MB. Path 2, the traces: camera and
+     incoherent rays over the 64k frame scene (512 per cluster, K = 185),
+     camera_64k and incoherent_64k (the 64k soup at 128 per cluster,
+     K = 735), camera_1m,
+     incoherent_1m, the grazing and the centered view of
+     camera_4m_instanced, random rays through the instanced scene, and the
+     instanced frame's camera and first shadow wavefronts (random rays in
+     schedule order: K8 keys below 4,096 clusters, the Morton key above).
+     On each: K9 equal to K1 and K10 equal to K2 on every ray (bit for bit),
+     K1, K9 and K10 against the plain version on a seeded 1,024-ray subset
+     (phase 4's criterion), CUDA-event medians of 7 and Mrays/s of all four,
+     the slab tests K1 and K9 run, the work and the bound (PERF.md's rules:
+     each ray's least cull, flat or two-level, and 33 operations per
+     instance a ray must open). Path 1, the main
+     path of this phase: the instanced frame (256x256, spp 1, 4 bounces,
+     RIS, the CLI's auto light) through render_image with the default
+     config, counts reset just before and read just after: 4 launches each
+     of the closest and any-hit kernels the rule picks, no frame_sample;
+     frame ms (median of 7, or of 3 when a frame takes over a second).
+     Path 3: frame_1m (soup_frame's light, sky, camera and config over the
+     1M soup) by the default config: launches {frame_sample: 1}; K3's
+     grouped mode against its flat mode, bit-identical, and both timed.
+     neural_route_1m: the phase-6 stages over the 1M soup, fused against
+     composed (0 rays outside the knife-edge set), stage ms.
+Then the whole script's seconds, the kernels line (JSON, ten kernels K1-K10;
+`disagreements` is the flag disagreements of K1/K2 on the phase-4
+wavefronts, K3's outlier pixels against its plain version, K4's rows with
+another id or flag, K5/K6's values beyond tolerance, K7's decisions outside
+the knife-edge set, K8's rays with another key, K9/K10's against the plain
+version on the phase-7 subsets; K9 / K10 are timed on the instanced frame's
+wavefronts, their plain ms on the 1,024-ray subset), the card line, and the
+final {"ok": true, "device": {...}} line. No earlier phase was cut to make
+room for phase 7.
 
 Without CUDA, or run alone outside the repository, it exits non-zero and
 prints no result.
@@ -126,6 +158,36 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1):
     return statistics.median(times)
 
 
+# kernel entry functions of csrc/ by their template argument (ILb0E / ILb1E
+# in the mangled name), as the kernels line names them
+KERNEL_LABELS = {("closest_kernel", "0"): "K1 resident_closest",
+                 ("closest_kernel", "1"): "K9 grouped_closest",
+                 ("anyhit_kernel", "0"): "K2 resident_anyhit",
+                 ("anyhit_kernel", "1"): "K10 grouped_anyhit",
+                 ("schedule_keys_kernel", None): "K8 schedule_keys",
+                 ("frame_sample_kernel", None): "K3 frame_sample",
+                 ("proxy_march_kernel", None): "K4 proxy_march",
+                 ("mlp_pair_kernel", None): "K5 mlp_pair",
+                 ("mlp_dense_kernel", None): "K6 mlp_dense",
+                 ("route_kernel", "0"): "K7 route (secondary)",
+                 ("route_kernel", "1"): "K7 route (shadow)"}
+
+
+def ptxas_summary(log: str) -> str:
+    """Registers and spills of each entry function in one nvcc -Xptxas -v
+    log, labelled with the kernel's name."""
+    import re
+
+    parts, label = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function .*?\d([A-Za-z_]+_kernel)(?:ILb([01])E)?", ln)
+        if m:
+            label = KERNEL_LABELS.get((m.group(1), m.group(2)), m.group(1))
+        elif "registers" in ln or "spill" in ln:
+            parts.append(f"{label}: {ln.strip().replace('ptxas info    : ', '')}")
+    return " | ".join(parts)
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -133,11 +195,14 @@ def card_line():
     return out.splitlines()[0]
 
 
-def frame_wavefronts(pt, scene, lights, env, camera, cfg, sample=0):
+def frame_wavefronts(pt, scene, lights, env, camera, cfg, sample=0, closest=None):
     """Every trace input of one composed frame sample, per bounce: the
-    closest-hit rays with K1's hits and the shadow rays — each ray set as
-    (origin, direction, tmin, tmax, active), as the engine passes them."""
+    closest-hit rays with K1's hits (or those of `closest`) and the shadow
+    rays — each ray set as (origin, direction, tmin, tmax, active), as the
+    engine passes them."""
     import torch
+
+    closest = closest or pt.ops.resident_closest
 
     paths = pt.render.generate_camera_paths(camera, sample)
     dev = paths.origin.device
@@ -146,7 +211,7 @@ def frame_wavefronts(pt, scene, lights, env, camera, cfg, sample=0):
     for b in range(cfg.bounces):
         rays = (paths.origin, paths.direction, eps(paths.capacity), paths.tmax,
                 paths.is_valid)
-        hits = pt.ops.resident_closest(scene, *rays)
+        hits = closest(scene, *rays)
         rr = bool(cfg.russian_roulette) and cfg.russian_roulette <= b + 1 < cfg.bounces
         paths, shadow, _ = pt.render.shade(
             scene, lights, env, paths, hits, sample, b, cfg.shadow_path_count,
@@ -176,11 +241,29 @@ def plain_traces(pt):
         res.resident_closest, res.resident_anyhit = saved
 
 
+def cull_slabs(pt, scene, o, inv, tcap, lim, rows):
+    """(slab tests, (N, Kg) needed-group mask): the tests the least cull of
+    these rays needs, summed over the rays `rows`. Per ray the smaller of
+    the flat cull (each non-empty cluster box once) and the two-level cull
+    (each non-empty group box once, then the non-empty member boxes of every
+    group the ray must open: those it enters no later than `lim`, or every
+    group it enters when `lim` is None)."""
+    import torch
+
+    en_g = pt.ops.resident.cluster_enters_plain(scene, o, inv, tcap, boxes=scene.cl_gboxes)
+    need_g = (torch.isfinite(en_g) if lim is None else en_g <= lim[:, None]) & rows[:, None]
+    members = (scene.cl_mboxes[:, :, 6] > 0.0).to(torch.int64).sum(1)
+    two_level = int((scene.cl_gboxes[6] > 0.0).sum()) + (need_g.to(torch.int64)
+                                                         * members[None, :]).sum(1)
+    flat = int((scene.cl_boxes[6] > 0.0).sum())
+    return int(torch.clamp(two_level, max=flat)[rows].sum()), need_g
+
+
 def closest_work(pt, scene, rays, want):
     """What the closest-hit query needs on these rays, from the plain
     result `want`: ray-triangle tests (every triangle of every cluster the
     ray enters before its final t, before its capped tmax on a miss), slab
-    tests (every cluster box once per active ray), bytes (the active flag of
+    tests (the least cull of each active ray, `cull_slabs`), bytes (the active flag of
     every ray, the rest of the record of active rays, the table rows 0-11 of
     the triangles of clusters some ray needs, boxes, counts, scene box, the
     `cl_tri_map` entry of each hit, the record out for every ray), and the
@@ -194,13 +277,15 @@ def closest_work(pt, scene, rays, want):
     inv, _, tcap = pt.ops.resident.ray_limits(scene, o, d, tmin, tmax, active)
     counts = scene.cl_count.to(torch.int64)
     k = scene.num_clusters
-    tests, run_passes = 0, 0
+    tests, slabs, run_passes = 0, 0, 0
     needed = torch.zeros(k, dtype=torch.bool, device=o.device)
     for r0 in range(0, o.shape[0], 8192):
         r = slice(r0, r0 + 8192)
         en = pt.ops.resident.cluster_enters_plain(scene, o[r], inv[r], tcap[r])
-        need = (en <= torch.minimum(want.t[r], tcap[r])[:, None]) & active[r][:, None]
+        lim = torch.minimum(want.t[r], tcap[r])
+        need = (en <= lim[:, None]) & active[r][:, None]
         tests += int((need.to(torch.int64) * counts[None, :]).sum())
+        slabs += cull_slabs(pt, scene, o[r], inv[r], tcap[r], lim, active[r])[0]
         needed |= need.any(0)
         horizon = torch.where(want.is_hit[r], want.t[r] * (1.0 + 1e-4) + 1e-7, tcap[r])
         visits = ((en <= horizon[:, None]) & active[r][:, None]).sum(1)
@@ -208,14 +293,15 @@ def closest_work(pt, scene, rays, want):
     n, n_act = o.shape[0], int(active.sum())
     nbytes = (n + 32 * n_act + 48 * int(counts[needed].sum()) + 32 * k + 24
               + 4 * int(want.is_hit.sum()) + 17 * n)
-    return {"tests": tests, "slabs": n_act * k, "bytes": nbytes,
+    return {"tests": tests, "slabs": slabs, "bytes": nbytes,
             "slabs_run": run_passes * k, "needed": needed}
 
 
 def anyhit_work(pt, scene, rays, occ):
     """What the any-hit query needs on these rays, from the plain result
     `occ`: an unoccluded ray must test every triangle of every cluster it
-    enters and every box; an occluded ray one triangle and one box, in one
+    enters, with the least cull that finds them all (`cull_slabs`); an
+    occluded ray one triangle and one box, in one
     cluster that occludes it (taken as its closest hit's). Bytes: the active
     flag of every ray, the rest of the record of active rays, table rows
     0-11 of the triangles of needed clusters, boxes, counts, scene box, one
@@ -235,7 +321,7 @@ def anyhit_work(pt, scene, rays, occ):
         open_ = active[r] & ~occ[r]
         need = torch.isfinite(en) & open_[:, None]
         tests += int((need.to(torch.int64) * counts[None, :]).sum())
-        slabs += int(open_.sum()) * k
+        slabs += cull_slabs(pt, scene, o[r], inv[r], tcap[r], None, open_)[0]
         needed |= need.any(0)
     if n_occ:
         sub = tuple(x[occ] for x in rays)
@@ -397,11 +483,13 @@ def composed_route(pt):
         stages._use_fused_route = saved
 
 
-def route_config(pt, torch, np, dev, n=65536):
+def route_config(pt, torch, np, dev, n=65536, scene=None):
     """The neural_route_64k row of scripts/bench_suite.py, not cut: scene,
-    proxy table, models, secondary paths, shadow paths (tmax 2.0), env."""
-    scene = pt.scene.device_scene_from_meshes(
-        [pt.scene.random_tri_soup(65536, seed=0)], tris_per_cluster=128, device=dev)
+    proxy table, models, secondary paths, shadow paths (tmax 2.0), env; with
+    `scene`, the same over that scene (neural_route_1m)."""
+    if scene is None:
+        scene = pt.scene.device_scene_from_meshes(
+            [pt.scene.random_tri_soup(65536, seed=0)], tris_per_cluster=128, device=dev)
     rng = np.random.RandomState(1)
     o = rng.rand(n, 3).astype(np.float32) * 1.4 - 0.2
     d = rng.randn(n, 3).astype(np.float32)
@@ -670,11 +758,16 @@ def route_phase(pt, torch, np, dev, counted):
               and ops.mlp.use_dense(models.vis_params, models.depth_params),
               "the dense rule does not split 8 and 12 production pairs")
         _, comp12 = counted(lambda: secondary(models12))
-    check(comp_sec == {"schedule_keys": 1, "resident_closest": 1, "proxy_march": 1,
+    # the composed trace takes the kernels of the dispatch rule (K9 / K10
+    # from GROUPED_MIN_CLUSTERS clusters on)
+    grouped = ops.use_grouped(scene)
+    t_closest = "grouped_closest" if grouped else "resident_closest"
+    t_anyhit = "grouped_anyhit" if grouped else "resident_anyhit"
+    check(comp_sec == {"schedule_keys": 1, t_closest: 1, "proxy_march": 1,
                        "mlp_dense": 1}, f"composed secondary_route launches {comp_sec}")
-    check(comp_shd == {"schedule_keys": 1, "resident_anyhit": 1, "proxy_march": 1,
+    check(comp_shd == {"schedule_keys": 1, t_anyhit: 1, "proxy_march": 1,
                        "mlp_dense": 1}, f"composed shadow_direct_light_nn launches {comp_shd}")
-    check(comp12 == {"schedule_keys": 1, "resident_closest": 1, "proxy_march": 1,
+    check(comp12 == {"schedule_keys": 1, t_closest: 1, "proxy_march": 1,
                      "mlp_pair": 1},
           f"composed secondary_route with 12 net pairs launches {comp12}")
     print(f"phase6 composed: secondary {comp_sec}, shadow {comp_shd}, "
@@ -973,6 +1066,380 @@ def route_phase(pt, torch, np, dev, counted):
     ]
 
 
+# ---------------------------------------------------------------------------
+# phase 7: large scenes — the grouped trace (K9/K10), instanced K1/K2, K3's
+# grouped mode
+
+# FP32 operations of one object-space ray transform: 18 multiplies, 15 adds
+XFORM_OPS = 33
+# rays of the seeded subset each kernel is held against the plain version on
+SUBSET = 1024
+
+
+def wavefront(torch, o, d, dev):
+    n = o.shape[0]
+    return (o.contiguous(), d.contiguous(), torch.full((n,), 1e-3, device=dev),
+            torch.full((n,), 3.4e38, device=dev), torch.ones((n,), dtype=torch.bool, device=dev))
+
+
+def camera_wavefront(pt, torch, dev, eye, target, fov, tiled, side=256):
+    """side x side pixel-center camera rays (scripts/bench_suite.py
+    camera_rays: 16x16-tiled pixel order; the instanced rows: row order)."""
+    from pg2024_dprt_tpu_torch.render.pathgen import tiled_pixel_order
+
+    cam = pt.core.Camera.look_at(eye, target, [0, 1, 0], fov, side, side, device=dev)
+    pix = (tiled_pixel_order(side, side, device=dev) if tiled
+           else torch.arange(side * side, device=dev))
+    zeros = torch.zeros(side * side, device=dev)
+    return wavefront(torch, *cam.generate_rays(pix // side, pix % side, zeros, zeros), dev)
+
+
+def random_wavefront(pt, torch, np, dev, scene, lo, span, seed, n=65536):
+    """n random rays, origins lo + rand * span, in schedule order (K8 keys
+    below 4096 clusters, else the Morton key), as a sorted trace runs them."""
+    rng = np.random.RandomState(seed)
+    o = rng.rand(n, 3).astype(np.float32) * span + lo
+    d = rng.randn(n, 3).astype(np.float32)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = wavefront(torch, torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev), dev)
+    perm = pt.ops.schedule_order(scene, *rays)
+    return tuple(x[perm] for x in rays)
+
+
+def large_work(pt, torch, scene, rays, hits=None, occ=None):
+    """What one query needs on these rays by PERF.md's rules (closest_work,
+    anyhit_work), for flat and instanced scenes, from K1's hits or K2's flags
+    (held equal to K9's / K10's on every ray and to the plain version on a
+    subset): the ray-triangle tests of the clusters a ray must enter (closest
+    hit: enter <= final t; any-hit: every entered cluster of an unoccluded
+    ray, one triangle of an occluded one), the slab tests of each ray's least
+    cull (`cull_slabs`; one box of an occluded ray), and for an instanced
+    scene one object-space transform per instance a ray must open (a group
+    it needs lies in it; one for an occluded ray). Bytes: the
+    active flag of every ray and the rest of
+    the active rays' records, table rows 0-11 of the triangles of the base
+    clusters unoccluded or closest-hit rays need, boxes, counts, scene box,
+    transform rows, the records out. Also the slab tests each closest-hit
+    walk runs: K1 one pass over the K boxes per cluster it visits plus the
+    pass that finds none; K9 one pass over the Kg group boxes per group it
+    visits plus one, and the 8 member boxes of each group it visits."""
+    o, d, tmin, tmax, active = rays
+    res = pt.ops.resident
+    inv, _, tcap = res.ray_limits(scene, o, d, tmin, tmax, active)
+    counts = scene.cl_count.to(torch.int64)
+    k, kb = scene.num_clusters, scene.cl_mt_table.shape[0]
+    kg = scene.cl_gboxes.shape[1]
+    group_inst = scene.cl_mboxes[:, 0, 7].to(torch.int64) // kb
+    tests = slabs = xforms = slabs_k1 = slabs_k9 = 0
+    needed = torch.zeros(k, dtype=torch.bool, device=o.device)
+    for r0 in range(0, o.shape[0], 4096):
+        r = slice(r0, r0 + 4096)
+        act = active[r]
+        en = res.cluster_enters_plain(scene, o[r], inv[r], tcap[r])
+        if hits is not None:
+            lim = torch.where(hits.is_hit[r], torch.minimum(hits.t[r], tcap[r]), tcap[r])
+            need = (en <= lim[:, None]) & act[:, None]
+            cull, need_g = cull_slabs(pt, scene, o[r], inv[r], tcap[r], lim, act)
+            en_g = res.cluster_enters_plain(scene, o[r], inv[r], tcap[r], boxes=scene.cl_gboxes)
+            hz = torch.where(hits.is_hit[r], hits.t[r] * (1.0 + 1e-4) + 1e-7, tcap[r])
+            visits = ((en <= hz[:, None]) & act[:, None]).sum(1)
+            gvisits = ((en_g <= hz[:, None]) & act[:, None]).sum(1)
+            slabs_k1 += int((visits + 1)[act].sum()) * k
+            slabs_k9 += int((gvisits + 1)[act].sum()) * kg + 8 * int(gvisits[act].sum())
+        else:
+            open_ = act & ~occ[r]
+            need = torch.isfinite(en) & open_[:, None]
+            cull, need_g = cull_slabs(pt, scene, o[r], inv[r], tcap[r], None, open_)
+        tests += int((need.to(torch.int64) * counts[None, :]).sum())
+        slabs += cull
+        if scene.instanced:
+            xforms += sum(int(need_g[:, group_inst == i].any(1).sum())
+                          for i in range(scene.cl_xf.shape[0]))
+        needed |= need.any(0)
+    n, n_act = o.shape[0], int(active.sum())
+    if occ is not None:
+        n_occ = int(occ.sum())
+        tests += n_occ
+        slabs += n_occ
+        xforms += n_occ if scene.instanced else 0
+    base_counts = counts.view(-1, kb).amax(0)
+    base_needed = needed.view(-1, kb).any(0)
+    out_bytes = (17 * n + 4 * int(hits.is_hit.sum())) if hits is not None else n
+    xf_bytes = 64 * scene.cl_xf.shape[0] if scene.instanced else 0
+    nbytes = (n + 32 * n_act + 48 * int(base_counts[base_needed].sum()) + 36 * k + 24
+              + xf_bytes + out_bytes)
+    op_s = (tests * MT_OPS + slabs * SLAB_OPS + xforms * XFORM_OPS) / FP32_FLOP_PER_S
+    byte_s = nbytes / HBM_BYTES_PER_S
+    return {"tests": tests, "slabs": slabs, "xforms": xforms, "bytes": nbytes,
+            "bound_ms": max(op_s, byte_s) * 1e3,
+            "bound_by": "operations" if op_s >= byte_s else "bytes",
+            "slabs_k1": slabs_k1, "slabs_k9": slabs_k9}
+
+
+def trace_pair(pt, torch, np, name, scene, rays):
+    """K1 against K9 and K2 against K10 on every ray of one wavefront (equal
+    field by field), each against the plain version on the seeded 1,024-ray
+    subset (phase 4's criterion), medians of 7, Mrays/s, work and bound.
+    Returns a dict of the numbers; prints one line per query."""
+    ops = pt.ops
+    n = rays[0].shape[0]
+    n_act = int(rays[4].sum())
+    k1 = ops.resident_closest(scene, *rays)
+    k9 = ops.grouped_closest(scene, *rays)
+    k2 = ops.resident_anyhit(scene, *rays)
+    k10 = ops.grouped_anyhit(scene, *rays)
+    dis9 = int(sum((getattr(k9, f) != getattr(k1, f)).sum() for f in k1._fields))
+    dis10 = int((k10 != k2).sum())
+    check(dis9 == 0, f"{name}: K9 differs from K1 in {dis9} fields of rays")
+    check(dis10 == 0, f"{name}: K10 differs from K2 on {dis10} rays")
+    idx = torch.as_tensor(np.sort(np.random.RandomState(7).choice(n, SUBSET, replace=False)),
+                          device=rays[0].device)
+    sub = tuple(x[idx] for x in rays)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ops.resident_closest_plain(scene, *sub)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want_occ = ops.resident_anyhit_plain(scene, *sub)
+    torch.cuda.synchronize()
+    plain_any_ms = (time.perf_counter() - t0) * 1e3
+    err, ndis, nid = compare_closest(pt, scene, sub, ops.grouped_closest(scene, *sub), want)
+    e1, ndis1, _ = compare_closest(pt, scene, sub, ops.resident_closest(scene, *sub), want)
+    aerr, adis = compare_anyhit(pt, scene, sub, ops.grouped_anyhit(scene, *sub), want_occ)
+    ms = {kname: cuda_ms(torch, lambda fn=fn: fn(scene, *rays), reps=7)
+          for kname, fn in (("k1", ops.resident_closest), ("k9", ops.grouped_closest),
+                            ("k2", ops.resident_anyhit), ("k10", ops.grouped_anyhit))}
+    cw = large_work(pt, torch, scene, rays, hits=k1)
+    aw = large_work(pt, torch, scene, rays, occ=k2)
+    rate = lambda t: n_act / t / 1e3
+    print(f"phase7 {name}: {n_act} rays, K={scene.num_clusters} Kg={scene.cl_gboxes.shape[1]}, "
+          f"{int(k1.is_hit.sum())} hits; closest K1 {ms['k1']:.3f} ms ({rate(ms['k1']):.1f} "
+          f"Mrays/s), K9 {ms['k9']:.3f} ms ({rate(ms['k9']):.1f} Mrays/s), K9 == K1 on every ray "
+          f"ok; slab tests run K1 {cw['slabs_k1']}, K9 {cw['slabs_k9']}; needed "
+          f"{cw['tests']} ray-triangle tests, {cw['xforms']} transforms, bound "
+          f"{cw['bound_ms']:.6f} ms ({cw['bound_by']}); subset vs plain: K9 {ndis} / K1 {ndis1} "
+          f"flag disagreements, {nid} tie ids, max abs err {max(err, e1):.3g} ok; plain "
+          f"{plain_ms:.1f} ms on {SUBSET} rays", flush=True)
+    print(f"phase7 {name} any-hit: {int(k2.sum())} occluded; K2 {ms['k2']:.3f} ms "
+          f"({rate(ms['k2']):.1f} Mrays/s), K10 {ms['k10']:.3f} ms ({rate(ms['k10']):.1f} "
+          f"Mrays/s), K10 == K2 on every ray ok; needed {aw['tests']} ray-triangle tests, bound "
+          f"{aw['bound_ms']:.6f} ms ({aw['bound_by']}); subset vs plain: {adis} disagreements "
+          f"ok; plain {plain_any_ms:.1f} ms on {SUBSET} rays", flush=True)
+    return {"rays": n_act, "k": scene.num_clusters, **{f"{kn}_ms": v for kn, v in ms.items()},
+            "plain_ms": plain_ms, "plain_anyhit_ms": plain_any_ms,
+            "max_abs_err": max(err, e1), "anyhit_max_abs_err": aerr,
+            "flag_disagreements": ndis + ndis1, "anyhit_disagreements": adis,
+            "bound_ms": cw["bound_ms"], "bound_by": cw["bound_by"],
+            "anyhit_bound_ms": aw["bound_ms"], "anyhit_bound_by": aw["bound_by"],
+            "slabs_k1": cw["slabs_k1"], "slabs_k9": cw["slabs_k9"]}
+
+
+def table_mb(torch, fn):
+    """(result of fn(), host seconds, MB of device memory it allocated)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, (torch.cuda.memory_allocated() - before) / 2**20
+
+
+def frame_ms(torch, fn):
+    """(median ms, runs): 7 runs after a warm-up, 3 when one frame takes
+    more than a second."""
+    first = cuda_ms(torch, fn, reps=1, warmup=0)
+    reps = 3 if first > 1000.0 else 7
+    return cuda_ms(torch, fn, reps=reps, warmup=0), reps
+
+
+def large_phase(pt, torch, np, dev, counted, frame_setup):
+    """Phase 7; returns the kernels-line entries of K9 and K10 and the
+    phase's numbers for the K1/K2/K3 entries."""
+    ops, res = pt.ops, pt.ops.resident
+    soup = pt.scene.random_tri_soup
+    scene185, lights, env, cam, cfg = frame_setup
+    scene64 = pt.scene.device_scene_from_meshes([soup(65536, seed=0)], tris_per_cluster=128,
+                                                device=dev)
+    scene1m, s1m, mb1m = table_mb(torch, lambda: pt.scene.device_scene_from_meshes(
+        [soup(1 << 20, seed=3)], device=dev))
+    (scene_i, lights_i, env_i, cam_i, cfg_i), si, mbi = table_mb(
+        torch, lambda: pt.scene.instanced_frame(device=dev))
+    for label, sc, secs, mb in (("1M soup", scene1m, s1m, mb1m),
+                                ("8 x 512k instances", scene_i, si, mbi)):
+        print(f"phase7 scene {label}: K={sc.num_clusters} KB={sc.cl_mt_table.shape[0]} "
+              f"Kg={sc.cl_gboxes.shape[1]} C={sc.tris_per_cluster}, "
+              f"{sc.num_base_tris * (sc.cl_xf.shape[0] if sc.instanced else 1)} effective "
+              f"triangles; host build {secs:.1f} s, {mb:.1f} MB of device tables; the rule "
+              f"takes the {'grouped' if res.use_grouped(sc) else 'flat'} kernels "
+              f"(GROUPED_MIN_CLUSTERS {res.GROUPED_MIN_CLUSTERS})", flush=True)
+
+    # ---- path 2: the large-scene traces, K1 / K9 and K2 / K10 on each
+    lo_i, hi_i = scene_i.scene_aabb.cpu().numpy()
+    ci = 0.5 * (lo_i + hi_i)
+    ext = float(np.max(hi_i - lo_i))
+    waves = [
+        ("camera_64k_c512", scene185, camera_wavefront(
+            pt, torch, dev, [0.5, 0.5, 3.0], [0.5, 0.5, 0.5], 45.0, tiled=True)),
+        ("incoherent_64k_c512", scene185, random_wavefront(
+            pt, torch, np, dev, scene185, -0.2, 1.4, 1)),
+        ("camera_64k", scene64, camera_wavefront(
+            pt, torch, dev, [0.5, 0.5, 3.0], [0.5, 0.5, 0.5], 45.0, tiled=True)),
+        ("incoherent_64k", scene64, random_wavefront(pt, torch, np, dev, scene64, -0.2, 1.4, 1)),
+        ("camera_1m", scene1m, camera_wavefront(
+            pt, torch, dev, [0.5, 0.5, 3.0], [0.5, 0.5, 0.5], 45.0, tiled=True)),
+        ("incoherent_1m", scene1m, random_wavefront(pt, torch, np, dev, scene1m, -0.2, 1.4, 1)),
+        ("camera_4m_instanced", scene_i, camera_wavefront(
+            pt, torch, dev, [3.3, 1.5, 9.0], [3.3, 0.5, 1.0], 55.0, tiled=False)),
+        ("camera_4m_instanced_centered", scene_i, camera_wavefront(
+            pt, torch, dev, [ci[0], ci[1] + 0.5 * ext, ci[2] + 2.2 * ext], list(ci), 55.0,
+            tiled=False)),
+        ("incoherent_4m_instanced", scene_i, random_wavefront(
+            pt, torch, np, dev, scene_i, lo_i, hi_i - lo_i, 2)),
+    ]
+    first = frame_wavefronts(pt, scene_i, lights_i, env_i, cam_i,
+                             dataclasses.replace(cfg_i, bounces=1), closest=ops.grouped_closest)[0]
+    waves += [("frame_4m_camera", scene_i, first["closest"]),
+              ("frame_4m_shadow0", scene_i, first["shadow"])]
+    results = {name: trace_pair(pt, torch, np, name, sc, rays) for name, sc, rays in waves}
+    sorted_ms = cuda_ms(torch, lambda: ops.trace_resident(
+        scene1m, *waves[3][2], sort_rays=True), reps=7)
+    print(f"phase7 incoherent_1m through trace_resident(sort_rays=True) by the default rule "
+          f"(K8 keys, sort, gather, un-sort): {sorted_ms:.3f} ms", flush=True)
+    for name in ("camera", "incoherent"):
+        row = [(k, results[w]["k1_ms"], results[w]["k9_ms"]) for w, k in (
+            (f"{name}_64k_c512", scene185.num_clusters), (f"{name}_64k", scene64.num_clusters),
+            (f"{name}_1m", scene1m.num_clusters),
+            (f"{name}_4m_instanced", scene_i.num_clusters))]
+        print(f"phase7 rule, {name} wavefronts: " + "; ".join(
+            f"K={k}: K1 {a:.3f} ms, K9 {b:.3f} ms (K9/K1 {b / a:.2f})" for k, a, b in row),
+            flush=True)
+
+    # ---- path 1: the instanced frame through render_image (the main path)
+    closest = "grouped_closest" if res.use_grouped(scene_i) else "resident_closest"
+    anyhit = "grouped_anyhit" if res.use_grouped(scene_i) else "resident_anyhit"
+    render = lambda s=0: pt.render.render_image(scene_i, lights_i, env_i, cam_i, cfg_i,
+                                                base_sample=s)
+    img, counts_i = counted(render)
+    check(counts_i == {closest: cfg_i.bounces, anyhit: cfg_i.bounces},
+          f"instanced frame launches {counts_i}")
+    check(tuple(img.shape) == (256, 256, 3) and bool(torch.isfinite(img).all())
+          and bool((img >= 0).all()) and float(img.max()) > 0.0,
+          "instanced frame image is not finite, nonnegative and lit")
+    seeds = iter(range(1, 1000))
+    inst_ms, inst_reps = frame_ms(torch, lambda: render(next(seeds)))
+    print(f"phase7 instanced frame 256x256 spp1 b4 ris, 4.2M effective triangles: launches "
+          f"{counts_i} (no frame_sample: the frame gate sends instanced scenes to the composed "
+          f"path); {inst_ms:.1f} ms (median of {inst_reps}); image mean "
+          f"{float(img.mean()):.5f}", flush=True)
+
+    # ---- path 3: the 1M frame through K3, and K3's grouped mode both ways
+    img1m, counts1m = counted(lambda: pt.render.render_image(scene1m, lights, env, cam, cfg))
+    check(counts1m == {"frame_sample": 1}, f"1M frame launches {counts1m}")
+    check(bool(torch.isfinite(img1m).all()) and bool((img1m >= 0).all())
+          and float(img1m.max()) > 0.0, "1M frame image is not finite, nonnegative and lit")
+    f1m_ms, f1m_reps = frame_ms(torch, lambda: pt.render.render_image(
+        scene1m, lights, env, cam, cfg, base_sample=next(seeds)))
+    k3 = {}
+    for mode in (True, False):
+        k3[mode] = ops.render_frame_fused(scene1m, lights, env, cam, 5, cfg, grouped=mode)
+    check(torch.equal(k3[True][0], k3[False][0]) and torch.equal(k3[True][1], k3[False][1]),
+          "K3 grouped and flat images differ on the 1M frame")
+    k3_ms = {mode: cuda_ms(torch, lambda m=mode: ops.render_frame_fused(
+        scene1m, lights, env, cam, next(seeds), cfg, grouped=m), reps=5) for mode in (True, False)}
+    print(f"phase7 frame_1m 256x256 spp1 b4 ris: launches {counts1m}; frame {f1m_ms:.1f} ms "
+          f"(median of {f1m_reps}; K3 takes the {'grouped' if res.use_grouped(scene1m) else 'flat'} "
+          f"walks by the rule); K3 grouped {k3_ms[True]:.3f} ms, flat {k3_ms[False]:.3f} ms "
+          f"(medians of 5), images bit-identical ok", flush=True)
+
+    # ---- neural_route_1m: K7 at K ~ 2,850, fused against composed
+    route = route_1m(pt, torch, np, dev, counted, scene1m)
+
+    csrc = "pg2024_dprt_tpu_torch/csrc/resident_trace.cu"
+    cam_w, shd_w = results["frame_4m_camera"], results["frame_4m_shadow0"]
+    waves_out = {w: {k: (round(v, 6) if isinstance(v, float) else v) for k, v in r.items()}
+                 for w, r in results.items()}
+    entries = [
+        {"name": "grouped_closest", "route": "cuda", "source": csrc,
+         "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1626 (_kernel_grouped; also "
+                     "_kernel_grouped_hbm :1657; pallas_call :2269)",
+         "launches": counts_i.get("grouped_closest", 0),
+         "max_abs_err": max(r["max_abs_err"] for r in results.values()),
+         "disagreements": sum(r["flag_disagreements"] for r in results.values()),
+         "ms": cam_w["k9_ms"], "plain_ms": cam_w["plain_ms"], "plain_rays": SUBSET,
+         "bound_ms": cam_w["bound_ms"], "bound_by": cam_w["bound_by"], "library_ms": None,
+         "wavefront": "frame_4m_camera", "k1_ms": cam_w["k1_ms"]},
+        {"name": "grouped_anyhit", "route": "cuda", "source": csrc,
+         "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1068 (_occl_kernel_grouped; also "
+                     "_occl_kernel_grouped_hbm :1086; pallas_call :2269)",
+         "launches": counts_i.get("grouped_anyhit", 0),
+         "max_abs_err": max(r["anyhit_max_abs_err"] for r in results.values()),
+         "disagreements": sum(r["anyhit_disagreements"] for r in results.values()),
+         "ms": shd_w["k10_ms"], "plain_ms": shd_w["plain_anyhit_ms"], "plain_rays": SUBSET,
+         "bound_ms": shd_w["anyhit_bound_ms"], "bound_by": shd_w["anyhit_bound_by"],
+         "library_ms": None, "wavefront": "frame_4m_shadow0", "k2_ms": shd_w["k2_ms"]},
+    ]
+    extra = {"wavefronts": waves_out, "instanced_frame_ms": inst_ms,
+             "instanced_frame_launches": counts_i, "frame_1m_ms": f1m_ms,
+             "k3_1m_grouped_ms": k3_ms[True], "k3_1m_flat_ms": k3_ms[False],
+             "neural_route_1m": route}
+    return entries, extra
+
+
+def route_1m(pt, torch, np, dev, counted, scene):
+    """neural_route_1m (scripts/bench_suite.py:137-163): the routing stages
+    of phase 6 over the 1M scene, fused (K8 + K7, K7) against composed;
+    0 disagreeing rays outside the knife-edge set. Returns the stage ms."""
+    ops, stages = pt.ops, pt.render.proxy_stages
+    _, proxies, models, paths, shadow, env = route_config(pt, torch, np, dev, scene=scene)
+    n, my_id = paths.capacity, 8
+    diag = float(proxies.max_length.max())
+    secondary = lambda: stages.secondary_route(scene, proxies, models, env, paths, my_id,
+                                               MAX_HITS, MARCH_EPS, n)
+    shadowed = lambda: stages.shadow_direct_light_nn(scene, proxies, models, shadow, my_id,
+                                                     MAX_HITS, MARCH_EPS, 1, n)
+    (new_paths, env_add, _), c_sec = counted(secondary)
+    (light, _), c_shd = counted(shadowed)
+    check(c_sec == {"schedule_keys": 1, "route_secondary": 1} and c_shd == {"route_shadow": 1},
+          f"neural_route_1m launches {c_sec}, {c_shd}")
+    with composed_route(pt):
+        (c_paths, c_env, _), cc_sec = counted(secondary)
+        (c_light, _), cc_shd = counted(shadowed)
+    live = paths.is_valid
+    eps_v = torch.full((n,), MARCH_EPS, device=dev)
+    sec_rays = (paths.origin, paths.direction, eps_v, paths.tmax, live)
+    shd_t = shadow.tmax * (1.0 - 1e-3)
+    hits = ops.resident_closest(scene, *sec_rays)
+    local_t = torch.where(live & hits.is_hit, hits.t, paths.tmax)
+    q = ops.proxy_march(proxies, paths.origin, paths.direction, local_t, live, my_id,
+                        MAX_HITS, MARCH_EPS)
+    vis, depth = ops.grouped_mlp_dense(models, q.features, q.aabb_id, q.is_valid)
+    occ = ops.resident_anyhit(scene, shadow.origin, shadow.direction, eps_v, shd_t, live)
+    q_s = ops.proxy_march(proxies, shadow.origin, shadow.direction, shd_t, live & ~occ, my_id,
+                          MAX_HITS, MARCH_EPS)
+    vis_s, depth_s = ops.grouped_mlp_dense(models, q_s.features, q_s.aabb_id, q_s.is_valid)
+    edge = knife_edges(torch, q, vis, depth, local_t, shadow=False)
+    edge_s = knife_edges(torch, q_s, vis_s, depth_s, shd_t, shadow=True)
+    bad = torch.zeros_like(edge)
+    for f in ("target_node", "current_node", "is_hit", "is_valid", "visited_mask"):
+        bad |= getattr(new_paths, f) != getattr(c_paths, f)
+    bad |= ~torch.isclose(new_paths.tmax, c_paths.tmax, rtol=2e-2, atol=2e-2 * diag)
+    bad |= ~torch.isclose(env_add, c_env, rtol=1e-5, atol=1e-6).all(1)
+    bad_s = ~torch.isclose(light, c_light, rtol=1e-5, atol=1e-6).all(1)
+    outside = int((bad & ~edge).sum()) + int((bad_s & ~edge_s).sum())
+    check(outside == 0, f"neural_route_1m: {outside} rays disagree outside the knife-edge set")
+    ms = {"secondary fused": cuda_ms(torch, secondary, reps=7),
+          "shadow fused": cuda_ms(torch, shadowed, reps=7)}
+    with composed_route(pt):
+        ms["secondary composed"] = cuda_ms(torch, secondary, reps=7)
+        ms["shadow composed"] = cuda_ms(torch, shadowed, reps=7)
+    print(f"phase7 neural_route_1m (K={scene.num_clusters}): launches fused {c_sec}, {c_shd}; "
+          f"composed {cc_sec}, {cc_shd}; fused vs composed: {outside} rays disagree outside the "
+          f"knife-edge set ({int(edge.sum())} / {int(edge_s.sum())} set aside) ok; "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()) + " (medians of 7)", flush=True)
+    return {**{k.replace(" ", "_") + "_ms": v for k, v in ms.items()}, "disagreements": outside}
+
+
 def main() -> int:
     try:
         import torch
@@ -1020,6 +1487,7 @@ def main() -> int:
                  for s in range(cfg.spp)]
         return sum(p[0] for p in parts), sum(p[1] for p in parts), 0
 
+    t_start = time.perf_counter()
     try:
         # ---- phase 1: card + build
         card = card_line()
@@ -1029,9 +1497,7 @@ def main() -> int:
         print(f"phase1 card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
               f"| kernel build {build_s:.2f} s ({', '.join(report)})", flush=True)
         for name, (_, log) in report.items():
-            regs = [ln.strip().replace("ptxas info    : ", "") for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
-            print(f"phase1 ptxas {name}: {' | '.join(regs)}", flush=True)
+            print(f"phase1 ptxas {name}: {ptxas_summary(log)}", flush=True)
 
         # ---- phase 2: cornell golden, composed and fused
         meshes, lights = pt.scene.cornell_box(device=dev)
@@ -1197,23 +1663,25 @@ def main() -> int:
         src = "pg2024_dprt_tpu_torch/csrc/resident_trace.cu"
         kernels = [
             {"name": "resident_closest", "route": "cuda", "source": src,
-             "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1372 (_kernel; "
-                         "also _kernel_tiny :1114, _kernel_tiny_t :1284)",
+             "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1372 (_kernel, flat and "
+                         "instanced; also _kernel_hbm :1495, _kernel_tiny :1114, "
+                         "_kernel_tiny_t :1284)",
              "launches": composed_counts["resident_closest"], "max_abs_err": k1_err,
              "disagreements": k1_dis,
              "ms": timings["camera"][0], "plain_ms": timings["camera"][1],
              "bound_ms": b1, "bound_by": b1_by, "library_ms": None},
             {"name": "resident_anyhit", "route": "cuda", "source": src,
-             "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1773 (_occl_kernel; "
-                         "also _occl_kernel_tiny :1153, _occl_kernel_tiny_t :1361)",
+             "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1773 (_occl_kernel, flat "
+                         "and instanced; also _occl_kernel_hbm :1698, _occl_kernel_tiny "
+                         ":1153, _occl_kernel_tiny_t :1361)",
              "launches": composed_counts["resident_anyhit"], "max_abs_err": k2_err,
              "disagreements": k2_dis,
              "ms": timings["shadow0"][0], "plain_ms": timings["shadow0"][1],
              "bound_ms": b2, "bound_by": b2_by, "library_ms": None},
             {"name": "frame_sample", "route": "cuda",
              "source": "pg2024_dprt_tpu_torch/csrc/frame.cu",
-             "replaces": "pg2024_dprt_tpu/ops/pallas_frame.py:228 (_frame_kernel, "
-                         "pallas_call :1087)",
+             "replaces": "pg2024_dprt_tpu/ops/pallas_frame.py:228 (_frame_kernel with its "
+                         "grouped and HBM modes, pallas_call :1087)",
              "launches": main_counts["frame_sample"], "max_abs_err": k3_err,
              "disagreements": k3_dis,
              "ms": k3_ms, "plain_ms": k3_plain_ms,
@@ -1231,10 +1699,22 @@ def main() -> int:
 
         # ---- phase 6: the neural-proxy routing stage
         kernels += route_phase(pt, torch, np, dev, counted)
+
+        # ---- phase 7: large scenes (grouped trace, instancing, K3 grouped)
+        large, extra = large_phase(pt, torch, np, dev, counted,
+                                   (scene, lights, env, cam, cfg))
+        waves = extra.pop("wavefronts")
+        kernels[0]["large_scene_ms"] = {w: r["k1_ms"] for w, r in waves.items()}
+        kernels[1]["large_scene_ms"] = {w: r["k2_ms"] for w, r in waves.items()}
+        kernels[2].update(frame_1m_grouped_ms=extra["k3_1m_grouped_ms"],
+                          frame_1m_flat_ms=extra["k3_1m_flat_ms"])
+        large[0]["large_scene"] = {"wavefronts": waves, **extra}
+        kernels += large
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,8 @@
 //   0. the camera ray, from the pixel id, the sample id and the camera
 //      (render/pathgen.py: TEA seed tea(pixel, sample), two LCG draws);
 //   1. the closest hit with the scene-exit cap (resident_trace.cuh, the
-//      functions K1 runs), exact t/u/v and the canonical id;
+//      functions K1 runs, or K9's in the grouped mode), exact t/u/v and the
+//      canonical id;
 //   2. the attributes: one row of tri_shade, smooth normal, optional
 //      bilinear wrap albedo texture (scene/textures.py sample_textures),
 //      the flip toward wo;
@@ -35,9 +36,16 @@
 // The TPU kernel's layout is not carried over: no (1, TM) row state and
 // transposes, no transposed tiny-scene tables, no per-cluster attribute DMA
 // loop, no one-hot MXU gathers (lights, env and texels are read by index),
-// no HBM double buffering or grouped dispatch, no polynomial atan2/acos, no
-// (tiles, spp) grid that revisits an output block (the sample loop is inside
-// the thread).
+// no HBM double buffering (every table is read from global memory), no
+// polynomial atan2/acos, no (tiles, spp) grid that revisits an output block
+// (the sample loop is inside the thread).
+//
+// Grouped mode (_frame_kernel's grouped mode, pallas_frame.py:360-375,
+// :720-723): when the wrapper passes the group tables (ops/frame.py, by the
+// rule of ops/resident.py use_grouped), every closest-hit and any-hit query
+// walks the two-level cull of K9 / K10 instead of the flat one of K1 / K2.
+// Both walks return the same results, so the image is bit-identical to the
+// flat mode's; only the cull work differs.
 //
 // Design: one thread per pixel, threads in the tiled pixel order so that a
 // warp's rays stay coherent; the thread loops over samples and bounces and
@@ -316,7 +324,7 @@ __global__ void __launch_bounds__(kThreads) frame_sample_kernel(FrameArgs a) {
       r.o[0] = o.x; r.o[1] = o.y; r.o[2] = o.z;
       r.d[0] = d.x; r.d[1] = d.y; r.d[2] = d.z;
       resident::cap_ray(r, a.eps, resident::kF32Max, a.scene.scene_aabb);
-      const Hit h = resident::closest_hit(r, a.scene);
+      const Hit h = resident::closest(r, a.scene);
       if (!h.hit) {
         // ---- 4. environment on a miss; the path ends
         env_acc = env_acc + tp * env_sample(a, d);
@@ -418,7 +426,7 @@ __global__ void __launch_bounds__(kThreads) frame_sample_kernel(FrameArgs a) {
           sr.o[0] = point.x; sr.o[1] = point.y; sr.o[2] = point.z;
           sr.d[0] = cd.wi.x; sr.d[1] = cd.wi.y; sr.d[2] = cd.wi.z;
           resident::cap_ray(sr, a.eps, cd.dist * 0.999f, a.scene.scene_aabb);
-          if (!resident::any_hit(sr, a.scene)) direct = direct + cd.c / s_f;
+          if (!resident::occluded(sr, a.scene)) direct = direct + cd.c / s_f;
         }
       }
 
@@ -454,6 +462,7 @@ extern "C" int frame_sample(
     const float* cam_up, const float* cam_tan_half_fov, float aspect,
     const float* boxes, const float* table, const int32_t* tri_map,
     const int32_t* counts, const float* scene_aabb, int nk, int c,
+    const float* gboxes, const float* mboxes, int kg,
     const float* tri_shade, const float* lp0, const float* lp1,
     const float* lp2, const float* lrad, int l_count, const float* env, int eh,
     int ew, float env_rot, const float* texels, const int32_t* tex_offset,
@@ -468,6 +477,9 @@ extern "C" int frame_sample(
     a.cam_right = cam_right; a.cam_up = cam_up;
     a.cam_tan_half_fov = cam_tan_half_fov; a.aspect = aspect;
     a.scene = Tables{boxes, table, tri_map, counts, scene_aabb, nk, c};
+    a.scene.gboxes = gboxes;  // nullptr: the flat walks
+    a.scene.mboxes = mboxes;
+    a.scene.kg = kg;
     a.tri_shade = tri_shade;
     a.lp0 = lp0; a.lp1 = lp1; a.lp2 = lp2; a.lrad = lrad; a.l_count = l_count;
     a.env = env; a.eh = eh; a.ew = ew; a.env_rot = env_rot;

@@ -1,12 +1,15 @@
-// Resident closest-hit (K1) and any-hit (K2) ray-triangle traversal and the
-// cluster-schedule sort keys (K8) for Hopper (sm_90a), bound to PyTorch
-// through a plain C interface (ctypes).
+// Resident closest-hit (K1) and any-hit (K2) ray-triangle traversal, their
+// two-level grouped counterparts (K9, K10) and the cluster-schedule sort keys
+// (K8) for Hopper (sm_90a), bound to PyTorch through a plain C interface
+// (ctypes).
 //
 // K1 resident_closest replaces the JAX package's closest-hit Pallas kernels
-// pallas_resident.py::_kernel, _kernel_tiny and _kernel_tiny_t; K2
-// resident_anyhit replaces _occl_kernel, _occl_kernel_tiny and
-// _occl_kernel_tiny_t. Those six compute two functions on three TPU layouts;
-// this file computes the same two functions once, per ray:
+// pallas_resident.py::_kernel (also its instanced mode), _kernel_hbm,
+// _kernel_tiny and _kernel_tiny_t; K2 resident_anyhit replaces _occl_kernel,
+// _occl_kernel_hbm, _occl_kernel_tiny and _occl_kernel_tiny_t. Those eight
+// compute two functions on four TPU layouts; on this card every table is
+// read from global memory, so the VMEM/HBM split collapses into one kernel
+// each, which computes the same two functions once, per ray:
 //
 //   * the scene-exit horizon cap of each ray's tmax (_load_ray_rows);
 //   * the exact per-ray cluster slab test with its rounding guard
@@ -18,7 +21,10 @@
 //     t < capped tmax as well; any-hit: t < capped tmax, as in
 //     _occl_kernel);
 //   * for K1, the exact winner refinement with barycentric re-validation
-//     (_refine_winners and the epilogue at pallas_resident.py:2400-2455).
+//     (_refine_winners and the epilogue at pallas_resident.py:2400-2455);
+//   * for an instanced scene (cl_xf), the per-cluster object-space
+//     transform of _xform_visit and the virtual ids of the epilogue
+//     (pallas_resident.py:2417-2428).
 //
 // The TPU kernels' layout is not carried over: no (8, mp) ray packing, no
 // packed t|lane keys, no one-hot MXU extraction. The winner is the
@@ -44,6 +50,20 @@
 // rays share from cache, each cluster slab test about 30 operations; the
 // bytes every call must move (rays in, records out, the table once) are
 // far below the operations' time at 67 TFLOP/s FP32.
+//
+// K9 grouped_closest replaces _kernel_grouped and _kernel_grouped_hbm
+// (pallas_call at :2269); K10 grouped_anyhit replaces _occl_kernel_grouped
+// and _occl_kernel_grouped_hbm. They compute K1's and K2's functions through
+// the two-level cull of _grouped_recull_loop / _grouped_occl_loop over
+// groups of 8 clusters. One thread per ray. K9 picks each next cluster in
+// K1's order with a pass over the Kg = K / 8 group boxes that slab-tests
+// the 8 member boxes only of the groups entered no later than its best
+// candidate so far; K10 walks the entered groups and their entered members
+// in index order, K2's order. An instanced ray is transformed into its
+// instance per visited cluster in K9 (as in K1 / K2) and once per entered
+// group in K10 (a group's members share one instance). Their results equal K1's and
+// K2's bit for bit (resident_trace.cuh says why). Bound as K1 / K2; what the
+// grouping buys is fewer slab tests per pick at large K.
 //
 // K8 schedule_keys replaces pallas_resident.py::_sched_kernel (pallas_call
 // at :1221): for each ray the FIRST and SECOND cluster it enters, by the exact
@@ -71,7 +91,10 @@ using resident::Tables;
 
 constexpr int kThreads = 128;
 
-__global__ void __launch_bounds__(kThreads) resident_closest_kernel(
+// GROUPED selects the two-level walks (K9 / K10) over the flat ones (K1 /
+// K2); one template, so both pairs load and store rays alike.
+template <bool GROUPED>
+__global__ void __launch_bounds__(kThreads) closest_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
     const uint8_t* __restrict__ active, int n, Tables s,
@@ -83,7 +106,11 @@ __global__ void __launch_bounds__(kThreads) resident_closest_kernel(
   Hit h = {resident::kF32Max, 0.0f, 0.0f, -1, false};
   Ray r;
   if (resident::load_ray(i, o, d, tmin, tmax, active, s.scene_aabb, r)) {
-    h = resident::closest_hit(r, s);
+    if constexpr (GROUPED) {
+      h = resident::closest_hit_grouped(r, s);
+    } else {
+      h = resident::closest_hit(r, s);
+    }
   }
   out_t[i] = h.t;
   out_u[i] = h.u;
@@ -92,7 +119,8 @@ __global__ void __launch_bounds__(kThreads) resident_closest_kernel(
   out_hit[i] = h.hit ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads) resident_anyhit_kernel(
+template <bool GROUPED>
+__global__ void __launch_bounds__(kThreads) anyhit_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
     const uint8_t* __restrict__ active, int n, Tables s,
@@ -102,10 +130,30 @@ __global__ void __launch_bounds__(kThreads) resident_anyhit_kernel(
   bool occ = false;
   Ray r;
   if (resident::load_ray(i, o, d, tmin, tmax, active, s.scene_aabb, r)) {
-    occ = resident::any_hit(r, s);
+    if constexpr (GROUPED) {
+      occ = resident::any_hit_grouped(r, s);
+    } else {
+      occ = resident::any_hit(r, s);
+    }
   }
   out_occ[i] = occ ? 1 : 0;
 }
+
+Tables make_tables(const float* boxes, const float* table, const int32_t* tri_map,
+                   const int32_t* counts, const float* scene_aabb, int nk, int c,
+                   const float* xf, int kb, int tb, const float* gboxes,
+                   const float* mboxes, int kg) {
+  Tables s{boxes, table, tri_map, counts, scene_aabb, nk, c};
+  s.xf = xf;  // nullptr: a flat scene
+  s.kb = kb;
+  s.tb = tb;
+  s.gboxes = gboxes;
+  s.mboxes = mboxes;
+  s.kg = kg;
+  return s;
+}
+
+int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
 constexpr int kClusterBits = 12;
 constexpr int32_t kClusterMask = (1 << kClusterBits) - 1;
@@ -145,19 +193,20 @@ __global__ void __launch_bounds__(kThreads) schedule_keys_kernel(
 }  // namespace
 
 // C entry points: launch on the caller's stream and return
-// cudaGetLastError() (0 = launched).
+// cudaGetLastError() (0 = launched). xf is nullptr for a flat scene; the
+// grouped entry points need the group tables.
 extern "C" int resident_closest(
     const float* o, const float* d, const float* tmin, const float* tmax,
     const uint8_t* active, int n, const float* boxes, const float* table,
     const int32_t* tri_map, const int32_t* counts, const float* scene_aabb,
-    int nk, int c, float* out_t, float* out_u, float* out_v, int32_t* out_tri,
-    uint8_t* out_hit, void* stream) {
+    int nk, int c, const float* xf, int kb, int tb, float* out_t, float* out_u,
+    float* out_v, int32_t* out_tri, uint8_t* out_hit, void* stream) {
   if (n > 0) {
-    resident_closest_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+    closest_kernel<false><<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, tmin, tmax, active, n,
-        Tables{boxes, table, tri_map, counts, scene_aabb, nk, c}, out_t,
-        out_u, out_v, out_tri, out_hit);
+        make_tables(boxes, table, tri_map, counts, scene_aabb, nk, c, xf, kb, tb,
+                    nullptr, nullptr, 0),
+        out_t, out_u, out_v, out_tri, out_hit);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -166,12 +215,50 @@ extern "C" int resident_anyhit(
     const float* o, const float* d, const float* tmin, const float* tmax,
     const uint8_t* active, int n, const float* boxes, const float* table,
     const int32_t* counts, const float* scene_aabb, int nk, int c,
-    uint8_t* out_occ, void* stream) {
+    const float* xf, int kb, uint8_t* out_occ, void* stream) {
   if (n > 0) {
-    resident_anyhit_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
+    anyhit_kernel<false><<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, tmin, tmax, active, n,
-        Tables{boxes, table, nullptr, counts, scene_aabb, nk, c}, out_occ);
+        make_tables(boxes, table, nullptr, counts, scene_aabb, nk, c, xf, kb, 0,
+                    nullptr, nullptr, 0),
+        out_occ);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int grouped_closest(
+    const float* o, const float* d, const float* tmin, const float* tmax,
+    const uint8_t* active, int n, const float* boxes, const float* table,
+    const int32_t* tri_map, const int32_t* counts, const float* scene_aabb,
+    int nk, int c, const float* xf, int kb, int tb, const float* gboxes,
+    const float* mboxes, int kg, float* out_t, float* out_u, float* out_v,
+    int32_t* out_tri, uint8_t* out_hit, void* stream) {
+  if (gboxes == nullptr || mboxes == nullptr || kg < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    closest_kernel<true><<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmin, tmax, active, n,
+        make_tables(boxes, table, tri_map, counts, scene_aabb, nk, c, xf, kb, tb,
+                    gboxes, mboxes, kg),
+        out_t, out_u, out_v, out_tri, out_hit);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int grouped_anyhit(
+    const float* o, const float* d, const float* tmin, const float* tmax,
+    const uint8_t* active, int n, const float* boxes, const float* table,
+    const int32_t* counts, const float* scene_aabb, int nk, int c,
+    const float* xf, int kb, const float* gboxes, const float* mboxes, int kg,
+    uint8_t* out_occ, void* stream) {
+  if (gboxes == nullptr || mboxes == nullptr || kg < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 0) {
+    anyhit_kernel<true><<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmin, tmax, active, n,
+        make_tables(boxes, table, nullptr, counts, scene_aabb, nk, c, xf, kb, 0,
+                    gboxes, mboxes, kg),
+        out_occ);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -182,8 +269,7 @@ extern "C" int schedule_keys(
     int nk, int32_t* out_key, void* stream) {
   if (nk < 1 || nk > kClusterMask) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    schedule_keys_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    schedule_keys_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, tmin, tmax, active, n, boxes, scene_aabb, nk, out_key);
   }
   return static_cast<int>(cudaGetLastError());

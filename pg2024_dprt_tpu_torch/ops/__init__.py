@@ -16,6 +16,8 @@ from .mlp import (
 )
 from .resident import (
     LAUNCHES,
+    grouped_anyhit,
+    grouped_closest,
     reset_launch_counts,
     resident_anyhit,
     resident_anyhit_plain,
@@ -25,6 +27,7 @@ from .resident import (
     schedule_keys_plain,
     schedule_order,
     trace_resident,
+    use_grouped,
 )
 from .route import (
     consume_secondary,

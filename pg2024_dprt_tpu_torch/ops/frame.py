@@ -35,8 +35,8 @@ from ..render.pathgen import tiled_pixel_order
 from ..render.shade import RIS_SALT, RR_FLOOR, RR_SALT, bsdf_sample, surface_attributes
 from . import _build
 from .resident import (
-    F32_MAX, LAUNCHES, _check, _checked, _ptr, _stream, resident_anyhit_plain,
-    resident_closest_plain, scene_tables,
+    F32_MAX, LAUNCHES, _check, _checked, _ptr, _stream, group_args,
+    resident_anyhit_plain, resident_closest_plain, scene_tables, use_grouped,
 )
 
 # the salt table's width: 8 columns each for the bounce, RIS and roulette
@@ -52,8 +52,9 @@ def fused_frame_supported(scene, lights, env, cfg) -> bool:
 
       * no cutout textures: the kernel's trace is closest-hit only, the
         re-trace past transparent hits stays composed (ops/trace_api.py);
-      * no curves and no instancing (the port has neither yet, and a scene
-        record that carries them raises where it is built);
+      * no curves (the port has none yet) and no instancing (instanced
+        scenes compose, through the instance-aware trace kernels, as in
+        JAX);
       * at least one light (the NEE light pick indexes the table);
       * bounces <= 8, the salt table's width.
 
@@ -92,11 +93,13 @@ def salt_table(base_sample: int, spp: int, bounces: int) -> torch.Tensor:
 
 
 def render_frame_fused(scene, lights, env, camera, base_sample: int, cfg,
-                       spp: int = 1):
+                       spp: int = 1, grouped=None):
     """`spp` samples of the frame in one launch. Returns the summed
     (direct (npix, 3), env (npix, 3), diag = 0) in pixel order — divide by
     spp for the frame average. K3 for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors. K3's traces take the grouped walks where
+    ops/resident.py::use_grouped(scene, grouped) says so; the image is the
+    same either way."""
     if not fused_frame_supported(scene, lights, env, cfg):
         raise ValueError("the fused frame does not take this scene or config "
                          "(see fused_frame_supported); use fused_frame='off'")
@@ -110,7 +113,8 @@ def render_frame_fused(scene, lights, env, camera, base_sample: int, cfg,
     if dev.type != "cuda":
         raise ValueError(f"camera on {dev}: the kernel takes CUDA tensors")
     npix = cfg.frame_buffer_size
-    tab, k, c = scene_tables(scene, dev)
+    grouped = use_grouped(scene, grouped)
+    tab, k, c = scene_tables(scene, dev, grouped)
     f32, i32 = torch.float32, torch.int32
     t_n = scene.tri_shade.shape[0]
     l_n = lights.count
@@ -142,7 +146,8 @@ def render_frame_fused(scene, lights, env, camera, base_sample: int, cfg,
         _ptr(pix_ids), npix, cfg.width, cfg.height, *map(_ptr, cam),
         cfg.width / cfg.height,
         _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]), _ptr(tab["cl_tri_map"]),
-        _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c, _ptr(tri_shade),
+        _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c,
+        *(group_args(tab) if grouped else (None, None, 0)), _ptr(tri_shade),
         *map(_ptr, lts), l_n, _ptr(env_img), eh, ew, env.rotation_offset,
         *map(ptr, texs), n_tex, _ptr(salts), spp, cfg.bounces, s,
         int(cfg.nee_mode == "ris"), int(cfg.russian_roulette), cfg.t_epsilon,
@@ -172,7 +177,8 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.frame_sample.argtypes = (
             [p, i, i, i] + [p] * 5 + [f]          # pixels, image size, camera
-            + [p] * 5 + [i, i, p]                 # cluster tables, tri_shade
+            + [p] * 5 + [i, i]                    # cluster tables
+            + [p, p, i, p]                        # group tables, tri_shade
             + [p] * 4 + [i] + [p, i, i, f]        # lights, environment
             + [p] * 4 + [i]                       # textures
             + [p, i, i, i, i, i, f]               # salts, spp .. eps

@@ -1,23 +1,34 @@
 """Resident-table closest-hit and any-hit trace (counterpart of
 pg2024_dprt_tpu/ops/pallas_resident.py::trace_resident).
 
-Three kernels written by hand for Hopper, in csrc/resident_trace.cu:
+Five kernels written by hand for Hopper, in csrc/resident_trace.cu:
   * `resident_closest` (K1) replaces the closest-hit Pallas kernels
-    _kernel, _kernel_tiny and _kernel_tiny_t;
-  * `resident_anyhit` (K2) replaces _occl_kernel, _occl_kernel_tiny and
-    _occl_kernel_tiny_t;
+    _kernel (flat and instanced), _kernel_hbm, _kernel_tiny and
+    _kernel_tiny_t;
+  * `resident_anyhit` (K2) replaces _occl_kernel (flat and instanced),
+    _occl_kernel_hbm, _occl_kernel_tiny and _occl_kernel_tiny_t;
+  * `grouped_closest` (K9) and `grouped_anyhit` (K10) replace
+    _kernel_grouped[_hbm] and _occl_kernel_grouped[_hbm]: K1's and K2's
+    functions through the two-level cull over groups of CL_GROUP clusters,
+    which large scenes take (`use_grouped`);
   * `schedule_keys` (K8) replaces _sched_kernel: the per-ray sort key of the
     wavefront sort (`sort_rays=True`, `schedule_order`), which puts rays that
     visit the same clusters next to each other before K1, K2 or the fused
     route kernel runs on them.
-The source's header says what each computes, how, and what bounds it.
+The source's header says what each computes, how, and what bounds it. Every
+kernel takes instanced scenes (scene/geometry.py device_scene_from_instances):
+a cluster's triangles are tested in its instance's object space and a hit
+carries the virtual id instance * num_base_tris + base canonical id.
 
 Beside each kernel is its plain PyTorch version: a dense Moller-Trumbore
-over ray chunks x triangle-slot chunks with the same formulas and no cull.
-A wrapper runs the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. `LAUNCHES` counts the kernel
-launches of each wrapper (those of ops/frame.py, ops/march.py, ops/mlp.py and
-ops/route.py as well; the route kernel counts each of its two entry points).
+over ray chunks x triangle-slot chunks with the same formulas and no cull
+(per instance, on the rays transformed with the kernels' arithmetic, for an
+instanced scene). K9 and K10 compute K1's and K2's contract, so their plain
+versions are K1's and K2's. A wrapper runs the plain version only for
+tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+`LAUNCHES` counts the kernel launches of each wrapper (those of
+ops/frame.py, ops/march.py, ops/mlp.py and ops/route.py as well; the route
+kernel counts each of its two entry points).
 
 The closest-hit winner is the lexicographic minimum of (t, slot) with slot =
 cluster * C + lane, so kernel and plain version agree whatever order the
@@ -38,9 +49,22 @@ from . import _build
 F32_MAX = 3.402823466e38
 
 # kernel launches of each wrapper (reset by callers that count a run)
-LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0, "schedule_keys": 0,
-            "frame_sample": 0, "proxy_march": 0, "mlp_pair": 0, "mlp_dense": 0,
+LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0, "grouped_closest": 0,
+            "grouped_anyhit": 0, "schedule_keys": 0, "frame_sample": 0,
+            "proxy_march": 0, "mlp_pair": 0, "mlp_dense": 0,
             "route_secondary": 0, "route_shadow": 0}
+
+# the group fan-out the grouped kernels read (scene/geometry.py CL_GROUP)
+GROUP = 8
+# the default dispatch takes the grouped kernels (K9/K10, and the frame
+# kernel's grouped mode) at this many clusters and more. The JAX package's
+# rule is a budget of the TPU's fast memory and means nothing on this card.
+# On 65,536 camera / incoherent rays (chip_smoke.py phase 7, an H100 at
+# 700 W; PERF.md) K9 took 0.84 / 0.87 of K1's time at K = 185, 0.39 / 0.45
+# at 735, 0.30 / 0.34 at 3,028 and 0.16 / 0.18 at 11,896, while K10 took
+# 1.10 / 1.08 of K2's at 185 and 0.97 / 1.03 at 735: the closest-hit plus
+# any-hit pair breaks even at 185 and wins by 1.9x / 1.5x at 735.
+GROUPED_MIN_CLUSTERS = 735
 
 # the schedule key holds two cluster indices of this many bits
 SCHEDULE_CLUSTER_BITS = 12
@@ -55,14 +79,27 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
+def use_grouped(scene, grouped=None) -> bool:
+    """Whether a trace of `scene` takes the grouped kernels. `grouped`
+    True/False forces either (True on a scene without group tables runs
+    the flat kernels, as in JAX); None applies the port's rule: the scene
+    has group tables and at least GROUPED_MIN_CLUSTERS clusters."""
+    if scene.cl_gboxes is None or scene.cl_mboxes is None:
+        return False
+    if grouped is None:
+        return scene.num_clusters >= GROUPED_MIN_CLUSTERS
+    return bool(grouped)
+
+
 def trace_resident(scene, origin, direction, t_min, t_max, active,
-                   any_hit: bool = False, sort_rays: bool = False):
+                   any_hit: bool = False, sort_rays: bool = False, grouped=None):
     """Closest hit -> (HitRecord, dropped) or, with any_hit=True,
     ((N,) bool occluded, dropped). dropped is always 0: nothing has a static
     budget to drop from (the JAX contract). t_min/t_max are scalars or (N,).
     sort_rays runs the kernel on the wavefront in schedule order
-    (`schedule_order`) and returns the result in the caller's order; the
-    result is the same per ray either way."""
+    (`schedule_order`) and returns the result in the caller's order;
+    `grouped` picks the flat (K1/K2) or the grouped (K9/K10) kernels by
+    `use_grouped`. The result is the same per ray either way."""
     n = origin.shape[0]
     t_min = torch.as_tensor(t_min, dtype=torch.float32, device=origin.device).expand(n)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device).expand(n)
@@ -70,7 +107,10 @@ def trace_resident(scene, origin, direction, t_min, t_max, active,
     perm = schedule_order(scene, *rays) if sort_rays else None
     if perm is not None:
         rays = tuple(x[perm] for x in rays)
-    out = resident_anyhit(scene, *rays) if any_hit else resident_closest(scene, *rays)
+    if use_grouped(scene, grouped):
+        out = grouped_anyhit(scene, *rays) if any_hit else grouped_closest(scene, *rays)
+    else:
+        out = resident_anyhit(scene, *rays) if any_hit else resident_closest(scene, *rays)
     if perm is not None:
         out = unsorted(out, perm) if any_hit else HitRecord(*(unsorted(x, perm) for x in out))
     return out, 0
@@ -84,20 +124,15 @@ def resident_closest(scene, o, d, tmin, tmax, active) -> HitRecord:
     CPU tensors."""
     if o.device.type == "cpu":
         return resident_closest_plain(scene, o, d, tmin, tmax, active)
-    rays, tab, n, k, c = _kernel_inputs(scene, o, d, tmin, tmax, active)
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    tri = torch.empty(n, dtype=torch.int32, device=o.device)
-    hit = torch.empty(n, dtype=torch.bool, device=o.device)
-    rc = _lib().resident_closest(
-        *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
-        _ptr(tab["cl_tri_map"]), _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]),
-        k, c, _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit), _stream(o))
-    _check(rc, "resident_closest")
-    if n:
-        LAUNCHES["resident_closest"] += 1
-    return HitRecord(t=t, tri_index=tri, u=u, v=v, is_hit=hit)
+    return _closest("resident_closest", scene, o, d, tmin, tmax, active)
+
+
+def grouped_closest(scene, o, d, tmin, tmax, active) -> HitRecord:
+    """Closest hit through the two-level cull: K9 for CUDA tensors, the
+    plain version (K1's contract) for CPU tensors."""
+    if o.device.type == "cpu":
+        return resident_closest_plain(scene, o, d, tmin, tmax, active)
+    return _closest("grouped_closest", scene, o, d, tmin, tmax, active)
 
 
 def resident_anyhit(scene, o, d, tmin, tmax, active) -> torch.Tensor:
@@ -105,15 +140,49 @@ def resident_anyhit(scene, o, d, tmin, tmax, active) -> torch.Tensor:
     tensors."""
     if o.device.type == "cpu":
         return resident_anyhit_plain(scene, o, d, tmin, tmax, active)
-    rays, tab, n, k, c = _kernel_inputs(scene, o, d, tmin, tmax, active)
-    occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    rc = _lib().resident_anyhit(
+    return _anyhit("resident_anyhit", scene, o, d, tmin, tmax, active)
+
+
+def grouped_anyhit(scene, o, d, tmin, tmax, active) -> torch.Tensor:
+    """(N,) bool occluded through the two-level cull: K10 for CUDA tensors,
+    the plain version (K2's contract) for CPU tensors."""
+    if o.device.type == "cpu":
+        return resident_anyhit_plain(scene, o, d, tmin, tmax, active)
+    return _anyhit("grouped_anyhit", scene, o, d, tmin, tmax, active)
+
+
+def _closest(name, scene, o, d, tmin, tmax, active) -> HitRecord:
+    grouped = name == "grouped_closest"
+    rays, tab, n, k, c = _kernel_inputs(scene, o, d, tmin, tmax, active, grouped)
+    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    tri = torch.empty(n, dtype=torch.int32, device=o.device)
+    hit = torch.empty(n, dtype=torch.bool, device=o.device)
+    xf, kb, tb = instancing_args(scene, tab)
+    rc = getattr(_lib(), name)(
         *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
-        _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c, _ptr(occ),
-        _stream(o))
-    _check(rc, "resident_anyhit")
+        _ptr(tab["cl_tri_map"]), _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]),
+        k, c, xf, kb, tb, *(group_args(tab) if grouped else ()),
+        _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit), _stream(o))
+    _check(rc, name)
     if n:
-        LAUNCHES["resident_anyhit"] += 1
+        LAUNCHES[name] += 1
+    return HitRecord(t=t, tri_index=tri, u=u, v=v, is_hit=hit)
+
+
+def _anyhit(name, scene, o, d, tmin, tmax, active) -> torch.Tensor:
+    grouped = name == "grouped_anyhit"
+    rays, tab, n, k, c = _kernel_inputs(scene, o, d, tmin, tmax, active, grouped)
+    occ = torch.empty(n, dtype=torch.bool, device=o.device)
+    xf, kb, _ = instancing_args(scene, tab)
+    rc = getattr(_lib(), name)(
+        *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
+        _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c, xf, kb,
+        *(group_args(tab) if grouped else ()), _ptr(occ), _stream(o))
+    _check(rc, name)
+    if n:
+        LAUNCHES[name] += 1
     return occ
 
 
@@ -163,21 +232,51 @@ def _checked(name: str, x: torch.Tensor, dtype, shape, device) -> torch.Tensor:
     return x.contiguous()
 
 
-def scene_tables(scene, device):
-    """The cluster tables the kernels read, validated, by name, with K and C."""
-    k, _, c = scene.cl_mt_table.shape
+def scene_tables(scene, device, grouped: bool = False):
+    """The cluster tables the kernels read, validated, by name, with K and
+    C: an instanced scene's `cl_xf` too, and with `grouped` the group
+    tables. Raises on tables the kernels cannot index (shapes that disagree,
+    int32 overflow of slots or virtual ids)."""
+    kb, _, c = scene.cl_mt_table.shape
+    k = scene.num_clusters
     if k * c >= 2**31:
         raise ValueError("slot count exceeds int32")
     spec = {"cl_boxes": (torch.float32, (8, k)),
-            "cl_mt_table": (torch.float32, (k, 16, c)),
+            "cl_mt_table": (torch.float32, (kb, 16, c)),
             "cl_tri_map": (torch.int32, (k * c,)),
             "cl_count": (torch.int32, (k,)),
             "scene_aabb": (torch.float32, (2, 3))}
+    if scene.instanced:
+        ni = scene.cl_xf.shape[0]
+        if ni * kb != k:
+            raise ValueError(f"{k} instance clusters are not {ni} instances x {kb}")
+        if ni * scene.num_base_tris >= 2**31:
+            raise ValueError("virtual triangle ids exceed int32")
+        spec["cl_xf"] = (torch.float32, (ni, 1, 16))
+    if grouped:
+        if scene.cl_gboxes is None or scene.cl_mboxes is None:
+            raise ValueError("the grouped kernels need the group tables")
+        kg = (ni * -(-kb // GROUP)) if scene.instanced else -(-k // GROUP)
+        spec["cl_gboxes"] = (torch.float32, (8, kg))
+        spec["cl_mboxes"] = (torch.float32, (kg, GROUP, 8))
     return {name: _checked(name, getattr(scene, name), dtype, shape, device)
             for name, (dtype, shape) in spec.items()}, k, c
 
 
-def _kernel_inputs(scene, o, d, tmin, tmax, active):
+def instancing_args(scene, tab):
+    """(xf pointer, KB, TB) of the C entry points: (None, 0, 0) for a flat
+    scene."""
+    if "cl_xf" not in tab:
+        return None, 0, 0
+    return _ptr(tab["cl_xf"]), tab["cl_mt_table"].shape[0], scene.num_base_tris
+
+
+def group_args(tab):
+    """(gboxes pointer, mboxes pointer, Kg) of the grouped entry points."""
+    return _ptr(tab["cl_gboxes"]), _ptr(tab["cl_mboxes"]), tab["cl_gboxes"].shape[1]
+
+
+def _kernel_inputs(scene, o, d, tmin, tmax, active, grouped: bool = False):
     """Validate what the trace kernels read; raise on anything they do not
     take. Returns (rays, tables, N, K, C): the five ray tensors and the scene
     tables by name, all contiguous. The caller holds them until the launch is
@@ -194,7 +293,7 @@ def _kernel_inputs(scene, o, d, tmin, tmax, active):
         ("t_min", tmin, torch.float32, (n,)),
         ("t_max", tmax, torch.float32, (n,)),
         ("active", active, torch.bool, (n,)))]
-    tab, k, c = scene_tables(scene, o.device)
+    tab, k, c = scene_tables(scene, o.device, grouped)
     return rays, tab, n, k, c
 
 
@@ -202,11 +301,18 @@ def _lib():
     lib = _build.load("resident_trace")
     if not getattr(lib, "_pg_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.resident_closest.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, i,
-                                         p, p, p, p, p, p]
-        lib.resident_closest.restype = i
-        lib.resident_anyhit.argtypes = [p, p, p, p, p, i, p, p, p, p, i, i, p, p]
-        lib.resident_anyhit.restype = i
+        rays = [p, p, p, p, p, i]
+        inst = [p, i]                       # xf, KB
+        groups = [p, p, i]                  # gboxes, mboxes, Kg
+        closest = rays + [p, p, p, p, p, i, i] + inst + [i]   # ... TB
+        anyhit = rays + [p, p, p, p, i, i] + inst
+        lib.resident_closest.argtypes = closest + [p] * 5 + [p]
+        lib.grouped_closest.argtypes = closest + groups + [p] * 5 + [p]
+        lib.resident_anyhit.argtypes = anyhit + [p, p]
+        lib.grouped_anyhit.argtypes = anyhit + groups + [p, p]
+        for fn in (lib.resident_closest, lib.grouped_closest, lib.resident_anyhit,
+                   lib.grouped_anyhit):
+            fn.restype = i
         lib.schedule_keys.argtypes = [p, p, p, p, p, i, p, p, i, p, p]
         lib.schedule_keys.restype = i
         lib._pg_typed = True
@@ -244,10 +350,11 @@ def ray_limits(scene, o, d, tmin, tmax, active):
     return inv, tmin, tmax
 
 
-def cluster_enters_plain(scene, o, inv, tmax):
+def cluster_enters_plain(scene, o, inv, tmax, boxes=None):
     """(N, K) exact slab enter distances (+inf where the ray does not enter
-    the cluster before tmax) — the kernels' cull, as a dense matrix."""
-    boxes = scene.cl_boxes
+    the cluster before tmax) — the kernels' cull, as a dense matrix; with
+    `boxes` ((8, Kg) group boxes) the group cull of K9/K10."""
+    boxes = scene.cl_boxes if boxes is None else boxes
     enter = torch.zeros((o.shape[0], boxes.shape[1]), dtype=torch.float32, device=o.device)
     exit_ = torch.full_like(enter, float("inf"))
     for ax in range(3):
@@ -347,33 +454,74 @@ def _chunks(o, s):
     return rc, sc
 
 
+def object_rays(xf, o, d):
+    """Rays in the object space of the instances whose transform rows are
+    `xf` ((16,) for one instance, or (N, 16) one row per ray), with the
+    kernels' arithmetic (csrc/resident_trace.cuh object_ray): explicit
+    products and sums left to right, no matmul, the direction not
+    normalized, so object t equals world t."""
+    m = lambda j: xf[..., j:j + 1]
+    ol, dl = [], []
+    for i in range(3):
+        m0, m1, m2 = m(3 * i), m(3 * i + 1), m(3 * i + 2)
+        ol.append(o[:, 0:1] * m0 + o[:, 1:2] * m1 + o[:, 2:3] * m2 + m(9 + i))
+        dl.append(d[:, 0:1] * m0 + d[:, 1:2] * m1 + d[:, 2:3] * m2)
+    return torch.cat(ol, dim=1), torch.cat(dl, dim=1)
+
+
+def _instances(scene, o, d):
+    """Per instance: (instance, object-space o, d, (KB*C,) bool mask of the
+    slots of non-empty clusters); one entry (0, o, d, None) for a flat
+    scene, whose padding slots reject themselves (zero normal)."""
+    if not scene.instanced:
+        yield 0, o, d, None
+        return
+    kb, _, c = scene.cl_mt_table.shape
+    ok = (scene.cl_count > 0).reshape(-1, kb)
+    for i in range(scene.cl_xf.shape[0]):
+        if bool(ok[i].any()):
+            yield (i, *object_rays(scene.cl_xf[i, 0], o, d),
+                   ok[i].repeat_interleave(c))
+
+
 def resident_closest_plain(scene, o, d, tmin, tmax, active) -> HitRecord:
-    """Plain version of K1: dense MT, lexicographic (t, slot) minimum,
-    exact refinement and re-validation of the winner."""
+    """Plain version of K1 (and K9): dense MT, lexicographic (t, slot)
+    minimum with slot = (instance * KB + cluster) * C + lane, exact
+    refinement and re-validation of the winner."""
     _, tmin, tmax = ray_limits(scene, o, d, tmin, tmax, active)
     tab = _slot_table(scene)
     n, s = o.shape[0], tab.shape[1]
     best_t = torch.full((n,), F32_MAX, dtype=torch.float32, device=o.device)
     best_slot = torch.full((n,), -1, dtype=torch.int64, device=o.device)
     rc, sc = _chunks(o, s)
-    for r0 in range(0, n, rc):
-        r = slice(r0, min(n, r0 + rc))
-        for s0 in range(0, s, sc):
-            t, ok = _mt_dense(o[r], d[r], tmin[r], tab[:, s0:s0 + sc])
-            ok = ok & (t < tmax[r, None])
-            t = torch.where(ok, t, float("inf"))
-            tm, j = t.min(dim=1)             # first minimal slot on ties
-            better = tm < best_t[r]          # earlier chunks win ties
-            best_t[r] = torch.where(better, tm, best_t[r])
-            best_slot[r] = torch.where(better, j + s0, best_slot[r])
+    for inst, oi, di, ok in _instances(scene, o, d):
+        for r0 in range(0, n, rc):
+            r = slice(r0, min(n, r0 + rc))
+            for s0 in range(0, s, sc):
+                t, acc = _mt_dense(oi[r], di[r], tmin[r], tab[:, s0:s0 + sc])
+                acc = acc & (t < tmax[r, None])
+                if ok is not None:
+                    acc = acc & ok[None, s0:s0 + sc]
+                t = torch.where(acc, t, float("inf"))
+                tm, j = t.min(dim=1)             # first minimal slot on ties
+                better = tm < best_t[r]          # earlier slots win ties
+                best_t[r] = torch.where(better, tm, best_t[r])
+                best_slot[r] = torch.where(better, j + s0 + inst * s, best_slot[r])
     return _refine(scene, tab, o, d, best_slot)
 
 
 def _refine(scene, tab, o, d, slot) -> HitRecord:
-    """Exact MT (p = d x e2, q = s x e1) for each ray's winning slot, and
-    barycentric re-validation (pallas_resident.py:2400-2455)."""
+    """Exact MT (p = d x e2, q = s x e1) for each ray's winning slot, in the
+    winner's object space for an instanced scene, and barycentric
+    re-validation (pallas_resident.py:2400-2455)."""
     found = slot >= 0
-    w = tab[:, slot.clamp(min=0)]                           # (12, N)
+    safe = slot.clamp(min=0)
+    s = tab.shape[1]
+    if scene.instanced:
+        inst = safe // s
+        xf = scene.cl_xf[:, 0][inst]                        # (N, 16)
+        o, d = object_rays(xf, o, d)
+    w = tab[:, safe % s]                                    # (12, N)
     v0, e1, e2 = w[0:3].T, w[3:6].T, w[6:9].T
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     px = dy * e2[:, 2] - dz * e2[:, 1]
@@ -392,7 +540,10 @@ def _refine(scene, tab, o, d, slot) -> HitRecord:
     slack = 1e-5
     hit = found & ok & (u >= -slack) & (v >= -slack) \
         & (u + v <= 1.0 + 2.0 * slack) & (t > 0.0)
-    tri = scene.cl_tri_map[slot.clamp(min=0)]
+    tri = scene.cl_tri_map[safe]
+    if scene.instanced:
+        # virtual id: instance * num_base_tris + base canonical id
+        tri = torch.round(xf[:, 13]).to(torch.int32) * scene.num_base_tris + tri
     return HitRecord(
         t=torch.where(hit, t, F32_MAX),
         tri_index=torch.where(hit, tri, -1).to(torch.int32),
@@ -403,15 +554,20 @@ def _refine(scene, tab, o, d, slot) -> HitRecord:
 
 
 def resident_anyhit_plain(scene, o, d, tmin, tmax, active) -> torch.Tensor:
-    """Plain version of K2: any accepted slot with tmin < t < capped tmax."""
+    """Plain version of K2 (and K10): any accepted slot with tmin < t <
+    capped tmax, in any instance."""
     _, tmin, tmax = ray_limits(scene, o, d, tmin, tmax, active)
     tab = _slot_table(scene)
     n, s = o.shape[0], tab.shape[1]
     occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
     rc, sc = _chunks(o, s)
-    for r0 in range(0, n, rc):
-        r = slice(r0, min(n, r0 + rc))
-        for s0 in range(0, s, sc):
-            t, ok = _mt_dense(o[r], d[r], tmin[r], tab[:, s0:s0 + sc])
-            occ[r] |= (ok & (t < tmax[r, None])).any(dim=1)
+    for _, oi, di, ok in _instances(scene, o, d):
+        for r0 in range(0, n, rc):
+            r = slice(r0, min(n, r0 + rc))
+            for s0 in range(0, s, sc):
+                t, acc = _mt_dense(oi[r], di[r], tmin[r], tab[:, s0:s0 + sc])
+                acc = acc & (t < tmax[r, None])
+                if ok is not None:
+                    acc = acc & ok[None, s0:s0 + sc]
+                occ[r] |= acc.any(dim=1)
     return occ

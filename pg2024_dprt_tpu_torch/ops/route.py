@@ -143,6 +143,8 @@ def _route_args(scene, proxies, models, origin, direction, t_min, t_max, active,
     enqueued)."""
     if not fused_route_takes(models, proxies, max_hits):
         raise ValueError(_REFUSAL)
+    if scene.instanced:
+        raise ValueError("the fused route does not take instanced local geometry")
     dev = origin.device
     n = origin.shape[0]
     t_min = _expand(t_min, n, dev)

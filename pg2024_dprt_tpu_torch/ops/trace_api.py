@@ -4,7 +4,9 @@ pg2024_dprt_tpu/ops/trace_api.py).
 The port has one backend, "resident" (ops/resident.py): the hand-written
 CUDA kernels for CUDA tensors, their plain PyTorch versions for CPU
 tensors. "auto" means it on every device. The JAX package's "stackless" and
-"cluster" backends are not ported yet and raise.
+"cluster" backends are not ported yet and raise NotImplementedError; on an
+instanced scene they raise ValueError, as in JAX (they would trace the base
+geometry only).
 
 Every entry point returns a `diag` count of rays whose result may still be
 affected by tracer residue. The resident tracer has no budget, so the plain
@@ -23,6 +25,11 @@ _NOT_PORTED = ("stackless", "cluster")
 
 
 def resolve_tracer(name: str, scene=None) -> str:
+    if (name in _NOT_PORTED and scene is not None
+            and getattr(scene, "cl_xf", None) is not None):
+        # only the resident family has the per-cluster object-space transform
+        raise ValueError(f"tracer {name!r} does not support instanced scenes; "
+                         "use 'resident'")
     if name in ("auto", "resident"):
         return "resident"
     if name in _NOT_PORTED:
@@ -47,7 +54,9 @@ def trace_occlusion_checked(scene, origin, direction, t_min, t_max, active,
 
 
 def _hit_alpha(scene, hits):
-    """Opacity at a hit (texture alpha channel); 1.0 where untextured."""
+    """Opacity at a hit (texture alpha channel); 1.0 where untextured. Only
+    cutout scenes reach it, and instanced scenes have no textures, so the
+    ids here are never virtual."""
     row = scene.tri_shade[hits.tri_index.clamp(min=0).long()]
     u = hits.u[:, None]
     v = hits.v[:, None]

@@ -38,8 +38,17 @@ class SurfaceAttributes(NamedTuple):
 
 def surface_attributes(scene, origin, direction, hits) -> SurfaceAttributes:
     """Gather + interpolate hit attributes from the per-triangle shading
-    rows (scene.tri_shade layout: scene/geometry.py)."""
+    rows (scene.tri_shade layout: scene/geometry.py). An instanced scene's
+    hit ids are virtual (instance * num_base_tris + base id): the base row
+    is read and the normal goes to world space through the instance's
+    world-to-object linear map transposed."""
     tri = hits.tri_index.clamp(min=0).long()
+    inst_lin = None
+    if scene.instanced:
+        tb = scene.num_base_tris
+        inst = tri // tb
+        tri = tri - inst * tb
+        inst_lin = scene.cl_xf[:, 0, 0:9][inst].reshape(-1, 3, 3)   # world_to_obj
     u = hits.u[:, None]
     v = hits.v[:, None]
     w = 1.0 - u - v
@@ -48,7 +57,11 @@ def surface_attributes(scene, origin, direction, hits) -> SurfaceAttributes:
     albedo = row[:, 15:18]
     bsdf_type = row[:, 18].to(torch.int32)
     # barycentric convention: u weights n1, v weights n2
-    normal = cmath.normalize(w * n0 + u * n1 + v * n2)
+    normal = w * n0 + u * n1 + v * n2
+    if inst_lin is not None:
+        # object -> world normal: n_w ~ (M^-1)^T n_o = lin^T n_o
+        normal = torch.einsum("nji,nj->ni", inst_lin, normal)
+    normal = cmath.normalize(normal)
 
     # albedo-texture fetch at the interpolated uv
     if scene.textured:

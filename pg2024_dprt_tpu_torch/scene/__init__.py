@@ -10,7 +10,22 @@ from .convert import (
     proxy_models_from_arrays,
     proxy_table_from_arrays,
 )
-from .geometry import DeviceScene, MeshGeometry, ProxyTable, concat_geometry, device_scene_from_meshes
+from .geometry import (
+    CL_GROUP,
+    DeviceScene,
+    MeshGeometry,
+    ProxyTable,
+    concat_geometry,
+    device_scene_from_instances,
+    device_scene_from_meshes,
+)
 from .lights import EnvironmentMap, LightTable
-from .procedural import cornell_box, random_tri_soup, soup_frame, textured_cornell_box
+from .procedural import (
+    auto_light,
+    cornell_box,
+    instanced_frame,
+    random_tri_soup,
+    soup_frame,
+    textured_cornell_box,
+)
 from .textures import PackedTextures, build_textures, checkerboard, sample_textures

@@ -23,22 +23,31 @@ from .lights import EnvironmentMap, LightTable
 from .textures import PackedTextures
 
 # fields that carry data the port cannot render yet
-_UNSUPPORTED = ("cl_xf", "curves")
+_UNSUPPORTED = ("curves",)
+# DeviceScene fields a JAX scene may leave unset (None)
+_OPTIONAL = ("cl_gboxes", "cl_mboxes", "cl_xf")
 
 
 def device_scene_from_arrays(arrays: dict, device=None) -> DeviceScene:
     """Port DeviceScene from the JAX DeviceScene's fields. Fields the port
-    does not keep (BVH nodes, TPU-only tables) are ignored; instanced or
-    curve scenes raise NotImplementedError. `albedo_textures`, when present,
-    is the dict of the JAX PackedTextures' fields (packed_textures_from_arrays)."""
+    does not keep (BVH nodes, TPU-only tables) are ignored; curve scenes
+    raise NotImplementedError. Instanced scenes carry `cl_xf` and their
+    instance-level cluster and group tables across. `albedo_textures`, when
+    present, is the dict of the JAX PackedTextures' fields
+    (packed_textures_from_arrays)."""
     for name in _UNSUPPORTED:
         if arrays.get(name) is not None:
             raise NotImplementedError(f"{name} is not ported yet")
     dev = resolve_device(device)
     tex = arrays.get("albedo_textures")
+    fields = {}
+    for name in DeviceScene._fields:
+        a = arrays.get(name)
+        if name == "albedo_textures" or (a is None and name in _OPTIONAL):
+            continue
+        fields[name] = torch.as_tensor(np.array(arrays[name]), device=dev)
     return DeviceScene(
-        **{name: torch.as_tensor(np.array(arrays[name]), device=dev)
-           for name in DeviceScene._fields if name != "albedo_textures"},
+        **fields,
         albedo_textures=None if tex is None else packed_textures_from_arrays(tex, dev))
 
 

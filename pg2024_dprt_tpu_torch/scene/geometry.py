@@ -21,6 +21,9 @@ from ..core.types import BSDF_DIFFUSE
 from .bvh import FlatBVH, build_bvh
 from .textures import PackedTextures, build_textures
 
+# cluster-group fan-out of the two-level cull (grouped trace kernels K9/K10)
+CL_GROUP = 8
+
 
 @dataclass
 class MeshGeometry:
@@ -136,11 +139,27 @@ class DeviceScene(NamedTuple):
     albedo_textures: the packed texel pool that tri_shade's texture_index
     points into, or None for an untextured scene.
 
+    Two-level cull tables (the grouped kernels K9/K10, ops/resident.py):
+    CL_GROUP consecutive clusters form a group. cl_gboxes (8, Kg) mirrors
+    cl_boxes at group granularity; cl_mboxes[g, m] = [min xyz, max xyz,
+    non-empty flag, pad] of member m (empty and padding members carry flag
+    0). For an instanced scene groups are cut per instance over the base
+    cluster order, and cl_mboxes[g, 0, 7] holds the group's first member's
+    instance-level cluster id cid0 (its members are cid0 .. cid0 + 7).
+
+    Two-level instancing (`device_scene_from_instances`): the cluster arrays
+    (cl_boxes, cl_aabb_*, cl_count, cl_tri_map) are instance-level, K = I *
+    KB, while cl_mt_table and tri_shade stay base-level (KB clusters,
+    num_base_tris rows) and are shared by every instance. cl_xf (I, 1, 16)
+    holds one row per instance: lanes 0-8 the world-to-object linear map
+    (row-major), 9-11 its translation, 13 the instance id. Cluster k belongs
+    to instance k // KB and reads table slice k % KB; a hit's id is the
+    virtual id instance * num_base_tris + base canonical id.
+
     Left out of the port so far (callers that ask for them get
-    NotImplementedError): instancing (cl_xf), curves, the stackless tracer's
-    BVH node arrays, and the tables only TPU kernels read (cl_woop_table,
-    cl_mt_table_t, cl_gboxes/cl_mboxes, cl_shade_table(_t), the texture
-    scanline pool)."""
+    NotImplementedError): curves, the stackless tracer's BVH node arrays,
+    and the tables only TPU kernels read (cl_woop_table, cl_mt_table_t,
+    cl_shade_table(_t), the texture scanline pool)."""
 
     cl_aabb_min: torch.Tensor  # (K, 3) f32 (+inf/-inf for empty clusters)
     cl_aabb_max: torch.Tensor  # (K, 3) f32
@@ -151,6 +170,19 @@ class DeviceScene(NamedTuple):
     scene_aabb: torch.Tensor   # (2, 3) f32
     tri_shade: torch.Tensor    # (T, 24) f32
     albedo_textures: Optional[PackedTextures] = None
+    cl_gboxes: Optional[torch.Tensor] = None  # (8, Kg) f32
+    cl_mboxes: Optional[torch.Tensor] = None  # (Kg, CL_GROUP, 8) f32
+    cl_xf: Optional[torch.Tensor] = None      # (I, 1, 16) f32, instanced only
+
+    @property
+    def instanced(self) -> bool:
+        return self.cl_xf is not None
+
+    @property
+    def num_base_tris(self) -> int:
+        """Virtual-triangle-id stride: an instanced hit's id is instance *
+        num_base_tris + base canonical id."""
+        return self.tri_shade.shape[0]
 
     @property
     def textured(self) -> bool:
@@ -166,7 +198,8 @@ class DeviceScene(NamedTuple):
 
     @property
     def num_clusters(self) -> int:
-        return self.cl_mt_table.shape[0]
+        """K, instance-level for an instanced scene (its table holds KB)."""
+        return self.cl_count.shape[0] if self.instanced else self.cl_mt_table.shape[0]
 
     @property
     def tris_per_cluster(self) -> int:
@@ -269,6 +302,16 @@ def _pack_device_scene(host: dict, bvh: FlatBVH, tri_capacity=None,
          np.zeros((1, kc), np.float32)], axis=0)
     boxes = np.where(np.isfinite(boxes), boxes, 0.0).astype(np.float32)
 
+    # group tables of the two-level cull (CL_GROUP consecutive clusters per
+    # group; K padded to a full final group with empty boxes)
+    kgc = -(-kc // CL_GROUP)
+    bpad = np.zeros((8, kgc * CL_GROUP), np.float32)
+    bpad[:, :kc] = boxes
+    b3 = bpad.reshape(8, kgc, CL_GROUP)                      # (8, Kg, G)
+    gboxes = _group_boxes(b3[0:3].transpose(1, 2, 0), b3[3:6].transpose(1, 2, 0),
+                          b3[6] > 0.0)
+    mboxes = b3.transpose(1, 2, 0).astype(np.float32).copy()  # (Kg, G, 8)
+
     nonempty = cl_cnt > 0
     if nonempty.any():
         s_lo = cl_min[nonempty].min(axis=0)
@@ -286,4 +329,135 @@ def _pack_device_scene(host: dict, bvh: FlatBVH, tri_capacity=None,
         cl_boxes=np.ascontiguousarray(boxes),
         scene_aabb=np.stack([s_lo, s_hi]).astype(np.float32),
         tri_shade=tri_shade,
+        cl_gboxes=gboxes,
+        cl_mboxes=mboxes,
     )
+
+
+def _group_boxes(mmin, mmax, ok):
+    """(8, Kg) group boxes from (Kg, G, 3) member boxes and (Kg, G) member
+    flags: the union over non-empty members, rows min xyz, max xyz,
+    non-empty flag, pad; an empty group is all zero."""
+    big = np.float32(3.4e38)
+    gmin = np.where(ok[..., None], mmin, big).min(axis=1)     # (Kg, 3)
+    gmax = np.where(ok[..., None], mmax, -big).max(axis=1)
+    g_any = ok.any(axis=1)
+    gmin = np.where(g_any[:, None], gmin, 0.0)
+    gmax = np.where(g_any[:, None], gmax, 0.0)
+    return np.concatenate(
+        [gmin.T, gmax.T, g_any.astype(np.float32)[None],
+         np.zeros((1, ok.shape[0]), np.float32)], axis=0).astype(np.float32)
+
+
+def device_scene_from_instances(meshes: list, transforms,
+                                tris_per_cluster: Optional[int] = None,
+                                device=None) -> DeviceScene:
+    """Instanced scene on `device` (CUDA unless the caller passes another):
+    I copies of the base mesh list, each placed by a (3, 4) object-to-world
+    affine (rows [R | t], invertible). The triangle tables are built once
+    over the base geometry; each instance adds only its cluster boxes, its
+    tile of the tri-map and a 16-float transform row, so N instances of a
+    mesh cost one table. No textures: instanced scenes have no cutouts.
+
+    tris_per_cluster=None applies the adaptive rule to the effective
+    triangle count (instances x base triangles): per-cluster costs scale
+    with K = I * KB."""
+    if tris_per_cluster is None:
+        eff = len(np.asarray(transforms)) * sum(m.num_triangles for m in meshes)
+        tris_per_cluster = (128 if eff <= 262144 else
+                            512 if eff <= 8_388_608 else 2048)
+    dev = resolve_device(device)
+    host = concat_geometry(meshes)
+    arrays = _pack_device_scene(host, build_bvh(host["v0"], host["v1"], host["v2"]),
+                                tris_per_cluster=tris_per_cluster)
+    fields, _ = _instance_tables(arrays, transforms)
+    arrays.update(fields)
+    return DeviceScene(**{k: torch.as_tensor(v, device=dev) for k, v in arrays.items()})
+
+
+def _instance_tables(base: dict, transforms, n_valid: Optional[int] = None):
+    """Instance-level cluster and group tables over a shared base scene's
+    host tables (`_pack_device_scene`'s dict), built exactly as the JAX
+    package's _instance_tables builds them.
+
+    Returns (fields, aux): `fields` is the dict of host arrays that replace
+    the base scene's; `aux` is (wmin, wmax, nonempty) of the (I*KB,)
+    instance-cluster world boxes. `n_valid` < I marks the trailing instances
+    empty (all boxes non-entered, counts 0): the padding rows that make
+    per-partition instance tables rectangular."""
+    m = np.asarray(transforms, np.float32)
+    if m.ndim != 3 or m.shape[1:] != (3, 4):
+        raise ValueError(f"transforms: want (I, 3, 4), got {m.shape}")
+    ni = m.shape[0]
+    if n_valid is None:
+        n_valid = ni
+    kb, _, c = base["cl_mt_table"].shape
+    k = ni * kb
+
+    # world-to-object inverses
+    inv_lin = np.linalg.inv(m[:, :, :3])                     # (I, 3, 3)
+    inv_tr = -np.einsum("iab,ib->ia", inv_lin, m[:, :, 3])   # (I, 3)
+
+    # world-space cluster boxes: the 8 transformed corners of each base box
+    bmin, bmax = base["cl_aabb_min"], base["cl_aabb_max"]   # (KB, 3)
+    corners = np.stack([np.where(np.asarray(sel)[None, :], bmax, bmin)
+                        for sel in np.ndindex(2, 2, 2)], axis=1)   # (KB, 8, 3)
+    wc = (np.einsum("iab,kcb->ikca", m[:, :, :3], corners)
+          + m[:, None, None, :, 3])                          # (I, KB, 8, 3)
+    finite = np.isfinite(bmin).all(axis=1) & np.isfinite(bmax).all(axis=1)
+    wmin = wc.min(axis=2).reshape(k, 3)
+    wmax = wc.max(axis=2).reshape(k, 3)
+    valid_inst = np.repeat(np.arange(ni) < n_valid, kb)
+    count = np.where(valid_inst, np.tile(base["cl_count"], ni), 0)
+    nonempty = (count > 0) & np.tile(finite, ni) & valid_inst
+    wmin = np.where(nonempty[:, None], wmin, 0.0)
+    wmax = np.where(nonempty[:, None], wmax, 0.0)
+    cl_boxes = np.concatenate(
+        [wmin.T, wmax.T, nonempty.astype(np.float32)[None, :],
+         np.zeros((1, k), np.float32)], axis=0)              # (8, K)
+
+    # one transform row per instance: lanes 0-8 world-to-object linear map,
+    # 9-11 translation, 13 instance id
+    xf = np.zeros((ni, 1, 16), np.float32)
+    xf[:, 0, 0:9] = inv_lin.reshape(ni, 9)
+    xf[:, 0, 9:12] = inv_tr
+    xf[:, 0, 13] = np.arange(ni, dtype=np.float32)
+
+    scene_lo = wmin[nonempty].min(axis=0) if nonempty.any() else np.zeros(3)
+    scene_hi = wmax[nonempty].max(axis=0) if nonempty.any() else np.ones(3)
+    tri_map = np.tile(base["cl_tri_map"].reshape(kb, c), (ni, 1))
+
+    # group tables: CL_GROUP base clusters per group, per instance over the
+    # base order; mboxes[g, 0, 7] = cid0, the group's first member's
+    # instance-level cluster id
+    g = CL_GROUP
+    gbb = -(-kb // g)
+    kgi = ni * gbb
+    kbp = gbb * g
+    w3min = np.zeros((ni, kbp, 3), np.float32)
+    w3max = np.zeros((ni, kbp, 3), np.float32)
+    okm = np.zeros((ni, kbp), bool)
+    w3min[:, :kb] = wmin.reshape(ni, kb, 3)
+    w3max[:, :kb] = wmax.reshape(ni, kb, 3)
+    okm[:, :kb] = nonempty.reshape(ni, kb)
+    mboxes = np.zeros((kgi, g, 8), np.float32)
+    mboxes[..., 0:3] = w3min.reshape(kgi, g, 3)
+    mboxes[..., 3:6] = w3max.reshape(kgi, g, 3)
+    mboxes[..., 6] = okm.reshape(kgi, g)
+    cid0 = (np.arange(ni)[:, None] * kb + np.arange(gbb)[None, :] * g).reshape(kgi)
+    mboxes[:, 0, 7] = cid0.astype(np.float32)
+    gboxes = _group_boxes(w3min.reshape(kgi, g, 3), w3max.reshape(kgi, g, 3),
+                          okm.reshape(kgi, g))
+
+    fields = dict(
+        cl_aabb_min=wmin.astype(np.float32),
+        cl_aabb_max=wmax.astype(np.float32),
+        cl_count=count.astype(np.int32),
+        cl_tri_map=tri_map.reshape(k * c),
+        cl_boxes=cl_boxes.astype(np.float32),
+        scene_aabb=np.stack([scene_lo, scene_hi]).astype(np.float32),
+        cl_xf=xf,
+        cl_gboxes=gboxes,
+        cl_mboxes=mboxes,
+    )
+    return fields, (wmin, wmax, nonempty)

@@ -1,6 +1,6 @@
 """Procedural test scenes (counterpart of pg2024_dprt_tpu/scene/procedural.py:
-the cornell box and the random triangle soup). Meshes are host numpy; the
-light table goes to `device`."""
+the cornell box and the random triangle soup) and the frame configurations
+built on them. Meshes are host numpy; the light table goes to `device`."""
 from __future__ import annotations
 
 import numpy as np
@@ -126,6 +126,52 @@ def soup_frame(size: int = 256, n_tris: int = 65536, device=None):
                                     device=device)
     env = EnvironmentMap.constant((0.4, 0.5, 0.7), device=device)
     camera = Camera.look_at([0.5, 0.5, 3.0], [0.5, 0.5, 0.5], [0, 1, 0], 45.0, size, size,
+                            device=device)
+    cfg = RenderConfig(width=size, height=size, spp=1, bounces=4, nee_mode="ris")
+    return scene, lights, env, camera, cfg
+
+
+def auto_light(lo, hi, intensity: float, device=None) -> LightTable:
+    """Two-triangle area light hovering over the box [lo, hi], its radiance
+    scaled so its power covers the box's footprint (the JAX package's CLI
+    rule, render/__main__.py auto_light)."""
+    lo, hi = np.asarray(lo), np.asarray(hi)
+    cx, cz = 0.5 * (lo[0] + hi[0]), 0.5 * (lo[2] + hi[2])
+    ex, ez = hi[0] - lo[0], hi[2] - lo[2]
+    y = hi[1] + 0.25 * max(hi[1] - lo[1], 1e-3)
+    hx, hz = 0.2 * max(ex, 1e-3), 0.2 * max(ez, 1e-3)
+    quad = np.asarray(
+        [[[cx - hx, y, cz - hz], [cx + hx, y, cz - hz], [cx + hx, y, cz + hz]],
+         [[cx - hx, y, cz - hz], [cx + hx, y, cz + hz], [cx - hx, y, cz + hz]]],
+        np.float32)
+    rad = intensity * max(ex * ez, 1e-6) / max(4.0 * hx * hz, 1e-6)
+    return LightTable.from_arrays(quad, np.full((2, 3), rad, np.float32), device=device)
+
+
+def instanced_frame(size: int = 256, device=None):
+    """The camera_4m_instanced configuration of the JAX package's
+    scripts/bench_suite.py as a frame: 8 instances of
+    random_tri_soup(1 << 19, seed=9), instance i translated to
+    [2.2 (i % 4), 0, 2.2 (i // 4)], 4,194,304 effective triangles over one
+    shared base table at the adaptive 512 per cluster; the CLI's auto light
+    (intensity 8) over the scene box; a constant sky; the grazing camera
+    (eye [3.3, 1.5, 9.0], target [3.3, 0.5, 1.0], fov 55); size x size,
+    spp 1, 4 bounces, RIS NEE. Returns (scene, lights, env, camera, cfg)."""
+    from ..core.camera import Camera
+    from ..render.config import RenderConfig
+    from .geometry import device_scene_from_instances
+    from .lights import EnvironmentMap
+
+    grid = np.zeros((8, 3, 4), np.float32)
+    for i in range(8):
+        grid[i, :, :3] = np.eye(3, dtype=np.float32)
+        grid[i, :, 3] = [2.2 * (i % 4), 0.0, 2.2 * (i // 4)]
+    scene = device_scene_from_instances([random_tri_soup(1 << 19, seed=9)], grid,
+                                        device=device)
+    lo, hi = scene.scene_aabb.cpu().numpy()
+    lights = auto_light(lo, hi, 8.0, device=device)
+    env = EnvironmentMap.constant((0.4, 0.5, 0.7), device=device)
+    camera = Camera.look_at([3.3, 1.5, 9.0], [3.3, 0.5, 1.0], [0, 1, 0], 55.0, size, size,
                             device=device)
     cfg = RenderConfig(width=size, height=size, spp=1, bounces=4, nee_mode="ris")
     return scene, lights, env, camera, cfg

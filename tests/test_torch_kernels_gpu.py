@@ -507,3 +507,140 @@ def test_proxy_wrappers_refuse_what_the_kernels_do_not_take():
     assert not tps._use_fused_route(scene, m, "auto", table, 64)
     assert tps._use_fused_route(scene, m, "auto", table, MH)
     assert tops.LAUNCHES == before
+
+
+# --------------------------------------------------------------------------
+# large scenes: K1/K2 on instanced scenes, K9 grouped_closest, K10
+# grouped_anyhit, K3's grouped mode. Tolerance: exact. K9/K10 visit every
+# cluster K1/K2 would (a group box contains its members) and keep the same
+# (t, slot) winner; the instanced transform is the same explicit sum in the
+# kernels and the plain versions, built without FMA contraction.
+
+from pg2024_dprt_tpu_torch.ops import resident as tres  # noqa: E402
+
+
+def _large_case(kind, tpc, device, n=4096):
+    """A flat soup or three instances of one (rotation * scale +
+    translation), cut at `tpc` triangles per cluster, with rays aimed into
+    it (a quarter of them capped short)."""
+    rng = np.random.RandomState(70 + tpc)
+    n_tris = 6 * tpc if tpc >= 512 else 3000
+    mesh = random_tri_soup(n_tris, seed=71, jitter=0.2)
+    if kind == "flat":
+        scene = device_scene_from_meshes([mesh], tris_per_cluster=tpc, device=device)
+        centers = np.full((1, 3), 0.5, np.float32)
+    else:
+        m = np.zeros((3, 3, 4), np.float32)
+        for i in range(3):
+            r, _ = np.linalg.qr(rng.randn(3, 3))
+            m[i, :, :3] = r @ np.diag(0.6 + rng.rand(3))
+            m[i, :, 3] = [1.5 * i, 0.3 * i, -0.5 * i]
+        scene = tscene.device_scene_from_instances([mesh], m, tris_per_cluster=tpc,
+                                                   device=device)
+        centers = np.einsum("iab,b->ia", m[:, :, :3], np.full(3, 0.5, np.float32)) + m[:, :, 3]
+    o = (rng.rand(n, 3) * 8.0 - 4.0).astype(np.float32)
+    target = centers[rng.randint(0, centers.shape[0], n)] + rng.rand(n, 3).astype(
+        np.float32) - 0.5
+    d = (target - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmax = np.where(rng.rand(n) < 0.25, 3.0, 3.4e38).astype(np.float32)
+    on = lambda a: torch.as_tensor(a, device=device)
+    rays = (on(o), on(d), torch.full((n,), T_MIN, device=device), on(tmax),
+            on(rng.rand(n) > 0.05))
+    return scene, rays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tpc", [64, 512, 2048])
+@pytest.mark.parametrize("kind", ["flat", "instanced"])
+def test_grouped_kernels_equal_flat_and_plain_on_gpu(kind, tpc):
+    """K9 equals K1 and K10 equals K2 on every ray, field by field; K1/K2
+    (instanced too) equal their plain versions; instanced ids are virtual;
+    each wrapper counts its own launch."""
+    _need_cuda()
+    scene, rays = _large_case(kind, tpc, "cuda")
+    assert scene.instanced == (kind == "instanced") and scene.tris_per_cluster == tpc
+    before = dict(tops.LAUNCHES)
+    k1 = tops.resident_closest(scene, *rays)
+    k9 = tops.grouped_closest(scene, *rays)
+    k2 = tops.resident_anyhit(scene, *rays)
+    k10 = tops.grouped_anyhit(scene, *rays)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == {**before, **{name: before[name] + 1 for name in (
+        "resident_closest", "grouped_closest", "resident_anyhit", "grouped_anyhit")}}
+    for f in k1._fields:
+        assert torch.equal(getattr(k9, f), getattr(k1, f)), f
+    assert torch.equal(k10, k2)
+    want = tops.resident_closest_plain(scene, *rays)
+    for f in k1._fields:
+        assert torch.equal(getattr(k1, f), getattr(want, f)), f
+    assert torch.equal(k2, tops.resident_anyhit_plain(scene, *rays))
+    assert k1.is_hit.sum() > 300 and k2.sum() > k1.is_hit.sum() // 2
+    if kind == "instanced":
+        inst = k1.tri_index[k1.is_hit] // scene.num_base_tris
+        assert set(inst.tolist()) == {0, 1, 2}
+
+
+@pytest.mark.cuda
+def test_frame_kernel_grouped_mode_is_bit_identical_on_gpu():
+    """K3 with the grouped walks gives the flat mode's image bit for bit."""
+    _need_cuda()
+    scene, lights, env, cam, kw = _frame_case("soup", "cuda")
+    cfg = RenderConfig(spp=2, **kw)
+    flat = tops.render_frame_fused(scene, lights, env, cam, 1, cfg, spp=2, grouped=False)
+    grouped = tops.render_frame_fused(scene, lights, env, cam, 1, cfg, spp=2, grouped=True)
+    assert torch.equal(flat[0], grouped[0]) and torch.equal(flat[1], grouped[1])
+    assert float(flat[0].sum()) > 0.0
+
+
+@pytest.mark.cuda
+def test_grouped_routing_through_launches_on_gpu():
+    """trace_resident and the composed frame take K9/K10 from
+    GROUPED_MIN_CLUSTERS clusters on and K1/K2 below; the frame kernel
+    never launches on an instanced scene."""
+    from pg2024_dprt_tpu_torch.render import render_image
+
+    _need_cuda()
+    scene, rays = _large_case("instanced", 64, "cuda", n=1024)
+    k = scene.num_clusters
+    saved = tres.GROUPED_MIN_CLUSTERS
+    try:
+        for limit, closest, anyhit in ((k, "grouped_closest", "grouped_anyhit"),
+                                       (k + 1, "resident_closest", "resident_anyhit")):
+            tres.GROUPED_MIN_CLUSTERS = limit
+            tops.reset_launch_counts()
+            tops.trace_resident(scene, *rays)
+            tops.trace_resident(scene, *rays, any_hit=True)
+            torch.cuda.synchronize()
+            assert {n: v for n, v in tops.LAUNCHES.items() if v} == {closest: 1, anyhit: 1}
+            lt = np.asarray([[[0.0, 3.0, 0.0], [2.0, 3.0, 0.0], [2.0, 3.0, 2.0]]], np.float32)
+            lights = tscene.LightTable.from_arrays(lt, np.full((1, 3), 40.0, np.float32),
+                                                   device="cuda")
+            env = tscene.EnvironmentMap.constant((0.4, 0.5, 0.7), device="cuda")
+            cam = Camera.look_at([1.5, 1.0, 6.0], [1.5, 0.3, 0.0], [0, 1, 0], 50.0, 32, 32,
+                                 device="cuda")
+            tops.reset_launch_counts()
+            img = render_image(scene, lights, env, cam, RenderConfig(width=32, height=32,
+                                                                     bounces=3))
+            torch.cuda.synchronize()
+            assert {n: v for n, v in tops.LAUNCHES.items() if v} == {closest: 3, anyhit: 3}
+            assert bool(torch.isfinite(img).all()) and float(img.max()) > 0.0
+    finally:
+        tres.GROUPED_MIN_CLUSTERS = saved
+
+
+@pytest.mark.cuda
+def test_route_kernel_refuses_instanced_local_geometry_on_gpu():
+    """K7 reads the table per instance-level cluster without a transform:
+    its wrapper raises on an instanced scene before any launch, and the
+    stages' gate composes such a scene."""
+    _need_cuda()
+    scene, _ = _large_case("instanced", 64, "cuda", n=256)
+    _, table, m, paths = _route_case("cuda", 10.0)
+    args = (paths.origin, paths.direction, EPS, paths.tmax, paths.is_valid, 8, MH, EPS)
+    before = dict(tops.LAUNCHES)
+    for fn in (tops.route_fused, tops.shadow_route_fused):
+        with pytest.raises(ValueError, match="instanced"):
+            fn(scene, table, m, *args)
+    assert tops.LAUNCHES == before
+    assert not tps._use_fused_route(scene, m, "auto", table, MH)

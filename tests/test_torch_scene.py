@@ -16,9 +16,10 @@ from pg2024_dprt_tpu_torch import scene as tscene
 from pg2024_dprt_tpu_torch.scene import native_bvh as t_native
 
 
-# the tensor tables of a DeviceScene (albedo_textures is a record of its own,
-# held against JAX in tests/test_torch_textures.py)
-_TABLES = [f for f in tscene.DeviceScene._fields if f != "albedo_textures"]
+# the tensor tables of a flat DeviceScene (albedo_textures is a record of its
+# own, held against JAX in tests/test_torch_textures.py; cl_xf is set on
+# instanced scenes only, held against JAX in tests/test_torch_instancing.py)
+_TABLES = [f for f in tscene.DeviceScene._fields if f not in ("albedo_textures", "cl_xf")]
 
 
 def jax_arrays(rec) -> dict:
@@ -66,8 +67,14 @@ def test_convert_carries_jax_scene_across():
     tl = tscene.light_table_from_arrays(jax_arrays(lights), device="cpu")
     for name in tl._fields:
         np.testing.assert_array_equal(getattr(tl, name).numpy(), np.asarray(getattr(lights, name)))
+    assert ts.cl_xf is None and not ts.instanced
+    # instanced scenes carry across (tests/test_torch_instancing.py); curves
+    # are not ported
+    carried = tscene.device_scene_from_arrays(
+        {**jax_arrays(js), "cl_xf": np.zeros((1, 1, 16), np.float32)}, device="cpu")
+    assert carried.instanced and tuple(carried.cl_xf.shape) == (1, 1, 16)
     with pytest.raises(NotImplementedError):
-        tscene.device_scene_from_arrays({**jax_arrays(js), "cl_xf": np.zeros((1, 1, 16))},
+        tscene.device_scene_from_arrays({**jax_arrays(js), "curves": object()},
                                         device="cpu")
     jc = JCamera.look_at([0.5, 0.5, 2.4], [0.5, 0.5, 0.0], [0, 1, 0], 40.0, 24, 16)
     tc = tscene.camera_from_arrays(
