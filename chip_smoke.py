@@ -95,7 +95,30 @@ Phases, each reported on its own line; any failure exits non-zero:
      grouped mode against its flat mode, bit-identical, and both timed.
      neural_route_1m: the phase-6 stages over the 1M soup, fused against
      composed (0 rays outside the knife-edge set), stage ms.
-Then the whole script's seconds, the kernels line (JSON, ten kernels K1-K10;
+  8. the streaming pair tracer at the widths of scripts/bench_tracer.py (not
+     cut): random_tri_soup(65536, seed=0) at 128 per cluster (K = 735),
+     65,536 camera rays (look-at [0.5, 0.5, 3] -> [0.5, 0.5, 0.5], fov 45,
+     16x16-tiled order) and 65,536 random rays (seed 1, origins rand * 1.4 -
+     0.2), tmax 3.4e38, region 96, 512 rays a tile, 4 slots a step; each
+     wavefront unsorted and Morton-sorted, and the random one at region 768,
+     where every tile fits. In each run trace_pairs is the main path of each
+     kernel (counts reset just before, read just after: {pair_closest: 1},
+     {pair_anyhit: 1}, {pair_woop: 1}); K11, K12 and K13 against their plain
+     versions on every ray of the prepared wavefront (every output equal);
+     K11 against K1 with its misses split into forced (unfit tile), cull,
+     dropped and other, K12 against K2 on the tiles whose every admitted
+     pair got a slot, K13's flags
+     against K11's (at most 1e-3 of the hits outside the forced, cull and
+     dropped misses); dropped pairs per run; CUDA-event medians of 7, Mrays/s
+     and the bounds of K1's / K2's work on the wavefront. The escalating entry
+     (_pairs_escalating from REGION = 32, sorted) on both wavefronts: its
+     launches and residue equal what the dropped count at each budget
+     implies, residue 0 on the camera wavefront. The stackless and cluster
+     back ends: cornell 32x32 spp2 b3 through render_image against the golden
+     EXR (no kernel launched), and the 64k frame's camera and first shadow
+     wavefronts (phase 3) against K1 / K2 (at most 1e-3 of the rays apart),
+     one run each timed on the host clock.
+Then the whole script's seconds, the kernels line (JSON, thirteen kernels K1-K13;
 `disagreements` is the flag disagreements of K1/K2 on the phase-4
 wavefronts, K3's outlier pixels against its plain version, K4's rows with
 another id or flag, K5/K6's values beyond tolerance, K7's decisions outside
@@ -103,7 +126,7 @@ the knife-edge set, K8's rays with another key, K9/K10's against the plain
 version on the phase-7 subsets; K9 / K10 are timed on the instanced frame's
 wavefronts, their plain ms on the 1,024-ray subset), the card line, and the
 final {"ok": true, "device": {...}} line. No earlier phase was cut to make
-room for phase 7.
+room for phases 7 and 8.
 
 Without CUDA, or run alone outside the repository, it exits non-zero and
 prints no result.
@@ -159,7 +182,7 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1):
 
 
 # kernel entry functions of csrc/ by their template argument (ILb0E / ILb1E
-# in the mangled name), as the kernels line names them
+# or ILi0E .. ILi2E in the mangled name), as the kernels line names them
 KERNEL_LABELS = {("closest_kernel", "0"): "K1 resident_closest",
                  ("closest_kernel", "1"): "K9 grouped_closest",
                  ("anyhit_kernel", "0"): "K2 resident_anyhit",
@@ -170,7 +193,10 @@ KERNEL_LABELS = {("closest_kernel", "0"): "K1 resident_closest",
                  ("mlp_pair_kernel", None): "K5 mlp_pair",
                  ("mlp_dense_kernel", None): "K6 mlp_dense",
                  ("route_kernel", "0"): "K7 route (secondary)",
-                 ("route_kernel", "1"): "K7 route (shadow)"}
+                 ("route_kernel", "1"): "K7 route (shadow)",
+                 ("pair_kernel", "0"): "K11 pair_closest",
+                 ("pair_kernel", "1"): "K12 pair_anyhit",
+                 ("pair_kernel", "2"): "K13 pair_woop"}
 
 
 def ptxas_summary(log: str) -> str:
@@ -180,7 +206,7 @@ def ptxas_summary(log: str) -> str:
 
     parts, label = [], "?"
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function .*?\d([A-Za-z_]+_kernel)(?:ILb([01])E)?", ln)
+        m = re.search(r"Compiling entry function .*?\d([A-Za-z_]+_kernel)(?:IL[bi]([0-9])E)?", ln)
         if m:
             label = KERNEL_LABELS.get((m.group(1), m.group(2)), m.group(1))
         elif "registers" in ln or "spill" in ln:
@@ -1440,6 +1466,263 @@ def route_1m(pt, torch, np, dev, counted, scene):
     return {**{k.replace(" ", "_") + "_ms": v for k, v in ms.items()}, "disagreements": outside}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the streaming pair tracer (K11-K13); the stackless and cluster
+# back ends
+
+# scripts/bench_tracer.py's settings: 96 average pair slots a tile, 512 rays a
+# tile, 4 slots a step
+PAIR_KW = dict(region=96, tile_rays=512, pairs_per_step=4)
+PAIR_KERNELS = (("pair_closest", "closest"), ("pair_anyhit", "anyhit"), ("pair_woop", "woop"))
+# (wavefront, sorted, region): bench_tracer's four runs, and the random
+# wavefront at a budget every tile fits (its tiles admit all K clusters)
+PAIR_RUNS = (("camera", False, 96), ("camera", True, 96), ("random", False, 96),
+             ("random", True, 96), ("random", False, 768))
+
+
+def host_ms(torch, fn):
+    """(fn(), ms of that one run on the host clock, synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def pair_vs_resident(torch, scene, prep, rays, hits, ref):
+    """K11 (through trace_pairs) against K1 on one wavefront. The rays K1
+    hits and K11 does not, or hits at a t more than 1e-4 apart, split by
+    the cause at K1's cluster: their tile did not fit the budget (forced
+    misses); the interval cull did not admit the cluster for their tile
+    (cull misses); the pair was admitted but its slot lay past the budget
+    (dropped); the rest. Rays only K11 hits. The rest and these are edge
+    hits, where the two Moller-Trumbore forms round otherwise."""
+    n = rays[0].shape[0]
+    tm = PAIR_KW["tile_rays"]
+    order = prep.perm if prep.perm is not None else torch.arange(n, device=rays[0].device)
+    tile = torch.empty(n, dtype=torch.int64, device=order.device)
+    tile[order] = torch.arange(n, device=order.device) // tm
+    pairs = prep.pairs
+    listed = torch.zeros_like(prep.possible)
+    real = (pairs.pair_flags & 2) != 0
+    listed[pairs.pair_tile[real].long(), pairs.pair_cluster[real].long()] = True
+    tri_map = scene.cl_tri_map.to(torch.int64)
+    slot_of = torch.full((int(tri_map.max()) + 1,), -1, dtype=torch.int64, device=tri_map.device)
+    slot_of[tri_map[tri_map >= 0]] = torch.arange(tri_map.shape[0],
+                                                  device=tri_map.device)[tri_map >= 0]
+    cl = slot_of[ref.tri_index.clamp(min=0).long()] // scene.tris_per_cluster
+    apart = hits.is_hit & ref.is_hit & ~torch.isclose(hits.t, ref.t, rtol=1e-4)
+    lost = ref.is_hit & (~hits.is_hit | apart)
+    fit = pairs.tile_fit[tile]
+    admitted = prep.possible[tile, cl]
+    return {"forced": int((lost & ~fit).sum()), "cull": int((lost & fit & ~admitted).sum()),
+            "dropped": int((lost & fit & admitted & ~listed[tile, cl]).sum()),
+            "other": int((lost & fit & admitted & listed[tile, cl]).sum()),
+            "extra": int((hits.is_hit & ~ref.is_hit).sum()), "t_apart": int(apart.sum())}
+
+
+def pair_run(pt, torch, counted, scene, wname, rays, srt, region, ref, ref_occ):
+    """One run of bench_tracer's: trace_pairs for each kernel, counts reset
+    just before and read just after; each kernel against its plain version
+    on every ray of the prepared wavefront (equal field by field); K11
+    against K1, K12 against K2, K13's flags against K11's; CUDA-event
+    medians of 7. Returns the numbers."""
+    trc = pt.ops.tracer
+    kw = dict(PAIR_KW, region=region, sort_rays=srt)
+    tm = kw["tile_rays"]
+    n_act = int(rays[4].sum())
+    prep = trc.prepare_pairs(scene, *rays, **{k: kw[k] for k in (
+        "tile_rays", "region", "pairs_per_step", "sort_rays")})
+    dropped = int(prep.pairs.dropped)
+    (hits, d1), c1 = counted(lambda: trc.trace_pairs(scene, *rays, **kw))
+    (occ, d2), c2 = counted(lambda: trc.trace_pairs(scene, *rays, any_hit=True, **kw))
+    (wh, d3), c3 = counted(lambda: trc.trace_pairs(scene, *rays, woop=True, **kw))
+    label = f"{wname}{' sorted' if srt else ''} region {region}"
+    check(c1 == {"pair_closest": 1} and c2 == {"pair_anyhit": 1} and c3 == {"pair_woop": 1},
+          f"{label}: launches {c1}, {c2}, {c3}")
+    check(d1 == d2 == d3 == dropped, f"{label}: dropped {d1} / {d2} / {d3} / {dropped}")
+    out = {"dropped": dropped, "unfit_tiles": int((~prep.pairs.tile_fit).sum()),
+           "partial_tiles": int((prep.pairs.tile_fit & (prep.pairs.tile_offset
+                                                       + prep.pairs.tile_region
+                                                       > prep.pairs.budget)).sum()),
+           "launches": {**c1, **c2, **c3}}
+    for name, mode in PAIR_KERNELS:
+        kern = getattr(trc, name)
+        got = kern(scene, prep.packed, prep.pairs, tm)
+        want, out[f"{name}_plain_ms"] = host_ms(torch, lambda: trc.pair_trace_plain(
+            scene, prep.packed, prep.pairs, tm, mode=mode))
+        got, want = (got,) if mode == "anyhit" else got, (want,) if mode == "anyhit" else want
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(same, f"{label}: {name} differs from its plain version")
+        out[f"{name}_err"] = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+                                 for a, b in zip(got, want))
+        out[f"{name}_ms"] = cuda_ms(torch, lambda: kern(scene, prep.packed, prep.pairs, tm),
+                                    reps=7)
+    out["trace_ms"] = cuda_ms(torch, lambda: trc.trace_pairs(scene, *rays, **kw), reps=7)
+    cmp = pair_vs_resident(torch, scene, prep, rays, hits, ref)
+    n_hit = int(ref.is_hit.sum())
+    edge = cmp["other"] + cmp["extra"]
+    check(edge <= 1e-3 * n_hit + 4, f"{label}: K11 and K1 disagree on {edge} rays outside "
+          "the forced, cull and dropped misses")
+    # K12 against K2 on the rays of tiles whose every admitted pair got a slot
+    pairs = prep.pairs
+    whole = pairs.tile_fit & (pairs.tile_offset + pairs.tile_region <= pairs.budget)
+    whole_rays = whole.repeat_interleave(tm)[:rays[0].shape[0]]
+    if prep.perm is not None:
+        whole_rays = pt.ops.resident.unsorted(whole_rays, prep.perm)
+    occ_dis = int((occ != ref_occ)[whole_rays].sum())
+    woop_dis = int((wh.is_hit != hits.is_hit).sum())
+    check(occ_dis <= 1e-3 * n_hit + 4 and woop_dis <= 1e-3 * n_hit + 4,
+          f"{label}: K12 / K2 disagree on {occ_dis}, K13 / K11 flags on {woop_dis} rays")
+    rate = lambda t: n_act / t / 1e3
+    print(f"phase8 {label}: dropped {dropped} pairs ({out['unfit_tiles']} of "
+          f"{prep.pairs.tile_fit.shape[0]} tiles unfit, {out['partial_tiles']} partly listed); "
+          f"launches {out['launches']}; K11 / K12 "
+          f"/ K13 equal their plain versions on every ray ok; K11 "
+          f"{out['pair_closest_ms']:.3f} ms ({rate(out['pair_closest_ms']):.1f} Mrays/s), K12 "
+          f"{out['pair_anyhit_ms']:.3f} ms, K13 {out['pair_woop_ms']:.3f} ms, trace_pairs "
+          f"{out['trace_ms']:.3f} ms (medians of 7); plain {out['pair_closest_plain_ms']:.1f} / "
+          f"{out['pair_anyhit_plain_ms']:.1f} / {out['pair_woop_plain_ms']:.1f} ms; K11 vs K1 "
+          f"({n_hit} K1 hits): misses forced {cmp['forced']}, cull {cmp['cull']}, dropped "
+          f"{cmp['dropped']}, other {cmp['other']} ({cmp['t_apart']} of these rays hit at "
+          f"another t); only K11 {cmp['extra']}; K12 vs K2 on wholly listed tiles {occ_dis}, K13 vs K11 flags "
+          f"{woop_dis}", flush=True)
+    out.update(cull_misses=cmp["cull"], k1_compare=cmp, occ_disagreements=occ_dis,
+               woop_flag_disagreements=woop_dis)
+    return out
+
+
+def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536, side=256):
+    """Phase 8; returns the kernels-line entries of K11-K13. `tris` and
+    `side` (the soup and the camera wavefront's side) are cut only to
+    rehearse the phase on the CPU."""
+    ops, trc = pt.ops, pt.ops.tracer
+    from pg2024_dprt_tpu_torch.ops.trace_api import _pairs_escalating
+
+    scene, build_s, mb = table_mb(torch, lambda: pt.scene.device_scene_from_meshes(
+        [pt.scene.random_tri_soup(tris, seed=0)], tris_per_cluster=128, device=dev))
+    rng = np.random.RandomState(1)
+    ro = rng.rand(side * side, 3).astype(np.float32) * 1.4 - 0.2
+    rd = rng.randn(side * side, 3).astype(np.float32)
+    rd = rd / np.linalg.norm(rd, axis=-1, keepdims=True)
+    waves = {"camera": camera_wavefront(pt, torch, dev, [0.5, 0.5, 3.0], [0.5, 0.5, 0.5], 45.0,
+                                        tiled=True, side=side),
+             "random": wavefront(torch, torch.as_tensor(ro, device=dev),
+                                 torch.as_tensor(rd, device=dev), dev)}
+    print(f"phase8 scene: {tris}-triangle soup, K={scene.num_clusters} C="
+          f"{scene.tris_per_cluster}; host build {build_s:.1f} s, {mb:.1f} MB of device tables "
+          f"(cl_tri_table {scene.cl_tri_table.numel() * 4 / 2**20:.1f} MB, cl_woop_table "
+          f"{scene.cl_woop_table.numel() * 4 / 2**20:.1f} MB)", flush=True)
+    refs = {w: (ops.resident_closest(scene, *r), ops.resident_anyhit(scene, *r))
+            for w, r in waves.items()}
+    runs = {}
+    for wname, srt, region in PAIR_RUNS:
+        runs[(wname, srt, region)] = pair_run(pt, torch, counted, scene, wname, waves[wname],
+                                              srt, region, *refs[wname])
+    bounds = {w: (bound(closest_work(pt, scene, waves[w], refs[w][0])),
+                  bound(anyhit_work(pt, scene, waves[w], refs[w][1]))) for w in waves}
+    for w, ((cb, cby), (ab, aby)) in bounds.items():
+        print(f"phase8 bound {w} (K1's / K2's work on it): closest {cb:.6f} ms ({cby}), any-hit "
+              f"{ab:.6f} ms ({aby})", flush=True)
+
+    # the escalating entry, from REGION: 4x, then 16x the budget
+    escalation = {}
+    for wname, rays in waves.items():
+        regions = [trc.REGION * f for f in (1, 4, 16)]
+        drops = [int(trc.prepare_pairs(scene, *rays, region=r, sort_rays=True).pairs.dropped)
+                 for r in regions]
+        (res, resid), c = counted(lambda: _pairs_escalating(scene, *rays))
+        runs_needed = next((i + 1 for i, dr in enumerate(drops) if dr == 0), 3)
+        check(c == {"pair_closest": runs_needed} and resid == drops[runs_needed - 1],
+              f"escalation {wname}: launches {c}, residue {resid}, dropped per budget {drops}")
+        if wname == "camera":
+            check(resid == 0, f"escalation on the camera wavefront leaves {resid} pairs")
+        escalation[wname] = {"dropped_per_region": dict(zip(regions, drops)), "residue": resid,
+                             "launches": c["pair_closest"]}
+        print(f"phase8 escalation {wname} (sorted, regions {regions}): dropped {drops}; "
+              f"{c['pair_closest']} launches, residue {resid} pairs", flush=True)
+
+    # the stackless and cluster back ends: cornell through render_image
+    # (composed path, no kernel) and the 64k frame's wavefronts against K1/K2
+    meshes, lights = pt.scene.cornell_box(device=dev)
+    cscene = pt.scene.device_scene_from_meshes(meshes, device=dev)
+    env = pt.scene.EnvironmentMap.constant((0.2, 0.3, 0.4), device=dev)
+    cam = pt.core.Camera.look_at([0.5, 0.5, 2.4], [0.5, 0.5, 0.0], [0, 1, 0], 40.0, 32, 32,
+                                 device=dev)
+    golden, names = pt.utils.read_exr(GOLDEN)
+    golden = golden[:, :, [names.index(ch) for ch in "RGB"]]
+    back_ends = {}
+    for tracer in ("stackless", "cluster"):
+        cfg = pt.render.RenderConfig(width=32, height=32, spp=2, bounces=3, tracer=tracer)
+        img, counts = counted(lambda: pt.render.render_image(cscene, lights, env, cam, cfg,
+                                                             device=dev))
+        img = img.cpu().numpy()
+        err = float(np.abs(img - golden).max())
+        check(counts == {} and np.allclose(img, golden, rtol=1e-3, atol=1e-4),
+              f"cornell through {tracer}: launches {counts}, max abs err {err:.3g}")
+        back_ends[tracer] = {"cornell_max_abs_err": err}
+        print(f"phase8 cornell 32x32 spp2 b3 tracer={tracer} vs golden: max abs err {err:.3g} "
+              f"(rtol 1e-3 / atol 1e-4) ok; launches {counts}", flush=True)
+    fscene = frame_scene[0]
+    for wname, any_hit in (("camera", False), ("shadow0", True)):
+        rays = frame_waves[wname]
+        n_act = int(rays[4].sum())
+        ref = (ops.resident_anyhit if any_hit else ops.resident_closest)(fscene, *rays)
+        ref_hit = ref if any_hit else ref.is_hit
+        for tracer, fn in (("stackless", lambda: ops.traverse_bvh(fscene, *rays)),
+                           ("cluster", lambda: (ops.occlusion_clusters(fscene, *rays), 0)
+                            if any_hit else ops.traverse_clusters(fscene, *rays,
+                                                                  return_dropped=True))):
+            got, ms = host_ms(torch, fn)
+            if tracer == "cluster":
+                got, dropped = got
+            else:
+                dropped = 0
+            hit = got.is_hit if not (any_hit and tracer == "cluster") else got
+            dis = int((hit != ref_hit).sum())
+            apart = 0 if any_hit else int((~torch.isclose(
+                got.t[got.is_hit & ref.is_hit], ref.t[got.is_hit & ref.is_hit], rtol=1e-4)).sum())
+            check(dropped == 0 and dis + apart <= 1e-3 * n_act + 4,
+                  f"{tracer} {wname}: {dis} flags and {apart} t disagree with "
+                  f"{'K2' if any_hit else 'K1'}, {dropped} pairs dropped")
+            back_ends[tracer][f"{wname}_ms"] = ms
+            back_ends[tracer][f"{wname}_disagreements"] = dis + apart
+            print(f"phase8 {tracer} on the 64k frame's {wname} wavefront ({n_act} rays, "
+                  f"{'any-hit' if any_hit else 'closest'}): {ms:.1f} ms (one run, host clock); "
+                  f"{dis} flag and {apart} t disagreements with {'K2' if any_hit else 'K1'} ok",
+                  flush=True)
+
+    src = "pg2024_dprt_tpu_torch/csrc/pair_trace.cu"
+    main = runs[("camera", False, 96)]
+    (cb, cby), (ab, aby) = bounds["camera"]
+    per_run = {f"{w}{' sorted' if s else ''} region {r}": {
+        k: v for k, v in out.items() if k not in ("k1_compare", "launches")}
+        for (w, s, r), out in runs.items()}
+
+    def entry(name, line, launches, bnd, by):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": f"pg2024_dprt_tpu/ops/pallas_tracer.py:{line}",
+                "launches": launches,
+                "max_abs_err": max(out[f"{name}_err"] for out in runs.values()),
+                "disagreements": 0,
+                "ms": main[f"{name}_ms"], "plain_ms": main[f"{name}_plain_ms"],
+                "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                "wavefront": "camera, unsorted, region 96",
+                "runs": {k: {m: v[m] for m in (f"{name}_ms", "dropped", "trace_ms")}
+                         for k, v in per_run.items()}}
+
+    entries = [entry("pair_closest", "186 (_kernel; pallas_call :540)",
+                     main["launches"]["pair_closest"], cb, cby),
+               entry("pair_anyhit", "124 (_occl_kernel; pallas_call :540)",
+                     main["launches"]["pair_anyhit"], ab, aby),
+               entry("pair_woop", "53 (_woop_kernel; pallas_call :530)",
+                     main["launches"]["pair_woop"], cb, cby)]
+    entries[0]["pair_phase"] = {"runs": per_run, "escalation": escalation,
+                                "back_ends": back_ends,
+                                "cull_misses": {k: v["cull_misses"] for k, v in per_run.items()}}
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -1710,6 +1993,10 @@ def main() -> int:
                           frame_1m_flat_ms=extra["k3_1m_flat_ms"])
         large[0]["large_scene"] = {"wavefronts": waves, **extra}
         kernels += large
+
+        # ---- phase 8: the pair tracer (K11-K13), the stackless and cluster back ends
+        kernels += pair_phase(pt, torch, np, dev, counted, (scene, lights, env, cam, cfg),
+                              named_wavefronts(per_bounce))
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -28,6 +28,12 @@ def cross(a, b):
         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
 
 
+def safe_inv(d):
+    """1 / d with |d| below 1e-12 replaced by +-1e-12 (the sign of d, + at
+    0): the slab tests' guarded reciprocal."""
+    return 1.0 / torch.where(d.abs() < 1e-12, torch.where(d >= 0, 1e-12, -1e-12), d)
+
+
 def norm(v):
     return torch.sqrt(dot(v, v))
 

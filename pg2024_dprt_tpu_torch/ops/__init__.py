@@ -4,6 +4,7 @@ from .frame import (
     render_frame_fused_plain,
     render_sample_fused,
 )
+from .cluster_tracer import occlusion_clusters, traverse_clusters
 from .march import march_proxies_plain, proxy_march
 from .mlp import (
     DENSE_WEIGHT_LIMIT,
@@ -45,3 +46,14 @@ from .trace_api import (
     trace_occlusion_checked,
     trace_occlusion_cutout,
 )
+from .tracer import (
+    interval_cull,
+    pair_anyhit,
+    pair_closest,
+    pair_trace_plain,
+    pair_woop,
+    prep_pairs,
+    prepare_pairs,
+    trace_pairs,
+)
+from .traversal import intersect_brute_force, moller_trumbore, traverse_bvh

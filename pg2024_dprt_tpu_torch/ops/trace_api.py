@@ -1,16 +1,30 @@
-"""Tracer selection: one closest-hit/occlusion API (counterpart of
-pg2024_dprt_tpu/ops/trace_api.py).
+"""Tracer selection: one closest-hit/occlusion API over three back ends
+(counterpart of pg2024_dprt_tpu/ops/trace_api.py).
 
-The port has one backend, "resident" (ops/resident.py): the hand-written
-CUDA kernels for CUDA tensors, their plain PyTorch versions for CPU
-tensors. "auto" means it on every device. The JAX package's "stackless" and
-"cluster" backends are not ported yet and raise NotImplementedError; on an
-instanced scene they raise ValueError, as in JAX (they would trace the base
-geometry only).
+  * "resident"  - ops/resident.py: the hand-written CUDA kernels (K1/K2,
+    K9/K10 on large scenes) for CUDA tensors, their plain PyTorch versions
+    for CPU tensors;
+  * "stackless" - ops/traversal.py: the lockstep threaded-BVH walk, plain
+    PyTorch;
+  * "cluster"   - ops/cluster_tracer.py: bulk cull, dispatch and block
+    intersection, plain PyTorch;
+  * "auto"      - resident on every device. (The JAX package's "auto" is
+    stackless on its CPU backend and resident on an accelerator; the port
+    decided in its first slice that "auto" means the kernels' contract on
+    every device, so CPU runs exercise what the card runs.)
+
+The streaming pair tracer (ops/tracer.py) is retired from this API, as in
+JAX: its tile-interval cull misses corner-edge rays that its dropped-pair
+count cannot see. "pallas" is rejected with that reason; the tracer stays
+reachable through `_pairs_escalating`, its escalating entry. On instanced
+scenes only the resident family traces (the other back ends would trace
+the base geometry), so "stackless" and "cluster" raise ValueError there.
 
 Every entry point returns a `diag` count of rays whose result may still be
-affected by tracer residue. The resident tracer has no budget, so the plain
-entry points return 0; the cutout entry points count the rays still on a
+affected by tracer residue. The plain entry points return 0, as in JAX:
+the resident and stackless back ends have no budget, and the cluster back
+end's block budget is JAX's (`traverse_clusters(return_dropped=True)`
+counts what it drops); the cutout entry points count the rays still on a
 transparent hit after `max_hops` re-traces (a 0-dim tensor, so that counting
 does not wait for the device).
 """
@@ -19,36 +33,67 @@ from __future__ import annotations
 import torch
 
 from ..scene.textures import sample_textures
+from .cluster_tracer import occlusion_clusters, traverse_clusters
 from .resident import F32_MAX, trace_resident
+from .tracer import REGION, trace_pairs
+from .traversal import traverse_bvh
 
-_NOT_PORTED = ("stackless", "cluster")
+_TRACERS = ("stackless", "cluster", "resident")
 
 
 def resolve_tracer(name: str, scene=None) -> str:
-    if (name in _NOT_PORTED and scene is not None
+    if (name in ("stackless", "cluster") and scene is not None
             and getattr(scene, "cl_xf", None) is not None):
         # only the resident family has the per-cluster object-space transform
         raise ValueError(f"tracer {name!r} does not support instanced scenes; "
                          "use 'resident'")
-    if name in ("auto", "resident"):
+    if name == "auto":
         return "resident"
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"tracer {name!r} is not ported yet; use 'resident'")
-    raise ValueError(f"unknown tracer {name!r}; valid: ('auto', 'resident')")
+    if name not in _TRACERS:
+        raise ValueError(
+            f"unknown tracer {name!r}; valid: {('auto',) + _TRACERS}. (The "
+            "streaming pair tracer 'pallas' was retired: its tile-interval cull "
+            "misses corner-edge rays - see ops/tracer.py.)")
+    return name
+
+
+def _pairs_escalating(scene, origin, direction, t_min, t_max, active,
+                      any_hit: bool = False, region: int = REGION,
+                      sort_rays: bool = True):
+    """Pair trace that never silently force-misses: if the pair budget
+    dropped any (tile, cluster) pair, re-trace the whole wavefront at 4x,
+    then at 16x the budget. Returns (result, pairs still dropped); a residue
+    after 16x is returned, never hidden."""
+    for r in (region, region * 4, region * 16):
+        res = trace_pairs(scene, origin, direction, t_min, t_max, active, region=r,
+                          any_hit=any_hit, sort_rays=sort_rays)
+        if res[1] == 0:
+            break
+    return res
 
 
 def trace_closest_checked(scene, origin, direction, t_min, t_max, active,
                           tracer: str = "auto", sort_rays: bool = False):
-    """Closest hit. Returns (HitRecord, diag)."""
-    resolve_tracer(tracer, scene)
+    """Closest hit. Returns (HitRecord, diag). sort_rays applies to the
+    resident kernels."""
+    tracer = resolve_tracer(tracer, scene)
+    if tracer == "stackless":
+        return traverse_bvh(scene, origin, direction, t_min, t_max, active), 0
+    if tracer == "cluster":
+        return traverse_clusters(scene, origin, direction, t_min, t_max, active), 0
     return trace_resident(scene, origin, direction, t_min, t_max, active,
                           sort_rays=sort_rays)
 
 
 def trace_occlusion_checked(scene, origin, direction, t_min, t_max, active,
                             tracer: str = "auto", sort_rays: bool = False):
-    """Any-hit test. Returns ((N,) bool occluded, diag)."""
-    resolve_tracer(tracer, scene)
+    """Any-hit test. Returns ((N,) bool occluded, diag); the stackless back
+    end answers it with its closest hit, as in JAX."""
+    tracer = resolve_tracer(tracer, scene)
+    if tracer == "stackless":
+        return traverse_bvh(scene, origin, direction, t_min, t_max, active).is_hit, 0
+    if tracer == "cluster":
+        return occlusion_clusters(scene, origin, direction, t_min, t_max, active), 0
     return trace_resident(scene, origin, direction, t_min, t_max, active,
                           any_hit=True, sort_rays=sort_rays)
 

@@ -4,8 +4,11 @@ serializes for both packages.
 
 What the port does with each field today:
   * `tracer`: "auto" and "resident" run the resident trace (CUDA kernels on
-    CUDA tensors, plain versions on CPU tensors); "stackless" and "cluster"
-    are not ported and raise.
+    CUDA tensors, plain versions on CPU tensors); "stackless" (the BVH walk,
+    ops/traversal.py) and "cluster" (ops/cluster_tracer.py) run their plain
+    PyTorch back ends and send the frame down the composed path;
+    ops/trace_api.py resolves the name ("pallas", the retired pair tracer,
+    is rejected as in JAX).
   * `fused_frame`: "off" runs the composed path (closest trace, shade +
     NEE, any-hit shadow trace, accumulation per bounce). "on" runs the
     fused frame (ops/frame.py: all spp in one launch of the frame kernel
@@ -40,7 +43,8 @@ class RenderConfig:
     use_neural_proxies: bool = False
     # Wavefront migration iterations safety bound (distributed path).
     max_migrations: int = 32
-    # Traversal backend: "auto" | "resident" (see module docstring).
+    # Traversal backend: "auto" | "resident" | "stackless" | "cluster"
+    # (see module docstring).
     tracer: str = "auto"
     # Whole-sample fused frame: "auto" | "off" (composed path) | "on".
     fused_frame: str = "auto"

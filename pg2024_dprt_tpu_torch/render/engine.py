@@ -7,10 +7,12 @@ Two paths render a frame, chosen by `cfg.fused_frame` (`_fused_active`):
     the frame kernel; the default on CUDA tensors for every scene its gate
     accepts;
   * the composed path, a plain Python loop. Per bounce:
-      1. closest hit of every live path (K1, ops/resident.py), with the
-         cutout re-trace for scenes with cutout textures (ops/trace_api.py);
+      1. closest hit of every live path by the configured tracer
+         (ops/trace_api.py: K1, or K9 on large scenes, for "auto"; the
+         stackless or cluster back end when named), with the cutout
+         re-trace for scenes with cutout textures;
       2. shade: env on miss, BSDF sample, next paths + NEE shadow paths;
-      3. any-hit of the shadow paths (K2); unoccluded ones add their
+      3. any-hit of the shadow paths (K2 / K10 for "auto"); unoccluded ones add their
          contribution / shadow_path_count to the direct image.
 
 Each composed stage runs under a `torch.profiler.record_function` range

@@ -25,12 +25,15 @@ from .textures import PackedTextures
 # fields that carry data the port cannot render yet
 _UNSUPPORTED = ("curves",)
 # DeviceScene fields a JAX scene may leave unset (None)
-_OPTIONAL = ("cl_gboxes", "cl_mboxes", "cl_xf")
+_OPTIONAL = ("cl_gboxes", "cl_mboxes", "cl_xf", "cl_tri_table", "cl_woop_table",
+             "node_min", "node_max", "node_first", "node_count", "node_skip",
+             "v0", "v1", "v2", "tri_valid")
 
 
 def device_scene_from_arrays(arrays: dict, device=None) -> DeviceScene:
     """Port DeviceScene from the JAX DeviceScene's fields. Fields the port
-    does not keep (BVH nodes, TPU-only tables) are ignored; curve scenes
+    does not keep (TPU-only tables, per-triangle shading arrays that
+    tri_shade packs) are ignored; curve scenes
     raise NotImplementedError. Instanced scenes carry `cl_xf` and their
     instance-level cluster and group tables across. `albedo_textures`, when
     present, is the dict of the JAX PackedTextures' fields

@@ -4,7 +4,10 @@
 `DeviceScene` (tensors) holds the tables both frame paths read: the cluster
 tables that the trace kernels and the frame kernel stream (ops/resident.py,
 ops/frame.py), the per-triangle shading rows that shading gathers
-(render/shade.py) and the packed albedo textures (scene/textures.py).
+(render/shade.py) and the packed albedo textures (scene/textures.py); and
+those of the other trace back ends: the pair tracer's triangle and Woop
+tables (ops/tracer.py), the BVH and vertex arrays of the stackless walk
+(ops/traversal.py).
 `ProxyTable` (tensors) is the global table of proxy boxes that the neural
 routing stage marches (render/proxy_stages.py).
 """
@@ -156,10 +159,20 @@ class DeviceScene(NamedTuple):
     to instance k // KB and reads table slice k % KB; a hit's id is the
     virtual id instance * num_base_tris + base canonical id.
 
+    Tables of the other trace back ends (ops/tracer.py, ops/traversal.py,
+    ops/cluster_tracer.py), built for every flat scene; on an instanced
+    scene they stay base-level and those back ends raise ValueError:
+      * cl_tri_table (K, 10*C) rows: [v0x(C) v0y v0z v1x .. v2z tmap(C)],
+        component-planar, tmap the canonical id as f32 (-1 pad);
+      * cl_woop_table (K, 16*C): per triangle M = [e1 e2 n]^-1 and b = -M v0
+        in the (4, 4*C) layout [o, 1] @ W = [o'x o'y o'z tmap]; degenerate
+        triangles have zero rows and tmap -1;
+      * node_min/max/first/count/skip: the threaded BVH (scene/bvh.py);
+      * v0/v1/v2 (T, 3) in BVH order and tri_valid (T,) bool.
+
     Left out of the port so far (callers that ask for them get
-    NotImplementedError): curves, the stackless tracer's BVH node arrays,
-    and the tables only TPU kernels read (cl_woop_table, cl_mt_table_t,
-    cl_shade_table(_t), the texture scanline pool)."""
+    NotImplementedError): curves and the tables only TPU kernels read
+    (cl_mt_table_t, cl_shade_table(_t), the texture scanline pool)."""
 
     cl_aabb_min: torch.Tensor  # (K, 3) f32 (+inf/-inf for empty clusters)
     cl_aabb_max: torch.Tensor  # (K, 3) f32
@@ -173,6 +186,17 @@ class DeviceScene(NamedTuple):
     cl_gboxes: Optional[torch.Tensor] = None  # (8, Kg) f32
     cl_mboxes: Optional[torch.Tensor] = None  # (Kg, CL_GROUP, 8) f32
     cl_xf: Optional[torch.Tensor] = None      # (I, 1, 16) f32, instanced only
+    cl_tri_table: Optional[torch.Tensor] = None   # (K, 10*C) f32
+    cl_woop_table: Optional[torch.Tensor] = None  # (K, 16*C) f32
+    node_min: Optional[torch.Tensor] = None       # (M, 3) f32
+    node_max: Optional[torch.Tensor] = None       # (M, 3) f32
+    node_first: Optional[torch.Tensor] = None     # (M,) i32
+    node_count: Optional[torch.Tensor] = None     # (M,) i32
+    node_skip: Optional[torch.Tensor] = None      # (M,) i32
+    v0: Optional[torch.Tensor] = None             # (T, 3) f32, BVH order
+    v1: Optional[torch.Tensor] = None
+    v2: Optional[torch.Tensor] = None
+    tri_valid: Optional[torch.Tensor] = None      # (T,) bool
 
     @property
     def instanced(self) -> bool:
@@ -280,14 +304,17 @@ def _pack_device_scene(host: dict, bvh: FlatBVH, tri_capacity=None,
         tri_shade[:t, 19] = host["mesh_texture_index"][omesh]
         tri_shade[:t, 20] = omesh
 
-    # cluster-major component-planar vertices (padding slots zero)
+    # cluster-major component-planar vertices (padding slots zero), row 9
+    # the canonical id as f32
+    ordered = {k: host[k][order] for k in ("v0", "v1", "v2")}
     safe = np.maximum(tri_map, 0)
-    table = np.zeros((kc, 9, c), np.float32)
+    table = np.zeros((kc, 10, c), np.float32)
     if t > 0:
         for vi, key in enumerate(("v0", "v1", "v2")):
-            a = host[key][order][safe]         # (kc*c, 3)
+            a = ordered[key][safe]             # (kc*c, 3)
             a[tri_map < 0] = 0.0
             table[:, vi * 3: vi * 3 + 3, :] = a.reshape(kc, c, 3).transpose(0, 2, 1)
+    table[:, 9, :] = tri_map.reshape(kc, c).astype(np.float32)
     v0t = table[:, 0:3, :]
     e1t = table[:, 3:6, :] - v0t
     e2t = table[:, 6:9, :] - v0t
@@ -320,6 +347,13 @@ def _pack_device_scene(host: dict, bvh: FlatBVH, tri_capacity=None,
         s_lo = np.zeros((3,), np.float32)
         s_hi = np.zeros((3,), np.float32)
 
+    def pad_tri(a):
+        out = np.zeros((tc,) + a.shape[1:], a.dtype)
+        out[:t] = a
+        return out
+
+    tri_valid = np.zeros((tc,), bool)
+    tri_valid[:t] = True
     return dict(
         cl_aabb_min=cl_min,
         cl_aabb_max=cl_max,
@@ -331,7 +365,45 @@ def _pack_device_scene(host: dict, bvh: FlatBVH, tri_capacity=None,
         tri_shade=tri_shade,
         cl_gboxes=gboxes,
         cl_mboxes=mboxes,
+        cl_tri_table=table.reshape(kc, 10 * c),
+        cl_woop_table=_woop_table(ordered, tri_map, kc, c, t),
+        node_min=bvh.bounds_min.astype(np.float32),
+        node_max=bvh.bounds_max.astype(np.float32),
+        node_first=bvh.first.astype(np.int32),
+        node_count=bvh.count.astype(np.int32),
+        node_skip=bvh.skip.astype(np.int32),
+        v0=pad_tri(ordered["v0"]),
+        v1=pad_tri(ordered["v1"]),
+        v2=pad_tri(ordered["v2"]),
+        tri_valid=tri_valid,
     )
+
+
+def _woop_table(ordered: dict, tri_map, kc: int, c: int, t: int):
+    """(K, 16*C) Woop transform table, as the JAX package builds it: per
+    triangle M = [e1 e2 n]^-1 (n = e1 x e2) and b = -M v0 in the (4, 4, C)
+    layout [input row, output block, lane]: rows 0-2 hold M's columns, row 3
+    b, block 3 holds tmap on row 3. Degenerate triangles keep zero rows and
+    tmap -1."""
+    woop = np.zeros((kc, 4, 4, c), np.float32)
+    woop[:, 3, 3, :] = tri_map.reshape(kc, c).astype(np.float32)
+    if t > 0:
+        safe = np.maximum(tri_map, 0)
+        va, vb, vc = (ordered[k][safe].reshape(kc, c, 3) for k in ("v0", "v1", "v2"))
+        e1 = vb - va
+        e2 = vc - va
+        t_mat = np.stack([e1, e2, np.cross(e1, e2)], axis=-1)  # columns e1, e2, n
+        good = (np.abs(np.linalg.det(t_mat)) > 1e-20) & (tri_map.reshape(kc, c) >= 0)
+        t_safe = np.where(good[..., None, None], t_mat, np.eye(3, dtype=np.float32))
+        m = np.linalg.inv(t_safe).astype(np.float32)          # (kc, c, 3, 3)
+        b = -np.einsum("kcij,kcj->kci", m, va).astype(np.float32)
+        m = np.where(good[..., None, None], m, 0.0)
+        b = np.where(good[..., None], b, 0.0)
+        for oc in range(3):
+            woop[:, 0:3, oc, :] = m[:, :, oc, :].transpose(0, 2, 1)
+            woop[:, 3, oc, :] = b[:, :, oc]
+        woop[:, 3, 3, :] = np.where(good, woop[:, 3, 3, :], -1.0)
+    return woop.reshape(kc, 16 * c)
 
 
 def _group_boxes(mmin, mmax, ok):

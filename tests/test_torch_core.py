@@ -153,7 +153,8 @@ def test_kernel_sources_include_only_cuda_and_their_own_headers():
     csrc = os.path.join(ROOT, "pg2024_dprt_tpu_torch", "csrc")
     own = set(os.listdir(csrc))
     assert {"resident_trace.cu", "resident_trace.cuh", "frame.cu", "proxy_march.cu",
-            "proxy_march.cuh", "proxy_mlp.cu", "proxy_mlp.cuh", "route.cu"} <= own
+            "proxy_march.cuh", "proxy_mlp.cu", "proxy_mlp.cuh", "route.cu",
+            "pair_trace.cu"} <= own
     assert set(_build.SOURCES.values()) <= own
     allowed = {"cuda_runtime.h", "cuda_bf16.h", "math_constants.h", "stdint.h"}
     bad = []
@@ -172,7 +173,10 @@ def test_kernel_sources_include_only_cuda_and_their_own_headers():
             "pg2024_dprt_tpu_torch/ops/march.py",
             "pg2024_dprt_tpu_torch/ops/mlp.py",
             "pg2024_dprt_tpu_torch/ops/route.py",
-            "pg2024_dprt_tpu_torch/render/proxy_stages.py"} <= scanned
+            "pg2024_dprt_tpu_torch/render/proxy_stages.py",
+            "pg2024_dprt_tpu_torch/ops/tracer.py",
+            "pg2024_dprt_tpu_torch/ops/traversal.py",
+            "pg2024_dprt_tpu_torch/ops/cluster_tracer.py"} <= scanned
 
 
 def test_entry_points_need_cuda_unless_told(monkeypatch):

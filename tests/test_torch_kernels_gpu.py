@@ -644,3 +644,111 @@ def test_route_kernel_refuses_instanced_local_geometry_on_gpu():
             fn(scene, table, m, *args)
     assert tops.LAUNCHES == before
     assert not tps._use_fused_route(scene, m, "auto", table, MH)
+
+
+# ---------------------------------------------------------------------------
+# the streaming pair tracer (K11 pair_closest, K12 pair_anyhit, K13
+# pair_woop): each kernel equals its plain version ray for ray
+
+def _pair_case(device, tpc, n, region, tile_rays, camera):
+    """A soup and its packed pair list, as trace_pairs prepares them."""
+    from pg2024_dprt_tpu_torch.ops import tracer as ttr
+
+    scene = device_scene_from_meshes([random_tri_soup(5000, seed=60)], tris_per_cluster=tpc,
+                                     device=device)
+    if camera:
+        side = int(np.sqrt(n))
+        cam = Camera.look_at([0.5, 0.5, 3.0], [0.5, 0.5, 0.5], [0, 1, 0], 45.0, side, side,
+                             device=device)
+        pix = torch.arange(side * side, device=device)
+        zeros = torch.zeros(side * side, device=device)
+        o, d = cam.generate_rays(pix // side, pix % side, zeros, zeros)
+        rays = (o, d, torch.full((o.shape[0],), T_MIN, device=device),
+                torch.full((o.shape[0],), 3.4e38, device=device),
+                torch.ones(o.shape[0], dtype=torch.bool, device=device))
+    else:
+        _, rays = _case(device, n=n)
+    prep = ttr.prepare_pairs(scene, *rays, tile_rays=tile_rays, region=region)
+    packed, pairs = prep.packed, prep.pairs
+    return scene, rays, packed, pairs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tpc,region,tile_rays,camera", [
+    (128, 96, 512, True), (128, 96, 256, False), (64, 8, 512, False), (2048, 16, 128, True)])
+def test_pair_kernels_match_plain_on_gpu(tpc, region, tile_rays, camera):
+    """K11, K12 and K13 against their plain versions on the same pair list:
+    every output equal (t bit for bit). region 8 leaves tiles unfit (forced
+    misses); 2,048 triangles a cluster stage 128 KB rows for K13 (opt-in
+    shared memory)."""
+    _need_cuda()
+    from pg2024_dprt_tpu_torch.ops import tracer as ttr
+
+    scene, _, packed, pairs = _pair_case("cuda", tpc, 4096, region, tile_rays, camera)
+    for name, kern, mode in (("pair_closest", ttr.pair_closest, "closest"),
+                             ("pair_woop", ttr.pair_woop, "woop"),
+                             ("pair_anyhit", ttr.pair_anyhit, "anyhit")):
+        tops.reset_launch_counts()
+        got = kern(scene, packed, pairs, tile_rays)
+        torch.cuda.synchronize()
+        assert {n: v for n, v in tops.LAUNCHES.items() if v} == {name: 1}
+        want = ttr.pair_trace_plain(scene, packed, pairs, tile_rays, mode=mode)
+        if mode == "anyhit":
+            assert torch.equal(got, want)
+            assert int(got.sum()) > 50
+            continue
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), name
+        assert int((got[1] >= 0).sum()) > 50
+    if region == 8:
+        assert int(pairs.dropped) > 0 and not bool(pairs.tile_fit.all())
+
+
+@pytest.mark.cuda
+def test_pair_tracer_matches_resident_and_escalates_on_gpu():
+    """trace_pairs on CUDA tensors launches K11 / K12 once each; its hits
+    agree with K1's and K2's except on a few rays (the pair tracer's cull
+    misses and edge hits, where its Moller-Trumbore rounds otherwise than
+    K1's triple product); the escalating entry leaves no residue and
+    launches at most 3 times."""
+    _need_cuda()
+    from pg2024_dprt_tpu_torch.ops.trace_api import _pairs_escalating
+
+    scene, rays, _, _ = _pair_case("cuda", 128, 4096, 96, 512, False)
+    tops.reset_launch_counts()
+    hits, dropped = tops.trace_pairs(scene, *rays, region=96)
+    occ, _ = tops.trace_pairs(scene, *rays, region=96, any_hit=True)
+    torch.cuda.synchronize()
+    assert {n: v for n, v in tops.LAUNCHES.items() if v} == {"pair_closest": 1,
+                                                             "pair_anyhit": 1}
+    ref = tops.resident_closest(scene, *rays)
+    n_hit = int(ref.is_hit.sum())
+    assert n_hit > 100
+    assert int((hits.is_hit != ref.is_hit).sum()) <= 1e-3 * n_hit + 2
+    assert int((occ != tops.resident_anyhit(scene, *rays)).sum()) <= 1e-3 * n_hit + 2
+    both = hits.is_hit & ref.is_hit
+    far = ~torch.isclose(hits.t[both], ref.t[both], rtol=1e-4)
+    assert int(far.sum()) <= 1e-3 * n_hit + 2
+    tops.reset_launch_counts()
+    esc, res = _pairs_escalating(scene, *rays, region=8)
+    torch.cuda.synchronize()
+    assert res == 0 and 2 <= tops.LAUNCHES["pair_closest"] <= 3
+    assert int((esc.is_hit != ref.is_hit).sum()) <= 1e-3 * n_hit + 2
+
+
+@pytest.mark.cuda
+def test_pair_wrappers_refuse_what_the_kernels_do_not_take():
+    _need_cuda()
+    from pg2024_dprt_tpu_torch.ops import tracer as ttr
+
+    scene, _, packed, pairs = _pair_case("cuda", 128, 1024, 32, 512, False)
+    before = dict(tops.LAUNCHES)
+    with pytest.raises(ValueError, match="tile_rays"):
+        ttr.pair_closest(scene, packed, pairs, 500)
+    with pytest.raises(ValueError):
+        ttr.pair_woop(scene, packed.double(), pairs, 512)
+    with pytest.raises(ValueError):
+        ttr.pair_anyhit(scene, packed, pairs._replace(pair_flags=pairs.pair_flags.long()), 512)
+    with pytest.raises(ValueError):
+        ttr.pair_closest(scene._replace(cl_tri_table=None), packed, pairs, 512)
+    assert tops.LAUNCHES == before

@@ -132,6 +132,11 @@ def test_renderer_and_unported_options():
     # fused_frame="on" runs the fused frame's plain version on CPU tensors
     fused = render_image(ts, tl, te, tc, dataclasses.replace(cfg, fused_frame="on"), device="cpu")
     np.testing.assert_allclose(fused.numpy(), img.numpy(), rtol=1e-3, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        render_image(ts, tl, te, tc, RenderConfig(width=16, height=16, tracer="stackless"),
+    # every tracer name of the JAX package renders; the retired pair tracer
+    # is rejected by name, as in JAX
+    stackless = render_image(ts, tl, te, tc, dataclasses.replace(cfg, tracer="stackless"),
+                             device="cpu")
+    np.testing.assert_allclose(stackless.numpy(), img.numpy(), rtol=1e-3, atol=1e-4)
+    with pytest.raises(ValueError, match="retired"):
+        render_image(ts, tl, te, tc, RenderConfig(width=16, height=16, tracer="pallas"),
                      device="cpu")
