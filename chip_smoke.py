@@ -118,15 +118,54 @@ Phases, each reported on its own line; any failure exits non-zero:
      EXR (no kernel launched), and the 64k frame's camera and first shadow
      wavefronts (phase 3) against K1 / K2 (at most 1e-3 of the rays apart),
      one run each timed on the host clock.
-Then the whole script's seconds, the kernels line (JSON, thirteen kernels K1-K13;
+  9. the distributed frame (parallel/distributed.py over the in-process mesh
+     of 8 partitions; launch counts reset just before each frame and read
+     just after; migration rounds per bounce, paths moved, overflow waits,
+     truncated paths, grid-culled candidates; frame ms are CUDA-event
+     medians of 3 after a warm-up):
+     9a rooms_p8 exact, the main path: two_room_scene(8, 131072, seed=2)
+        (1,048,576 triangles) through build_partitioned_scene, the camera of
+        scripts/bench_distributed_cpu8.py at 256x256, spp 1, 4 bounces, the
+        default config (migration and the exact ring shadows): the trace
+        kernels of the rule and K8 only; held against render_image of the
+        same meshes on one scene (fused_frame="off") by phase 4's frame
+        criterion; truncated 0; the idle share and stage ms of one profiled
+        frame (utils/profile.py render_device_profile); with
+        bucket_fraction 0.02 (overflow waits > 0) the same image; with
+        visibility grids the same image and grid-culled > 0, on the rooms
+        at the JAX benchmark's grid cell (128 triangles a room: the dense
+        rooms mark nearly every grid bin);
+     9b instanced_p8: phase 7's instanced frame (8 instances of a 512k soup)
+        through build_partitioned_scene_instanced, held against phase 7's
+        single-device image by the same criterion; truncated 0;
+     9c rooms_p8 neural (use_neural_proxies) with 8 PROD w256/d4 pairs
+        (phase 6's draws) and with the MULTIGEO w512/d3 pair (seeded): the
+        launches of route_secondary (P per bounce from 1), route_shadow (P
+        per bounce) and, for the multi-geo set, as many route_multigeo; on
+        the bounce-1 secondary and shadow wavefronts of the partition with
+        the most rays, K7 against its plain version and the composed stage
+        (K8, the trace kernel, K4, the nets: K6, or plain apply_multigeo)
+        on the seeded and the straddling nets, 0 disagreeing decisions
+        outside phase 6's knife-edge set (its size printed); stage ms fused
+        and composed; K7's multi-geo time, plain time and bound; the idle
+        share of the PROD frame;
+     9d the paper's A-B with the trained nets of
+        artifacts/ab_scaled/weights.npz (separate, combined, multi-geo;
+        w128/d4) on the 8-statue row of scripts/ab_neural_scaled.py (64x64,
+        spp 2, 2 bounces) against the port's exact distributed frame: mean
+        tone-mapped error x/(1+x) under 3e-4 and mean ratio in (0.99, 1.01)
+        for each family; a seeded random-weight control above 5e-4 (the
+        gates of tests/test_neural_end_to_end.py).
+Then the whole script's seconds, the kernels line (JSON, fourteen entries: K1-K13
+and K7's multi-geo mode, route_multigeo;
 `disagreements` is the flag disagreements of K1/K2 on the phase-4
 wavefronts, K3's outlier pixels against its plain version, K4's rows with
 another id or flag, K5/K6's values beyond tolerance, K7's decisions outside
 the knife-edge set, K8's rays with another key, K9/K10's against the plain
 version on the phase-7 subsets; K9 / K10 are timed on the instanced frame's
-wavefronts, their plain ms on the 1,024-ray subset), the card line, and the
-final {"ok": true, "device": {...}} line. No earlier phase was cut to make
-room for phases 7 and 8.
+wavefronts, their plain ms on the 1,024-ray subset; the route_multigeo
+entry carries phase 9's numbers), the card line, and the final {"ok": true,
+"device": {...}} line. No earlier phase was cut to make room for phases 7-9.
 
 Without CUDA, or run alone outside the repository, it exits non-zero and
 prints no result.
@@ -609,14 +648,24 @@ def straddling(pt, torch, models, vis, depth, valid):
     """The same nets with their heads' last Linear rescaled so that, on this
     query batch, vis spreads around the 0.5 threshold (mean 0.5, deviation
     0.6) and depth around 0.3 (deviation 0.15): predictions then decide
-    routes, which the seeded nets' small outputs never do."""
+    routes, which the seeded nets' small outputs never do. A net that ends in
+    a sigmoid is rescaled before it: its logits spread around 0 (vis 0.5)
+    with deviation 2."""
+    if int(valid.sum()) < 2:
+        return models
+    w_last = pt.models.param_shapes(models.vis_cfg)[-1][0]
+    b_last = pt.models.mlp.bias_name(w_last)
     out = {}
-    for key, params, pred, mean, dev_ in (("vis_params", models.vis_params, vis, 0.5, 0.6),
-                                          ("depth_params", models.depth_params, depth, 0.3, 0.15)):
+    for key, params, pred, mean, dev_, cfg in (
+            ("vis_params", models.vis_params, vis, 0.5, 0.6, models.vis_cfg),
+            ("depth_params", models.depth_params, depth, 0.3, 0.15, models.depth_cfg)):
+        if cfg.final_activation == "sigmoid":
+            pred = torch.logit(pred.clamp(1e-6, 1 - 1e-6))
+            mean, dev_ = 0.0, 2.0
         mu, sd = float(pred[valid].mean()), float(pred[valid].std())
         gain = dev_ / max(sd, 1e-6)
-        out[key] = {**params, "head_w1": params["head_w1"] * gain,
-                    "head_b1": (params["head_b1"] - mu) * gain + mean}
+        out[key] = {**params, w_last: params[w_last] * gain,
+                    b_last: (params[b_last] - mu) * gain + mean}
     return dataclasses.replace(models, **out)
 
 
@@ -678,8 +727,9 @@ def nets_work(pt, models, q_rows: int, valid_rows: int):
             + pt.models.mlp.macs_per_row(models.depth_cfg))
     biases = sum(fo for cfg in (models.vis_cfg, models.depth_cfg)
                  for _, _, fo in pt.models.param_shapes(cfg))
+    pairs = 1 if models.multi_geo else models.num_objects
     return {"flops": 2 * macs * valid_rows,
-            "bytes": q_rows * 33 + models.num_objects * (2 * macs + 4 * biases)}
+            "bytes": q_rows * 33 + pairs * (2 * macs + 4 * biases)}
 
 
 def nets_bound(work):
@@ -1408,7 +1458,8 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
     extra = {"wavefronts": waves_out, "instanced_frame_ms": inst_ms,
              "instanced_frame_launches": counts_i, "frame_1m_ms": f1m_ms,
              "k3_1m_grouped_ms": k3_ms[True], "k3_1m_flat_ms": k3_ms[False],
-             "neural_route_1m": route}
+             "neural_route_1m": route,
+             "instanced_frame_setup": (img, lights_i, env_i, cam_i, cfg_i)}
     return entries, extra
 
 
@@ -1723,6 +1774,487 @@ def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the distributed frame (partitions, migration, ring shadows, neural
+# routing in a frame) and K7's multi-geo mode
+
+ROOMS_CAMERA = ([5.0, 1.4, 6.0], [5.0, 0.8, 0.5], [0, 1, 0], 60.0)
+ROOMS_ENV = (0.25, 0.25, 0.3)
+# the A-B gates of tests/test_neural_end_to_end.py:24-77
+AB_MEAN_ERR, AB_CONTROL_ERR = 3e-4, 5e-4
+STATUE_PARTS = 8
+
+
+def profile_summary(prof):
+    """The profile's numbers the kernels line keeps (no kernel list)."""
+    return {k: prof[k] for k in ("idle_share_unprofiled", "idle_share_profiled", "busy_ms",
+                                 "unprofiled_wall_ms", "stages_ms")}
+
+
+def as_pixels(img):
+    """An (H, W, 3) image as compare_frames' (direct, env) pair."""
+    import torch
+
+    flat = img.reshape(-1, 3)
+    return flat, torch.zeros_like(flat)
+
+
+@contextlib.contextmanager
+def captured_stages(pt, store):
+    """Record the arguments of every neural stage call the distributed frame
+    makes (store["secondary"], store["shadow"]: (scene, proxies, paths,
+    my_id) in call order)."""
+    dist = pt.parallel.distributed
+    sec0, shd0 = dist.secondary_route, dist.shadow_direct_light_nn
+
+    def sec(scene, proxies, models, env, paths, my_id, *a, **k):
+        store.setdefault("secondary", []).append((scene, proxies, paths, my_id))
+        return sec0(scene, proxies, models, env, paths, my_id, *a, **k)
+
+    def shd(scene, proxies, models, sp, my_id, *a, **k):
+        store.setdefault("shadow", []).append((scene, proxies, sp, my_id))
+        return shd0(scene, proxies, models, sp, my_id, *a, **k)
+
+    dist.secondary_route, dist.shadow_direct_light_nn = sec, shd
+    try:
+        yield store
+    finally:
+        dist.secondary_route, dist.shadow_direct_light_nn = sec0, shd0
+
+
+def statue_row(pt, np, dev, side=64):
+    """The 8-statue row of scripts/ab_neural_scaled.py::_scene: statue_mesh(32,
+    seed=i) 1.1 apart along x, one per partition, a side-grazing area light
+    past the row's end, a constant sky, the camera over the row. Returns
+    (partitioned scene, lights, env, camera)."""
+    meshes = []
+    for i in range(STATUE_PARTS):
+        m = pt.scene.statue_mesh(32, seed=i)
+        off = np.asarray([1.1 * i, 0.0, 0.0], np.float32)
+        meshes.append(pt.scene.MeshGeometry(v0=m.v0 + off, v1=m.v1 + off, v2=m.v2 + off,
+                                            base_color=(0.75, 0.70, 0.62), name=f"statue{i}"))
+    part = pt.scene.build_partitioned_scene(meshes, STATUE_PARTS, device=dev)
+    cx = 1.1 * (STATUE_PARTS - 1) * 0.5 + 0.5
+    xe = 1.1 * (STATUE_PARTS - 1) + 2.5
+    quad = np.asarray(
+        [[[xe - 0.4, 0.2, 0.1], [xe + 0.4, 0.2, 0.1], [xe + 0.4, 1.0, 0.9]],
+         [[xe - 0.4, 0.2, 0.1], [xe + 0.4, 1.0, 0.9], [xe - 0.4, 1.0, 0.9]]], np.float32)
+    lights = pt.scene.LightTable.from_arrays(quad, np.full((2, 3), 60.0, np.float32),
+                                             device=dev)
+    env = pt.scene.EnvironmentMap.constant((0.25, 0.25, 0.3), device=dev)
+    cam = pt.core.Camera.look_at([cx, 1.5, 4.6], [cx, 0.5, 0.5], [0, 1, 0], 60.0, side, side,
+                                 device=dev)
+    return part, lights, env, cam
+
+
+def query_rays(pt, torch, call, shadow: bool):
+    """One captured stage call's wavefront cut to the rays that carry a proxy
+    query (after the local trace) and up to 256 other live rays, the
+    decisions' inputs on it: (scene, proxies, paths, my_id, q, local flags,
+    local t or tmax)."""
+    ops = pt.ops
+    scene, proxies, paths, my_id = call
+    live = paths.is_valid & ~paths.is_shadow if not shadow else paths.is_valid
+    eps_v = torch.full((paths.capacity,), MARCH_EPS, device=paths.origin.device)
+    t_cap = paths.tmax * (1.0 - 1e-3) if shadow else paths.tmax
+    if shadow:
+        occ, _ = ops.trace_occlusion_checked(scene, paths.origin, paths.direction, eps_v,
+                                             t_cap, live, sort_rays=True)
+        act = live & ~occ
+    else:
+        hits, _ = ops.trace_closest_checked(scene, paths.origin, paths.direction, eps_v,
+                                            t_cap, live, sort_rays=True)
+        act = live
+        t_cap = torch.where(live & hits.is_hit, hits.t, paths.tmax)
+    q = ops.proxy_march(proxies, paths.origin, paths.direction, t_cap, act, my_id, MAX_HITS,
+                        MARCH_EPS)
+    has_q = q.is_valid.reshape(-1, MAX_HITS).any(1)
+    others = torch.nonzero(live & ~has_q)[:256, 0]
+    idx = torch.sort(torch.cat([torch.nonzero(has_q)[:, 0], others])).values
+    sub = paths.gather(idx)
+    return (scene, proxies, sub, my_id), int(has_q.sum()), int(q.is_valid.sum())
+
+
+def route_checks(pt, torch, label, models, cases):
+    """K7 against its plain version and against the composed stage (K8, the
+    trace kernel, K4, the nets: K6, or plain apply_multigeo for a multi-geo
+    set) on each case's secondary and shadow wavefront (captured stage
+    calls, cut by query_rays), on the seeded nets and on the straddling ones
+    (made on the first case's queries); phase 6's knife-edge criterion.
+    Returns (max abs err of new_t, disagreements outside the knife-edge
+    sets, their sizes, the valid queries checked: secondary, shadow)."""
+    ops, stages = pt.ops, pt.render.proxy_stages
+    prepared = []
+    for name, sec, shd in cases:
+        prepared.append((name, query_rays(pt, torch, sec, False),
+                         query_rays(pt, torch, shd, True)))
+    # the straddling nets are fitted to the case with the most queries
+    prepared.sort(key=lambda c: -c[1][2])
+    err, outside = 0.0, 0
+    edges = {"seeded": [0, 0], "straddling": [0, 0]}
+    counts = [0, 0]
+    wide = None
+    for nets in ("seeded", "straddling"):
+        for name, (sec, _, _), (shd, _, _) in prepared:
+            tag = f"{label} {name}, {nets} nets"
+            scene, proxies, paths, my_id = sec
+            if paths.capacity:     # a partition without live rays has nothing to decide
+                diag = float(proxies.max_length.max())
+                live = paths.is_valid & ~paths.is_shadow
+                eps_v = torch.full((paths.capacity,), MARCH_EPS, device=paths.origin.device)
+                hits, _ = ops.trace_closest_checked(scene, paths.origin, paths.direction, eps_v,
+                                                    paths.tmax, live, sort_rays=True)
+                local_hit = live & hits.is_hit
+                local_t = torch.where(local_hit, hits.t, paths.tmax)
+                q = ops.proxy_march(proxies, paths.origin, paths.direction, local_t, live,
+                                    my_id, MAX_HITS, MARCH_EPS)
+                if wide is None:
+                    v0, d0 = stages._nn_pair(models, q.features, q.aabb_id, q.is_valid)
+                    wide = straddling(pt, torch, models, v0, d0, q.is_valid)
+                m = models if nets == "seeded" else wide
+                vis, depth = stages._nn_pair(m, q.features, q.aabb_id, q.is_valid)
+                edge = knife_edges(torch, q, vis, depth, local_t, shadow=False)
+                args = (paths.origin, paths.direction, MARCH_EPS, paths.tmax, live, my_id,
+                        MAX_HITS, MARCH_EPS)
+                dec = ops.route_fused(scene, proxies, m, *args)
+                fields = ("settled_node", "has_node", "env_miss", "no_route", "local_hit")
+                o1, _, e1 = compare_decisions(f"{tag}: K7 secondary vs plain", dec,
+                                              ops.route_fused_plain(scene, proxies, m, *args),
+                                              edge, fields, "new_t", diag)
+                o2, _, e2 = compare_decisions(
+                    f"{tag}: K7 secondary vs composed", dec,
+                    ops.route.consume_secondary(q, vis, depth, live, local_hit, local_t, my_id,
+                                                MAX_HITS), edge, fields, "new_t", diag)
+                err, outside = max(err, e1, e2), outside + o1 + o2
+                edges[nets][0] += int(edge.sum())
+                if nets == "seeded":
+                    counts[0] += int(q.is_valid.sum())
+            s_scene, s_proxies, sp, s_id = shd
+            if sp.capacity:
+                m = models if nets == "seeded" or wide is None else wide
+                s_live = sp.is_valid
+                s_t = sp.tmax * (1.0 - 1e-3)
+                s_eps = torch.full((sp.capacity,), MARCH_EPS, device=sp.origin.device)
+                occ, _ = ops.trace_occlusion_checked(s_scene, sp.origin, sp.direction, s_eps,
+                                                     s_t, s_live, sort_rays=True)
+                survives = s_live & ~occ
+                q_s = ops.proxy_march(s_proxies, sp.origin, sp.direction, s_t, survives, s_id,
+                                      MAX_HITS, MARCH_EPS)
+                vs, ds = stages._nn_pair(m, q_s.features, q_s.aabb_id, q_s.is_valid)
+                edge_s = knife_edges(torch, q_s, vs, ds, s_t, shadow=True)
+                s_args = (sp.origin, sp.direction, MARCH_EPS, s_t, s_live, s_id, MAX_HITS,
+                          MARCH_EPS)
+                dec_s = ops.shadow_route_fused(s_scene, s_proxies, m, *s_args)
+                f_s = ("occluded_local", "survives")
+                o3, _, _ = compare_decisions(
+                    f"{tag}: K7 shadow vs plain", dec_s,
+                    ops.shadow_route_fused_plain(s_scene, s_proxies, m, *s_args),
+                    edge_s, f_s, "weight", 0.0)
+                o4, _, _ = compare_decisions(
+                    f"{tag}: K7 shadow vs composed", dec_s,
+                    {"weight": ops.route.consume_shadow(q_s, vs, ds, survives, MAX_HITS),
+                     "occluded_local": occ, "survives": survives}, edge_s, f_s, "weight", 0.0)
+                outside += o3 + o4
+                edges[nets][1] += int(edge_s.sum())
+                if nets == "seeded":
+                    counts[1] += int(q_s.is_valid.sum())
+    print(f"phase9 {label}: K7 against its plain version and the composed stage on "
+          f"{len(cases)} wavefront pair(s) ({counts[0]} secondary and {counts[1]} shadow "
+          f"queries): {outside} disagreements outside the knife-edge sets (set aside: seeded "
+          f"{edges['seeded'][0]} / {edges['seeded'][1]} rays, straddling "
+          f"{edges['straddling'][0]} / {edges['straddling'][1]}); max abs err of t {err:.3g} "
+          f"ok", flush=True)
+    return err, outside, edges, counts
+
+
+def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, side=256,
+                      grid_tris=128, bucket_fraction=0.02, statue_side=64, route_rays=65536,
+                      min_frame_queries=1, min_queries=1000):
+    """Phase 9; returns the kernels-line entry of K7's multi-geo mode and the
+    phase's numbers. `inst` is phase 7's instanced frame (its single-device
+    image, lights, env, camera, config)."""
+    ops, dist = pt.ops, pt.parallel
+    P = 8
+    out = {}
+    env = pt.scene.EnvironmentMap.constant(ROOMS_ENV, device=dev)
+    cam = pt.core.Camera.look_at(*ROOMS_CAMERA, side, side, device=dev)
+    cfg = pt.render.RenderConfig(width=side, height=side, spp=1, bounces=4)
+    npix = cfg.frame_buffer_size
+
+    def frame(part, models, c, s=0):
+        return dist.render_image_distributed(part, models, lights, env, cam, c,
+                                             base_sample=s, return_stats=True, device=dev)
+
+    def timed(part, models, c):
+        seeds = iter(range(1, 1000))
+        return cuda_ms(torch, lambda: frame(part, models, c, next(seeds)), reps=3)
+
+    def report(name, st, counts, ms=None):
+        print(f"phase9 {name}: launches {counts}; migration rounds per bounce "
+              f"{st['migration_rounds'][0]}, paths moved {st['paths_moved']}, overflow waits "
+              f"{st['migration_overflow_waits']}, truncated {st['migration_truncated']}, "
+              f"grid-culled {st['grid_culled']}"
+              + (f"; frame {ms:.3f} ms (median of 3 after a warm-up)" if ms else ""), flush=True)
+
+    # ---- 9a rooms_p8, exact mode, full size
+    meshes, lights = pt.scene.two_room_scene(num_rooms=P, tris_per_room=tris_per_room, seed=2,
+                                             device=dev)
+    part, build_s, mb = table_mb(torch, lambda: pt.scene.build_partitioned_scene(
+        meshes, P, device=dev))
+    single = pt.scene.device_scene_from_meshes(meshes, device=dev)
+    want = pt.render.render_image(single, lights, env, cam,
+                                  dataclasses.replace(cfg, fused_frame="off"), device=dev)
+    print(f"phase9 rooms_p8: {P} partitions of {part.scenes[0].num_triangles} triangles "
+          f"(K={part.scenes[0].num_clusters} clusters of C={part.scenes[0].tris_per_cluster} "
+          f"each; the rule takes the {'grouped' if ops.use_grouped(part.scenes[0]) else 'flat'} "
+          f"kernels), host build {build_s:.1f} s, {mb:.1f} MB of device tables; reference: "
+          f"render_image of the same meshes on one scene, fused_frame='off'", flush=True)
+    (img, st), counts = counted(lambda: frame(part, None, cfg))
+    grouped = ops.use_grouped(part.scenes[0])
+    t_closest = "grouped_closest" if grouped else "resident_closest"
+    t_anyhit = "grouped_anyhit" if grouped else "resident_anyhit"
+    check(set(counts) == {t_closest, t_anyhit, "schedule_keys"} and counts[t_anyhit] == P * 4,
+          f"rooms_p8 exact launches {counts}")
+    check(tuple(img.shape) == (side, side, 3) and st["migration_truncated"] == 0,
+          f"rooms_p8 exact: shape {tuple(img.shape)}, truncated {st['migration_truncated']}")
+    ndis, err = compare_frames("rooms_p8 distributed vs single device", as_pixels(img),
+                               as_pixels(want), npix)
+    ms = timed(part, None, cfg)
+    report("9a rooms_p8 exact", st, counts, ms)
+    print(f"phase9 9a distributed vs single device: {ndis} outlier pixels of {npix}, max abs err "
+          f"elsewhere {err:.3g} ok", flush=True)
+    out["rooms_p8_exact"] = {"ms": ms, "launches": counts, **st}
+    prof = pt.utils.profile.render_device_profile(
+        lambda s: frame(part, None, cfg, s), dist.distributed.STAGES, reps=3)
+    print(f"phase9 9a profile: idle share {prof['idle_share_unprofiled']:.3f} (profiled "
+          f"{prof['idle_share_profiled']:.3f}), busy {prof['busy_ms']:.1f} ms of "
+          f"{prof['unprofiled_wall_ms']:.1f}, stages "
+          + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}), flush=True)
+    out["rooms_p8_exact"]["profile"] = profile_summary(prof)
+
+    # bucket pressure: small buckets overflow and retry; the same image
+    cfg_b = dataclasses.replace(cfg, bucket_fraction=bucket_fraction, max_migrations=512)
+    (img_b, st_b), counts_b = counted(lambda: frame(part, None, cfg_b))
+    check(st_b["migration_overflow_waits"] > 0 and st_b["migration_truncated"] == 0,
+          f"bucket pressure: overflow waits {st_b['migration_overflow_waits']}, truncated "
+          f"{st_b['migration_truncated']}")
+    ndis_b, _ = compare_frames("rooms_p8 bucket pressure vs single device", as_pixels(img_b),
+                               as_pixels(want), npix)
+    report(f"9a rooms_p8 exact, bucket_fraction {bucket_fraction}", st_b, counts_b)
+    print(f"phase9 9a bucket pressure vs single device: {ndis_b} outlier pixels ok", flush=True)
+    out["rooms_p8_bucket_pressure"] = st_b
+
+    # the grids: at tris_per_room the soups fill their boxes and nearly every
+    # bin is marked (shown on a subset of room 0: a bin's marking only grows
+    # with content), so the grid variant runs the rooms at the JAX benchmark's own
+    # grid cell (scripts/bench_distributed_cpu8.py: 128 triangles a room)
+    room = meshes[0]
+    k = min(4096, room.num_triangles)
+    lo_r, hi_r = room.aabb()
+    t0 = time.perf_counter()
+    sub_grid = pt.scene.build_conservative_grid(
+        np.minimum(np.minimum(room.v0[:k], room.v1[:k]), room.v2[:k]),
+        np.maximum(np.maximum(room.v0[:k], room.v1[:k]), room.v2[:k]), lo_r, hi_r)
+    print(f"phase9 9a grid of {k} of room 0's {room.num_triangles} triangles (16 x 16 cells, "
+          f"16 azimuth bins a face): {float(sub_grid.mean()):.4f} of the bins marked "
+          f"({time.perf_counter() - t0:.1f} s on the host)", flush=True)
+    out["rooms_p8_subset_grid_marked"] = float(sub_grid.mean())
+    g_meshes, _ = pt.scene.two_room_scene(num_rooms=P, tris_per_room=grid_tris, seed=2,
+                                          device=dev)
+    part_g = pt.scene.build_partitioned_scene(g_meshes, P, visibility_grids=True, device=dev)
+    want_g = pt.render.render_image(pt.scene.device_scene_from_meshes(g_meshes, device=dev),
+                                    lights, env, cam, dataclasses.replace(cfg, fused_frame="off"),
+                                    device=dev)
+    cfg_g = dataclasses.replace(cfg, use_visibility_grids=True)
+    (img_g, st_g), counts_g = counted(lambda: frame(part_g, None, cfg_g))
+    (img_n, st_n), _ = counted(lambda: frame(part_g, None, cfg))
+    check(st_g["grid_culled"] > 0 and st_g["migration_truncated"] == 0,
+          f"grids: culled {st_g['grid_culled']}, truncated {st_g['migration_truncated']}")
+    ndis_g, _ = compare_frames("rooms_p8 grids vs single device", as_pixels(img_g),
+                               as_pixels(want_g), npix)
+    ndis_n, _ = compare_frames("rooms_p8 (grid cell) without grids vs single device",
+                               as_pixels(img_n), as_pixels(want_g), npix)
+    report(f"9a rooms_p8 with visibility grids ({grid_tris} triangles a room)", st_g, counts_g)
+    print(f"phase9 9a grids: {ndis_g} outlier pixels with grids, {ndis_n} without, against the "
+          f"single device ok; paths moved {st_g['paths_moved']} with grids, {st_n['paths_moved']} "
+          f"without", flush=True)
+    out["rooms_p8_grids"] = {**st_g, "paths_moved_without": st_n["paths_moved"]}
+
+    # ---- 9b instanced_p8: phase 7's instanced frame over 8 partitions
+    inst_img, lights_i, env_i, cam_i, cfg_i = inst
+    i_meshes, grid = pt.scene.instance_grid()
+    part_i, build_i, mb_i = table_mb(torch, lambda: pt.scene.build_partitioned_scene_instanced(
+        i_meshes, grid, P, device=dev))
+    frame_i = lambda s=0: dist.render_image_distributed(part_i, None, lights_i, env_i, cam_i,
+                                                        cfg_i, base_sample=s, return_stats=True,
+                                                        device=dev)
+    (img_i, st_i), counts_i = counted(frame_i)
+    check(st_i["migration_truncated"] == 0 and tuple(img_i.shape) == tuple(inst_img.shape),
+          f"instanced_p8: truncated {st_i['migration_truncated']}")
+    ndis_i, err_i = compare_frames("instanced_p8 vs the single-device instanced frame",
+                                   as_pixels(img_i), as_pixels(inst_img),
+                                   cfg_i.frame_buffer_size)
+    seeds = iter(range(1, 1000))
+    ms_i = cuda_ms(torch, lambda: frame_i(next(seeds)), reps=3)
+    print(f"phase9 9b instanced_p8: {P} partitions of {part_i.scenes[0].cl_xf.shape[0]} instance "
+          f"(K={part_i.scenes[0].num_clusters}), host build {build_i:.1f} s, {mb_i:.1f} MB",
+          flush=True)
+    report("9b instanced_p8 exact", st_i, counts_i, ms_i)
+    print(f"phase9 9b vs phase 7's single-device instanced frame: {ndis_i} outlier pixels, max "
+          f"abs err elsewhere {err_i:.3g} ok", flush=True)
+    out["instanced_p8"] = {"ms": ms_i, "launches": counts_i, **st_i}
+
+    # ---- 9c rooms_p8, neural mode, full width: 8 PROD pairs and MULTIGEO
+    cfg_n = dataclasses.replace(cfg, use_neural_proxies=True)
+    prod = pt.models.random_proxy_models(np.random.RandomState(1), P, device=dev)
+    rng = np.random.RandomState(4)
+    mg = pt.models.multigeo_proxy_models(
+        pt.models.init_mlp(rng, pt.models.MULTIGEO_VIS, device=dev),
+        pt.models.init_mlp(rng, pt.models.MULTIGEO_DEPTH, device=dev), P,
+        pt.models.MULTIGEO_VIS, pt.models.MULTIGEO_DEPTH)
+    mg_entry = {}
+    stages = pt.render.proxy_stages
+    for label, m in (("PROD w256/d4 x 8", prod), ("MULTIGEO w512/d3", mg)):
+        store = {}
+        with captured_stages(pt, store):
+            (img_n, st_n), counts_n = counted(lambda: frame(part, m, cfg_n))
+        want_counts = {"route_secondary": P * (cfg.bounces - 1), "route_shadow": P * cfg.bounces}
+        if m.multi_geo:
+            want_counts["route_multigeo"] = sum(want_counts.values())
+        check(all(counts_n.get(k) == v for k, v in want_counts.items())
+              and (m.multi_geo or "route_multigeo" not in counts_n),
+              f"rooms_p8 neural ({label}) launches {counts_n}")
+        check(bool(torch.isfinite(img_n).all()) and float(img_n.mean()) > 0.0
+              and st_n["migration_truncated"] == 0, f"rooms_p8 neural ({label}) image")
+        ms_n = timed(part, m, cfg_n)
+        report(f"9c rooms_p8 neural, {label}", st_n, counts_n, ms_n)
+        # every partition's bounce-1 wavefronts (the stage calls of bounce 1)
+        cases = [(f"partition {i}", store["secondary"][i], store["shadow"][P + i])
+                 for i in range(P)]
+        err, outside, edges, (nq, nq_s) = route_checks(
+            pt, torch, f"9c {label}, bounce-1 wavefronts", m, cases)
+        check(nq >= min_frame_queries,
+              f"{label}: {nq} secondary queries on the bounce-1 wavefronts")
+        # the stages on the partition whose bounce-1 wavefront carries the most queries
+        counted_q = [query_rays(pt, torch, c[1], False)[2] for c in cases]
+        busiest = max(range(P), key=lambda i: counted_q[i])
+        scene, proxies, paths, my_id = cases[busiest][1]
+        s_scene, s_proxies, sp, s_id = cases[busiest][2]
+        sec_stage = lambda: stages.secondary_route(scene, proxies, m, env, paths, my_id,
+                                                   MAX_HITS, MARCH_EPS, npix)
+        shd_stage = lambda: stages.shadow_direct_light_nn(
+            s_scene, s_proxies, m, sp, s_id, MAX_HITS, MARCH_EPS, cfg.shadow_path_count, npix)
+        stage_ms = {"secondary": cuda_ms(torch, sec_stage, reps=7),
+                    "shadow": cuda_ms(torch, shd_stage, reps=7)}
+        with composed_route(pt):
+            stage_ms["secondary composed"] = cuda_ms(torch, sec_stage, reps=7)
+            stage_ms["shadow composed"] = cuda_ms(torch, shd_stage, reps=7)
+        print(f"phase9 9c {label}: bounce-1 queries per partition {counted_q}; stages on "
+              f"partition {my_id} ({int(paths.is_valid.sum())} secondary, "
+              f"{int(sp.is_valid.sum())} shadow rays; medians of 7): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()), flush=True)
+        row = {"ms": ms_n, "launches": counts_n, "stage_ms": stage_ms, "knife_edges": edges,
+               "bounce1_queries": counted_q, "disagreements": outside, **st_n}
+        if not m.multi_geo:
+            prof = pt.utils.profile.render_device_profile(
+                lambda s: frame(part, m, cfg_n, s), dist.distributed.STAGES, reps=3)
+            print(f"phase9 9c profile ({label}): idle share {prof['idle_share_unprofiled']:.3f} "
+                  f"(profiled {prof['idle_share_profiled']:.3f}), stages "
+                  + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}),
+                  flush=True)
+            row["profile"] = profile_summary(prof)
+            out["rooms_p8_neural_prod"] = row
+            continue
+        out["rooms_p8_neural_multigeo"] = row
+
+        # K7's multi-geo mode at phase 6's full width: the neural_route_64k
+        # wavefronts (65,536 random rays, 8 proxy boxes) with the MULTIGEO pair
+        r_scene, r_proxies, r_prod, r_paths, r_shadow, _ = route_config(pt, torch, np, dev,
+                                                                       n=route_rays)
+        e64, o64, edges64, (nq64, nqs64) = route_checks(
+            pt, torch, "K7 multi-geo mode on neural_route_64k", m,
+            [("neural_route_64k", (r_scene, r_proxies, r_paths, 8),
+              (r_scene, r_proxies, r_shadow, 8))])
+        check(nq64 >= min_queries, f"neural_route_64k: {nq64} secondary queries")
+        live = r_paths.is_valid
+        eps_v = torch.full((r_paths.capacity,), MARCH_EPS, device=dev)
+        rays = (r_paths.origin, r_paths.direction, eps_v, r_paths.tmax, live)
+        perm = ops.schedule_order(r_scene, *rays)
+        in_order = tuple(x[perm] for x in rays)
+        k_args = (in_order[0], in_order[1], MARCH_EPS, in_order[3], in_order[4], 8, MAX_HITS,
+                  MARCH_EPS)
+        k_ms = cuda_ms(torch, lambda: ops.route_fused(r_scene, r_proxies, m, *k_args,
+                                                      sort_rays=False), reps=7)
+        sep_ms = cuda_ms(torch, lambda: ops.route_fused(r_scene, r_proxies, r_prod, *k_args,
+                                                        sort_rays=False), reps=7)
+        s_args = (r_shadow.origin, r_shadow.direction, MARCH_EPS, r_shadow.tmax * (1.0 - 1e-3),
+                  r_shadow.is_valid, 8, MAX_HITS, MARCH_EPS)
+        ks_ms = cuda_ms(torch, lambda: ops.shadow_route_fused(r_scene, r_proxies, m, *s_args),
+                        reps=7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops.route_fused_plain(r_scene, r_proxies, m, *k_args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        # the bound: the trace's and the march's operations at the FP32 rate,
+        # the multi-geo nets' FLOPs per valid query at the bf16 rate
+        tw = closest_work(pt, r_scene, in_order, ops.resident_closest_plain(r_scene, *in_order))
+        nw = nets_work(pt, m, 0, nq64)
+        op_s = ((tw["tests"] * MT_OPS + tw["slabs"] * SLAB_OPS
+                 + march_work(r_proxies, int(live.sum()), r_paths.capacity, nq64)["ops"])
+                / FP32_FLOP_PER_S + nw["flops"] / BF16_TENSOR_FLOP_PER_S)
+        byte_s = (tw["bytes"] + nw["bytes"] + r_proxies.num_partitions * 36) / HBM_BYTES_PER_S
+        b_ms, b_by = max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s else "bytes")
+        print(f"phase9 K7 multi-geo mode on neural_route_64k in schedule order ({nq64} valid "
+              f"queries): {k_ms:.3f} ms (the 8 PROD pairs on the same rays: {sep_ms:.3f} ms), "
+              f"shadow {ks_ms:.3f} ms (medians of 7); plain {plain_ms:.1f} ms (one run); bound "
+              f"{b_ms:.6f} ms ({b_by}: {tw['tests']} ray-triangle tests, {tw['slabs']} slab "
+              f"tests, {nw['flops']} net FLOPs at the bf16 rate)", flush=True)
+        mg_entry = {
+            "name": "route_multigeo", "route": "cuda",
+            "source": "pg2024_dprt_tpu_torch/csrc/route.cu",
+            "replaces": "pg2024_dprt_tpu/ops/pallas_route.py:196 (_route_kernel, multi_geo "
+                        "mode: :202, :212-214, :354-355, :411-415, :426-427; pallas_call :729)",
+            "launches": counts_n["route_multigeo"], "max_abs_err": max(err, e64),
+            "disagreements": outside + o64, "ms": k_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "wavefront": "neural_route_64k, schedule order", "shadow_ms": ks_ms,
+            "separate_nets_ms": sep_ms, "knife_edges": {"rooms_bounce1": edges,
+                                                        "neural_route_64k": edges64}}
+
+    # ---- 9d trained nets: the paper's A-B on the card
+    part_s, lights_s, env_s, cam_s = statue_row(pt, np, dev, statue_side)
+    cfg_e = pt.render.RenderConfig(width=statue_side, height=statue_side, spp=2, bounces=2)
+    cfg_s = dataclasses.replace(cfg_e, use_neural_proxies=True)
+    families = pt.scene.load_ab_scaled_models(
+        os.path.join(ROOT, "artifacts", "ab_scaled", "weights.npz"), device=dev)
+    control = pt.models.random_proxy_models(3, STATUE_PARTS, families[0].vis_cfg,
+                                            families[0].depth_cfg, device=dev)
+    exact = dist.render_image_distributed(part_s, families[0], lights_s, env_s, cam_s, cfg_e,
+                                          device=dev)
+    tm = lambda x: x / (1.0 + x)
+    ab = {}
+    for name, m in zip(("separate", "combined", "multigeo", "random control"),
+                       (*families, control)):
+        nn, counts_s = counted(lambda: dist.render_image_distributed(
+            part_s, m, lights_s, env_s, cam_s, cfg_s, device=dev))
+        e = float((tm(nn) - tm(exact)).abs().mean())
+        ratio = float(nn.mean() / exact.mean())
+        ab[name] = {"mean_err": e, "ratio": ratio, "launches": counts_s}
+        if name == "random control":
+            check(e > AB_CONTROL_ERR, f"A-B control too weak: {e:.3g}")
+        else:
+            check(e < AB_MEAN_ERR and 0.99 < ratio < 1.01,
+                  f"A-B {name}: mean tone-mapped error {e:.3g}, ratio {ratio:.6f}")
+        if name == "multigeo":
+            check(counts_s.get("route_multigeo", 0) > 0, f"A-B multigeo launches {counts_s}")
+        print(f"phase9 9d A-B {name} (w{m.vis_cfg.width}/d{m.vis_cfg.depth}): mean tone-mapped "
+              f"error {e:.3g}, mean ratio {ratio:.6f} (gates: < {AB_MEAN_ERR} and (0.99, 1.01); "
+              f"control > {AB_CONTROL_ERR}) ok; launches {counts_s}", flush=True)
+    out["ab_trained"] = ab
+    return mg_entry, out
+
+
 def main() -> int:
     try:
         import torch
@@ -1739,9 +2271,11 @@ def main() -> int:
         import pg2024_dprt_tpu_torch.core
         import pg2024_dprt_tpu_torch.models
         import pg2024_dprt_tpu_torch.ops
+        import pg2024_dprt_tpu_torch.parallel
         import pg2024_dprt_tpu_torch.render
         import pg2024_dprt_tpu_torch.scene
         import pg2024_dprt_tpu_torch.utils
+        import pg2024_dprt_tpu_torch.utils.profile
         from pg2024_dprt_tpu_torch.ops import _build
         from pg2024_dprt_tpu_torch.scene import native_bvh
     except ImportError as e:
@@ -1987,6 +2521,7 @@ def main() -> int:
         large, extra = large_phase(pt, torch, np, dev, counted,
                                    (scene, lights, env, cam, cfg))
         waves = extra.pop("wavefronts")
+        inst = extra.pop("instanced_frame_setup")
         kernels[0]["large_scene_ms"] = {w: r["k1_ms"] for w, r in waves.items()}
         kernels[1]["large_scene_ms"] = {w: r["k2_ms"] for w, r in waves.items()}
         kernels[2].update(frame_1m_grouped_ms=extra["k3_1m_grouped_ms"],
@@ -1997,6 +2532,11 @@ def main() -> int:
         # ---- phase 8: the pair tracer (K11-K13), the stackless and cluster back ends
         kernels += pair_phase(pt, torch, np, dev, counted, (scene, lights, env, cam, cfg),
                               named_wavefronts(per_bounce))
+
+        # ---- phase 9: the distributed frame, K7's multi-geo mode
+        mg_entry, dist_out = distributed_phase(pt, torch, np, dev, counted, inst)
+        mg_entry["distributed_phase"] = json.loads(json.dumps(dist_out, default=float))
+        kernels.append(mg_entry)
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

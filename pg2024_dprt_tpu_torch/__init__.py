@@ -6,7 +6,7 @@ name:
 
   core/    — SoA path state, bit-exact TEA/LCG RNG, camera, math
   scene/   — meshes, BVH build, cluster tables, textures, lights,
-             procedural scenes
+             procedural scenes, the partitioner and visibility grids
   models/  — the neural proxies' MLP family and the grouped inference engine
   ops/     — the resident closest-hit / any-hit trace, the fused
              whole-sample frame, the proxy march, the vis/depth net pair and
@@ -15,6 +15,8 @@ name:
   render/  — the frame: the fused path (one kernel launch) and the composed
              wavefront path (camera paths, trace, shade + NEE, shadow trace,
              accumulation); the neural-proxy routing stages
+  parallel/ — the distributed frame: P partitions on an in-process mesh,
+             path migration, ring shadows, the image summed over partitions
   utils/   — EXR IO, the per-frame device profile
 
 The package imports torch and never JAX or the JAX package. Entry points put

@@ -21,11 +21,17 @@ class PathState(NamedTuple):
 
     The routing fields (is_hit, current_node, target_node, visited_mask) are
     written by the neural-proxy routing stage (render/proxy_stages.py) and
-    default to None, which the stage reads as "no hit, node -1, nothing
-    visited"; the frame paths never set them. visited_mask is uint32 in the
+    the distributed migration loop (parallel/distributed.py) and default to
+    None, which they read as "no hit, node -1, nothing visited"; the
+    single-device frame paths never set them. visited_mask is uint32 in the
     JAX record: here it is int64 holding a value below 2^32, as core/rng.py
-    holds its uint32 words. The JAX record's carried hit payload (hit_tri,
-    hit_u, hit_v) serves the distributed loop and is not ported yet."""
+    holds its uint32 words.
+
+    hit_tri / hit_u / hit_v carry the winning hit of the distributed
+    migration loop (parallel/distributed.py) with the path: the triangle id
+    and barycentrics at the partition that owns the nearest hit
+    (current_node; the t is tmax), so that the settled partition shades
+    without tracing again. They default to None like the routing fields."""
 
     origin: torch.Tensor       # (N, 3) f32
     direction: torch.Tensor    # (N, 3) f32
@@ -40,6 +46,9 @@ class PathState(NamedTuple):
     current_node: torch.Tensor = None  # (N,) i64
     target_node: torch.Tensor = None   # (N,) i64
     visited_mask: torch.Tensor = None  # (N,) i64, bit i = partition i traced
+    hit_tri: torch.Tensor = None       # (N,) i32 carried hit's triangle (-1 none)
+    hit_u: torch.Tensor = None         # (N,) f32
+    hit_v: torch.Tensor = None         # (N,) f32
 
     @property
     def capacity(self) -> int:
@@ -47,14 +56,22 @@ class PathState(NamedTuple):
 
     def with_routing(self) -> "PathState":
         """The same paths with every unset routing field at its empty value
-        (no hit, nodes -1, nothing visited)."""
+        (no hit, nodes -1, nothing visited, no carried hit)."""
         n, dev = self.capacity, self.origin.device
         fill = lambda x, v, dt: torch.full((n,), v, dtype=dt, device=dev) if x is None else x
         return self._replace(
             is_hit=fill(self.is_hit, False, torch.bool),
             current_node=fill(self.current_node, -1, torch.int64),
             target_node=fill(self.target_node, -1, torch.int64),
-            visited_mask=fill(self.visited_mask, 0, torch.int64))
+            visited_mask=fill(self.visited_mask, 0, torch.int64),
+            hit_tri=fill(self.hit_tri, -1, torch.int32),
+            hit_u=fill(self.hit_u, 0.0, torch.float32),
+            hit_v=fill(self.hit_v, 0.0, torch.float32))
+
+    def gather(self, idx: torch.Tensor) -> "PathState":
+        """Rows reordered or compacted by an index tensor (rows may repeat;
+        mask separately). Unset fields stay None."""
+        return PathState(*(None if x is None else x[idx] for x in self))
 
     @staticmethod
     def empty(n: int, device=None) -> "PathState":

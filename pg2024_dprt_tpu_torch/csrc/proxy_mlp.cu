@@ -139,7 +139,7 @@ extern "C" int mlp_pair(
     const void* vis_w, const float* vis_b, const void* depth_w, const float* depth_b,
     int width, int depth, int in_features, int head_hidden, int vis_act,
     int depth_act, float* out, void* stream) {
-  const Dims d{width, depth, in_features, head_hidden, 1};
+  const Dims d{width, depth, in_features, head_hidden, 1, 0};
   if (!mlp::dims_ok(d) || n_obj < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (q <= 0) return 0;
   const size_t bytes = mlp::smem_floats(d) * sizeof(float);
@@ -157,7 +157,7 @@ extern "C" int mlp_dense(
     const void* vis_w, const float* vis_b, const void* depth_w, const float* depth_b,
     int width, int depth, int in_features, int head_hidden, int vis_act,
     int depth_act, float* out, void* stream) {
-  const Dims d{width, depth, in_features, head_hidden, 1};
+  const Dims d{width, depth, in_features, head_hidden, 1, 0};
   if (!mlp::dims_ok(d) || n_obj < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (q <= 0) return 0;
   const size_t bytes = mlp::smem_floats(d) * sizeof(float) +

@@ -15,6 +15,15 @@
 // the input index in ascending order with explicit fmaf, so the result does
 // not depend on the --fmad flag of the translation unit.
 //
+// The multi-geo net (models/mlp.py net_forward, multi_geo=True; JAX
+// models/mlp.py:164-181): ONE net shared by every object, whose sixth input
+// is the object id / INSTANCE_DIVISOR. Encoders, features (in_features - 1)
+// -> w/8 -> w/2 and id 1 -> w/8 -> w/2 (LeakyReLU), concatenated to out1;
+// pre h = leaky(out1 W + b); the residual lead h = leaky(h W + b); `depth`
+// residual blocks; the trail h W + b without activation; the global skip
+// out1 + trail; the head w -> w/2 -> head_hidden (LeakyReLU after each) ->
+// out_features; the final activation. Same arithmetic contract as above.
+//
 // One block runs both nets (vis, depth) of ONE object over a chunk of at most
 // kRows query rows. Thread j owns output column j of every layer (columns
 // beyond the block size are strided) and keeps kRows accumulators in
@@ -45,13 +54,15 @@ static_assert(kRows % 4 == 0, "rows are read as float4");
 
 enum Activation { kNone = 0, kLeaky = 1, kSigmoid = 2 };
 
-// Architecture of a net (models/mlp.py MLPConfig, single-output family).
+// Architecture of a net (models/mlp.py MLPConfig): the single-output
+// family, or the multi-geo net when multi_geo is 1.
 struct Dims {
   int width;
   int depth;
   int in_features;
   int head_hidden;
   int out_features;
+  int multi_geo;
 };
 
 // The nets of all objects: weights bf16 and biases f32, per object the
@@ -63,14 +74,21 @@ struct Nets {
 };
 
 __host__ __device__ inline int weights_per_net(const Dims& d) {
-  const int eh = d.width / 8, eo = d.width / 2;
+  const int eh = d.width / 8, eo = d.width / 2, w = d.width;
+  if (d.multi_geo) {
+    return (d.in_features - 1) * eh + eh * eo + eh + eh * eo + (d.depth + 3) * w * w +
+           w * eo + eo * d.head_hidden + d.head_hidden * d.out_features;
+  }
   return (d.in_features - 2) * eh + eh * eo + 2 * eh + eh * eo +
-         d.depth * d.width * d.width + d.width * d.head_hidden +
-         d.head_hidden * d.out_features;
+         d.depth * w * w + w * d.head_hidden + d.head_hidden * d.out_features;
 }
 
 __host__ __device__ inline int biases_per_net(const Dims& d) {
   const int eh = d.width / 8, eo = d.width / 2;
+  if (d.multi_geo) {
+    return 2 * eh + 2 * eo + (d.depth + 3) * d.width + eo + d.head_hidden +
+           d.out_features;
+  }
   return 2 * eh + 2 * eo + d.depth * d.width + d.head_hidden + d.out_features;
 }
 
@@ -156,12 +174,120 @@ __device__ __forceinline__ void linear(const float* __restrict__ xin, int in_dim
   }
 }
 
+// The narrow last Linear: one thread per (channel, row), from the head's
+// hidden rows in `x`. Ends with a barrier.
+__device__ __forceinline__ void head_out(const Dims& d, const float* __restrict__ x,
+                                         const __nv_bfloat16* __restrict__ w,
+                                         const float* __restrict__ b, int final_act,
+                                         float* __restrict__ res) {
+  for (int idx = threadIdx.x; idx < d.out_features * kRows; idx += blockDim.x) {
+    const int ch = idx / kRows, r = idx % kRows;
+    float acc = 0.0f;
+    for (int k = 0; k < d.head_hidden; ++k) {
+      acc = fmaf(x[k * kRows + r], __bfloat162float(w[k * d.out_features + ch]), acc);
+    }
+    res[ch * kRows + r] = activate(acc + b[ch], final_act);
+  }
+  __syncthreads();
+}
+
+// The multi-geo net over the chunk whose rounded features (the id column
+// last) are in s.feat. Same buffers and contract as forward().
+__device__ __forceinline__ void forward_multigeo(const Dims& d,
+                                                 const __nv_bfloat16* __restrict__ w,
+                                                 const float* __restrict__ b, int final_act,
+                                                 const Smem& s, float* __restrict__ res) {
+  const int eh = d.width / 8, eo = d.width / 2, wd = d.width;
+  const int n_f = d.in_features - 1;
+  // encoders, first Linear: features -> xb rows [0, eh), id -> [eh, 2 eh)
+  linear(s.feat, n_f, w, b, eh, 0,
+         [&](int c, int r, float v) { s.xb[c * kRows + r] = round_bf16(leaky(v)); });
+  w += n_f * eh;
+  b += eh;
+  const __nv_bfloat16* w_f1 = w;
+  const float* b_f1 = b;
+  w += eh * eo;
+  b += eo;
+  linear(s.feat + n_f * kRows, 1, w, b, eh, eh,
+         [&](int c, int r, float v) { s.xb[(eh + c) * kRows + r] = round_bf16(leaky(v)); });
+  w += eh;
+  b += eh;
+  __syncthreads();
+  // encoders, second Linear: -> out1 (unrounded) and xa (rounded)
+  linear(s.xb, eh, w_f1, b_f1, eo, 0, [&](int c, int r, float v) {
+    const float a = leaky(v);
+    s.out1[c * kRows + r] = a;
+    s.xa[c * kRows + r] = round_bf16(a);
+  });
+  linear(s.xb + eh * kRows, eh, w, b, eo, eo, [&](int c, int r, float v) {
+    const float a = leaky(v);
+    s.out1[(eo + c) * kRows + r] = a;
+    s.xa[(eo + c) * kRows + r] = round_bf16(a);
+  });
+  w += eh * eo;
+  b += eo;
+  __syncthreads();
+  // pre block, then the residual lead: h = leaky(x W + b)
+  float* cur = s.xa;
+  float* nxt = s.xb;
+  for (int i = 0; i < 2; ++i) {
+    linear(cur, wd, w, b, wd, 0, [&](int c, int r, float v) {
+      const float a = leaky(v);
+      s.h[c * kRows + r] = a;
+      nxt[c * kRows + r] = round_bf16(a);
+    });
+    w += wd * wd;
+    b += wd;
+    __syncthreads();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  // residual blocks: h = leaky(h + h W + b)
+  for (int i = 0; i < d.depth; ++i) {
+    linear(cur, wd, w, b, wd, 0, [&](int c, int r, float v) {
+      const float a = leaky(s.h[c * kRows + r] + v);
+      s.h[c * kRows + r] = a;
+      nxt[c * kRows + r] = round_bf16(a);
+    });
+    w += wd * wd;
+    b += wd;
+    __syncthreads();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  // the trail, no activation, and the global skip: out1 + (h W + b)
+  linear(cur, wd, w, b, wd, 0, [&](int c, int r, float v) {
+    nxt[c * kRows + r] = round_bf16(s.out1[c * kRows + r] + v);
+  });
+  w += wd * wd;
+  b += wd;
+  __syncthreads();
+  // head: w -> w/2 -> head_hidden -> out_features
+  linear(nxt, wd, w, b, eo, 0,
+         [&](int c, int r, float v) { cur[c * kRows + r] = round_bf16(leaky(v)); });
+  w += wd * eo;
+  b += eo;
+  __syncthreads();
+  linear(cur, eo, w, b, d.head_hidden, 0,
+         [&](int c, int r, float v) { nxt[c * kRows + r] = round_bf16(leaky(v)); });
+  w += eo * d.head_hidden;
+  b += d.head_hidden;
+  __syncthreads();
+  head_out(d, nxt, w, b, final_act, res);
+}
+
 // One net of one object over the chunk whose rounded features are in s.feat.
 // Writes the predictions to res[channel * kRows + row]. All threads of the
 // block call it; it ends with a barrier.
 __device__ __forceinline__ void forward(const Dims& d, const __nv_bfloat16* __restrict__ w,
                                         const float* __restrict__ b, int final_act,
                                         const Smem& s, float* __restrict__ res) {
+  if (d.multi_geo) {
+    forward_multigeo(d, w, b, final_act, s, res);
+    return;
+  }
   const int eh = d.width / 8, eo = d.width / 2, wd = d.width;
   const int n_o = d.in_features - 2;
   // encoders, first Linear: features -> xb rows [0, eh) and [eh, 2 eh)
@@ -225,15 +351,7 @@ __device__ __forceinline__ void forward(const Dims& d, const __nv_bfloat16* __re
   b += d.head_hidden;
   __syncthreads();
   // the last Linear is narrow: one thread per (channel, row)
-  for (int idx = threadIdx.x; idx < d.out_features * kRows; idx += blockDim.x) {
-    const int ch = idx / kRows, r = idx % kRows;
-    float acc = 0.0f;
-    for (int k = 0; k < d.head_hidden; ++k) {
-      acc = fmaf(cur[k * kRows + r], __bfloat162float(w[k * d.out_features + ch]), acc);
-    }
-    res[ch * kRows + r] = activate(acc + b[ch], final_act);
-  }
-  __syncthreads();
+  head_out(d, cur, w, b, final_act, res);
 }
 
 // Both nets of object `obj` over a chunk of `count` (<= kRows) rows:

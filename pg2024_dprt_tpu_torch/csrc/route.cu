@@ -21,10 +21,14 @@
 //      shared memory (features, table row, inside flag, t, ratio).
 //   2. the block groups the tile's valid records by object (counting sort in
 //      shared memory) and runs each present object's vis and depth net over
-//      chunks of its records only; invalid records cost nothing (the TPU
-//      kernel's rank-compaction helpers lane_cumsum_exclusive / chunk_onehot
-//      exist to skip matrix-unit work on zeroed rows; here such rows are
-//      simply not in any chunk). Then each ray's thread consumes its
+//      chunks of its records only (multi-geo mode: one shared net pair, one
+//      group of every valid record, the sixth feature max(obj, 0) /
+//      INSTANCE_DIVISOR of the record's proxy row, as the TPU kernel's
+//      multi_geo mode, pallas_route.py:411-415); invalid records cost
+//      nothing (the TPU kernel's rank-compaction helpers
+//      lane_cumsum_exclusive / chunk_onehot exist to skip matrix-unit work on
+//      zeroed rows; here such rows are simply not in any chunk). Then each
+//      ray's thread consumes its
 //      max_hits predictions:
 //        secondary: pred_t per record (entry t + length, or inside: t -
 //        length clamped at 0), the nearest visible prediction below the
@@ -42,7 +46,8 @@
 //
 // What bounds it on an H100: operations — the ray-triangle and slab tests of
 // the trace plus 2 x 286,944 multiply-adds per valid record at the
-// production width; the nets run on the FP32 pipes in this first version.
+// production width (2 x 1,753,536 for the multi-geo nets at w512 / d3); the
+// nets run on the FP32 pipes in this first version.
 //
 // Built with --fmad=false for the trace and march arithmetic; the nets'
 // sums use explicit fmaf (proxy_mlp.cuh).
@@ -60,6 +65,9 @@ using resident::Tables;
 
 constexpr int kRays = mlp::kThreads;  // rays of a tile, one per thread
 constexpr float kF32Max = 3.402823466e38f;
+// the multi-geo net reads the object id as id / kInstanceDivisor
+// (models/proxy.py INSTANCE_DIVISOR)
+constexpr float kInstanceDivisor = 4.0f;
 
 struct Rays {
   const float* __restrict__ o;        // (N, 3)
@@ -152,9 +160,12 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
   __syncthreads();
 
   // ---- 2. the nets over the tile's valid records, grouped by object
+  // the net of a record: its object's pair, or the one shared multi-geo pair
+  auto net_of = [&](int code) {
+    return code < 0 ? -1 : (dm.multi_geo ? 0 : tb.obj[code & 255]);
+  };
   for (int k = 0; k < max_hits; ++k) {
-    const int code = q_code[base + k];
-    const int ob = code >= 0 ? tb.obj[code & 255] : -1;
+    const int ob = net_of(q_code[base + k]);
     if (ob >= 0 && ob < n_obj) atomicAdd(&cnt[ob], 1);
   }
   __syncthreads();
@@ -168,8 +179,7 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
   }
   __syncthreads();
   for (int k = 0; k < max_hits; ++k) {
-    const int code = q_code[base + k];
-    const int ob = code >= 0 ? tb.obj[code & 255] : -1;
+    const int ob = net_of(q_code[base + k]);
     if (ob >= 0 && ob < n_obj) list[atomicAdd(&fill[ob], 1)] = base + k;
   }
   __syncthreads();
@@ -179,7 +189,11 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
       const int* chunk = list + start[o] + b0;
       mlp::pair_chunk(
           dm, vis, depth, o, min(mlp::kRows, total - b0), smem,
-          [&](int r, int f) { return q_feat[5 * chunk[r] + f]; },
+          [&](int r, int f) {
+            return f < 5 ? q_feat[5 * chunk[r] + f]
+                         : fmaxf((float)tb.obj[q_code[chunk[r]] & 255], 0.0f) /
+                               kInstanceDivisor;
+          },
           [&](int r, float v, float dp) {
             q_vis[chunk[r]] = v;
             q_depth[chunk[r]] = dp;
@@ -241,7 +255,8 @@ template <bool kShadow>
 int launch(const Rays& rays, const Tables& scene, const march::Table& tb,
            int max_hits, float eps, int n_obj, const Dims& dm, const Nets& vis,
            const Nets& depth, const Out& out, void* stream) {
-  if (!mlp::dims_ok(dm) || dm.in_features != 5 || n_obj < 1 || max_hits < 1 ||
+  if (!mlp::dims_ok(dm) || dm.in_features != (dm.multi_geo ? 6 : 5) || n_obj < 1 ||
+      (dm.multi_geo && n_obj != 1) || max_hits < 1 ||
       tb.p < 1 || tb.p > march::kMaxRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -262,7 +277,8 @@ int launch(const Rays& rays, const Tables& scene, const march::Table& tb,
 // C entry points: launch on the caller's stream and return the first CUDA
 // error (0 = launched). Arguments in groups: the rays; the scene's cluster
 // tables; the proxy table (xf, omin, ospan null unless instanced); the
-// march's and the nets' parameters; the outputs.
+// march's and the nets' parameters (n_obj net pairs; one with multi_geo);
+// the outputs.
 #define ROUTE_ARGS                                                              \
   const float *o, const float *d, const float *tmin, const float *tmax,         \
       const uint8_t *active, int n, const float *boxes, const float *table,     \
@@ -272,7 +288,8 @@ int launch(const Rays& rays, const Tables& scene, const march::Table& tb,
       const float *xf, const float *omin, const float *ospan, int p,            \
       int my_node, int max_hits, float eps, int n_obj, const void *vis_w,       \
       const float *vis_b, const void *depth_w, const float *depth_b, int width, \
-      int depth, int in_features, int head_hidden, int vis_act, int depth_act
+      int depth, int in_features, int head_hidden, int multi_geo, int vis_act, \
+      int depth_act
 
 #define ROUTE_LAUNCH(SHADOW, OUT)                                                \
   launch<SHADOW>(                                                                \
@@ -280,7 +297,8 @@ int launch(const Rays& rays, const Tables& scene, const march::Table& tb,
       Tables{boxes, table, tri_map, counts, scene_aabb, nk, c},                  \
       march::Table{bmin, bmax, max_length, node, obj, xf, omin, ospan, p,        \
                    my_node},                                                     \
-      max_hits, eps, n_obj, Dims{width, depth, in_features, head_hidden, 1},     \
+      max_hits, eps, n_obj,                                                      \
+      Dims{width, depth, in_features, head_hidden, 1, multi_geo},                \
       Nets{static_cast<const __nv_bfloat16*>(vis_w), vis_b, vis_act},            \
       Nets{static_cast<const __nv_bfloat16*>(depth_w), depth_b, depth_act}, OUT, \
       stream)

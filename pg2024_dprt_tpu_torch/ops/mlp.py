@@ -61,20 +61,27 @@ def use_dense(vis_params: dict, depth_params: dict) -> bool:
     return param_bytes(vis_params) + param_bytes(depth_params) <= DENSE_WEIGHT_LIMIT
 
 
-def pair_refusal(vis_cfg: MLPConfig, depth_cfg: MLPConfig):
+def pair_refusal(vis_cfg: MLPConfig, depth_cfg: MLPConfig, multi_geo: bool = False):
     """Why the pair kernels (K5, K6, and K7's nets) do not take this pair of
-    architectures, or None when they do."""
+    architectures, or None when they do. K5 and K6 take the single-output
+    family; with `multi_geo` the question is K7's, which also takes the
+    shared multi-geo net (6 inputs)."""
     if not same_architecture(vis_cfg, depth_cfg):
         return "the pair kernels need architecturally identical vis/depth nets"
     for cfg in (vis_cfg, depth_cfg):
-        if cfg.multi_geo or cfg.out_features != 1:
-            return "the pair kernels take single-output, non-multi-geo nets"
+        if cfg.out_features != 1:
+            return "the pair kernels take single-output nets"
+        if cfg.multi_geo != multi_geo:
+            return ("the route kernel's multi-geo mode takes multi-geo nets only"
+                    if multi_geo else "the pair kernels take non-multi-geo nets")
         if cfg.final_activation not in ACTIVATIONS:
             return f"unknown final activation {cfg.final_activation!r}"
     c = vis_cfg
     if (c.width < 16 or c.width % 8 or not 3 <= c.in_features <= MAX_FEATURES
             or not 1 <= c.head_hidden <= c.width):
         return f"the pair kernels do not take the architecture {c}"
+    if multi_geo and c.in_features != 6:
+        return f"the multi-geo mode does not take the architecture {c}"
     if forward_smem_bytes(c) + 4096 > SMEM_LIMIT:
         return f"width {c.width} exceeds the kernels' shared memory"
     return None
@@ -109,8 +116,9 @@ def pack_nets(params: dict, cfg: MLPConfig, num_objects: int):
 
 def packed_pair(models):
     """(vis weights, vis biases, depth weights, depth biases) of a
-    ProxyModels record, as the kernels read them. The packed copy is kept on
-    the record beside the param tensors it was made from and their versions,
+    ProxyModels record, as the kernels read them (a multi-geo record's one
+    shared pair as a table of one net). The packed copy is kept on the
+    record beside the param tensors it was made from and their versions,
     and is made anew when a param was replaced or written in place since."""
     tensors = [*models.vis_params.values(), *models.depth_params.values()]
     versions = [t._version for t in tensors]
@@ -118,9 +126,14 @@ def packed_pair(models):
     # the kept tensors stay alive, so `is` cannot match a new tensor
     if (kept is None or kept[1] != versions or len(kept[0]) != len(tensors)
             or any(a is not b for a, b in zip(kept[0], tensors))):
-        kept = (tensors, versions, (
-            *pack_nets(models.vis_params, models.vis_cfg, models.num_objects),
-            *pack_nets(models.depth_params, models.depth_cfg, models.num_objects)))
+        if models.multi_geo:
+            one = lambda params: {k: v[None] for k, v in params.items()}
+            packs = (pack_nets(one(models.vis_params), models.vis_cfg, 1),
+                     pack_nets(one(models.depth_params), models.depth_cfg, 1))
+        else:
+            packs = (pack_nets(models.vis_params, models.vis_cfg, models.num_objects),
+                     pack_nets(models.depth_params, models.depth_cfg, models.num_objects))
+        kept = (tensors, versions, (*packs[0], *packs[1]))
         models.cache["packed_pair"] = kept
     return kept[2]
 

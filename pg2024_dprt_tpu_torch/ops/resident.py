@@ -28,7 +28,8 @@ versions are K1's and K2's. A wrapper runs the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 `LAUNCHES` counts the kernel launches of each wrapper (those of
 ops/frame.py, ops/march.py, ops/mlp.py, ops/route.py and ops/tracer.py as
-well; the route kernel counts each of its two entry points).
+well; the route kernel counts each of its two entry points, and its
+multi-geo launches once more under route_multigeo).
 
 The closest-hit winner is the lexicographic minimum of (t, slot) with slot =
 cluster * C + lane, so kernel and plain version agree whatever order the
@@ -52,8 +53,8 @@ F32_MAX = 3.402823466e38
 LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0, "grouped_closest": 0,
             "grouped_anyhit": 0, "schedule_keys": 0, "frame_sample": 0,
             "proxy_march": 0, "mlp_pair": 0, "mlp_dense": 0,
-            "route_secondary": 0, "route_shadow": 0, "pair_closest": 0,
-            "pair_anyhit": 0, "pair_woop": 0}
+            "route_secondary": 0, "route_shadow": 0, "route_multigeo": 0,
+            "pair_closest": 0, "pair_anyhit": 0, "pair_woop": 0}
 
 # the group fan-out the grouped kernels read (scene/geometry.py CL_GROUP)
 GROUP = 8

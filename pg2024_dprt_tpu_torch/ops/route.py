@@ -24,9 +24,15 @@ With `sort_rays` the wrapper runs K7 on the wavefront in schedule order
 sort, one gather) and returns the decisions in the caller's order. The
 decisions are per ray and do not depend on it; it is on by default for
 secondary rays, which are scattered, and off for shadow rays, as in the JAX
-package. Multi-geo and combined models, nets of different architectures and
-shapes beyond the kernel's shared memory are not taken (`fused_route_takes`):
-the stage composes for them.
+package. Combined models, nets of different architectures and shapes
+beyond the kernel's shared memory are not taken (`fused_route_takes`): the
+stage composes for them.
+
+Multi-geo models (one shared vis/depth pair whose sixth input is the
+record's object id / INSTANCE_DIVISOR, the JAX kernel's multi_geo mode) run
+K7's multi-geo mode: every valid record goes through the one pair. Those
+launches also count under `route_multigeo`. The plain version runs
+models/proxy.py::apply_multigeo, the composed stage's function.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import torch
 
 from . import _build
 from .march import ProxyTableArgs, march_proxies_plain
+from ..models.proxy import apply_multigeo
 from .mlp import (
     ACTIVATIONS, KERNEL_THREADS, SMEM_LIMIT, forward_smem_bytes,
     grouped_mlp_dense_plain, packed_pair, pair_refusal,
@@ -48,27 +55,35 @@ from .resident import (
 F32_EPS = 1.1920929e-7
 
 
-def route_smem_bytes(cfg, max_hits: int, num_objects: int) -> int:
+def net_pairs(models) -> int:
+    """Net pairs K7 holds: one per object, one shared multi-geo pair."""
+    return 1 if models.multi_geo else models.num_objects
+
+
+def route_smem_bytes(cfg, max_hits: int, num_nets: int) -> int:
     """Bytes of shared memory of one K7 tile (csrc/route.cu smem_bytes): the
-    nets' forward, 11 words per query record, 3 per object."""
+    nets' forward, 11 words per query record, 3 per net pair."""
     return (forward_smem_bytes(cfg) + KERNEL_THREADS * max_hits * 11 * 4
-            + 3 * num_objects * 4)
+            + 3 * num_nets * 4)
 
 
 def fused_route_takes(models, proxies=None, max_hits: int = 1) -> bool:
-    """What K7 runs: separate single-output 5-feature vis and depth nets of
-    one architecture the pair kernels take, one pair per object; with a
-    proxy table, a net pair for every row of a table without instancing;
-    a tile (nets, `max_hits` records per ray) within shared memory."""
-    if models.combined or models.multi_geo:
+    """What K7 runs: separate single-output vis and depth nets of one
+    architecture the pair kernels take, either one 5-feature pair per
+    object (with a proxy table, a pair for every row of a table without
+    instancing) or one shared 6-feature multi-geo pair; a tile (nets,
+    `max_hits` records per ray) within shared memory."""
+    if models.combined:
         return False
-    if pair_refusal(models.vis_cfg, models.depth_cfg) or models.vis_cfg.in_features != 5:
+    cfg = models.vis_cfg
+    if pair_refusal(cfg, models.depth_cfg, multi_geo=models.multi_geo):
         return False
-    if (proxies is not None and not proxies.instanced
+    if cfg.in_features != (6 if models.multi_geo else 5):
+        return False
+    if (not models.multi_geo and proxies is not None and not proxies.instanced
             and proxies.num_partitions > models.num_objects):
         return False
-    return max_hits >= 1 and route_smem_bytes(
-        models.vis_cfg, max_hits, models.num_objects) <= SMEM_LIMIT
+    return max_hits >= 1 and route_smem_bytes(cfg, max_hits, net_pairs(models)) <= SMEM_LIMIT
 
 
 # --------------------------------------------------------------------------
@@ -131,9 +146,9 @@ def _expand(x, n, device):
     return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n).contiguous()
 
 
-_REFUSAL = ("the fused route takes separate single-output 5-feature vis/depth nets "
-            "of one architecture, a net pair per proxy row and a tile within shared "
-            "memory (see fused_route_takes)")
+_REFUSAL = ("the fused route takes separate single-output vis/depth nets of one "
+            "architecture, a 5-feature pair per proxy row or one 6-feature multi-geo "
+            "pair, and a tile within shared memory (see fused_route_takes)")
 
 
 def _route_args(scene, proxies, models, origin, direction, t_min, t_max, active,
@@ -162,8 +177,8 @@ def _route_args(scene, proxies, models, origin, direction, t_min, t_max, active,
         *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
         _ptr(tab["cl_tri_map"]), _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c,
         *table.pointers, table.p, int(my_id), int(max_hits), float(eps),
-        models.num_objects, *map(_ptr, packed), cfg.width, cfg.depth, cfg.in_features,
-        cfg.head_hidden, ACTIVATIONS[models.vis_cfg.final_activation],
+        net_pairs(models), *map(_ptr, packed), cfg.width, cfg.depth, cfg.in_features,
+        cfg.head_hidden, int(models.multi_geo), ACTIVATIONS[models.vis_cfg.final_activation],
         ACTIVATIONS[models.depth_cfg.final_activation]]
     return args, n, perm, (rays, tab, table, packed)
 
@@ -192,6 +207,7 @@ def route_fused(scene, proxies, models, origin, direction, t_min, t_max, active,
     _check(rc, "route_secondary")
     if n:
         LAUNCHES["route_secondary"] += 1
+        LAUNCHES["route_multigeo"] += int(models.multi_geo)
     return _in_order(dict(settled_node=node, new_t=new_t, has_node=flags[0],
                           env_miss=flags[1], no_route=flags[2], local_hit=flags[3]), perm)
 
@@ -217,6 +233,7 @@ def shadow_route_fused(scene, proxies, models, origin, direction, t_min, t_max,
     _check(rc, "route_shadow")
     if n:
         LAUNCHES["route_shadow"] += 1
+        LAUNCHES["route_multigeo"] += int(models.multi_geo)
     return _in_order(dict(weight=weight, occluded_local=occluded, survives=survives), perm)
 
 
@@ -226,7 +243,7 @@ def _lib():
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         common = ([p] * 5 + [i] + [p] * 5 + [i, i]      # rays, cluster tables
                   + [p] * 8 + [i, i, i, f]              # proxy table, march
-                  + [i] + [p] * 4 + [i] * 6)            # nets
+                  + [i] + [p] * 4 + [i] * 7)            # nets
         lib.route_secondary.argtypes = common + [p] * 6 + [p]
         lib.route_secondary.restype = i
         lib.route_shadow.argtypes = common + [p] * 3 + [p]
@@ -239,6 +256,10 @@ def _lib():
 # plain PyTorch versions
 
 def _plain_nets(models, q):
+    if models.multi_geo:
+        args = (q.features, q.aabb_id, q.is_valid)
+        return (apply_multigeo(models.vis_params, models.vis_cfg, *args),
+                apply_multigeo(models.depth_params, models.depth_cfg, *args))
     return grouped_mlp_dense_plain(models, q.features, q.aabb_id, q.is_valid)
 
 

@@ -17,8 +17,8 @@ What the port does with each field today:
     `tracer` is "auto" or "resident" and the gate accepts the scene (no
     cutout textures, at least one light, bounces <= 8), else composed.
   * `use_neural_proxies`, `max_proxy_hits`, `max_migrations`,
-    `bucket_fraction` and `use_visibility_grids` serve the distributed and
-    neural paths, not ported yet; the single-device frame ignores them,
+    `bucket_fraction` and `use_visibility_grids` serve the distributed
+    frame (parallel/distributed.py); the single-device frame ignores them,
     as the JAX package's does.
 """
 from __future__ import annotations

@@ -49,12 +49,13 @@ def _use_fused_route(scene: DeviceScene, models: ProxyModels, tracer: str,
     """True when the one-kernel routing stage (ops/route.py) applies: CUDA
     tensors with the resident tracer, a scene without cutout textures and
     without instanced local geometry, separate vis/depth nets of one
-    architecture. The semantic conditions of the JAX gate; its weight budget
-    is a limit of the TPU kernel's fast memory and is dropped (the kernel
-    reads the nets from global memory). Multi-geo models compose: the kernel
-    does not run the shared 6-feature net yet. So does what the kernel's
-    wrapper would refuse for its shape (`fused_route_takes`: a proxy row
-    without a net pair, a tile beyond shared memory)."""
+    architecture (per-object pairs, or the shared multi-geo pair, which K7
+    runs in its multi-geo mode). The semantic conditions of the JAX gate;
+    its weight budget is a limit of the TPU kernel's fast memory and is
+    dropped (the kernel reads the nets from global memory). What the
+    kernel's wrapper would refuse for its shape composes
+    (`fused_route_takes`: a proxy row without a net pair, a tile beyond
+    shared memory)."""
     if models.combined:
         return False  # the combined double-output net runs the composed path
     if scene.cl_mt_table.device.type != "cuda" or tracer not in ("auto", "resident"):

@@ -4,6 +4,7 @@ from .convert import (
     device_scene_from_arrays,
     environment_from_arrays,
     light_table_from_arrays,
+    load_ab_scaled_models,
     load_mlp_checkpoint,
     mlp_params_from_arrays,
     packed_textures_from_arrays,
@@ -23,9 +24,20 @@ from .lights import EnvironmentMap, LightTable
 from .procedural import (
     auto_light,
     cornell_box,
+    instance_grid,
     instanced_frame,
     random_tri_soup,
     soup_frame,
+    statue_mesh,
     textured_cornell_box,
+    two_room_scene,
 )
+from .partition import (
+    PartitionedScene,
+    build_partitioned_scene,
+    build_partitioned_scene_instanced,
+    partition_instances,
+    partition_meshes,
+)
+from .visibility_grid import build_conservative_grid, query_conservative_grids
 from .textures import PackedTextures, build_textures, checkerboard, sample_textures

@@ -6,10 +6,13 @@ jax_scene._asdict().items()}`), so both packages can trace and shade
 identical tables whatever each package's scene build would produce, and run identical
 nets: the scene, lights, environment and camera; the proxy-box table; the
 vis/depth nets' weights (param dicts under the JAX names, weights (in, out),
-also as the flat .npz checkpoints the JAX trainer writes). Nothing here
-imports the JAX package.
+also as the flat .npz checkpoints the JAX trainer writes, one net a file or
+the three trained families of artifacts/ab_scaled/ in one file). Nothing
+here imports the JAX package.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -88,16 +91,13 @@ def camera_from_arrays(arrays: dict, width: int, height: int,
 
 def proxy_table_from_arrays(arrays: dict, device=None) -> ProxyTable:
     """Port ProxyTable from the JAX ProxyTable's fields (unset instancing
-    fields stay None). A table with a `vis_grid` raises: the conservative
-    visibility grids are not ported yet."""
-    if arrays.get("vis_grid") is not None:
-        raise NotImplementedError("vis_grid is not ported yet")
+    fields and an unset `vis_grid` stay None)."""
     dev = resolve_device(device)
-    dtypes = {"obj_id": np.int32, "node_id": np.int32}
+    dtypes = {"obj_id": np.int32, "node_id": np.int32, "vis_grid": bool}
     fields = {}
     for name in ProxyTable._fields:
         a = arrays.get(name)
-        if a is not None and name != "vis_grid":
+        if a is not None:
             fields[name] = torch.as_tensor(
                 np.array(a, dtypes.get(name, np.float32)), device=dev)
     return ProxyTable(**fields)
@@ -142,3 +142,45 @@ def load_mlp_checkpoint(path: str, cfg: MLPConfig = None, device=None) -> dict:
         path = path + ".npz"
     with np.load(path) as data:
         return mlp_params_from_arrays({k: data[k] for k in data.files}, cfg, device)
+
+
+def load_ab_scaled_models(path: str, device=None):
+    """The three trained model families of one flat prefixed .npz, as
+    artifacts/ab_scaled/weights.npz holds them (one net per key prefix:
+    vis{p}/, depth{p}/ and comb{p}/ for each partition p, mgvis/ and
+    mgdepth/ for the shared multi-geo pair; names and (in, out) weights as
+    the JAX trainer writes them). The architecture is read from the arrays:
+    width from the first encoder, depth from the residual weights; head
+    widths and activations are the trainer's (separate nets leaky_relu,
+    combined nets a sigmoid double output, multi-geo nets leaky_relu with 6
+    inputs). Returns (separate, combined, multi-geo) ProxyModels on
+    `device` (CUDA unless given)."""
+    from ..models.mlp import MLPConfig
+    from ..models.proxy import combined_proxy_models, multigeo_proxy_models
+
+    with np.load(path) as data:
+        arrays = {k: data[k] for k in data.files}
+
+    def net(prefix):
+        pre = prefix + "/"
+        return {k[len(pre):]: v for k, v in arrays.items() if k.startswith(pre)}
+
+    parts = sum(1 for k in arrays if k.startswith("vis") and k.endswith("/enc_o_w0"))
+    first = net("vis0")
+    width = 8 * first["enc_o_w0"].shape[1]
+    depth = sum(1 for k in first if k.startswith("res_w"))
+    sep_cfg = MLPConfig(width=width, depth=depth, head_hidden=first["head_w0"].shape[1])
+    comb_cfg = dataclasses.replace(sep_cfg, out_features=2, final_activation="sigmoid")
+    mg = net("mgvis")
+    mg_cfg = MLPConfig(width=width, depth=depth, in_features=6, multi_geo=True,
+                       head_hidden=mg["head_w1"].shape[1])
+    stacked = lambda name: {k: np.stack([net(f"{name}{p}")[k] for p in range(parts)])
+                            for k in net(f"{name}0")}
+    separate = proxy_models_from_arrays(stacked("vis"), stacked("depth"), parts,
+                                        sep_cfg, sep_cfg, device=device)
+    combined = combined_proxy_models(
+        mlp_params_from_arrays(stacked("comb"), comb_cfg, device), parts, comb_cfg)
+    multigeo = multigeo_proxy_models(
+        mlp_params_from_arrays(mg, mg_cfg, device),
+        mlp_params_from_arrays(net("mgdepth"), mg_cfg, device), parts, mg_cfg, mg_cfg)
+    return separate, combined, multigeo

@@ -63,6 +63,12 @@ class MeshGeometry:
     def num_triangles(self) -> int:
         return self.v0.shape[0]
 
+    def aabb(self):
+        """(lo, hi) f32 box of the mesh's vertices."""
+        lo = np.minimum(np.minimum(self.v0.min(0), self.v1.min(0)), self.v2.min(0))
+        hi = np.maximum(np.maximum(self.v0.max(0), self.v1.max(0)), self.v2.max(0))
+        return lo.astype(np.float32), hi.astype(np.float32)
+
 
 def concat_geometry(meshes: list) -> dict:
     """Concatenate meshes into flat numpy SoA + per-tri mesh ids + material
@@ -99,8 +105,11 @@ class ProxyTable(NamedTuple):
     instance of an object. The march then transforms hits to object space
     for the net's features, selects the net by `obj_id`, routes to
     `node_id`, and emits the world/object depth scale `t_ratio`;
-    `max_length` is then the object-space diagonal. The JAX record's
-    `vis_grid` (the non-neural culling fallback) is not ported yet."""
+    `max_length` is then the object-space diagonal.
+
+    `vis_grid` (optional): one conservative visibility grid per row, (P, 6,
+    H, W, A) bool (scene/visibility_grid.py), the exact-mode culling of
+    the distributed frame (RenderConfig.use_visibility_grids)."""
 
     aabb_min: torch.Tensor    # (P, 3) f32 world-space box
     aabb_max: torch.Tensor    # (P, 3) f32
@@ -110,7 +119,7 @@ class ProxyTable(NamedTuple):
     world_to_obj: Optional[torch.Tensor] = None  # (P, 3, 4) f32 affine world -> object
     obj_min: Optional[torch.Tensor] = None       # (P, 3) f32 object-space box min
     obj_span: Optional[torch.Tensor] = None      # (P, 3) f32 object-space box extent
-    vis_grid: None = None
+    vis_grid: Optional[torch.Tensor] = None      # (P, 6, H, W, A) bool
 
     @property
     def num_partitions(self) -> int:

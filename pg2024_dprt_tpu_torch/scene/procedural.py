@@ -1,6 +1,7 @@
 """Procedural test scenes (counterpart of pg2024_dprt_tpu/scene/procedural.py:
-the cornell box and the random triangle soup) and the frame configurations
-built on them. Meshes are host numpy; the light table goes to `device`."""
+the cornell box, the random triangle soup, the statue object and the rooms
+of the distributed tests) and the frame configurations built on them.
+Meshes are host numpy; the light table goes to `device`."""
 from __future__ import annotations
 
 import numpy as np
@@ -108,6 +109,57 @@ def random_tri_soup(n: int, seed: int = 0, extent: float = 1.0, jitter: float = 
     return MeshGeometry(v0=base, v1=base + e1, v2=base + e2, name=f"soup{n}")
 
 
+def statue_mesh(res: int = 48, seed: int = 0, extent: float = 1.0):
+    """A closed, smoothly displaced sphere (low-frequency lobes and a
+    mid-frequency ripple) in [0, extent]^3, about 4 res^2 triangles: the
+    statue-class object that the proxy nets learn."""
+    rng = np.random.RandomState(seed)
+    th = np.linspace(0.0, np.pi, res + 1)
+    ph = np.linspace(0.0, 2 * np.pi, 2 * res + 1)
+    t, pg = np.meshgrid(th, ph, indexing="ij")
+    a, b, c = 0.22 + 0.06 * rng.rand(3)
+    r = (1.0
+         + a * np.sin(3.0 * t) * np.cos(2.0 * pg)
+         + b * np.cos(2.0 * t) * np.sin(3.0 * pg)
+         + c * 0.4 * np.sin(5.0 * t + 1.3) * np.sin(4.0 * pg + 0.7))
+    v = np.stack([r * np.sin(t) * np.cos(pg), r * np.cos(t), r * np.sin(t) * np.sin(pg)],
+                 axis=-1)
+    lo = v.reshape(-1, 3).min(0)
+    hi = v.reshape(-1, 3).max(0)
+    v = (v - lo) / max((hi - lo).max(), 1e-9) * extent
+    p00 = v[:-1, :-1].reshape(-1, 3)
+    p10 = v[1:, :-1].reshape(-1, 3)
+    p01 = v[:-1, 1:].reshape(-1, 3)
+    p11 = v[1:, 1:].reshape(-1, 3)
+    v0 = np.concatenate([p00, p00]).astype(np.float32)
+    v1 = np.concatenate([p10, p11]).astype(np.float32)
+    v2 = np.concatenate([p11, p01]).astype(np.float32)
+    # drop the degenerate slivers at the poles
+    keep = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1) > 1e-12
+    return MeshGeometry(v0=v0[keep], v1=v1[keep], v2=v2[keep],
+                        base_color=(0.75, 0.72, 0.68), name=f"statue{res}")
+
+
+def two_room_scene(num_rooms: int = 2, tris_per_room: int = 512, seed: int = 1,
+                   device=None):
+    """`num_rooms` random soups of unit extent 2.5 apart along x (each room
+    maps to one partition) under one area light. Returns (meshes, lights)."""
+    rng = np.random.RandomState(seed)
+    meshes = []
+    for r in range(num_rooms):
+        offset = np.asarray([2.5 * r, 0.0, 0.0], np.float32)
+        base = rng.rand(tris_per_room, 3).astype(np.float32) + offset
+        e1 = (rng.rand(tris_per_room, 3).astype(np.float32) - 0.5) * 0.15
+        e2 = (rng.rand(tris_per_room, 3).astype(np.float32) - 0.5) * 0.15
+        meshes.append(MeshGeometry(v0=base, v1=base + e1, v2=base + e2,
+                                   base_color=(0.7, 0.6 + 0.1 * (r % 3), 0.5),
+                                   name=f"room{r}"))
+    light_tris = np.asarray([[[0.5, 3.0, 0.5], [1.5, 3.0, 0.5], [1.5, 3.0, 1.5]]], np.float32)
+    lights = LightTable.from_arrays(light_tris, np.asarray([[40.0, 40.0, 40.0]], np.float32),
+                                    device=device)
+    return meshes, lights
+
+
 def soup_frame(size: int = 256, n_tris: int = 65536, device=None):
     """The exact-frame benchmark configuration (the JAX package's
     scripts/bench_frame.py and the frame row of scripts/bench_suite.py):
@@ -148,6 +200,16 @@ def auto_light(lo, hi, intensity: float, device=None) -> LightTable:
     return LightTable.from_arrays(quad, np.full((2, 3), rad, np.float32), device=device)
 
 
+def instance_grid():
+    """The instanced frame's geometry: ([random_tri_soup(1 << 19, seed=9)],
+    (8, 3, 4) transforms placing instance i at [2.2 (i % 4), 0, 2.2 (i // 4)])."""
+    grid = np.zeros((8, 3, 4), np.float32)
+    for i in range(8):
+        grid[i, :, :3] = np.eye(3, dtype=np.float32)
+        grid[i, :, 3] = [2.2 * (i % 4), 0.0, 2.2 * (i // 4)]
+    return [random_tri_soup(1 << 19, seed=9)], grid
+
+
 def instanced_frame(size: int = 256, device=None):
     """The camera_4m_instanced configuration of the JAX package's
     scripts/bench_suite.py as a frame: 8 instances of
@@ -162,12 +224,8 @@ def instanced_frame(size: int = 256, device=None):
     from .geometry import device_scene_from_instances
     from .lights import EnvironmentMap
 
-    grid = np.zeros((8, 3, 4), np.float32)
-    for i in range(8):
-        grid[i, :, :3] = np.eye(3, dtype=np.float32)
-        grid[i, :, 3] = [2.2 * (i % 4), 0.0, 2.2 * (i // 4)]
-    scene = device_scene_from_instances([random_tri_soup(1 << 19, seed=9)], grid,
-                                        device=device)
+    meshes, grid = instance_grid()
+    scene = device_scene_from_instances(meshes, grid, device=device)
     lo, hi = scene.scene_aabb.cpu().numpy()
     lights = auto_light(lo, hi, 8.0, device=device)
     env = EnvironmentMap.constant((0.4, 0.5, 0.7), device=device)

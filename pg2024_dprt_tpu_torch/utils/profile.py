@@ -17,6 +17,8 @@ and unprofiled runs of the same frame:
     wall and against the unprofiled frame's median wall ms (the profiler's
     host overhead lengthens the profiled frame);
   * the number of device events and the kernels with the most device time.
+`render_device_profile` gives the same numbers for any frame function and
+its stage ranges (chip_smoke.py profiles the distributed frame with it).
 Needs CUDA.
 """
 from __future__ import annotations
@@ -66,18 +68,25 @@ def _busy_ms(spans) -> float:
 
 def frame_device_profile(scene, lights, env, camera, cfg, top: int = 8,
                          reps: int = 5) -> dict:
-    """One profiled frame: per-stage device ms, wall and busy ms, idle
-    shares, device events, top kernels by device time."""
+    """One profiled frame of render_image: per-stage device ms, wall and
+    busy ms, idle shares, device events, top kernels by device time."""
+    return render_device_profile(
+        lambda s: render_image(scene, lights, env, camera, cfg, base_sample=s), STAGES,
+        top, reps)
+
+
+def render_device_profile(render, stages=STAGES, top: int = 8, reps: int = 5) -> dict:
+    """The same for any frame: `render(base_sample)` renders one frame, and
+    `stages` names the record_function ranges it runs (the distributed
+    frame's are parallel/distributed.py's STAGES)."""
     from torch.profiler import ProfilerActivity, profile
 
-    render_image(scene, lights, env, camera, cfg, base_sample=1)   # warm-up
+    render(1)   # warm-up
     torch.cuda.synchronize()
     samples = iter(range(3, 3 + reps))
-    unprofiled = _frame_ms(lambda: render_image(
-        scene, lights, env, camera, cfg, base_sample=next(samples)), reps)
+    unprofiled = _frame_ms(lambda: render(next(samples)), reps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = _frame_ms(lambda: render_image(scene, lights, env, camera, cfg,
-                                              base_sample=2), 1)
+        wall = _frame_ms(lambda: render(2), 1)
     # device events are kernels and copies, plus the device-side extents of
     # the record_function ranges (user annotations); a kernel belongs to the
     # stage whose device extent holds its start (one stream, so the extents
@@ -86,23 +95,23 @@ def frame_device_profile(scene, lights, env, camera, cfg, top: int = 8,
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if e.name in STAGES or getattr(e, "is_user_annotation", False):
-            if e.name in STAGES:
+        if e.name in stages or getattr(e, "is_user_annotation", False):
+            if e.name in stages:
                 extents.append((e.time_range.start, e.time_range.end, e.name))
             continue
         spans.append((e.time_range.start, e.time_range.end))
         by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
-    stages = defaultdict(float)
+    stage_ms = defaultdict(float)
     for s0, e0 in spans:
         for a, b, name in extents:
             if a <= s0 < b:
-                stages[name] += (e0 - s0) / 1e3
+                stage_ms[name] += (e0 - s0) / 1e3
                 break
         else:
-            stages["outside_ranges"] += (e0 - s0) / 1e3
+            stage_ms["outside_ranges"] += (e0 - s0) / 1e3
     busy = _busy_ms(spans)
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return {"stages_ms": {s: stages[s] for s in STAGES + ("outside_ranges",)},
+    return {"stages_ms": {s: stage_ms[s] for s in tuple(stages) + ("outside_ranges",)},
             "profiled_wall_ms": wall, "unprofiled_wall_ms": unprofiled,
             "busy_ms": busy,
             "idle_share_profiled": (1.0 - busy / wall) if spans else None,

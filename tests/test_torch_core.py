@@ -146,8 +146,8 @@ def test_kernel_sources_include_only_cuda_and_their_own_headers():
     """Every source in csrc/ includes CUDA toolkit and C headers and the
     port's own headers only: no Python, PyTorch or JAX header, so the kernels
     build with nvcc alone. Every library of ops/_build.py has its source, and
-    the fused-frame, texture and neural-proxy modules are in the import scan
-    above."""
+    the fused-frame, texture, neural-proxy and distributed modules are in the
+    import scan above."""
     from pg2024_dprt_tpu_torch.ops import _build
 
     csrc = os.path.join(ROOT, "pg2024_dprt_tpu_torch", "csrc")
@@ -176,7 +176,13 @@ def test_kernel_sources_include_only_cuda_and_their_own_headers():
             "pg2024_dprt_tpu_torch/render/proxy_stages.py",
             "pg2024_dprt_tpu_torch/ops/tracer.py",
             "pg2024_dprt_tpu_torch/ops/traversal.py",
-            "pg2024_dprt_tpu_torch/ops/cluster_tracer.py"} <= scanned
+            "pg2024_dprt_tpu_torch/ops/cluster_tracer.py",
+            "pg2024_dprt_tpu_torch/ops/compaction.py",
+            "pg2024_dprt_tpu_torch/parallel/mesh.py",
+            "pg2024_dprt_tpu_torch/parallel/exchange.py",
+            "pg2024_dprt_tpu_torch/parallel/distributed.py",
+            "pg2024_dprt_tpu_torch/scene/partition.py",
+            "pg2024_dprt_tpu_torch/scene/visibility_grid.py"} <= scanned
 
 
 def test_entry_points_need_cuda_unless_told(monkeypatch):

@@ -467,6 +467,81 @@ def test_route_kernel_shadow_matches_plain_and_composed_on_gpu(vis_bias, depth_b
     assert float(fused.sum()) > 0.0
 
 
+def _multigeo_case(kind, vis_bias, depth_bias, width, depth, shadow=False):
+    import dataclasses
+
+    scene, table, _, paths = _route_case("cuda", 0.0, kind=kind, shadow=shadow)
+    cfg = tmlp.MLPConfig(width=width, depth=depth, in_features=6, multi_geo=True,
+                         final_activation="none")
+    rng = np.random.RandomState(17)
+    vis = tmlp.init_mlp(rng, cfg, device="cuda")
+    dep = tmlp.init_mlp(rng, dataclasses.replace(cfg, final_activation="leaky_relu"),
+                        device="cuda")
+    vis["head_b2"] = vis["head_b2"] + vis_bias
+    dep["head_b2"] = dep["head_b2"] + depth_bias
+    m = tmodels.multigeo_proxy_models(
+        vis, dep, 8, cfg, dataclasses.replace(cfg, final_activation="leaky_relu"))
+    return scene, table, m, paths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vis_bias,depth_bias,shadow", [
+    (10.0, 0.0, False), (-10.0, 0.0, False), (10.0, -10.0, True), (10.0, 10.0, True)])
+@pytest.mark.parametrize("kind,width,depth", [("unit", 64, 2), ("instanced", 64, 2),
+                                              ("unit", 512, 3)])
+def test_route_kernel_multigeo_matches_plain_and_composed_on_gpu(
+        vis_bias, depth_bias, shadow, kind, width, depth, monkeypatch):
+    """K7's multi-geo mode (one shared 6-feature net pair) against its plain
+    version and, through the stage, against the composed path (K8 + the
+    trace kernel + K4 + plain apply_multigeo). The heads are shifted by +-10
+    so that no decision sits at a threshold."""
+    _need_cuda()
+    scene, table, m, paths = _multigeo_case(kind, vis_bias, depth_bias, width, depth, shadow)
+    my_id = 3 if kind == "instanced" else 8
+    t_max = paths.tmax * (1.0 - 1e-3) if shadow else paths.tmax
+    args = (paths.origin, paths.direction, EPS, t_max, paths.is_valid, my_id, MH, EPS)
+    entry = tops.shadow_route_fused if shadow else tops.route_fused
+    plain = tops.shadow_route_fused_plain if shadow else tops.route_fused_plain
+    tops.reset_launch_counts()
+    dec = entry(scene, table, m, *args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in tops.LAUNCHES.items() if v}
+    assert launches == ({"route_shadow": 1, "route_multigeo": 1} if shadow else
+                        {"schedule_keys": 1, "route_secondary": 1, "route_multigeo": 1})
+    ref = plain(scene, table, m, *args)
+    for key, val in dec.items():
+        if key == "new_t":
+            assert torch.allclose(val, ref[key], rtol=2e-3, atol=2e-3)
+        else:
+            assert torch.equal(val.to(ref[key].dtype), ref[key]), key
+    tops.reset_launch_counts()
+    if shadow:
+        fused, _ = tps.shadow_direct_light_nn(scene, table, m, paths, my_id, MH, EPS, 4, 997)
+        assert {k: v for k, v in tops.LAUNCHES.items() if v} == {
+            "route_shadow": 1, "route_multigeo": 1}
+        monkeypatch.setattr(tps, "_use_fused_route", lambda *a: False)
+        composed, _ = tps.shadow_direct_light_nn(scene, table, m, paths, my_id, MH, EPS, 4,
+                                                 997)
+        assert torch.allclose(fused, composed, rtol=1e-5, atol=1e-6)
+        assert dec["survives"].sum() > 100
+        return
+    env = tscene.EnvironmentMap.constant((0.4, 0.5, 0.7), device="cuda")
+    fused, env_f, _ = tps.secondary_route(scene, table, m, env, paths, my_id, MH, EPS, 997)
+    assert {k: v for k, v in tops.LAUNCHES.items() if v} == {
+        "schedule_keys": 1, "route_secondary": 1, "route_multigeo": 1}
+    tops.reset_launch_counts()
+    monkeypatch.setattr(tps, "_use_fused_route", lambda *a: False)
+    composed, env_c, _ = tps.secondary_route(scene, table, m, env, paths, my_id, MH, EPS, 997)
+    assert {k: v for k, v in tops.LAUNCHES.items() if v} == {
+        "schedule_keys": 1, "resident_closest": 1, "proxy_march": 1}
+    for f in ("target_node", "current_node", "is_hit", "is_valid", "visited_mask"):
+        assert torch.equal(getattr(fused, f), getattr(composed, f)), f
+    assert torch.allclose(fused.tmax, composed.tmax, rtol=2e-3, atol=2e-3)
+    assert torch.allclose(env_f, env_c, rtol=1e-5, atol=1e-6)
+    if vis_bias > 0:
+        assert (dec["has_node"] & ~dec["local_hit"]).sum() > 100
+
+
 @pytest.mark.cuda
 def test_proxy_wrappers_refuse_what_the_kernels_do_not_take():
     """A CUDA wrapper launches its kernel or raises before any launch."""

@@ -200,7 +200,7 @@ def test_valid_rows_are_front_packed_and_ordered():
 def test_proxy_table_converter_round_trip():
     """proxy_table_from_arrays carries every field of a JAX ProxyTable across
     (the instancing fields stay None on a plain table), .to() keeps them, and
-    a table with a visibility grid raises."""
+    a table's visibility grids carry across as bool."""
     plain = proxy_table_from_arrays(_boxes(), device="cpu")
     assert not plain.instanced and plain.obj_id is None and plain.vis_grid is None
     arrays = _instanced(4, 11, [0, 1, 0, 1], [1, 2, 3, 0])
@@ -213,9 +213,10 @@ def test_proxy_table_converter_round_trip():
     for k, v in arrays.items():
         np.testing.assert_array_equal(getattr(back, k).numpy(), v, err_msg=k)
         assert torch.equal(getattr(back.to("cpu"), k), getattr(back, k))
-    with pytest.raises(NotImplementedError, match="vis_grid"):
-        proxy_table_from_arrays({**_boxes(), "vis_grid": np.zeros((8, 4, 4, 4), bool)},
-                                device="cpu")
+    grid = (np.arange(8 * 6 * 2 * 2 * 4) % 3 == 0).reshape(8, 6, 2, 2, 4)
+    gridded = proxy_table_from_arrays({**_boxes(), "vis_grid": grid}, device="cpu")
+    assert gridded.vis_grid.dtype == torch.bool
+    np.testing.assert_array_equal(gridded.to("cpu").vis_grid.numpy(), grid)
 
 
 def test_more_than_32_rows_raise():

@@ -297,3 +297,51 @@ def test_converters_round_trip():
     back = proxy_models_from_arrays(arrays(comb.vis_params), {}, 2, comb_cfg, comb_cfg,
                                     combined=True, device="cpu")
     assert back.combined and back.depth_params == {}
+
+
+def test_ab_scaled_loader_matches_jax_load_models():
+    """scene/convert.py::load_ab_scaled_models reads the three trained
+    families of artifacts/ab_scaled/weights.npz as the JAX script's
+    load_models does: the same architectures, and the same outputs on the
+    same features (bf16 operands: rtol / atol 2e-2)."""
+    import sys
+
+    from pg2024_dprt_tpu_torch.scene import load_ab_scaled_models
+
+    path = os.path.join(ROOT, "artifacts", "ab_scaled", "weights.npz")
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    try:
+        import ab_neural_scaled
+    finally:
+        sys.path.pop(0)
+    j_families = ab_neural_scaled.load_models(path)
+    t_families = load_ab_scaled_models(path, device="cpu")
+    rng = np.random.RandomState(21)
+    q = 512
+    feats = rng.rand(q, 5).astype(np.float32)
+    obj = rng.randint(-1, 8, q).astype(np.int32)
+    valid = (obj >= 0) & (rng.rand(q) > 0.1)
+    jargs = (jnp.asarray(feats), jnp.asarray(obj), jnp.asarray(valid))
+    targs = (torch.as_tensor(feats), torch.as_tensor(obj), torch.as_tensor(valid))
+    for jm, tm, name in zip(j_families, t_families, ("separate", "combined", "multigeo")):
+        assert (tm.num_objects, tm.multi_geo, tm.combined) == \
+            (jm.num_objects, jm.multi_geo, jm.combined), name
+        for jc, tc in ((jm.vis_cfg, tm.vis_cfg), (jm.depth_cfg, tm.depth_cfg)):
+            assert dataclasses.asdict(_jcfg(tc)) == dataclasses.asdict(jc), name
+        if name == "separate":
+            pairs = [(jproxy.apply_grouped(jm.vis_params, jm.vis_cfg, *jargs, 8),
+                      tmodels.apply_grouped(tm.vis_params, tm.vis_cfg, *targs, 8)),
+                     (jproxy.apply_grouped(jm.depth_params, jm.depth_cfg, *jargs, 8),
+                      tmodels.apply_grouped(tm.depth_params, tm.depth_cfg, *targs, 8))]
+        elif name == "combined":
+            pairs = [(jproxy.apply_grouped_all(jm.vis_params, jm.vis_cfg, *jargs, 8),
+                      tmodels.apply_grouped_all(tm.vis_params, tm.vis_cfg, *targs, 8))]
+        else:
+            pairs = [(jproxy.apply_multigeo(jm.vis_params, jm.vis_cfg, *jargs),
+                      tmodels.apply_multigeo(tm.vis_params, tm.vis_cfg, *targs)),
+                     (jproxy.apply_multigeo(jm.depth_params, jm.depth_cfg, *jargs),
+                      tmodels.apply_multigeo(tm.depth_params, tm.depth_cfg, *targs))]
+        for want, got in pairs:
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2, atol=2e-2,
+                                       err_msg=name)
+            assert float(np.abs(np.asarray(want)).max()) > 0.0

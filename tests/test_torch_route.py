@@ -296,6 +296,55 @@ def test_multigeo_branch_matches_jax():
     assert ((gp.target_node >= 0) & (gp.target_node < 8)).sum() > 20
 
 
+def _multigeo_models(seed, vis_bias, depth_bias=0.0):
+    cfg_v = tmlp.MLPConfig(width=64, depth=2, in_features=6, final_activation="none",
+                           multi_geo=True)
+    cfg_d = dataclasses.replace(cfg_v, final_activation="leaky_relu")
+    rng = np.random.RandomState(seed)
+    m = tmodels.multigeo_proxy_models(tmlp.init_mlp(rng, cfg_v, device="cpu"),
+                                      tmlp.init_mlp(rng, cfg_d, device="cpu"), 8, cfg_v, cfg_d)
+    return _biased(m, vis_bias, depth_bias, last="head_b2")
+
+
+@pytest.mark.parametrize("vis_bias,depth_bias,seed", [(10.0, 0.0, 71), (-10.0, 0.0, 73)])
+def test_fused_route_multigeo_plain_matches_jax_composed(vis_bias, depth_bias, seed):
+    """K7's multi-geo mode, plain version: the secondary decisions equal the
+    JAX composed stage's (march, then the shared 6-feature nets through
+    apply_multigeo) applied to the same paths, and the port's composed
+    stage's; the shadow weights equal JAX's light image. Heads shifted by
+    +-10, as tests/test_multigeo.py does."""
+    m = _multigeo_models(seed, vis_bias, depth_bias)
+    assert troute.fused_route_takes(m, proxy_table_from_arrays(_unit_boxes(), device="cpu"),
+                                    MH)
+    (js, jt, jargs), (ts, tt, targs), tp = _route_args(seed, 384)
+    dec = troute.route_fused(ts, tt, m, *targs, MH, EPS)
+    jenv, tenv = _envs()
+    jp, _ = _paths(seed, 384)
+    wp, we, _ = jps.secondary_route(js, jt, _jmodels(m), jenv, jp, jnp.int32(MY_ID), MH, EPS,
+                                    384)
+    live = tp.is_valid
+    has = dec["has_node"]
+    np.testing.assert_array_equal(has[live].numpy(), np.asarray(wp.is_hit)[live.numpy()])
+    np.testing.assert_array_equal(dec["settled_node"][has].numpy(),
+                                  np.asarray(wp.target_node)[has.numpy()])
+    np.testing.assert_array_equal((tp.is_valid & ~dec["env_miss"]).numpy(),
+                                  np.asarray(wp.is_valid))
+    np.testing.assert_allclose(dec["new_t"][live].numpy(), np.asarray(wp.tmax)[live.numpy()],
+                               rtol=2e-3, atol=2e-3)
+    gp, ge, _ = tps.secondary_route(ts, tt, m, tenv, tp, MY_ID, MH, EPS, 384)
+    _assert_paths_equal(gp, wp, ge, we)
+    if vis_bias > 0:
+        assert ((gp.target_node >= 0) & (gp.target_node < 8)).sum() > 20
+    (js, jt, jargs), (ts, tt, targs), tp = _route_args(seed, 384, shadow=True)
+    jp, _ = _paths(seed, 384, shadow=True)
+    weight = troute.shadow_route_fused(ts, tt, m, *targs, MH, EPS)["weight"]
+    want, _ = jps.shadow_direct_light_nn(js, jt, _jmodels(m), jp, jnp.int32(MY_ID), MH, EPS,
+                                         4, 97)
+    got = torch.zeros((97, 3)).index_add_(0, tp.pixel_index,
+                                          tp.throughput * weight[:, None] / 4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
 def test_mismatched_architectures_branch_matches_jax():
     """vis and depth nets of different widths: two grouped sweeps."""
     wide = tmlp.MLPConfig(width=128, depth=1)
@@ -413,6 +462,14 @@ def test_fused_route_gate_case_by_case():
     assert tps._use_fused_route(_Stub(), pair, "auto", rows(8), MH)
     assert not tps._use_fused_route(_Stub(), pair, "auto", rows(9), MH)
     assert tps._use_fused_route(_Stub(), pair, "auto", rows(16, instanced=True), MH)
+    # multi-geo nets run K7's multi-geo mode: one shared pair, whatever the
+    # number of rows; the production MULTIGEO pair fits a tile at max_hits 3
+    mg = tmodels.ProxyModels({}, {}, 8, tmlp.MULTIGEO_VIS, tmlp.MULTIGEO_DEPTH,
+                             multi_geo=True)
+    assert tps._use_fused_route(_Stub(), mg, "auto", rows(16), MH)
+    assert not tps._use_fused_route(_Stub(device="cpu"), mg, "auto", rows(8), MH)
+    assert tps._use_fused_route(_Stub(), mg, "auto", rows(8), 8)
+    assert not tps._use_fused_route(_Stub(), mg, "auto", rows(8), 9)
     prod = tmodels.ProxyModels({}, {}, 8, tmlp.PROD_VIS, tmlp.PROD_DEPTH)
     assert tps._use_fused_route(_Stub(), prod, "auto", rows(8), 14)
     assert not tps._use_fused_route(_Stub(), prod, "auto", rows(8), 15)
