@@ -11,16 +11,19 @@ Phases, each reported on its own line; any failure exits non-zero:
   2. cornell 32x32 spp2 b3 held against the golden EXR (rtol 1e-3 / atol
      1e-4) twice: through the composed path (fused_frame="off": K1/K2
      launched, K3 not) and through the fused frame with the default config
-     (one K3 launch, K1/K2 not); K1/K2 timed on the cornell wavefronts;
+     (one K3 launch, K1/K2 not); K1/K2 on the cornell wavefronts (their
+     main path: at K = 1 the rule takes the flat kernels), timed and held
+     against their plain versions;
   3. the main path, the full-size frame — a 65,536-triangle soup (512
      triangles per cluster) under an area light, 256x256, spp 1, 4 bounces,
      RIS NEE — through render_image with the default config (the fused frame:
      launches {frame_sample: 1}), with the launch counts reset just before
-     and read just after; the same frame through the composed path
-     (fused_frame="off": K1/K2 4/4); frame ms of both (CUDA events, median of
-     7 after a warm-up), K3's ms at every depth from 1 bounce up beside the
-     paths alive per bounce, per-wavefront kernel ms and Mrays/s, and the
-     composed frame with the plain versions in place of K1/K2 (one run);
+     and read just after (at K = 185 K3 takes its grouped walks by the
+     rule); the same frame through the composed path (fused_frame="off": the
+     rule's trace kernels, K9/K10, 4/4); frame ms of both (CUDA events,
+     median of 7 after a warm-up), K3's ms at every depth from 1 bounce up
+     beside the paths alive per bounce, per-wavefront kernel ms and Mrays/s,
+     and the composed frame with the plain versions in place of K1/K2 (one run);
   4. each kernel against its plain version on the card. K1/K2 on the frame's
      camera, first-bounce and first-shadow wavefronts: hit flags agree on
      >= 99.99 % of rays, every disagreement is an edge hit (min barycentric
@@ -84,12 +87,18 @@ Phases, each reported on its own line; any failure exits non-zero:
      (phase 4's criterion), CUDA-event medians of 7 and Mrays/s of all four,
      the slab tests K1 and K9 run, the work and the bound (PERF.md's rules:
      each ray's least cull, flat or two-level, and 33 operations per
-     instance a ray must open). Path 1, the main
+     instance a ray must open). Also 40 instances of the same 512k base
+     over its table (C = 512, K = 59,480): a camera wavefront on the row of
+     instances 32-39, whose virtual ids pass 2^24, with the same checks and
+     at least one hit id >= 2^24. Path 1, the main
      path of this phase: the instanced frame (256x256, spp 1, 4 bounces,
      RIS, the CLI's auto light) through render_image with the default
      config, counts reset just before and read just after: 4 launches each
      of the closest and any-hit kernels the rule picks, no frame_sample;
-     frame ms (median of 7, or of 3 when a frame takes over a second).
+     frame ms (median of 7, or of 3 when a frame takes over a second); one
+     profiled frame (utils/profile.py render_device_profile): idle share
+     and the device ms of the closest and any-hit kernels summed over their
+     launches.
      Path 3: frame_1m (soup_frame's light, sky, camera and config over the
      1M soup) by the default config: launches {frame_sample: 1}; K3's
      grouped mode against its flat mode, bit-identical, and both timed.
@@ -158,10 +167,13 @@ Phases, each reported on its own line; any failure exits non-zero:
         gates of tests/test_neural_end_to_end.py).
 Then the whole script's seconds, the kernels line (JSON, fourteen entries: K1-K13
 and K7's multi-geo mode, route_multigeo;
-`disagreements` is the flag disagreements of K1/K2 on the phase-4
-wavefronts, K3's outlier pixels against its plain version, K4's rows with
-another id or flag, K5/K6's values beyond tolerance, K7's decisions outside
-the knife-edge set, K8's rays with another key, K9/K10's against the plain
+K1/K2 carry the launches, times and plain-version checks of their main
+path, the composed cornell frame, and the phase-4 numbers of the 64k
+frame's wavefronts under frame_64k_*; `disagreements` is the flag
+disagreements of K1/K2 against their plain versions, K3's outlier pixels
+against its plain version, K4's rows with another id or flag, K5/K6's
+values beyond tolerance, K7's decisions outside the knife-edge set, K8's
+rays with another key, K9/K10's against the plain
 version on the phase-7 subsets; K9 / K10 are timed on the instanced frame's
 wavefronts, their plain ms on the 1,024-ray subset; the route_multigeo
 entry carries phase 9's numbers), the card line, and the final {"ok": true,
@@ -222,10 +234,10 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1):
 
 # kernel entry functions of csrc/ by their template argument (ILb0E / ILb1E
 # or ILi0E .. ILi2E in the mangled name), as the kernels line names them
-KERNEL_LABELS = {("closest_kernel", "0"): "K1 resident_closest",
-                 ("closest_kernel", "1"): "K9 grouped_closest",
-                 ("anyhit_kernel", "0"): "K2 resident_anyhit",
-                 ("anyhit_kernel", "1"): "K10 grouped_anyhit",
+KERNEL_LABELS = {("closest_kernel", None): "K1 resident_closest",
+                 ("grouped_closest_kernel", None): "K9 grouped_closest",
+                 ("anyhit_kernel", None): "K2 resident_anyhit",
+                 ("grouped_anyhit_kernel", None): "K10 grouped_anyhit",
                  ("schedule_keys_kernel", None): "K8 schedule_keys",
                  ("frame_sample_kernel", None): "K3 frame_sample",
                  ("proxy_march_kernel", None): "K4 proxy_march",
@@ -298,12 +310,16 @@ def plain_traces(pt):
     """Route the engine's traces through the plain versions (for timing the
     plain frame)."""
     res = pt.ops.resident
-    saved = res.resident_closest, res.resident_anyhit
-    res.resident_closest, res.resident_anyhit = res.resident_closest_plain, res.resident_anyhit_plain
+    names = ("resident_closest", "resident_anyhit", "grouped_closest", "grouped_anyhit")
+    saved = {name: getattr(res, name) for name in names}
+    for name in names:
+        setattr(res, name, res.resident_anyhit_plain if name.endswith("anyhit")
+                else res.resident_closest_plain)
     try:
         yield
     finally:
-        res.resident_closest, res.resident_anyhit = saved
+        for name, fn in saved.items():
+            setattr(res, name, fn)
 
 
 def cull_slabs(pt, scene, o, inv, tcap, lim, rows):
@@ -1148,6 +1164,21 @@ def route_phase(pt, torch, np, dev, counted):
 
 # FP32 operations of one object-space ray transform: 18 multiplies, 15 adds
 XFORM_OPS = 33
+# instances of the 512k base whose virtual ids pass 2^24 (instances 32-39)
+MANY_INSTANCES = 40
+# the CUDA function each trace wrapper launches, as a profile names it
+KERNEL_FUNCTIONS = {"resident_closest": "closest_kernel", "grouped_closest":
+                    "grouped_closest_kernel", "resident_anyhit": "anyhit_kernel",
+                    "grouped_anyhit": "grouped_anyhit_kernel"}
+
+
+def kernel_device_ms(prof, function):
+    """Device ms of one CUDA function summed over its launches in a
+    render_device_profile (its names are demangled signatures)."""
+    import re
+
+    pat = re.compile(rf"(^|[ :]){function}\(")
+    return sum(v for k, v in prof["top_kernels_ms"].items() if pat.search(k))
 # rays of the seeded subset each kernel is held against the plain version on
 SUBSET = 1024
 
@@ -1197,8 +1228,9 @@ def large_work(pt, torch, scene, rays, hits=None, occ=None):
     clusters unoccluded or closest-hit rays need, boxes, counts, scene box,
     transform rows, the records out. Also the slab tests each closest-hit
     walk runs: K1 one pass over the K boxes per cluster it visits plus the
-    pass that finds none; K9 one pass over the Kg group boxes per group it
-    visits plus one, and the 8 member boxes of each group it visits."""
+    pass that finds none; K9 at least one pass over the Kg group boxes and
+    the 8 member boxes of each group the ray enters before its tmax (a ray
+    whose candidates overflow K9's buffer passes again after a visit)."""
     o, d, tmin, tmax, active = rays
     res = pt.ops.resident
     inv, _, tcap = res.ray_limits(scene, o, d, tmin, tmax, active)
@@ -1219,9 +1251,9 @@ def large_work(pt, torch, scene, rays, hits=None, occ=None):
             en_g = res.cluster_enters_plain(scene, o[r], inv[r], tcap[r], boxes=scene.cl_gboxes)
             hz = torch.where(hits.is_hit[r], hits.t[r] * (1.0 + 1e-4) + 1e-7, tcap[r])
             visits = ((en <= hz[:, None]) & act[:, None]).sum(1)
-            gvisits = ((en_g <= hz[:, None]) & act[:, None]).sum(1)
+            entered_g = (torch.isfinite(en_g) & act[:, None]).sum(1)
             slabs_k1 += int((visits + 1)[act].sum()) * k
-            slabs_k9 += int((gvisits + 1)[act].sum()) * kg + 8 * int(gvisits[act].sum())
+            slabs_k9 += int(act.sum()) * kg + 8 * int(entered_g.sum())
         else:
             open_ = act & ~occ[r]
             need = torch.isfinite(en) & open_[:, None]
@@ -1283,6 +1315,7 @@ def trace_pair(pt, torch, np, name, scene, rays):
     err, ndis, nid = compare_closest(pt, scene, sub, ops.grouped_closest(scene, *sub), want)
     e1, ndis1, _ = compare_closest(pt, scene, sub, ops.resident_closest(scene, *sub), want)
     aerr, adis = compare_anyhit(pt, scene, sub, ops.grouped_anyhit(scene, *sub), want_occ)
+    aerr2, adis2 = compare_anyhit(pt, scene, sub, ops.resident_anyhit(scene, *sub), want_occ)
     ms = {kname: cuda_ms(torch, lambda fn=fn: fn(scene, *rays), reps=7)
           for kname, fn in (("k1", ops.resident_closest), ("k9", ops.grouped_closest),
                             ("k2", ops.resident_anyhit), ("k10", ops.grouped_anyhit))}
@@ -1292,7 +1325,7 @@ def trace_pair(pt, torch, np, name, scene, rays):
     print(f"phase7 {name}: {n_act} rays, K={scene.num_clusters} Kg={scene.cl_gboxes.shape[1]}, "
           f"{int(k1.is_hit.sum())} hits; closest K1 {ms['k1']:.3f} ms ({rate(ms['k1']):.1f} "
           f"Mrays/s), K9 {ms['k9']:.3f} ms ({rate(ms['k9']):.1f} Mrays/s), K9 == K1 on every ray "
-          f"ok; slab tests run K1 {cw['slabs_k1']}, K9 {cw['slabs_k9']}; needed "
+          f"ok; slab tests run K1 {cw['slabs_k1']}, K9 at least {cw['slabs_k9']}; needed "
           f"{cw['tests']} ray-triangle tests, {cw['xforms']} transforms, bound "
           f"{cw['bound_ms']:.6f} ms ({cw['bound_by']}); subset vs plain: K9 {ndis} / K1 {ndis1} "
           f"flag disagreements, {nid} tie ids, max abs err {max(err, e1):.3g} ok; plain "
@@ -1300,12 +1333,13 @@ def trace_pair(pt, torch, np, name, scene, rays):
     print(f"phase7 {name} any-hit: {int(k2.sum())} occluded; K2 {ms['k2']:.3f} ms "
           f"({rate(ms['k2']):.1f} Mrays/s), K10 {ms['k10']:.3f} ms ({rate(ms['k10']):.1f} "
           f"Mrays/s), K10 == K2 on every ray ok; needed {aw['tests']} ray-triangle tests, bound "
-          f"{aw['bound_ms']:.6f} ms ({aw['bound_by']}); subset vs plain: {adis} disagreements "
-          f"ok; plain {plain_any_ms:.1f} ms on {SUBSET} rays", flush=True)
-    return {"rays": n_act, "k": scene.num_clusters, **{f"{kn}_ms": v for kn, v in ms.items()},
+          f"{aw['bound_ms']:.6f} ms ({aw['bound_by']}); subset vs plain: K10 {adis} / K2 "
+          f"{adis2} disagreements ok; plain {plain_any_ms:.1f} ms on {SUBSET} rays", flush=True)
+    return {"rays": n_act, "k": scene.num_clusters, "max_id": int(k1.tri_index.max()),
+            **{f"{kn}_ms": v for kn, v in ms.items()},
             "plain_ms": plain_ms, "plain_anyhit_ms": plain_any_ms,
-            "max_abs_err": max(err, e1), "anyhit_max_abs_err": aerr,
-            "flag_disagreements": ndis + ndis1, "anyhit_disagreements": adis,
+            "max_abs_err": max(err, e1), "anyhit_max_abs_err": max(aerr, aerr2),
+            "flag_disagreements": ndis + ndis1, "anyhit_disagreements": adis + adis2,
             "bound_ms": cw["bound_ms"], "bound_by": cw["bound_by"],
             "anyhit_bound_ms": aw["bound_ms"], "anyhit_bound_by": aw["bound_by"],
             "slabs_k1": cw["slabs_k1"], "slabs_k9": cw["slabs_k9"]}
@@ -1341,8 +1375,18 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
         [soup(1 << 20, seed=3)], device=dev))
     (scene_i, lights_i, env_i, cam_i, cfg_i), si, mbi = table_mb(
         torch, lambda: pt.scene.instanced_frame(device=dev))
+    # instanced ids past 2^24: 40 instances of the same 512k base over the
+    # same base table (C = 512), ids up to 40 * 524,288 = 20,971,520
+    base_meshes, _ = pt.scene.instance_grid()
+    grid40 = np.zeros((MANY_INSTANCES, 3, 4), np.float32)
+    grid40[:, :, :3] = np.eye(3, dtype=np.float32)
+    grid40[:, 0, 3] = 2.2 * (np.arange(MANY_INSTANCES) % 8)
+    grid40[:, 2, 3] = 2.2 * (np.arange(MANY_INSTANCES) // 8)
+    scene40, s40, mb40 = table_mb(torch, lambda: pt.scene.device_scene_from_instances(
+        base_meshes, grid40, tris_per_cluster=scene_i.tris_per_cluster, device=dev))
     for label, sc, secs, mb in (("1M soup", scene1m, s1m, mb1m),
-                                ("8 x 512k instances", scene_i, si, mbi)):
+                                ("8 x 512k instances", scene_i, si, mbi),
+                                (f"{MANY_INSTANCES} x 512k instances", scene40, s40, mb40)):
         print(f"phase7 scene {label}: K={sc.num_clusters} KB={sc.cl_mt_table.shape[0]} "
               f"Kg={sc.cl_gboxes.shape[1]} C={sc.tris_per_cluster}, "
               f"{sc.num_base_tris * (sc.cl_xf.shape[0] if sc.instanced else 1)} effective "
@@ -1376,8 +1420,17 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
     first = frame_wavefronts(pt, scene_i, lights_i, env_i, cam_i,
                              dataclasses.replace(cfg_i, bounces=1), closest=ops.grouped_closest)[0]
     waves += [("frame_4m_camera", scene_i, first["closest"]),
-              ("frame_4m_shadow0", scene_i, first["shadow"])]
+              ("frame_4m_shadow0", scene_i, first["shadow"]),
+              # the front row holds instances 32-39, whose ids pass 2^24
+              (f"camera_{MANY_INSTANCES}_instances", scene40, camera_wavefront(
+                  pt, torch, dev, [8.2, 1.5, 16.0], [8.2, 0.5, 8.8], 55.0, tiled=False))]
     results = {name: trace_pair(pt, torch, np, name, sc, rays) for name, sc, rays in waves}
+    top_id = results[f"camera_{MANY_INSTANCES}_instances"]["max_id"]
+    check(top_id >= 2**24, f"the {MANY_INSTANCES}-instance camera wavefront hits no id past "
+          f"2^24 (largest {top_id})")
+    print(f"phase7 camera_{MANY_INSTANCES}_instances: largest virtual id hit {top_id} "
+          f"(2^24 = {2**24}), K9 == K1 and K10 == K2 on every ray ok", flush=True)
+    del scene40
     sorted_ms = cuda_ms(torch, lambda: ops.trace_resident(
         scene1m, *waves[3][2], sort_rays=True), reps=7)
     print(f"phase7 incoherent_1m through trace_resident(sort_rays=True) by the default rule "
@@ -1408,6 +1461,16 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
           f"{counts_i} (no frame_sample: the frame gate sends instanced scenes to the composed "
           f"path); {inst_ms:.1f} ms (median of {inst_reps}); image mean "
           f"{float(img.mean()):.5f}", flush=True)
+    prof_i = pt.utils.profile.render_device_profile(render, pt.utils.profile.STAGES, top=256,
+                                                    reps=3)
+    trace_ms = {name: kernel_device_ms(prof_i, KERNEL_FUNCTIONS[name]) for name in (closest,
+                                                                                   anyhit)}
+    print(f"phase7 instanced frame profile: idle share {prof_i['idle_share_unprofiled']:.3f} "
+          f"(profiled {prof_i['idle_share_profiled']:.3f}), busy {prof_i['busy_ms']:.1f} ms of "
+          f"{prof_i['unprofiled_wall_ms']:.1f}; device ms of {closest} over its "
+          f"{counts_i[closest]} launches {trace_ms[closest]:.3f}, of {anyhit} over its "
+          f"{counts_i[anyhit]} {trace_ms[anyhit]:.3f}; stages "
+          + json.dumps({k: round(v, 3) for k, v in prof_i["stages_ms"].items()}), flush=True)
 
     # ---- path 3: the 1M frame through K3, and K3's grouped mode both ways
     img1m, counts1m = counted(lambda: pt.render.render_image(scene1m, lights, env, cam, cfg))
@@ -1455,8 +1518,13 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
          "bound_ms": shd_w["anyhit_bound_ms"], "bound_by": shd_w["anyhit_bound_by"],
          "library_ms": None, "wavefront": "frame_4m_shadow0", "k2_ms": shd_w["k2_ms"]},
     ]
+    entries[0]["frame_device_ms"] = trace_ms[closest]
+    entries[1]["frame_device_ms"] = trace_ms[anyhit]
     extra = {"wavefronts": waves_out, "instanced_frame_ms": inst_ms,
-             "instanced_frame_launches": counts_i, "frame_1m_ms": f1m_ms,
+             "instanced_frame_launches": counts_i,
+             "instanced_frame_profile": {**profile_summary(prof_i),
+                                         "trace_device_ms": trace_ms},
+             "frame_1m_ms": f1m_ms,
              "k3_1m_grouped_ms": k3_ms[True], "k3_1m_flat_ms": k3_ms[False],
              "neural_route_1m": route,
              "instanced_frame_setup": (img, lights_i, env_i, cam_i, cfg_i)}
@@ -2336,21 +2404,33 @@ def main() -> int:
             if want_counts is None:
                 check(set(counts2) == {"resident_closest", "resident_anyhit"},
                       f"cornell composed launches {counts2}")
+                cornell_counts = counts2
             else:
                 check(counts2 == want_counts, f"cornell fused launches {counts2}")
             print(f"phase2 cornell 32x32 spp2 b3 {path} vs golden: max abs err {err2:.3g} "
                   f"(rtol 1e-3 / atol 1e-4) ok; launches {counts2}", flush=True)
+        # K1 / K2 at the shapes of their main path (the composed cornell
+        # frame: at K = 1 the rule takes the flat kernels)
         cwaves = named_wavefronts(frame_wavefronts(pt, scene, lights, env, cam, cfg))
+        cornell = {}
         for wname, kern, plain, work_fn in (
                 ("camera", pt.ops.resident_closest, pt.ops.resident_closest_plain, closest_work),
                 ("shadow0", pt.ops.resident_anyhit, pt.ops.resident_anyhit_plain, anyhit_work)):
             rays = cwaves[wname]
+            want = plain(scene, *rays)
+            if wname == "camera":
+                err, ndis, _ = compare_closest(pt, scene, rays, kern(scene, *rays), want)
+            else:
+                err, ndis = compare_anyhit(pt, scene, rays, kern(scene, *rays), want)
             k_ms = cuda_ms(torch, lambda: kern(scene, *rays), reps=20)
             p_ms = cuda_ms(torch, lambda: plain(scene, *rays), reps=3)
-            b_ms, b_by = bound(work_fn(pt, scene, rays, plain(scene, *rays)))
+            b_ms, b_by = bound(work_fn(pt, scene, rays, want))
+            cornell[wname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "max_abs_err": err, "disagreements": ndis}
             print(f"phase2 cornell wavefront {wname}: {int(rays[4].sum())} active rays, "
                   f"{kern.__name__} {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"bound {b_ms:.6f} ms ({b_by})", flush=True)
+                  f"bound {b_ms:.6f} ms ({b_by}); vs plain: {ndis} flag disagreements, max "
+                  f"abs err {err:.3g} ok", flush=True)
 
         # ---- phase 3: the full-size frame; the main path is the fused frame
         scene, lights, env, cam, cfg = pt.scene.soup_frame(device=dev)
@@ -2365,8 +2445,10 @@ def main() -> int:
               "frame image is not finite, nonnegative and lit")
         _, composed_counts = counted(
             lambda: pt.render.render_image(scene, lights, env, cam, off(cfg)))
-        check(composed_counts == {"resident_closest": cfg.bounces,
-                                  "resident_anyhit": cfg.bounces},
+        grouped3 = pt.ops.use_grouped(scene)
+        check(composed_counts == {
+            "grouped_closest" if grouped3 else "resident_closest": cfg.bounces,
+            "grouped_anyhit" if grouped3 else "resident_anyhit": cfg.bounces},
               f"composed frame launches {composed_counts}")
         seeds = iter(range(1, 1000))
         frame_ms = cuda_ms(torch, lambda: pt.render.render_image(
@@ -2483,18 +2565,21 @@ def main() -> int:
              "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1372 (_kernel, flat and "
                          "instanced; also _kernel_hbm :1495, _kernel_tiny :1114, "
                          "_kernel_tiny_t :1284)",
-             "launches": composed_counts["resident_closest"], "max_abs_err": k1_err,
-             "disagreements": k1_dis,
-             "ms": timings["camera"][0], "plain_ms": timings["camera"][1],
-             "bound_ms": b1, "bound_by": b1_by, "library_ms": None},
+             "launches": cornell_counts["resident_closest"], **cornell["camera"],
+             "library_ms": None, "wavefront": "cornell camera",
+             "frame_64k_camera": {"ms": timings["camera"][0], "plain_ms": timings["camera"][1],
+                                  "bound_ms": b1, "bound_by": b1_by, "max_abs_err": k1_err,
+                                  "disagreements": k1_dis}},
             {"name": "resident_anyhit", "route": "cuda", "source": src,
              "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1773 (_occl_kernel, flat "
                          "and instanced; also _occl_kernel_hbm :1698, _occl_kernel_tiny "
                          ":1153, _occl_kernel_tiny_t :1361)",
-             "launches": composed_counts["resident_anyhit"], "max_abs_err": k2_err,
-             "disagreements": k2_dis,
-             "ms": timings["shadow0"][0], "plain_ms": timings["shadow0"][1],
-             "bound_ms": b2, "bound_by": b2_by, "library_ms": None},
+             "launches": cornell_counts["resident_anyhit"], **cornell["shadow0"],
+             "library_ms": None, "wavefront": "cornell shadow0",
+             "frame_64k_shadow0": {"ms": timings["shadow0"][0],
+                                   "plain_ms": timings["shadow0"][1], "bound_ms": b2,
+                                   "bound_by": b2_by, "max_abs_err": k2_err,
+                                   "disagreements": k2_dis}},
             {"name": "frame_sample", "route": "cuda",
              "source": "pg2024_dprt_tpu_torch/csrc/frame.cu",
              "replaces": "pg2024_dprt_tpu/ops/pallas_frame.py:228 (_frame_kernel with its "

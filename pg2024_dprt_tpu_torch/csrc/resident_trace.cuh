@@ -125,26 +125,34 @@ __device__ __forceinline__ bool load_ray(
   return true;
 }
 
-// Exact slab test of the ray against the box whose component q (min xyz,
-// max xyz, non-empty flag) is b[q * stride]. Returns the clamped enter
-// distance, or +inf when the ray provably does not enter the box before its
-// tmax.
-__device__ __forceinline__ float slab_enter(const Ray& r,
-                                            const float* __restrict__ b,
-                                            int stride) {
-  if (!(b[6 * stride] > 0.0f)) return CUDART_INF_F;
+// Exact slab test of the ray against the box [lo, hi] with non-empty flag
+// `flag`. Returns the clamped enter distance, or +inf when the ray provably
+// does not enter the box before its tmax.
+__device__ __forceinline__ float slab_enter_box(const Ray& r, const float lo[3],
+                                                const float hi[3], float flag) {
+  if (!(flag > 0.0f)) return CUDART_INF_F;
   float enter = 0.0f;
   float exit_ = CUDART_INF_F;
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
-    const float t0 = (b[ax * stride] - r.o[ax]) * r.inv[ax];
-    const float t1 = (b[(3 + ax) * stride] - r.o[ax]) * r.inv[ax];
+    const float t0 = (lo[ax] - r.o[ax]) * r.inv[ax];
+    const float t1 = (hi[ax] - r.o[ax]) * r.inv[ax];
     enter = fmaxf(enter, fminf(t0, t1));
     exit_ = fminf(exit_, fmaxf(t0, t1));
   }
   const float exit_g = exit_ * 1.0000004f + 1e-7f;  // rounding guard
   const bool ok = enter <= exit_g && exit_g > 0.0f && enter < r.tmax;
   return ok ? fmaxf(enter, 0.0f) : CUDART_INF_F;
+}
+
+// The same test against the box whose component q (min xyz, max xyz,
+// non-empty flag) is b[q * stride].
+__device__ __forceinline__ float slab_enter(const Ray& r,
+                                            const float* __restrict__ b,
+                                            int stride) {
+  const float lo[3] = {b[0], b[stride], b[2 * stride]};
+  const float hi[3] = {b[3 * stride], b[4 * stride], b[5 * stride]};
+  return slab_enter_box(r, lo, hi, b[6 * stride]);
 }
 
 // Slab test against cluster (or group) k of a planar (8, nk) box table.
@@ -342,7 +350,8 @@ __device__ __forceinline__ int group_cid0(const Tables& s, int g) {
               : g * kGroup;
 }
 
-// Closest hit through the two-level cull (K9, K3's grouped mode). It visits
+// Closest hit through the two-level cull, one thread per ray (K3's grouped
+// mode; K9 walks the same picks a warp per ray, resident_trace.cu). It visits
 // the clusters closest_hit visits, in the same order: each pick finds the
 // next (enter, cluster) after the last one under the horizon, as
 // closest_hit's pass over the K boxes does, but passes over the Kg group
@@ -390,7 +399,8 @@ __device__ __forceinline__ Hit closest_hit_grouped(const Ray& r,
   return refine(r, s, best_slot);
 }
 
-// Any-hit through the two-level cull (K10, K3's grouped mode): entered
+// Any-hit through the two-level cull, one thread per ray (K3's grouped
+// mode; K10 walks it a warp per ray): entered
 // groups in index order, their entered members in index order, return at
 // the first accepted hit (_grouped_occl_loop). Equals any_hit: a member is
 // entered only inside an entered group.

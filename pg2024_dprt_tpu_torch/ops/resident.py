@@ -61,12 +61,15 @@ GROUP = 8
 # the default dispatch takes the grouped kernels (K9/K10, and the frame
 # kernel's grouped mode) at this many clusters and more. The JAX package's
 # rule is a budget of the TPU's fast memory and means nothing on this card.
-# On 65,536 camera / incoherent rays (chip_smoke.py phase 7, an H100 at
-# 700 W; PERF.md) K9 took 0.84 / 0.87 of K1's time at K = 185, 0.39 / 0.45
-# at 735, 0.30 / 0.34 at 3,028 and 0.16 / 0.18 at 11,896, while K10 took
-# 1.10 / 1.08 of K2's at 185 and 0.97 / 1.03 at 735: the closest-hit plus
-# any-hit pair breaks even at 185 and wins by 1.9x / 1.5x at 735.
-GROUPED_MIN_CLUSTERS = 735
+# On 65,536 camera / incoherent rays over the 64k soup cut at 2048 .. 128
+# triangles a cluster (scripts/torch_grouped_probe.py --parts rule, an H100
+# at 700 W; PERF.md), K9 took 0.08-0.23 of K1's time and K10 0.07-0.21 of
+# K2's at every K from 47 to 735, but 1.2-1.6x at K = 1 (cornell); the
+# frame kernel's grouped mode, which keeps the per-thread walks, took 1.00
+# of its flat mode's time at K = 47, 1.04 at 93, 0.96 at 185, 0.83 at 368
+# and 0.54 at 735. One rule serves both: from 185 on every grouped kernel
+# wins.
+GROUPED_MIN_CLUSTERS = 185
 
 # the schedule key holds two cluster indices of this many bits
 SCHEDULE_CLUSTER_BITS = 12
@@ -274,7 +277,12 @@ def instancing_args(scene, tab):
 
 
 def group_args(tab):
-    """(gboxes pointer, mboxes pointer, Kg) of the grouped entry points."""
+    """(gboxes pointer, mboxes pointer, Kg) of the grouped entry points. K9
+    and K10 read each member box as two 16-byte loads, so a member table
+    that does not start on 16 bytes (a view into a larger buffer) is copied
+    first; `tab` keeps the copy alive until the launch."""
+    if tab["cl_mboxes"].data_ptr() % 16:
+        tab["cl_mboxes"] = tab["cl_mboxes"].clone()
     return _ptr(tab["cl_gboxes"]), _ptr(tab["cl_mboxes"]), tab["cl_gboxes"].shape[1]
 
 

@@ -1,0 +1,478 @@
+#!/usr/bin/env python3
+"""Where the port's grouped trace kernels K9 (grouped_closest) and K10
+(grouped_anyhit) spend their time, and what the large-scene frames pay for
+them, on one GPU.
+
+    python scripts/torch_grouped_probe.py [--root DIR ...] [--parts waves,frame,dist,rule]
+                                          [--ablate]
+
+Each --root is a checkout of this repository (default: the one holding this
+script). Each runs in a process of its own, in the order given (to compare
+two trees on one card, give them as A B B A), builds its own kernels, imports
+its own pg2024_dprt_tpu_torch and prints one line `probe {json}`; the lines
+are also appended to chiprun_out/grouped_probe.jsonl. The scenes and rays are
+chip_smoke.py's (phase 7 and phase 9), from this script's checkout. Parts:
+
+  waves  K1 / K9 and K2 / K10 on the large-scene wavefronts of chip_smoke.py
+         phase 7 (PERF.md section 5): CUDA-event medians of 7; K9 equal to
+         K1 and K10 equal to K2 on every ray.
+  frame  the instanced frame (render_image, 256x256, spp 1, 4 bounces):
+         frame ms (median of 7) and one profiled frame
+         (utils/profile.py render_device_profile): its idle share and the
+         device ms of K9 and K10 summed over their launches.
+  dist   phase 9's frames, rooms_p8 exact, rooms_p8 neural (8 PROD pairs) and
+         instanced_p8: frame ms (medians of 3) and the stage ms, idle share
+         and K9 / K10 device ms of one profiled frame.
+  rule   the dispatch rule (ops/resident.py GROUPED_MIN_CLUSTERS) at small
+         K: the 64k soup of the soup frame cut at 2048 .. 128 triangles a
+         cluster, and the cornell box: K1 / K9 and K2 / K10 on its camera
+         and incoherent wavefronts, the frame kernel K3 in its grouped and
+         flat modes on the soup frame's light, sky, camera and config, and
+         the composed frame with the rule's threshold just above and at K
+         (medians of 7; K3 and the frames of 5).
+
+--ablate measures, on a tree whose K9 / K10 run the per-thread walks of
+csrc/resident_trace.cuh (closest_hit_grouped / any_hit_grouped), where those
+walks spend their time: it builds a copy of csrc/resident_trace.cu whose K9 /
+K10 run the same walks with clock64() counters around each pick pass and each
+cluster visit (into build/ablate/, not a source of the package), and reports
+on the instanced camera wavefront, its first shadow wavefront and
+incoherent_1m the share of thread cycles in the passes and in the triangle
+loops, passes, visits and triangles per active ray, and the occupancy the
+launch reaches (resident blocks per SM by the occupancy API, the warps the
+launch brings against the card's 64 per SM). Needs CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import importlib.util
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(HERE, "chiprun_out", "grouped_probe.jsonl")
+
+# the CUDA functions of K9 / K10, whichever design the tree has
+K9_FUNCTIONS = ("closest_kernel<true>", "grouped_closest_kernel")
+K10_FUNCTIONS = ("anyhit_kernel<true>", "grouped_anyhit_kernel")
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_probe",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _profile(pt, cs, render, stages):
+    prof = pt.utils.profile.render_device_profile(render, stages, top=256, reps=3)
+    device_ms = lambda functions: sum(cs.kernel_device_ms(prof, f) for f in functions)
+    return {"idle_share_unprofiled": prof["idle_share_unprofiled"],
+            "busy_ms": prof["busy_ms"], "unprofiled_wall_ms": prof["unprofiled_wall_ms"],
+            "stages_ms": prof["stages_ms"], "k9_device_ms": device_ms(K9_FUNCTIONS),
+            "k10_device_ms": device_ms(K10_FUNCTIONS)}
+
+
+def _scenes(pt, dev):
+    soup = pt.scene.random_tri_soup
+    frame64 = pt.scene.soup_frame(device=dev)
+    scene64 = pt.scene.device_scene_from_meshes([soup(65536, seed=0)], tris_per_cluster=128,
+                                                device=dev)
+    scene1m = pt.scene.device_scene_from_meshes([soup(1 << 20, seed=3)], device=dev)
+    inst = pt.scene.instanced_frame(device=dev)
+    return frame64, scene64, scene1m, inst
+
+
+def _waves(pt, torch, np, cs, dev, scenes):
+    """chip_smoke.py phase 7's wavefronts, by name: (scene, rays)."""
+    frame64, scene64, scene1m, inst = scenes
+    scene185, scene_i = frame64[0], inst[0]
+    lo_i, hi_i = scene_i.scene_aabb.cpu().numpy()
+    cam = lambda eye, target, fov, tiled: cs.camera_wavefront(pt, torch, dev, eye, target, fov,
+                                                             tiled=tiled)
+    w = {"camera_64k_c512": (scene185, cam([0.5, 0.5, 3.0], [0.5, 0.5, 0.5], 45.0, True)),
+         "camera_64k": (scene64, cam([0.5, 0.5, 3.0], [0.5, 0.5, 0.5], 45.0, True)),
+         "incoherent_64k": (scene64, cs.random_wavefront(pt, torch, np, dev, scene64, -0.2,
+                                                         1.4, 1)),
+         "camera_1m": (scene1m, cam([0.5, 0.5, 3.0], [0.5, 0.5, 0.5], 45.0, True)),
+         "incoherent_1m": (scene1m, cs.random_wavefront(pt, torch, np, dev, scene1m, -0.2,
+                                                        1.4, 1)),
+         "camera_4m_instanced": (scene_i, cam([3.3, 1.5, 9.0], [3.3, 0.5, 1.0], 55.0, False)),
+         "incoherent_4m_instanced": (scene_i, cs.random_wavefront(
+             pt, torch, np, dev, scene_i, lo_i, hi_i - lo_i, 2))}
+    first = cs.frame_wavefronts(pt, scene_i, *inst[1:4], dataclasses.replace(inst[4], bounces=1),
+                                closest=pt.ops.grouped_closest)[0]
+    w["frame_4m_camera"] = (scene_i, first["closest"])
+    w["frame_4m_shadow0"] = (scene_i, first["shadow"])
+    return w
+
+
+def part_waves(pt, torch, cs, waves):
+    ops = pt.ops
+    out = {}
+    for name, (scene, rays) in waves.items():
+        k1, k9 = ops.resident_closest(scene, *rays), ops.grouped_closest(scene, *rays)
+        k2, k10 = ops.resident_anyhit(scene, *rays), ops.grouped_anyhit(scene, *rays)
+        dis9 = int(sum((getattr(k9, f) != getattr(k1, f)).sum() for f in k1._fields))
+        dis10 = int((k10 != k2).sum())
+        ms = {k: cs.cuda_ms(torch, lambda fn=fn: fn(scene, *rays), reps=7)
+              for k, fn in (("k1", ops.resident_closest), ("k9", ops.grouped_closest),
+                            ("k2", ops.resident_anyhit), ("k10", ops.grouped_anyhit))}
+        out[name] = {"rays": int(rays[4].sum()), "rows": int(rays[0].shape[0]),
+                     "k": scene.num_clusters, **{f"{k}_ms": v for k, v in ms.items()},
+                     "k9_differs": dis9, "k10_differs": dis10}
+        print(f"probe wave {name}: {out[name]}", flush=True)
+    return out
+
+
+def part_frame(pt, torch, cs, inst):
+    scene_i, lights_i, env_i, cam_i, cfg_i = inst
+    render = lambda s: pt.render.render_image(scene_i, lights_i, env_i, cam_i, cfg_i,
+                                              base_sample=s)
+    seeds = iter(range(1, 1000))
+    ms = cs.cuda_ms(torch, lambda: render(next(seeds)), reps=7)
+    out = {"frame_ms": ms, **_profile(pt, cs, render, pt.utils.profile.STAGES)}
+    print(f"probe instanced frame: {out}", flush=True)
+    return out
+
+
+def part_rule(pt, torch, np, cs, dev, frame64):
+    ops, res = pt.ops, pt.ops.resident
+    _, lights, env, cam, cfg = frame64
+    soup = pt.scene.random_tri_soup(65536, seed=0)
+    meshes, c_lights = pt.scene.cornell_box(device=dev)
+    scenes = [("cornell", pt.scene.device_scene_from_meshes(meshes, device=dev), c_lights)]
+    scenes += [(f"soup64k_c{tpc}", pt.scene.device_scene_from_meshes(
+        [soup], tris_per_cluster=tpc, device=dev), lights) for tpc in (2048, 1024, 512, 256, 128)]
+    seeds = iter(range(1, 10000))
+    saved = res.GROUPED_MIN_CLUSTERS
+    out = {}
+    try:
+        for name, scene, li in scenes:
+            k = scene.num_clusters
+            rec = {"k": k, "c": scene.tris_per_cluster}
+            for wname, rays in (
+                    ("camera", cs.camera_wavefront(pt, torch, dev, [0.5, 0.5, 3.0],
+                                                   [0.5, 0.5, 0.5], 45.0, tiled=True)),
+                    ("incoherent", cs.random_wavefront(pt, torch, np, dev, scene, -0.2, 1.4,
+                                                       1))):
+                for kn, fn in (("k1", ops.resident_closest), ("k9", ops.grouped_closest),
+                               ("k2", ops.resident_anyhit), ("k10", ops.grouped_anyhit)):
+                    rec[f"{wname}_{kn}_ms"] = cs.cuda_ms(torch, lambda: fn(scene, *rays), reps=7)
+            for mode in (True, False):
+                rec[f"k3_{'grouped' if mode else 'flat'}_ms"] = cs.cuda_ms(
+                    torch, lambda: ops.render_frame_fused(scene, li, env, cam, next(seeds), cfg,
+                                                          grouped=mode), reps=5)
+            off = dataclasses.replace(cfg, fused_frame="off")
+            for label, limit in (("flat", k + 1), ("grouped", k)):
+                res.GROUPED_MIN_CLUSTERS = limit
+                rec[f"composed_{label}_ms"] = cs.cuda_ms(torch, lambda: pt.render.render_image(
+                    scene, li, env, cam, off, base_sample=next(seeds)), reps=5)
+            res.GROUPED_MIN_CLUSTERS = saved
+            out[name] = rec
+            print(f"probe rule {name}: {rec}", flush=True)
+    finally:
+        res.GROUPED_MIN_CLUSTERS = saved
+    return out
+
+
+def part_dist(pt, torch, np, cs, dev, inst):
+    dist = pt.parallel
+    P, side = 8, 256
+    env = pt.scene.EnvironmentMap.constant(cs.ROOMS_ENV, device=dev)
+    cam = pt.core.Camera.look_at(*cs.ROOMS_CAMERA, side, side, device=dev)
+    cfg = pt.render.RenderConfig(width=side, height=side, spp=1, bounces=4)
+    meshes, lights = pt.scene.two_room_scene(num_rooms=P, tris_per_room=131072, seed=2,
+                                             device=dev)
+    part = pt.scene.build_partitioned_scene(meshes, P, device=dev)
+    prod = pt.models.random_proxy_models(np.random.RandomState(1), P, device=dev)
+    _, lights_i, env_i, cam_i, cfg_i = inst
+    i_meshes, grid = pt.scene.instance_grid()
+    part_i = pt.scene.build_partitioned_scene_instanced(i_meshes, grid, P, device=dev)
+    runs = (("rooms_p8_exact", part, None, lights, env, cam, cfg),
+            ("rooms_p8_neural_prod", part, prod, lights, env, cam,
+             dataclasses.replace(cfg, use_neural_proxies=True)),
+            ("instanced_p8", part_i, None, lights_i, env_i, cam_i, cfg_i))
+    out = {}
+    for name, pa, models, li, en, ca, c in runs:
+        frame = lambda s, pa=pa, models=models, li=li, en=en, ca=ca, c=c: \
+            dist.render_image_distributed(pa, models, li, en, ca, c, base_sample=s,
+                                          return_stats=True, device=dev)
+        seeds = iter(range(1, 1000))
+        ms = cs.cuda_ms(torch, lambda: frame(next(seeds)), reps=3)
+        out[name] = {"frame_ms": ms, **_profile(pt, cs, frame, dist.distributed.STAGES)}
+        print(f"probe {name}: {out[name]}", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# --ablate: the per-thread walks with cycle counters
+
+_PROF_CUH = r"""
+namespace resident {
+// cycle counters of the probe: closest 0 pass cycles, 1 visit cycles,
+// 2 passes, 3 visits, 4 rays, 5 triangles; any-hit 6 cull cycles, 7 visit
+// cycles, 8 visits, 9 rays, 10 triangles
+__device__ unsigned long long g_prof[12];
+
+__device__ __forceinline__ Hit closest_hit_grouped_prof(const Ray& r, const Tables& s) {
+  const int kg = s.kg;
+  float best_t = kF32Max;
+  long long best_slot = -1;
+  float last_en = -1.0f;
+  int last_k = -1;
+  unsigned long long cp = 0, cv = 0, np_ = 0, nv = 0, nt = 0;
+  for (;;) {
+    const long long t0 = clock64();
+    const float hz = horizon(r, best_t, best_slot);
+    float next_en = CUDART_INF_F;
+    int next_k = -1;
+    for (int g = 0; g < kg; ++g) {
+      const float eg = cluster_enter(r, s.gboxes, g, kg);
+      if (!(eg <= hz) || eg > next_en) continue;
+      const float* mb = s.mboxes + static_cast<size_t>(g) * kGroup * 8;
+      const int cid0 = group_cid0(s, g);
+#pragma unroll
+      for (int m = 0; m < kGroup; ++m) {
+        const float en = slab_enter(r, mb + 8 * m, 1);
+        const int k = cid0 + m;
+        if (!(en <= hz)) continue;
+        if (en < last_en || (en == last_en && k <= last_k)) continue;
+        if (en < next_en || (en == next_en && k < next_k)) {
+          next_en = en;
+          next_k = k;
+        }
+      }
+    }
+    const long long t1 = clock64();
+    cp += t1 - t0;
+    ++np_;
+    if (next_k < 0) break;
+    const Ray l = s.xf ? object_ray(r, s, next_k / s.kb) : r;
+    visit_closest(l, s, next_k, best_t, best_slot);
+    cv += clock64() - t1;
+    ++nv;
+    nt += s.counts[next_k];
+    last_en = next_en;
+    last_k = next_k;
+  }
+  atomicAdd(&g_prof[0], cp);
+  atomicAdd(&g_prof[1], cv);
+  atomicAdd(&g_prof[2], np_);
+  atomicAdd(&g_prof[3], nv);
+  atomicAdd(&g_prof[4], 1ull);
+  atomicAdd(&g_prof[5], nt);
+  return refine(r, s, best_slot);
+}
+
+__device__ __forceinline__ bool any_hit_grouped_prof(const Ray& r, const Tables& s) {
+  const int kg = s.kg;
+  const long long start = clock64();
+  unsigned long long cv = 0, nv = 0, nt = 0;
+  bool occ = false;
+  for (int g = 0; g < kg && !occ; ++g) {
+    if (cluster_enter(r, s.gboxes, g, kg) == CUDART_INF_F) continue;
+    const float* mb = s.mboxes + static_cast<size_t>(g) * kGroup * 8;
+    const int cid0 = group_cid0(s, g);
+    const Ray l = s.xf ? object_ray(r, s, cid0 / s.kb) : r;
+    for (int m = 0; m < kGroup; ++m) {
+      if (slab_enter(r, mb + 8 * m, 1) == CUDART_INF_F) continue;
+      const long long t0 = clock64();
+      const bool h = visit_any(l, s, cid0 + m);
+      cv += clock64() - t0;
+      ++nv;
+      nt += s.counts[cid0 + m];
+      if (h) {
+        occ = true;
+        break;
+      }
+    }
+  }
+  const unsigned long long total = clock64() - start;
+  atomicAdd(&g_prof[6], total - cv);
+  atomicAdd(&g_prof[7], cv);
+  atomicAdd(&g_prof[8], nv);
+  atomicAdd(&g_prof[9], 1ull);
+  atomicAdd(&g_prof[10], nt);
+  return occ;
+}
+}  // namespace resident
+"""
+
+_PROF_CU = r"""
+extern "C" int prof_read(unsigned long long* h) {
+  return static_cast<int>(cudaMemcpyFromSymbol(h, resident::g_prof, sizeof(resident::g_prof)));
+}
+extern "C" int prof_clear() {
+  unsigned long long z[12] = {0};
+  return static_cast<int>(cudaMemcpyToSymbol(resident::g_prof, z, sizeof(z)));
+}
+extern "C" int prof_occupancy(int* out) {
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], closest_kernel<true>, kThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], anyhit_kernel<true>, kThreads, 0);
+  cudaFuncAttributes a;
+  cudaFuncGetAttributes(&a, closest_kernel<true>);
+  out[2] = a.numRegs;
+  cudaFuncGetAttributes(&a, anyhit_kernel<true>);
+  out[3] = a.numRegs;
+  out[4] = kThreads;
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _ablate_lib(root, _build):
+    """Build the counter copy of resident_trace.cu; returns the library."""
+    src = os.path.join(root, "pg2024_dprt_tpu_torch", "csrc")
+    dst = os.path.join(root, "pg2024_dprt_tpu_torch", "build", "ablate")
+    os.makedirs(dst, exist_ok=True)
+    cu = open(os.path.join(src, "resident_trace.cu")).read()
+    calls = ("h = resident::closest_hit_grouped(r, s);", "occ = resident::any_hit_grouped(r, s);")
+    if not all(c in cu for c in calls):
+        raise SystemExit("--ablate: this tree's K9 / K10 do not run the per-thread walks")
+    for c in calls:
+        cu = cu.replace(c, c.replace("_grouped(", "_grouped_prof("))
+    cu = cu.replace('#include "resident_trace.cuh"',
+                    '#include "resident_trace.cuh"\n#include "probe_prof.cuh"') + _PROF_CU
+    for f in os.listdir(src):
+        if f.endswith(".cuh"):
+            shutil.copy(os.path.join(src, f), dst)
+    with open(os.path.join(dst, "probe_prof.cuh"), "w") as fh:
+        fh.write("#pragma once\n#include \"resident_trace.cuh\"\n" + _PROF_CUH)
+    with open(os.path.join(dst, "resident_trace_prof.cu"), "w") as fh:
+        fh.write(cu)
+    so = os.path.join(dst, "libresident_trace_prof.so")
+    run = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                          os.path.join(dst, "resident_trace_prof.cu")],
+                         capture_output=True, text=True)
+    if run.returncode != 0:
+        raise SystemExit("--ablate: nvcc failed\n" + run.stdout + run.stderr)
+    return ctypes.CDLL(so)
+
+
+def part_ablate(pt, torch, cs, root, waves):
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    ops = pt.ops
+    base = {name: {k: cs.cuda_ms(torch, lambda fn=fn, w=waves[name]: fn(w[0], *w[1]), reps=7)
+                   for k, fn in (("k9", ops.grouped_closest), ("k10", ops.grouped_anyhit))}
+            for name in ("frame_4m_camera", "frame_4m_shadow0", "incoherent_1m")}
+    lib = _ablate_lib(root, _build)
+    saved = _build._LIBS.get("resident_trace")
+    _build._LIBS["resident_trace"] = lib
+    u64 = ctypes.c_ulonglong * 12
+    lib.prof_read.argtypes = [ctypes.c_void_p]
+    lib.prof_occupancy.argtypes = [ctypes.c_void_p]
+    occ = (ctypes.c_int * 5)()
+    lib.prof_occupancy(occ)
+    blocks_per_sm = {"k9": occ[0], "k10": occ[1]}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"blocks_per_sm": blocks_per_sm, "registers": {"k9": occ[2], "k10": occ[3]},
+           "threads_per_block": occ[4], "sms": sms}
+    try:
+        for name, (scene, rays) in ((n, waves[n]) for n in base):
+            rec = {"rays": int(rays[4].sum()), "rows": int(rays[0].shape[0]),
+                   "base_ms": base[name]}
+            for key, fn in (("k9", ops.grouped_closest), ("k10", ops.grouped_anyhit)):
+                lib.prof_clear()
+                fn(scene, *rays)
+                torch.cuda.synchronize()
+                c = u64()
+                lib.prof_read(c)
+                c = list(c)
+                if key == "k9":
+                    cyc, vis = c[0] + c[1], c[1]
+                    rec["k9"] = {"pass_cycle_share": c[0] / max(cyc, 1),
+                                 "visit_cycle_share": vis / max(cyc, 1),
+                                 "passes_per_ray": c[2] / max(c[4], 1),
+                                 "visits_per_ray": c[3] / max(c[4], 1),
+                                 "triangles_per_ray": c[5] / max(c[4], 1)}
+                else:
+                    cyc = c[6] + c[7]
+                    rec["k10"] = {"cull_cycle_share": c[6] / max(cyc, 1),
+                                  "visit_cycle_share": c[7] / max(cyc, 1),
+                                  "visits_per_ray": c[8] / max(c[9], 1),
+                                  "triangles_per_ray": c[10] / max(c[9], 1)}
+                rec[key]["counter_ms"] = cs.cuda_ms(torch, lambda: fn(scene, *rays), reps=3)
+                blocks = -(-rec["rows"] // occ[4])
+                resident = min(blocks, sms * blocks_per_sm[key])
+                rec[key]["blocks"] = blocks
+                rec[key]["warps_per_sm_at_start"] = resident * (occ[4] // 32) / sms
+                rec[key]["active_rays_per_warp"] = rec["rays"] / max(-(-rec["rows"] // 32), 1)
+            out[name] = rec
+            print(f"probe ablate {name}: {rec}", flush=True)
+    finally:
+        _build._LIBS["resident_trace"] = saved
+    return out
+
+
+# --------------------------------------------------------------------------
+
+def child(root, parts, ablate):
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import pg2024_dprt_tpu_torch as pt
+    import pg2024_dprt_tpu_torch.models  # noqa: F401
+    import pg2024_dprt_tpu_torch.ops  # noqa: F401
+    import pg2024_dprt_tpu_torch.parallel  # noqa: F401
+    import pg2024_dprt_tpu_torch.render  # noqa: F401
+    import pg2024_dprt_tpu_torch.scene  # noqa: F401
+    import pg2024_dprt_tpu_torch.utils.profile  # noqa: F401
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("the probe needs a CUDA GPU")
+    if not os.path.abspath(pt.__file__).startswith(os.path.abspath(root)):
+        raise SystemExit(f"imported {pt.__file__}, not the package under {root}")
+    cs = _chip_smoke()
+    _build.build(force=True)
+    dev = pt.core.resolve_device()
+    out = {"root": root, "card": cs.card_line()}
+    scenes = _scenes(pt, dev)
+    waves = _waves(pt, torch, np, cs, dev, scenes) if ("waves" in parts or ablate) else None
+    if "waves" in parts:
+        out["waves"] = part_waves(pt, torch, cs, waves)
+    if "frame" in parts:
+        out["instanced_frame"] = part_frame(pt, torch, cs, scenes[3])
+    if "dist" in parts:
+        out["dist"] = part_dist(pt, torch, np, cs, dev, scenes[3])
+    if "rule" in parts:
+        out["rule"] = part_rule(pt, torch, np, cs, dev, scenes[0])
+    if ablate:
+        out["ablate"] = part_ablate(pt, torch, cs, root, waves)
+    line = json.dumps(out, default=float)
+    print("probe " + line, flush=True)
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    with open(OUT, "a") as fh:
+        fh.write(line + "\n")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", action="append", help="checkout to probe (repeatable)")
+    ap.add_argument("--parts", default="waves,frame,dist")
+    ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    parts = set(a.parts.split(",")) - {""}
+    if a.one:
+        child(os.path.abspath(a.one), parts, a.ablate)
+        return 0
+    rc = 0
+    for root in a.root or [HERE]:
+        cmd = [sys.executable, os.path.abspath(__file__), "--one", os.path.abspath(root),
+               "--parts", ",".join(sorted(parts))] + (["--ablate"] if a.ablate else [])
+        rc = rc or subprocess.run(cmd).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -293,6 +293,57 @@ def test_grouped_dispatch_rule():
         assert tres.use_grouped(inst) and not tres.use_grouped(ts)
     finally:
         tres.GROUPED_MIN_CLUSTERS = saved
+    # the threshold sits where it was measured (ops/resident.py): the soup
+    # frame's 64k soup at 512 a cluster (K = 185) takes the grouped kernels,
+    # the same soup at 1024 a cluster (K = 93) the flat ones
+    soup = random_tri_soup(65536, seed=0)
+    at = {tpc: tscene.device_scene_from_meshes([soup], tris_per_cluster=tpc, device="cpu")
+          for tpc in (512, 1024)}
+    assert at[512].num_clusters == tres.GROUPED_MIN_CLUSTERS == 185
+    assert tres.use_grouped(at[512]) and not tres.use_grouped(at[1024])
+
+
+@pytest.mark.parametrize("kind", ["flat", "instanced"])
+def test_group_args_hold_the_member_boxes_the_kernels_read(kind):
+    """K9/K10 read member m of group g as the 8 floats at (g * 8 + m) * 8
+    of cl_mboxes, two 16-byte loads, and its cluster id as cid0 + m with
+    cid0 = mboxes[g, 0, 7] (instanced) or g * 8 (flat): every non-empty
+    member box is that cluster's box in cl_boxes, every other member is
+    flagged empty, and the grouped entry points get a 16-byte-aligned copy
+    of a member table that starts off 16 bytes (a view into a larger
+    buffer), equal to it, and the table itself when it is aligned."""
+    mesh = random_tri_soup(700, seed=4)
+    if kind == "flat":
+        ts = tscene.device_scene_from_meshes([mesh], tris_per_cluster=16, device="cpu")
+    else:
+        ts = tscene.device_scene_from_instances([mesh], _transforms(3, 8), tris_per_cluster=16,
+                                                device="cpu")
+    cpu = torch.device("cpu")
+    tab, k, _ = tres.scene_tables(ts, cpu, grouped=True)
+    gptr, mptr, kg = tres.group_args(tab)
+    assert mptr == tab["cl_mboxes"].data_ptr() and mptr % 16 == 0
+    assert gptr == tab["cl_gboxes"].data_ptr() and kg == ts.cl_gboxes.shape[1]
+    assert torch.equal(tab["cl_mboxes"], ts.cl_mboxes)
+    flat_boxes = tab["cl_mboxes"].reshape(-1)
+    seen = torch.zeros(k, dtype=torch.bool)
+    for g in range(kg):
+        cid0 = int(round(float(flat_boxes[g * 64 + 7]))) if kind == "instanced" else 8 * g
+        for m in range(tres.GROUP):
+            box = flat_boxes[(g * 8 + m) * 8:(g * 8 + m) * 8 + 7]
+            if float(box[6]) > 0.0:
+                assert torch.equal(box, ts.cl_boxes[:7, cid0 + m])
+                seen[cid0 + m] = True
+            else:
+                assert cid0 + m >= k or float(ts.cl_boxes[6, cid0 + m]) == 0.0
+    assert torch.equal(seen, ts.cl_boxes[6] > 0.0)
+    buf = torch.zeros(ts.cl_mboxes.numel() + 1)
+    view = buf[1:].view(ts.cl_mboxes.shape)
+    view.copy_(ts.cl_mboxes)
+    assert view.data_ptr() % 16 != 0
+    tab2, _, _ = tres.scene_tables(ts._replace(cl_mboxes=view), cpu, grouped=True)
+    _, mptr2, _ = tres.group_args(tab2)
+    assert mptr2 % 16 == 0 and mptr2 == tab2["cl_mboxes"].data_ptr() != view.data_ptr()
+    assert torch.equal(tab2["cl_mboxes"], ts.cl_mboxes)
 
 
 def test_scene_tables_refuse_what_the_kernels_cannot_index():

@@ -594,46 +594,79 @@ def test_proxy_wrappers_refuse_what_the_kernels_do_not_take():
 from pg2024_dprt_tpu_torch.ops import resident as tres  # noqa: E402
 
 
-def _large_case(kind, tpc, device, n=4096):
+def _large_case(kind, tpc, device, n=4096, edge=None):
     """A flat soup or three instances of one (rotation * scale +
     translation), cut at `tpc` triangles per cluster, with rays aimed into
-    it (a quarter of them capped short)."""
+    it (a quarter of them capped short). `edge` bends it to one edge of the
+    warp-per-ray kernels K9/K10: "ties" duplicates every triangle (every hit
+    is a tie at equal t, won by the lower slot), "sparse" activates under
+    1 % of the n rows, "past_2p24" places 257 instances of a 65,536-triangle
+    soup (virtual ids past 2^24) and aims half the rays at the last one."""
     rng = np.random.RandomState(70 + tpc)
     n_tris = 6 * tpc if tpc >= 512 else 3000
     mesh = random_tri_soup(n_tris, seed=71, jitter=0.2)
+    if edge == "ties":
+        mesh = tscene.MeshGeometry(v0=np.concatenate([mesh.v0, mesh.v0]),
+                                   v1=np.concatenate([mesh.v1, mesh.v1]),
+                                   v2=np.concatenate([mesh.v2, mesh.v2]))
     if kind == "flat":
         scene = device_scene_from_meshes([mesh], tris_per_cluster=tpc, device=device)
         centers = np.full((1, 3), 0.5, np.float32)
     else:
-        m = np.zeros((3, 3, 4), np.float32)
-        for i in range(3):
-            r, _ = np.linalg.qr(rng.randn(3, 3))
-            m[i, :, :3] = r @ np.diag(0.6 + rng.rand(3))
-            m[i, :, 3] = [1.5 * i, 0.3 * i, -0.5 * i]
+        ni = 3
+        m = np.zeros((ni, 3, 4), np.float32)
+        if edge == "past_2p24":
+            mesh = random_tri_soup(1 << 16, seed=72)
+            ni = 2**24 // mesh.num_triangles + 1
+            m = np.zeros((ni, 3, 4), np.float32)
+            m[:, :, :3] = np.eye(3, dtype=np.float32)
+            m[:, 0, 3] = 1.5 * (np.arange(ni) % 16)
+            m[:, 2, 3] = 1.5 * (np.arange(ni) // 16)
+        else:
+            for i in range(ni):
+                r, _ = np.linalg.qr(rng.randn(3, 3))
+                m[i, :, :3] = r @ np.diag(0.6 + rng.rand(3))
+                m[i, :, 3] = [1.5 * i, 0.3 * i, -0.5 * i]
         scene = tscene.device_scene_from_instances([mesh], m, tris_per_cluster=tpc,
                                                    device=device)
         centers = np.einsum("iab,b->ia", m[:, :, :3], np.full(3, 0.5, np.float32)) + m[:, :, 3]
     o = (rng.rand(n, 3) * 8.0 - 4.0).astype(np.float32)
-    target = centers[rng.randint(0, centers.shape[0], n)] + rng.rand(n, 3).astype(
-        np.float32) - 0.5
+    pick = rng.randint(0, centers.shape[0], n)
+    if edge == "past_2p24":
+        pick[: n // 2] = centers.shape[0] - 1
+        o += centers[pick]  # origins around the instance each ray aims at
+    target = centers[pick] + rng.rand(n, 3).astype(np.float32) - 0.5
     d = (target - o).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     tmax = np.where(rng.rand(n) < 0.25, 3.0, 3.4e38).astype(np.float32)
+    u = rng.rand(n)
+    live = u < 0.006 if edge == "sparse" else u > 0.05
     on = lambda a: torch.as_tensor(a, device=device)
-    rays = (on(o), on(d), torch.full((n,), T_MIN, device=device), on(tmax),
-            on(rng.rand(n) > 0.05))
+    rays = (on(o), on(d), torch.full((n,), T_MIN, device=device), on(tmax), on(live))
     return scene, rays
 
 
+# (kind, tpc, rays, edge): the six K / C corners, then the edges of the
+# warp-per-ray design: fewer rays than a block holds teams, a 65,536-row
+# buffer with under 1 % of its rows active, ties at equal t, ragged cluster
+# counts (C = 48, counts not multiples of 32), virtual ids past 2^24
+GROUPED_CASES = [(kind, tpc, 4096, None) for kind in ("flat", "instanced")
+                 for tpc in (64, 512, 2048)] + [
+    ("flat", 64, 3, "few"), ("instanced", 64, 65536, "sparse"), ("flat", 64, 4096, "ties"),
+    ("instanced", 64, 4096, "ties"), ("instanced", 48, 4096, "ragged"),
+    ("instanced", 512, 1024, "past_2p24")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tpc", [64, 512, 2048])
-@pytest.mark.parametrize("kind", ["flat", "instanced"])
-def test_grouped_kernels_equal_flat_and_plain_on_gpu(kind, tpc):
+@pytest.mark.parametrize("kind,tpc,n,edge", GROUPED_CASES,
+                         ids=[f"{k}-{t}" + (f"-{e}" if e else "")
+                              for k, t, _, e in GROUPED_CASES])
+def test_grouped_kernels_equal_flat_and_plain_on_gpu(kind, tpc, n, edge):
     """K9 equals K1 and K10 equals K2 on every ray, field by field; K1/K2
     (instanced too) equal their plain versions; instanced ids are virtual;
     each wrapper counts its own launch."""
     _need_cuda()
-    scene, rays = _large_case(kind, tpc, "cuda")
+    scene, rays = _large_case(kind, tpc, "cuda", n=n, edge=edge)
     assert scene.instanced == (kind == "instanced") and scene.tris_per_cluster == tpc
     before = dict(tops.LAUNCHES)
     k1 = tops.resident_closest(scene, *rays)
@@ -650,8 +683,23 @@ def test_grouped_kernels_equal_flat_and_plain_on_gpu(kind, tpc):
     for f in k1._fields:
         assert torch.equal(getattr(k1, f), getattr(want, f)), f
     assert torch.equal(k2, tops.resident_anyhit_plain(scene, *rays))
-    assert k1.is_hit.sum() > 300 and k2.sum() > k1.is_hit.sum() // 2
-    if kind == "instanced":
+    live = int(rays[4].sum())
+    if edge == "few":
+        assert n == 3 and live >= 1
+    elif edge == "sparse":
+        assert 0 < live < n // 100 and k1.is_hit.sum() > 0
+    else:
+        assert k1.is_hit.sum() > 300 * n // 4096 and k2.sum() > k1.is_hit.sum() // 2
+    if edge == "ragged":
+        assert bool((scene.cl_count[scene.cl_count > 0] % 32 != 0).any())
+    if edge == "ties":
+        # every triangle is there twice: the winner is the lower slot of the
+        # two (the plain version's first minimal slot), whichever lane or
+        # cluster holds it
+        assert k1.is_hit.sum() > 100
+    if edge == "past_2p24":
+        assert int(k1.tri_index.max()) >= 2**24
+    elif kind == "instanced" and edge is None:
         inst = k1.tri_index[k1.is_hit] // scene.num_base_tris
         assert set(inst.tolist()) == {0, 1, 2}
 
