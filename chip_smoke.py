@@ -22,8 +22,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      rule); the same frame through the composed path (fused_frame="off": the
      rule's trace kernels, K9/K10, 4/4); frame ms of both (CUDA events,
      median of 7 after a warm-up), K3's ms at every depth from 1 bounce up
-     beside the paths alive per bounce, per-wavefront kernel ms and Mrays/s,
-     and the composed frame with the plain versions in place of K1/K2 (one run);
+     beside the paths alive per bounce, K3 through the warp walks against
+     its flat mode (images bit-identical on the frame and on an odd-sized
+     251x247 frame of the same soup with roulette; both timed),
+     per-wavefront kernel ms and Mrays/s, and the composed frame with the
+     plain versions in place of K1/K2 (one run);
   4. each kernel against its plain version on the card. K1/K2 on the frame's
      camera, first-bounce and first-shadow wavefronts: hit flags agree on
      >= 99.99 % of rays, every disagreement is an edge hit (min barycentric
@@ -67,7 +70,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      thresholds: 0 disagreeing decisions among the rays none of whose queries
      is at a knife edge (|vis - 0.5| < 0.05, or a predicted t, length or depth
      within 2e-2 relative of what it is compared with), the size of that set
-     printed; predicted t within 2e-2 of the box diagonal. CUDA-event medians
+     printed; predicted t within 2e-2 of the box diagonal; K7 through the
+     warp walks (the rule's mode at K = 735) equal to its flat mode on every
+     ray, both timed. CUDA-event medians
      of 7 for each kernel and stage, the plain versions' times, the bounds,
      and the per-object bf16 torch.matmul chain as K5/K6's yardstick;
   7. large scenes (the rows of scripts/bench_suite.py, not cut): the 1M soup
@@ -101,9 +106,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      launches.
      Path 3: frame_1m (soup_frame's light, sky, camera and config over the
      1M soup) by the default config: launches {frame_sample: 1}; K3's
-     grouped mode against its flat mode, bit-identical, and both timed.
-     neural_route_1m: the phase-6 stages over the 1M soup, fused against
-     composed (0 rays outside the knife-edge set), stage ms.
+     grouped mode against its flat mode, bit-identical, and both timed;
+     K3's bound on that frame. neural_route_1m: the phase-6 stages over the
+     1M soup, fused against composed (0 rays outside the knife-edge set),
+     stage ms; K7 through the warp walks equal to its flat mode, both
+     timed, and its bounds.
   8. the streaming pair tracer at the widths of scripts/bench_tracer.py (not
      cut): random_tri_soup(65536, seed=0) at 128 per cluster (K = 735),
      65,536 camera rays (look-at [0.5, 0.5, 3] -> [0.5, 0.5, 0.5], fov 45,
@@ -155,9 +162,11 @@ Phases, each reported on its own line; any failure exits non-zero:
         the most rays, K7 against its plain version and the composed stage
         (K8, the trace kernel, K4, the nets: K6, or plain apply_multigeo)
         on the seeded and the straddling nets, 0 disagreeing decisions
-        outside phase 6's knife-edge set (its size printed); stage ms fused
-        and composed; K7's multi-geo time, plain time and bound; the idle
-        share of the PROD frame;
+        outside phase 6's knife-edge set (its size printed), and K7 by the
+        rule equal to its flat mode on every ray; stage ms fused and
+        composed and, on the busiest partition's wavefronts, K7 through the
+        warp walks and flat, and its bounds; K7's multi-geo time, plain time
+        and bounds; the idle share of the PROD frame;
      9d the paper's A-B with the trained nets of
         artifacts/ab_scaled/weights.npz (separate, combined, multi-geo;
         w128/d4) on the 8-statue row of scripts/ab_neural_scaled.py (64x64,
@@ -232,8 +241,9 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1):
     return statistics.median(times)
 
 
-# kernel entry functions of csrc/ by their template argument (ILb0E / ILb1E
-# or ILi0E .. ILi2E in the mangled name), as the kernels line names them
+# kernel entry functions of csrc/ by their template arguments (ILb0E / ILb1E,
+# ILb0ELb1E or ILi0E .. ILi2E in the mangled name: the digits in order), as
+# the kernels line names them
 KERNEL_LABELS = {("closest_kernel", None): "K1 resident_closest",
                  ("grouped_closest_kernel", None): "K9 grouped_closest",
                  ("anyhit_kernel", None): "K2 resident_anyhit",
@@ -243,8 +253,10 @@ KERNEL_LABELS = {("closest_kernel", None): "K1 resident_closest",
                  ("proxy_march_kernel", None): "K4 proxy_march",
                  ("mlp_pair_kernel", None): "K5 mlp_pair",
                  ("mlp_dense_kernel", None): "K6 mlp_dense",
-                 ("route_kernel", "0"): "K7 route (secondary)",
-                 ("route_kernel", "1"): "K7 route (shadow)",
+                 ("route_kernel", "00"): "K7 route (secondary)",
+                 ("route_kernel", "01"): "K7 route (secondary, multi-geo)",
+                 ("route_kernel", "10"): "K7 route (shadow)",
+                 ("route_kernel", "11"): "K7 route (shadow, multi-geo)",
                  ("pair_kernel", "0"): "K11 pair_closest",
                  ("pair_kernel", "1"): "K12 pair_anyhit",
                  ("pair_kernel", "2"): "K13 pair_woop"}
@@ -257,9 +269,10 @@ def ptxas_summary(log: str) -> str:
 
     parts, label = [], "?"
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function .*?\d([A-Za-z_]+_kernel)(?:IL[bi]([0-9])E)?", ln)
+        m = re.search(r"Compiling entry function .*?\d([A-Za-z_]+_kernel)((?:I(?:L[bi][0-9]E)+)?)", ln)
         if m:
-            label = KERNEL_LABELS.get((m.group(1), m.group(2)), m.group(1))
+            args = "".join(re.findall(r"L[bi]([0-9])E", m.group(2))) or None
+            label = KERNEL_LABELS.get((m.group(1), args), m.group(1))
         elif "registers" in ln or "spill" in ln:
             parts.append(f"{label}: {ln.strip().replace('ptxas info    : ', '')}")
     return " | ".join(parts)
@@ -801,6 +814,51 @@ def matmul_chain(pt, torch, models, feats, obj, valid):
     return run
 
 
+def route_modes(pt, torch, tag, scene, proxies, models, sec_args, shd_args, reps=7):
+    """K7 through the warp walks (grouped=True) and through the flat walks
+    (grouped=False) on one secondary and one shadow wavefront: every decision
+    and weight equal (both traces equal K1 / K2 bit for bit), both timed
+    (secondary with the schedule sort, as the stage runs it; CUDA-event
+    medians of `reps`). Returns the ms by name."""
+    ops = pt.ops
+    out = {}
+    for kind, fn, args in (("secondary", ops.route_fused, sec_args),
+                           ("shadow", ops.shadow_route_fused, shd_args)):
+        if args is None:
+            continue
+        got = {mode: fn(scene, proxies, models, *args, grouped=mode) for mode in (True, False)}
+        dis = sum(int((got[True][f] != got[False][f]).sum()) for f in got[True])
+        check(dis == 0, f"{tag}: K7 {kind} through the warp walks differs from its flat mode "
+                        f"in {dis} decisions")
+        for mode in (True, False):
+            out[f"{kind}_{'grouped' if mode else 'flat'}_ms"] = cuda_ms(
+                torch, lambda: fn(scene, proxies, models, *args, grouped=mode), reps=reps)
+    print(f"{tag}: K7 through the warp walks equals its flat mode on every ray ok (K="
+          f"{scene.num_clusters}, the rule takes the "
+          f"{'grouped' if ops.use_grouped(scene) else 'flat'} mode); "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def route_bound(pt, torch, scene, proxies, models, rays, shadow, records):
+    """K7's bound on one wavefront (PERF.md's rules): the trace's work
+    (large_work, from the rule's trace kernel, which equals the plain
+    version), the march's operations (every box per step and live ray) at
+    the FP32 rate and the nets' FLOPs on `records` valid queries at the bf16
+    tensor rate; bytes: the trace's, the nets' and the proxy table's.
+    Returns (bound_ms, bound_by, the trace's work, the nets' work)."""
+    n, live = rays[0].shape[0], int(rays[4].sum())
+    traced, _ = pt.ops.trace_resident(scene, *rays, any_hit=shadow)
+    tw = (large_work(pt, torch, scene, rays, occ=traced) if shadow
+          else large_work(pt, torch, scene, rays, hits=traced))
+    nw = nets_work(pt, models, 0, records)
+    op_s = ((tw["tests"] * MT_OPS + tw["slabs"] * SLAB_OPS + tw["xforms"] * XFORM_OPS
+             + march_work(proxies, live, n, records)["ops"]) / FP32_FLOP_PER_S
+            + nw["flops"] / BF16_TENSOR_FLOP_PER_S)
+    byte_s = (tw["bytes"] + nw["bytes"] + proxies.num_partitions * 36) / HBM_BYTES_PER_S
+    return max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s else "bytes"), tw, nw
+
+
 def route_phase(pt, torch, np, dev, counted):
     """Phase 6; returns the kernels-line entries of K4-K8."""
     ops, stages = pt.ops, pt.render.proxy_stages
@@ -1060,6 +1118,9 @@ def route_phase(pt, torch, np, dev, counted):
               f"{in_p}, {in_c}); {int((dec_s['weight'] > 0).sum())} rays lit of "
               f"{int(dec_s['survives'].sum())} survivors ok", flush=True)
 
+    # K7's warp walks (the rule's mode at K = 735) against its flat mode
+    modes = route_modes(pt, torch, "phase6", scene, proxies, models, sec_args, shd_args)
+
     # the stages as a whole, fused against composed (seeded nets)
     edge = knife_edges(torch, q, vis, depth, local_t, shadow=False)
     for f in ("target_node", "current_node", "is_hit", "is_valid", "visited_mask"):
@@ -1106,17 +1167,11 @@ def route_phase(pt, torch, np, dev, counted):
           + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()), flush=True)
 
     # ---- K7's bound: the trace's operations + the march's + the nets'
-    t_work = closest_work(pt, scene, sec_rays, ops.resident_closest_plain(scene, *sec_rays))
-    s_work = anyhit_work(pt, scene, shd_rays, ops.resident_anyhit_plain(scene, *shd_rays))
     bounds = {}
-    for name, tw, rows, recs in (("secondary", t_work, n_valid, n_valid),
-                                 ("shadow", s_work, n_valid_shd, n_valid_shd)):
-        nw = nets_work(pt, models, 0, rows)
-        op_s = ((tw["tests"] * MT_OPS + tw["slabs"] * SLAB_OPS
-                 + march_work(proxies, n, n, recs)["ops"]) / FP32_FLOP_PER_S
-                + nw["flops"] / BF16_TENSOR_FLOP_PER_S)
-        byte_s = (tw["bytes"] + nw["bytes"] + proxies.num_partitions * 36) / HBM_BYTES_PER_S
-        bounds[name] = (max(op_s, byte_s) * 1e3, "operations" if op_s >= byte_s else "bytes")
+    for name, rays, rows in (("secondary", sec_rays, n_valid), ("shadow", shd_rays, n_valid_shd)):
+        b_ms, b_by, tw, nw = route_bound(pt, torch, scene, proxies, models, rays,
+                                         name == "shadow", rows)
+        bounds[name] = (b_ms, b_by)
         print(f"phase6 work route_{name}: {tw['tests']} ray-triangle tests, {tw['slabs']} "
               f"slab tests, {rows} net rows ({nw['flops']} FLOPs), "
               f"{tw['bytes'] + nw['bytes']} bytes; bound {bounds[name][0]:.6f} ms "
@@ -1147,7 +1202,7 @@ def route_phase(pt, torch, np, dev, counted):
          "bound_ms": bounds["secondary"][0], "bound_by": bounds["secondary"][1],
          "library_ms": None, "as_given_ms": k7_given_ms, "with_schedule_ms": k7_sched_ms,
          "shadow_ms": k7s_ms, "shadow_plain_ms": k7s_plain_ms,
-         "shadow_bound_ms": bounds["shadow"][0]},
+         "shadow_bound_ms": bounds["shadow"][0], "modes_ms": modes, "stage_ms": stage_ms},
         {"name": "schedule_keys", "route": "cuda", "source": csrc + "resident_trace.cu",
          "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1167 (_sched_kernel, "
                      "pallas_call :1221)",
@@ -1486,10 +1541,13 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
           "K3 grouped and flat images differ on the 1M frame")
     k3_ms = {mode: cuda_ms(torch, lambda m=mode: ops.render_frame_fused(
         scene1m, lights, env, cam, next(seeds), cfg, grouped=m), reps=5) for mode in (True, False)}
+    b3_1m, b3_1m_by = bound(frame_work(pt, scene1m, lights, env, cfg, frame_wavefronts(
+        pt, scene1m, lights, env, cam, cfg, closest=ops.grouped_closest)))
     print(f"phase7 frame_1m 256x256 spp1 b4 ris: launches {counts1m}; frame {f1m_ms:.1f} ms "
           f"(median of {f1m_reps}; K3 takes the {'grouped' if res.use_grouped(scene1m) else 'flat'} "
           f"walks by the rule); K3 grouped {k3_ms[True]:.3f} ms, flat {k3_ms[False]:.3f} ms "
-          f"(medians of 5), images bit-identical ok", flush=True)
+          f"(medians of 5), images bit-identical ok; K3's bound {b3_1m:.6f} ms ({b3_1m_by})",
+          flush=True)
 
     # ---- neural_route_1m: K7 at K ~ 2,850, fused against composed
     route = route_1m(pt, torch, np, dev, counted, scene1m)
@@ -1526,6 +1584,7 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
                                          "trace_device_ms": trace_ms},
              "frame_1m_ms": f1m_ms,
              "k3_1m_grouped_ms": k3_ms[True], "k3_1m_flat_ms": k3_ms[False],
+             "k3_1m_bound_ms": b3_1m, "k3_1m_bound_by": b3_1m_by,
              "neural_route_1m": route,
              "instanced_frame_setup": (img, lights_i, env_i, cam_i, cfg_i)}
     return entries, extra
@@ -1582,7 +1641,21 @@ def route_1m(pt, torch, np, dev, counted, scene):
           f"composed {cc_sec}, {cc_shd}; fused vs composed: {outside} rays disagree outside the "
           f"knife-edge set ({int(edge.sum())} / {int(edge_s.sum())} set aside) ok; "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()) + " (medians of 7)", flush=True)
-    return {**{k.replace(" ", "_") + "_ms": v for k, v in ms.items()}, "disagreements": outside}
+    # K7's warp walks against its flat mode, and K7's bound on both wavefronts
+    shd_rays = (shadow.origin, shadow.direction, eps_v, shd_t, live)
+    modes = route_modes(pt, torch, "phase7 neural_route_1m", scene, proxies, models,
+                        (paths.origin, paths.direction, MARCH_EPS, paths.tmax, live, my_id,
+                         MAX_HITS, MARCH_EPS),
+                        (*shd_rays[:2], MARCH_EPS, shd_t, live, my_id, MAX_HITS, MARCH_EPS))
+    b_sec = route_bound(pt, torch, scene, proxies, models, sec_rays, False,
+                        int(q.is_valid.sum()))[:2]
+    b_shd = route_bound(pt, torch, scene, proxies, models, shd_rays, True,
+                        int(q_s.is_valid.sum()))[:2]
+    print(f"phase7 neural_route_1m K7 bound: secondary {b_sec[0]:.6f} ms ({b_sec[1]}), shadow "
+          f"{b_shd[0]:.6f} ms ({b_shd[1]})", flush=True)
+    return {**{k.replace(" ", "_") + "_ms": v for k, v in ms.items()}, "disagreements": outside,
+            "k7_modes_ms": modes, "k7_bound_ms": b_sec[0], "k7_bound_by": b_sec[1],
+            "k7_shadow_bound_ms": b_shd[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -1985,6 +2058,10 @@ def route_checks(pt, torch, label, models, cases):
                 args = (paths.origin, paths.direction, MARCH_EPS, paths.tmax, live, my_id,
                         MAX_HITS, MARCH_EPS)
                 dec = ops.route_fused(scene, proxies, m, *args)
+                flat = ops.route_fused(scene, proxies, m, *args, grouped=False)
+                nflat = sum(int((flat[f] != dec[f]).sum()) for f in dec)
+                check(nflat == 0, f"{tag}: K7 secondary by the rule differs from its flat mode "
+                                  f"in {nflat} decisions")
                 fields = ("settled_node", "has_node", "env_miss", "no_route", "local_hit")
                 o1, _, e1 = compare_decisions(f"{tag}: K7 secondary vs plain", dec,
                                               ops.route_fused_plain(scene, proxies, m, *args),
@@ -2013,6 +2090,10 @@ def route_checks(pt, torch, label, models, cases):
                 s_args = (sp.origin, sp.direction, MARCH_EPS, s_t, s_live, s_id, MAX_HITS,
                           MARCH_EPS)
                 dec_s = ops.shadow_route_fused(s_scene, s_proxies, m, *s_args)
+                flat_s = ops.shadow_route_fused(s_scene, s_proxies, m, *s_args, grouped=False)
+                nflat = sum(int((flat_s[f] != dec_s[f]).sum()) for f in dec_s)
+                check(nflat == 0, f"{tag}: K7 shadow by the rule differs from its flat mode in "
+                                  f"{nflat} decisions")
                 f_s = ("occluded_local", "survives")
                 o3, _, _ = compare_decisions(
                     f"{tag}: K7 shadow vs plain", dec_s,
@@ -2026,7 +2107,8 @@ def route_checks(pt, torch, label, models, cases):
                 edges[nets][1] += int(edge_s.sum())
                 if nets == "seeded":
                     counts[1] += int(q_s.is_valid.sum())
-    print(f"phase9 {label}: K7 against its plain version and the composed stage on "
+    print(f"phase9 {label}: K7 by the rule equal to its flat mode on every ray, and against "
+          f"its plain version and the composed stage on "
           f"{len(cases)} wavefront pair(s) ({counts[0]} secondary and {counts[1]} shadow "
           f"queries): {outside} disagreements outside the knife-edge sets (set aside: seeded "
           f"{edges['seeded'][0]} / {edges['seeded'][1]} rays, straddling "
@@ -2221,8 +2303,27 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
               f"partition {my_id} ({int(paths.is_valid.sum())} secondary, "
               f"{int(sp.is_valid.sum())} shadow rays; medians of 7): "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()), flush=True)
+        # K7 on that partition's wavefronts: the warp walks against the flat
+        # mode, and K7's bound there
+        live_b = paths.is_valid & ~paths.is_shadow
+        eps_b = torch.full((paths.capacity,), MARCH_EPS, device=dev)
+        eps_s = torch.full((sp.capacity,), MARCH_EPS, device=dev)
+        sec_b = (paths.origin, paths.direction, eps_b, paths.tmax, live_b)
+        shd_b = (sp.origin, sp.direction, eps_s, sp.tmax * (1.0 - 1e-3), sp.is_valid)
+        k7_args = lambda rays, node: (rays[0], rays[1], MARCH_EPS, *rays[3:], node, MAX_HITS,
+                                      MARCH_EPS)
+        modes = route_modes(pt, torch, f"phase9 9c {label}, partition {my_id}", scene, proxies,
+                            m, k7_args(sec_b, my_id), k7_args(shd_b, s_id))
+        b_sec = route_bound(pt, torch, scene, proxies, m, sec_b, False, counted_q[busiest])[:2]
+        b_shd = route_bound(pt, torch, s_scene, s_proxies, m, shd_b, True,
+                            query_rays(pt, torch, cases[busiest][2], True)[2])[:2]
+        print(f"phase9 9c {label}: K7's bound on partition {my_id}'s bounce-1 wavefronts: "
+              f"secondary {b_sec[0]:.6f} ms ({b_sec[1]}), shadow {b_shd[0]:.6f} ms "
+              f"({b_shd[1]})", flush=True)
         row = {"ms": ms_n, "launches": counts_n, "stage_ms": stage_ms, "knife_edges": edges,
-               "bounce1_queries": counted_q, "disagreements": outside, **st_n}
+               "bounce1_queries": counted_q, "disagreements": outside, **st_n,
+               "k7_modes_ms": modes, "k7_bound_ms": b_sec[0], "k7_bound_by": b_sec[1],
+               "k7_shadow_bound_ms": b_shd[0]}
         if not m.multi_geo:
             prof = pt.utils.profile.render_device_profile(
                 lambda s: frame(part, m, cfg_n, s), dist.distributed.STAGES, reps=3)
@@ -2266,13 +2367,12 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
         plain_ms = (time.perf_counter() - t0) * 1e3
         # the bound: the trace's and the march's operations at the FP32 rate,
         # the multi-geo nets' FLOPs per valid query at the bf16 rate
-        tw = closest_work(pt, r_scene, in_order, ops.resident_closest_plain(r_scene, *in_order))
-        nw = nets_work(pt, m, 0, nq64)
-        op_s = ((tw["tests"] * MT_OPS + tw["slabs"] * SLAB_OPS
-                 + march_work(r_proxies, int(live.sum()), r_paths.capacity, nq64)["ops"])
-                / FP32_FLOP_PER_S + nw["flops"] / BF16_TENSOR_FLOP_PER_S)
-        byte_s = (tw["bytes"] + nw["bytes"] + r_proxies.num_partitions * 36) / HBM_BYTES_PER_S
-        b_ms, b_by = max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s else "bytes")
+        b_ms, b_by, tw, nw = route_bound(pt, torch, r_scene, r_proxies, m, in_order, False, nq64)
+        s_rays = (r_shadow.origin, r_shadow.direction, eps_v, r_shadow.tmax * (1.0 - 1e-3),
+                  r_shadow.is_valid)
+        bs_ms, bs_by, _, _ = route_bound(pt, torch, r_scene, r_proxies, m, s_rays, True, nqs64)
+        print(f"phase9 K7 multi-geo mode, shadow: bound {bs_ms:.6f} ms ({bs_by}) on {nqs64} valid "
+              f"queries", flush=True)
         print(f"phase9 K7 multi-geo mode on neural_route_64k in schedule order ({nq64} valid "
               f"queries): {k_ms:.3f} ms (the 8 PROD pairs on the same rays: {sep_ms:.3f} ms), "
               f"shadow {ks_ms:.3f} ms (medians of 7); plain {plain_ms:.1f} ms (one run); bound "
@@ -2287,6 +2387,7 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
             "disagreements": outside + o64, "ms": k_ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "wavefront": "neural_route_64k, schedule order", "shadow_ms": ks_ms,
+            "shadow_bound_ms": bs_ms, "shadow_bound_by": bs_by,
             "separate_nets_ms": sep_ms, "knife_edges": {"rooms_bounce1": edges,
                                                         "neural_route_64k": edges64}}
 
@@ -2463,6 +2564,27 @@ def main() -> int:
               f"{plain_frame_ms:.1f} ms (one run); launches fused {main_counts}, "
               f"composed {composed_counts}", flush=True)
         k3_ms = cuda_ms(torch, lambda: samples(cfg, True, next(seeds)), reps=7)
+        # K3's mode by the rule (the warp walks at K = 185) against its flat
+        # mode: bit-identical images, on the frame and on an odd-sized frame
+        # of the same soup (251 x 247 pixels: its last warp holds lanes past
+        # the last pixel)
+        fused = lambda c, cm, s, mode: pt.ops.render_frame_fused(scene, lights, env, cm, s, c,
+                                                                 grouped=mode)
+        cam_odd = pt.core.Camera.look_at([0.5, 0.5, 3.0], [0.5, 0.5, 0.5], [0, 1, 0], 45.0,
+                                         251, 247, device=dev)
+        cfg_odd = dataclasses.replace(cfg, width=251, height=247, russian_roulette=2)
+        for label, c3, cm in (("64k frame", cfg, cam), ("odd-sized frame 251x247", cfg_odd,
+                                                        cam_odd)):
+            g3, f3 = fused(c3, cm, 3, True), fused(c3, cm, 3, False)
+            check(torch.equal(g3[0], f3[0]) and torch.equal(g3[1], f3[1])
+                  and bool(torch.isfinite(g3[0]).all()) and float(g3[0].sum()) > 0.0,
+                  f"K3 through the warp walks and in its flat mode differ on the {label}")
+        k3_flat_ms = cuda_ms(torch, lambda: fused(cfg, cam, next(seeds), False), reps=7)
+        k3_grouped_ms = cuda_ms(torch, lambda: fused(cfg, cam, next(seeds), True), reps=7)
+        print(f"phase3 K3 through the warp walks vs its flat mode: images bit-identical on the "
+              f"64k frame and the odd-sized frame 251x247 (roulette 2) ok; warp walks "
+              f"{k3_grouped_ms:.3f} ms, flat {k3_flat_ms:.3f} ms (medians of 7; the rule takes "
+              f"the {'grouped' if pt.ops.use_grouped(scene) else 'flat'} mode)", flush=True)
         # what each further bounce costs K3, beside the paths still alive in it
         by_depth = [cuda_ms(torch, lambda: samples(dataclasses.replace(cfg, bounces=nb), True),
                             reps=5) for nb in range(1, cfg.bounces + 1)]
@@ -2587,7 +2709,8 @@ def main() -> int:
              "launches": main_counts["frame_sample"], "max_abs_err": k3_err,
              "disagreements": k3_dis,
              "ms": k3_ms, "plain_ms": k3_plain_ms,
-             "bound_ms": b3, "bound_by": b3_by, "library_ms": None},
+             "bound_ms": b3, "bound_by": b3_by, "library_ms": None,
+             "grouped_ms": k3_grouped_ms, "flat_ms": k3_flat_ms},
         ]
         for wname, w in work.items():
             run = (f", K1 runs {w['slabs_run']} slab tests "
@@ -2610,7 +2733,11 @@ def main() -> int:
         kernels[0]["large_scene_ms"] = {w: r["k1_ms"] for w, r in waves.items()}
         kernels[1]["large_scene_ms"] = {w: r["k2_ms"] for w, r in waves.items()}
         kernels[2].update(frame_1m_grouped_ms=extra["k3_1m_grouped_ms"],
-                          frame_1m_flat_ms=extra["k3_1m_flat_ms"])
+                          frame_1m_flat_ms=extra["k3_1m_flat_ms"],
+                          frame_1m_bound_ms=extra["k3_1m_bound_ms"],
+                          frame_1m_bound_by=extra["k3_1m_bound_by"])
+        route_entry = next(e for e in kernels if e["name"] == "route")
+        route_entry["neural_route_1m"] = extra.pop("neural_route_1m")
         large[0]["large_scene"] = {"wavefronts": waves, **extra}
         kernels += large
 

@@ -10,8 +10,8 @@
 //   0. the camera ray, from the pixel id, the sample id and the camera
 //      (render/pathgen.py: TEA seed tea(pixel, sample), two LCG draws);
 //   1. the closest hit with the scene-exit cap (resident_trace.cuh, the
-//      functions K1 runs, or K9's in the grouped mode), exact t/u/v and the
-//      canonical id;
+//      walk K1 runs, or K9's warp walk in the grouped mode), exact t/u/v and
+//      the canonical id;
 //   2. the attributes: one row of tri_shade, smooth normal, optional
 //      bilinear wrap albedo texture (scene/textures.py sample_textures),
 //      the flip toward wo;
@@ -43,21 +43,29 @@
 // Grouped mode (_frame_kernel's grouped mode, pallas_frame.py:360-375,
 // :720-723): when the wrapper passes the group tables (ops/frame.py, by the
 // rule of ops/resident.py use_grouped), every closest-hit and any-hit query
-// walks the two-level cull of K9 / K10 instead of the flat one of K1 / K2.
-// Both walks return the same results, so the image is bit-identical to the
-// flat mode's; only the cull work differs.
+// goes through the warp walks of K9 / K10 (resident_trace.cuh closest /
+// occluded): the warp traces its lanes' rays one after another, all 32 lanes
+// on each. Both modes return the flat walks' results, so the image is
+// bit-identical to the flat mode's; only the cull work differs.
 //
 // Design: one thread per pixel, threads in the tiled pixel order so that a
-// warp's rays stay coherent; the thread loops over samples and bounces and
-// stops a path at its first miss or failed roulette. What bounds it on an
-// H100: FP32 operations, as K1/K2 (the ray-triangle and slab tests of every
-// bounce's closest and any-hit queries); the bytes it must move (4 B in and
-// 24 B out per pixel, the tables once) are far below. What it costs and
-// does not fix: after the first bounce a warp runs as long as its longest
-// path and its slowest shadow ray while the other lanes idle.
+// warp's rays stay coherent; the thread loops over samples and bounces. The
+// loops over samples, bounces and NEE rays run the same counts on every lane,
+// and a path that ends (a miss, a failed roulette), a zero-weight light
+// candidate and a lane past the last pixel only clear a per-lane flag, so the
+// lanes of a warp reach every trace together, as the warp walks need. What
+// bounds it on an H100: FP32 operations, as K1/K2 (the ray-triangle and slab
+// tests of every bounce's closest and any-hit queries); the bytes it must
+// move (4 B in and 24 B out per pixel, the tables once) are far below. What
+// bounded it before the warp walks (PERF.md, cycle counters): the per-thread
+// grouped walks, every pick a serial pass over the Kg group boxes. What it
+// costs and does not fix: 65,536 pixels bring 2,048 warps (15.5 an SM), each
+// tracing up to 32 rays in series a bounce, and after the first bounce a
+// warp's lanes without a path wait for the others.
 //
 // Built with --fmad=false, like the trace kernels.
 
+#include "cycles.cuh"
 #include "resident_trace.cuh"
 
 namespace {
@@ -289,9 +297,15 @@ __device__ Candidate light_candidate(
 }
 
 __global__ void __launch_bounds__(kThreads) frame_sample_kernel(FrameArgs a) {
+  // the warps' team buffers of the grouped walks (unused in the flat mode)
+  __shared__ resident::Team teams[kThreads / 32];
+  resident::Team& tm = teams[threadIdx.x >> 5];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.npix) return;
-  const int32_t pixel = a.pix_ids[i];
+  // a lane past the last pixel stays in its warp as a lane without a path:
+  // the warp walks need all 32 lanes at every trace
+  const bool in_range = i < a.npix;
+  CYCLES_NOW(c_kernel);
+  const int32_t pixel = in_range ? a.pix_ids[i] : 0;
   const uint32_t pix = static_cast<uint32_t>(pixel);
   const int prow = pixel / a.width, pcol = pixel % a.width;
 
@@ -300,7 +314,13 @@ __global__ void __launch_bounds__(kThreads) frame_sample_kernel(FrameArgs a) {
   const float thf = a.cam_tan_half_fov[0];
   const float thf_a = thf * a.aspect;
   const float s_f = static_cast<float>(a.s);
+  const bool use_ris = a.ris && a.s > 1;
+  const int n_rays = use_ris ? 1 : a.s;
 
+  // The loops over samples, bounces and NEE rays run the same counts on
+  // every lane, so the lanes of a warp reach every trace together; a path
+  // that ends (a miss, a failed roulette) or a zero-weight candidate only
+  // clears its lane's flag.
   V3 direct_sum = {0.0f, 0.0f, 0.0f}, env_sum = {0.0f, 0.0f, 0.0f};
   for (int si = 0; si < a.spp; ++si) {
     const uint32_t* salts =
@@ -316,140 +336,158 @@ __global__ void __launch_bounds__(kThreads) frame_sample_kernel(FrameArgs a) {
     V3 d = normalize(fwd + rgt * (px * thf_a) + upv * (py * thf));
     V3 tp = {1.0f, 1.0f, 1.0f};
     V3 direct = {0.0f, 0.0f, 0.0f}, env_acc = {0.0f, 0.0f, 0.0f};
+    bool alive = in_range;
 
     for (int b = 0; b < a.bounces; ++b) {
+      CYCLES_NOW(c_bounce);
+      if (alive) CYCLES_COUNT(24 + b, 1);
       const uint32_t salt = salts[b];
       // ---- 1. closest hit
       Ray r;
       r.o[0] = o.x; r.o[1] = o.y; r.o[2] = o.z;
       r.d[0] = d.x; r.d[1] = d.y; r.d[2] = d.z;
       resident::cap_ray(r, a.eps, resident::kF32Max, a.scene.scene_aabb);
-      const Hit h = resident::closest(r, a.scene);
-      if (!h.hit) {
+      CYCLES_NOW(c_closest);
+      const Hit h = resident::closest(alive, r, a.scene, tm);
+      CYCLES_ADD(8 + b, c_closest);
+      if (alive && !h.hit) {
         // ---- 4. environment on a miss; the path ends
         env_acc = env_acc + tp * env_sample(a, d);
-        break;
+        alive = false;
       }
 
-      // ---- 2. attributes (render/shade.py surface_attributes)
-      const float* row = a.tri_shade + static_cast<size_t>(h.tri) * 24;
-      const float u = h.u, v = h.v;
-      const float w = 1.0f - u - v;
-      V3 normal = normalize(ld3(row) * w + ld3(row + 3) * u + ld3(row + 6) * v);
-      V3 albedo = ld3(row + 15);
-      const bool is_water = static_cast<int>(row[18]) == 1;  // BSDF_WATER
-      if (a.n_tex > 0) {
-        const int ti = static_cast<int>(row[19]);
-        if (ti >= 0) {
-          const float uu = w * row[9] + u * row[11] + v * row[13];
-          const float vv = w * row[10] + u * row[12] + v * row[14];
-          albedo = texture_sample(a, ti, uu, vv);
+      V3 point = {0.0f, 0.0f, 0.0f}, normal = {0.0f, 0.0f, 1.0f};
+      V3 albedo = {0.0f, 0.0f, 0.0f}, wi_world = {0.0f, 0.0f, 1.0f};
+      float weight = 0.0f, cos_theta = 0.0f;
+      bool is_water = false;
+      if (alive) {
+        // ---- 2. attributes (render/shade.py surface_attributes)
+        const float* row = a.tri_shade + static_cast<size_t>(h.tri) * 24;
+        const float u = h.u, v = h.v;
+        const float w = 1.0f - u - v;
+        normal = normalize(ld3(row) * w + ld3(row + 3) * u + ld3(row + 6) * v);
+        albedo = ld3(row + 15);
+        is_water = static_cast<int>(row[18]) == 1;  // BSDF_WATER
+        if (a.n_tex > 0) {
+          const int ti = static_cast<int>(row[19]);
+          if (ti >= 0) {
+            const float uu = w * row[9] + u * row[11] + v * row[13];
+            const float vv = w * row[10] + u * row[12] + v * row[14];
+            albedo = texture_sample(a, ti, uu, vv);
+          }
         }
-      }
-      const V3 point = o + d * h.t;
-      const V3 wo_world = neg(d);
-      const bool is_inside = dot(normal, wo_world) < 0.0f;
-      if (is_inside) normal = neg(normal);
+        point = o + d * h.t;
+        const V3 wo_world = neg(d);
+        const bool is_inside = dot(normal, wo_world) < 0.0f;
+        if (is_inside) normal = neg(normal);
 
-      // ---- 3. BSDF sample (render/shade.py bsdf_sample)
-      uint32_t seed = tea(pix, salt);
-      const float xi1 = rnd(seed), xi2 = rnd(seed);
-      V3 ft, fb;
-      make_frame(normal, ft, fb);
-      V3 wi_local;
-      float weight;
-      if (is_water) {
-        const V3 wo = {dot(wo_world, ft), dot(wo_world, fb), dot(wo_world, normal)};
-        const float eta_i = is_inside ? 1.33f : 1.0f;
-        const float eta_t = is_inside ? 1.0f : 1.33f;
-        // core/math.py refract_z
-        const float eta = eta_i / eta_t;
-        const float cos_i = fabsf(wo.z);
-        const float sin2_i = fmaxf(1.0f - cos_i * cos_i, 0.0f);
-        const float sin2_t = eta * eta * sin2_i;
-        const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
-        const float sign = wo.z >= 0.0f ? 1.0f : -1.0f;
-        const bool reflecting = xi1 < fresnel(fabsf(wo.z), eta_i, eta_t);
-        wi_local = reflecting ? v3(-wo.x, -wo.y, wo.z)
-                              : v3(-eta * wo.x, -eta * wo.y, -sign * cos_t);
-        const float cos_wi = fabsf(wi_local.z);
-        const float safe_cos = fmaxf(cos_wi, 1e-12f);
-        const float eta_corr = (eta_i / eta_t) * (eta_i / eta_t);
-        weight = reflecting ? 1.0f / safe_cos : eta_corr / safe_cos;
-        if (cos_wi == 0.0f) weight = 0.0f;
-      } else {
-        // core/math.py uniform_hemisphere, weight 2
-        const float rr = sqrtf(fmaxf(1.0f - xi1 * xi1, 0.0f));
-        const float phi = kTwoPi * xi2;
-        wi_local = {rr * cosf(phi), rr * sinf(phi), xi1};
-        weight = 2.0f;
+        // ---- 3. BSDF sample (render/shade.py bsdf_sample)
+        uint32_t seed = tea(pix, salt);
+        const float xi1 = rnd(seed), xi2 = rnd(seed);
+        V3 ft, fb;
+        make_frame(normal, ft, fb);
+        V3 wi_local;
+        if (is_water) {
+          const V3 wo = {dot(wo_world, ft), dot(wo_world, fb), dot(wo_world, normal)};
+          const float eta_i = is_inside ? 1.33f : 1.0f;
+          const float eta_t = is_inside ? 1.0f : 1.33f;
+          // core/math.py refract_z
+          const float eta = eta_i / eta_t;
+          const float cos_i = fabsf(wo.z);
+          const float sin2_i = fmaxf(1.0f - cos_i * cos_i, 0.0f);
+          const float sin2_t = eta * eta * sin2_i;
+          const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
+          const float sign = wo.z >= 0.0f ? 1.0f : -1.0f;
+          const bool reflecting = xi1 < fresnel(fabsf(wo.z), eta_i, eta_t);
+          wi_local = reflecting ? v3(-wo.x, -wo.y, wo.z)
+                                : v3(-eta * wo.x, -eta * wo.y, -sign * cos_t);
+          const float cos_wi = fabsf(wi_local.z);
+          const float safe_cos = fmaxf(cos_wi, 1e-12f);
+          const float eta_corr = (eta_i / eta_t) * (eta_i / eta_t);
+          weight = reflecting ? 1.0f / safe_cos : eta_corr / safe_cos;
+          if (cos_wi == 0.0f) weight = 0.0f;
+        } else {
+          // core/math.py uniform_hemisphere, weight 2
+          const float rr = sqrtf(fmaxf(1.0f - xi1 * xi1, 0.0f));
+          const float phi = kTwoPi * xi2;
+          wi_local = {rr * cosf(phi), rr * sinf(phi), xi1};
+          weight = 2.0f;
+        }
+        wi_world = normalize(ft * wi_local.x + fb * wi_local.y + normal * wi_local.z);
+        cos_theta = fabsf(wi_local.z);
       }
-      const V3 wi_world =
-          normalize(ft * wi_local.x + fb * wi_local.y + normal * wi_local.z);
-      const float cos_theta = fabsf(wi_local.z);
 
       // ---- 5. NEE (delta surfaces cast no shadow paths)
-      if (!is_water) {
-        const bool use_ris = a.ris && a.s > 1;
-        Candidate pick;
-        pick.w = 0.0f;
-        if (use_ris) {
-          // weighted reservoir over S candidates: running sums left to
-          // right, the first cum > u * W wins (candidate 0 when none does)
-          float w_tot = 0.0f;
+      const bool nee = alive && !is_water;
+      Candidate pick = {};
+      if (nee && use_ris) {
+        // weighted reservoir over S candidates: running sums left to
+        // right, the first cum > u * W wins (candidate 0 when none does)
+        float w_tot = 0.0f;
+        for (int j = 0; j < a.s; ++j) {
+          w_tot = w_tot +
+              light_candidate(a, pix, j, salt, point, normal, tp, albedo).w;
+        }
+        if (w_tot > 0.0f) {
+          uint32_t useed = tea(pix, salts[16 + b]);
+          const float thresh = rnd(useed) * w_tot;
+          float cum = 0.0f;
           for (int j = 0; j < a.s; ++j) {
-            w_tot = w_tot +
-                light_candidate(a, pix, j, salt, point, normal, tp, albedo).w;
+            const Candidate cd =
+                light_candidate(a, pix, j, salt, point, normal, tp, albedo);
+            cum = cum + cd.w;
+            if (j == 0 || cum > thresh) pick = cd;
+            if (cum > thresh) break;
           }
-          if (w_tot > 0.0f) {
-            uint32_t useed = tea(pix, salts[16 + b]);
-            const float thresh = rnd(useed) * w_tot;
-            float cum = 0.0f;
-            for (int j = 0; j < a.s; ++j) {
-              const Candidate cd =
-                  light_candidate(a, pix, j, salt, point, normal, tp, albedo);
-              cum = cum + cd.w;
-              if (j == 0 || cum > thresh) pick = cd;
-              if (cum > thresh) break;
-            }
-            pick.c = pick.c * (w_tot / fmaxf(pick.w, 1e-30f));
-          }
+          pick.c = pick.c * (w_tot / fmaxf(pick.w, 1e-30f));
         }
-        const int n_rays = use_ris ? 1 : a.s;
-        for (int j = 0; j < n_rays; ++j) {
-          const Candidate cd =
-              use_ris ? pick
-                      : light_candidate(a, pix, j, salt, point, normal, tp, albedo);
-          if (!(cd.w > 0.0f)) continue;
-          // tmax is shaved so the light sample point never blocks itself
-          Ray sr;
-          sr.o[0] = point.x; sr.o[1] = point.y; sr.o[2] = point.z;
-          sr.d[0] = cd.wi.x; sr.d[1] = cd.wi.y; sr.d[2] = cd.wi.z;
-          resident::cap_ray(sr, a.eps, cd.dist * 0.999f, a.scene.scene_aabb);
-          if (!resident::occluded(sr, a.scene)) direct = direct + cd.c / s_f;
+      }
+      for (int j = 0; j < n_rays; ++j) {
+        Candidate cd = {};
+        if (nee) {
+          cd = use_ris ? pick : light_candidate(a, pix, j, salt, point, normal, tp, albedo);
         }
+        const bool cast = nee && cd.w > 0.0f;
+        // tmax is shaved so the light sample point never blocks itself
+        Ray sr;
+        sr.o[0] = point.x; sr.o[1] = point.y; sr.o[2] = point.z;
+        sr.d[0] = cd.wi.x; sr.d[1] = cd.wi.y; sr.d[2] = cd.wi.z;
+        resident::cap_ray(sr, a.eps, cd.dist * 0.999f, a.scene.scene_aabb);
+        CYCLES_NOW(c_anyhit);
+        const bool occ = resident::occluded(cast, sr, a.scene, tm);
+        CYCLES_ADD(16 + b, c_anyhit);
+        if (cast && !occ) direct = direct + cd.c / s_f;
       }
 
       // ---- 6. next bounce state, Russian roulette
-      tp = tp * (weight * cos_theta) * albedo;
-      if (a.rr_start && a.rr_start <= b + 1 && b + 1 < a.bounces) {
-        uint32_t rseed = tea(pix, salts[24 + b]);
-        const float u_rr = rnd(rseed);
-        const float p = fminf(fmaxf(fmaxf(fmaxf(tp.x, tp.y), tp.z), kRrFloor), 1.0f);
-        if (!(u_rr < p)) break;
-        tp = tp / p;
+      if (alive) {
+        tp = tp * (weight * cos_theta) * albedo;
+        if (a.rr_start && a.rr_start <= b + 1 && b + 1 < a.bounces) {
+          uint32_t rseed = tea(pix, salts[24 + b]);
+          const float u_rr = rnd(rseed);
+          const float p = fminf(fmaxf(fmaxf(fmaxf(tp.x, tp.y), tp.z), kRrFloor), 1.0f);
+          if (u_rr < p) {
+            tp = tp / p;
+          } else {
+            alive = false;
+          }
+        }
+        o = point;
+        d = wi_world;
       }
-      o = point;
-      d = wi_world;
+      CYCLES_ADD(b, c_bounce);
     }
     // ---- 7. samples add in sample order
     direct_sum = direct_sum + direct;
     env_sum = env_sum + env_acc;
   }
+  if (!in_range) return;
   float* od = a.out_direct + 3 * static_cast<size_t>(pixel);
   float* oe = a.out_env + 3 * static_cast<size_t>(pixel);
   od[0] = direct_sum.x; od[1] = direct_sum.y; od[2] = direct_sum.z;
   oe[0] = env_sum.x; oe[1] = env_sum.y; oe[2] = env_sum.z;
+  CYCLES_ADD(32, c_kernel);
+  CYCLES_COUNT(33, 1);
 }
 
 }  // namespace
@@ -470,6 +508,9 @@ extern "C" int frame_sample(
     const int32_t* salts, int spp, int bounces,
     int s, int ris, int rr_start, float eps, float* out_direct, float* out_env,
     void* stream) {
+  if (gboxes != nullptr && !resident::group_tables_ok(gboxes, mboxes, kg)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (npix > 0) {
     FrameArgs a;
     a.pix_ids = pix_ids; a.npix = npix; a.width = width; a.height = height;

@@ -33,10 +33,11 @@
 // in ops/resident.py.
 //
 // The per-ray device functions (scene-exit cap, slab test, MT test, the
-// closest-hit and any-hit loops, the refinement) live in resident_trace.cuh,
-// which the frame kernel (frame.cu) shares; K1, K2 and K8 here are thin
-// wrappers that load one ray of a wavefront and store its record, and K9 /
-// K10's warp-wide walks are written here on the same device functions.
+// closest-hit and any-hit loops, the refinement) and the warp walks of the
+// two-level cull live in resident_trace.cuh, which the frame kernel
+// (frame.cu) and the fused route (route.cu) share; K1, K2, K8, K9 and K10
+// here are thin wrappers that load one ray of a wavefront and store its
+// record.
 //
 // Design of K1 / K2: one thread per ray. K1 visits the clusters the ray
 // enters in front-to-back order of (enter distance, cluster), selecting the
@@ -59,7 +60,7 @@
 // _member_enters over groups of 8 clusters, and equal K1 / K2 bit for bit.
 //
 // What bounds them on an H100: latency, not arithmetic. Walked by one
-// thread per ray (as K3 still walks them), every pick is a serial pass over
+// thread per ray (their first design), every pick is a serial pass over
 // all Kg group boxes (Kg = 1,488 on the 4.2M-triangle instanced scene) and
 // a visit a serial loop over up to C = 512 triangles, lanes whose rays
 // open different groups or clusters serialise, and a 65,536-row launch
@@ -68,31 +69,13 @@
 // with cycle counters). The work itself is within a few times its bound.
 //
 // Design: a warp per ray (a team of 32 lanes), so a launch of N rays brings
-// N warps, and the work of one ray is spread over lanes:
-//   * group pass: lane j slab-tests group box base + j (planar (8, Kg) rows,
-//     coalesced); the entered groups go through a per-warp ring in shared
-//     memory, and lanes 8q..8q+7 test the 8 member boxes of the ring's q-th
-//     group (two 16-byte loads a lane; a group's (8, 8) block is 256
-//     contiguous bytes), four groups at a time;
-//   * K9 collects every member the ray enters under the horizon, after the
-//     last pick, into a per-warp candidate buffer in shared memory (up to
-//     kCandidates) while keeping the least (enter, cluster) by shuffles.
-//     When the buffer holds them all, every later pick is a lexicographic
-//     minimum over the buffer, under the current horizon (it only falls),
-//     so one pass over the Kg boxes serves the whole walk; when it
-//     overflows, the walk visits the least candidate and passes again;
-//   * cluster visits: lane j tests slots j, j + 32, ... of the (16, C)
-//     table slice (coalesced), K9 keeps the lexicographic (t, slot) minimum
-//     and reduces it across the warp after each visit, K10 leaves the walk
-//     at the first __any_sync hit;
-//   * an inactive ray's warp writes its miss and exits at once.
-// K9's visits are K1's, in K1's order: the picks are the successive
-// lexicographic (enter, cluster) minima under the same horizon (with the
-// guard best_t * (1 + 1e-4) + 1e-7), and a member never enters before its
-// group; K10 visits K2's entered clusters in index order. The (t, slot)
-// minimum and the any-hit OR do not depend on how the tests are spread over
-// lanes. K3 keeps the per-thread walks (resident_trace.cuh
-// closest_hit_grouped / any_hit_grouped).
+// N warps, and the work of one ray is spread over lanes: the warp walks of
+// resident_trace.cuh (team_closest / team_anyhit; their design note says how
+// the group pass, the candidate buffer and the cluster visits are spread),
+// which K3 and K7 run in their grouped mode too. K9's visits are K1's, in
+// K1's order, and K10 visits K2's entered clusters in index order, so they
+// equal K1 / K2 bit for bit. An inactive ray's warp writes its miss and
+// exits at once.
 // What bounds them now (PERF.md): K9 runs 7-17x its bound and K10 3-105x,
 // the most on small or sparse wavefronts, where a live ray's group pass is
 // a chain of Kg / 32 dependent steps and a 65,536-row buffer's dead rows
@@ -164,244 +147,10 @@ __global__ void __launch_bounds__(kThreads) anyhit_kernel(
 // ---------------------------------------------------------------------------
 // K9 / K10: a warp per ray (the design note above)
 
-constexpr unsigned kFull = 0xffffffffu;
+using resident::Team;
+
 constexpr int kTeamWarps = 4;                   // rays per block
 constexpr int kTeamThreads = 32 * kTeamWarps;
-constexpr int kRing = 64;                       // entered groups in flight
-constexpr int kGroupsPerStep = 32 / resident::kGroup;
-constexpr int kCandidates = 512;                // K9's buffered picks
-
-// Shared memory of one team.
-struct Team {
-  int ring[kRing];
-  float cand_en[kCandidates];
-  int cand_k[kCandidates];
-};
-
-__device__ __forceinline__ unsigned lanes_below(int lane) {
-  return (1u << lane) - 1u;
-}
-
-// (en, k) before (en0, k0) in (enter, cluster) order; k < 0 is no candidate.
-__device__ __forceinline__ bool cand_before(float en, int k, float en0, int k0) {
-  return k >= 0 && (k0 < 0 || en < en0 || (en == en0 && k < k0));
-}
-
-// The least (en, k) over the warp, on every lane.
-__device__ __forceinline__ void warp_min_cand(float& en, int& k) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float en2 = __shfl_xor_sync(kFull, en, off);
-    const int k2 = __shfl_xor_sync(kFull, k, off);
-    if (cand_before(en2, k2, en, k)) {
-      en = en2;
-      k = k2;
-    }
-  }
-}
-
-// The lexicographic (t, slot) minimum over the warp, on every lane; slot < 0
-// is no hit.
-__device__ __forceinline__ void warp_min_hit(float& t, int& slot) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float t2 = __shfl_xor_sync(kFull, t, off);
-    const int s2 = __shfl_xor_sync(kFull, slot, off);
-    if (s2 >= 0 && (slot < 0 || t2 < t || (t2 == t && s2 < slot))) {
-      t = t2;
-      slot = s2;
-    }
-  }
-}
-
-// Lane `lane`'s member of the ring's (lane / 8)-th group from `head`:
-// (enter, cluster), or (+inf, -1) past the ring's end. A group's member
-// boxes are 8 x 8 contiguous floats: lane m reads its box as two float4.
-__device__ __forceinline__ void member_enter(const Ray& r, const Tables& s,
-                                             const int* ring, int head, int tail,
-                                             int lane, float& en, int& k) {
-  en = CUDART_INF_F;
-  k = -1;
-  const int q = head + (lane >> 3);
-  if (q >= tail) return;
-  const int g = ring[q & (kRing - 1)];
-  const float4* mb = reinterpret_cast<const float4*>(
-      s.mboxes + static_cast<size_t>(g) * resident::kGroup * 8 + 8 * (lane & 7));
-  const float4 a = __ldg(mb), b = __ldg(mb + 1);
-  const float lo[3] = {a.x, a.y, a.z};
-  const float hi[3] = {a.w, b.x, b.y};
-  en = resident::slab_enter_box(r, lo, hi, b.z);
-  k = resident::group_cid0(s, g) + (lane & 7);
-}
-
-// Appends this chunk's entered groups (lane j: group base + j) to the ring.
-__device__ __forceinline__ void push_groups(const Ray& r, const Tables& s, float hz,
-                                            int base, int lane, int* ring, int& tail) {
-  const int g = base + lane;
-  const float eg = g < s.kg ? resident::cluster_enter(r, s.gboxes, g, s.kg) : CUDART_INF_F;
-  const bool in = eg <= hz && eg < CUDART_INF_F;
-  const unsigned mask = __ballot_sync(kFull, in);
-  if (in) ring[(tail + __popc(mask & lanes_below(lane))) & (kRing - 1)] = g;
-  tail += __popc(mask);
-  __syncwarp();
-}
-
-// K9's pass: every cluster entered at en <= hz after (last_en, last_k) in
-// (enter, cluster) order. Returns their least (en, k) on every lane (k = -1:
-// none) and their number; they are in the team's buffer when the number is
-// at most kCandidates.
-__device__ __forceinline__ int closest_pass(const Ray& r, const Tables& s, float hz,
-                                            float last_en, int last_k, int lane, Team& tm,
-                                            float& next_en, int& next_k) {
-  int head = 0, tail = 0, count = 0;
-  float my_en = CUDART_INF_F;
-  int my_k = -1;
-  for (int base = 0; base < s.kg; base += 32) {
-    push_groups(r, s, hz, base, lane, tm.ring, tail);
-    const bool last_chunk = base + 32 >= s.kg;
-    while (tail - head >= kGroupsPerStep || (last_chunk && head < tail)) {
-      float en;
-      int k;
-      member_enter(r, s, tm.ring, head, tail, lane, en, k);
-      const bool ok = en <= hz && en < CUDART_INF_F &&
-                      !(en < last_en || (en == last_en && k <= last_k));
-      if (ok && cand_before(en, k, my_en, my_k)) {
-        my_en = en;
-        my_k = k;
-      }
-      const unsigned mask = __ballot_sync(kFull, ok);
-      const int at = count + __popc(mask & lanes_below(lane));
-      if (ok && at < kCandidates) {
-        tm.cand_en[at] = en;
-        tm.cand_k[at] = k;
-      }
-      count += __popc(mask);
-      head = min(head + kGroupsPerStep, tail);
-      __syncwarp();
-    }
-  }
-  warp_min_cand(my_en, my_k);
-  next_en = my_en;
-  next_k = my_k;
-  return count;
-}
-
-// K9's pick from a buffer that holds every candidate of its pass: the least
-// buffered (en, k) after (last_en, last_k) with en <= hz.
-__device__ __forceinline__ void buffered_pick(const Team& tm, int count, float hz,
-                                              float last_en, int last_k, int lane,
-                                              float& next_en, int& next_k) {
-  float my_en = CUDART_INF_F;
-  int my_k = -1;
-  for (int i = lane; i < count; i += 32) {
-    const float en = tm.cand_en[i];
-    const int k = tm.cand_k[i];
-    if (!(en <= hz) || en < last_en || (en == last_en && k <= last_k)) continue;
-    if (cand_before(en, k, my_en, my_k)) {
-      my_en = en;
-      my_k = k;
-    }
-  }
-  warp_min_cand(my_en, my_k);
-  next_en = my_en;
-  next_k = my_k;
-}
-
-// Tests cluster k's triangles against `l` (in the cluster's object space),
-// lane j slots j, j + 32, ...; the warp's lexicographic (t, slot) minimum
-// with the hits so far, on every lane.
-__device__ __forceinline__ void team_visit_closest(const Ray& l, const Tables& s, int k,
-                                                   int lane, float& best_t, int& best_slot) {
-  const int c = s.c;
-  const float* tab = s.table + static_cast<size_t>(s.xf ? k % s.kb : k) * 16 * c;
-  const int cnt = __ldg(s.counts + k);
-  float t_min = best_t;
-  int slot_min = best_slot;
-  for (int j = lane; j < cnt; j += 32) {
-    float t;
-    if (resident::mt_test(l, tab, c, j, t) && t < l.tmax) {
-      const int slot = k * c + j;
-      if (slot_min < 0 || t < t_min || (t == t_min && slot < slot_min)) {
-        t_min = t;
-        slot_min = slot;
-      }
-    }
-  }
-  warp_min_hit(t_min, slot_min);
-  best_t = t_min;
-  best_slot = slot_min;
-}
-
-// Any accepted triangle of cluster k (`l` in its object space), 32 slots a
-// step; the same answer on every lane.
-__device__ __forceinline__ bool team_visit_any(const Ray& l, const Tables& s, int k,
-                                               int lane) {
-  const int c = s.c;
-  const float* tab = s.table + static_cast<size_t>(s.xf ? k % s.kb : k) * 16 * c;
-  const int cnt = __ldg(s.counts + k);
-  for (int j0 = 0; j0 < cnt; j0 += 32) {
-    const int j = j0 + lane;
-    float t;
-    const bool hit = j < cnt && resident::mt_test(l, tab, c, j, t) && t < l.tmax;
-    if (__any_sync(kFull, hit)) return true;
-  }
-  return false;
-}
-
-// K9's walk: K1's visits in K1's order; returns the winning slot (-1: none).
-__device__ __forceinline__ int team_closest(const Ray& r, const Tables& s, int lane,
-                                            Team& tm) {
-  float best_t = resident::kF32Max;
-  int best_slot = -1;
-  float last_en = -1.0f;
-  int last_k = -1;
-  float hz = resident::horizon(r, best_t, best_slot);
-  float next_en;
-  int next_k;
-  int count = closest_pass(r, s, hz, last_en, last_k, lane, tm, next_en, next_k);
-  bool buffered = count <= kCandidates;
-  while (next_k >= 0) {
-    // instanced: the ray in this cluster's instance frame, per visit
-    const resident::Ray l = s.xf ? resident::object_ray(r, s, next_k / s.kb) : r;
-    team_visit_closest(l, s, next_k, lane, best_t, best_slot);
-    last_en = next_en;
-    last_k = next_k;
-    hz = resident::horizon(r, best_t, best_slot);
-    if (buffered) {
-      buffered_pick(tm, count, hz, last_en, last_k, lane, next_en, next_k);
-    } else {
-      count = closest_pass(r, s, hz, last_en, last_k, lane, tm, next_en, next_k);
-      buffered = count <= kCandidates;
-    }
-  }
-  return best_slot;
-}
-
-// K10's walk: entered groups in index order, their entered members in index
-// order, leaving at the first accepted hit.
-__device__ __forceinline__ bool team_anyhit(const Ray& r, const Tables& s, int lane,
-                                            int* ring) {
-  int head = 0, tail = 0;
-  for (int base = 0; base < s.kg; base += 32) {
-    push_groups(r, s, r.tmax, base, lane, ring, tail);
-    const bool last_chunk = base + 32 >= s.kg;
-    while (tail - head >= kGroupsPerStep || (last_chunk && head < tail)) {
-      float en;
-      int k;
-      member_enter(r, s, ring, head, tail, lane, en, k);
-      unsigned mask = __ballot_sync(kFull, en < CUDART_INF_F);
-      head = min(head + kGroupsPerStep, tail);
-      __syncwarp();
-      while (mask) {
-        const int k0 = __shfl_sync(kFull, k, __ffs(mask) - 1);
-        mask &= mask - 1;
-        const resident::Ray l = s.xf ? resident::object_ray(r, s, k0 / s.kb) : r;
-        if (team_visit_any(l, s, k0, lane)) return true;
-      }
-    }
-  }
-  return false;
-}
 
 __global__ void __launch_bounds__(kTeamThreads) grouped_closest_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
@@ -418,7 +167,7 @@ __global__ void __launch_bounds__(kTeamThreads) grouped_closest_kernel(
   Ray r;
   int slot = -1;
   if (resident::load_ray(i, o, d, tmin, tmax, active, s.scene_aabb, r)) {
-    slot = team_closest(r, s, lane, teams[threadIdx.x >> 5]);
+    slot = resident::team_closest(r, s, lane, teams[threadIdx.x >> 5]);
   }
   if (lane != 0) return;
   const Hit h = slot >= 0 ? resident::refine(r, s, slot)
@@ -435,7 +184,7 @@ __global__ void __launch_bounds__(kTeamThreads) grouped_anyhit_kernel(
     const float* __restrict__ tmin, const float* __restrict__ tmax,
     const uint8_t* __restrict__ active, int n, Tables s,
     uint8_t* __restrict__ out_occ) {
-  __shared__ int rings[kTeamWarps][kRing];
+  __shared__ int rings[kTeamWarps][resident::kRing];
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) * kTeamWarps + (threadIdx.x >> 5);
   if (row >= n) return;  // the whole warp
@@ -443,7 +192,7 @@ __global__ void __launch_bounds__(kTeamThreads) grouped_anyhit_kernel(
   Ray r;
   bool occ = false;
   if (resident::load_ray(i, o, d, tmin, tmax, active, s.scene_aabb, r)) {
-    occ = team_anyhit(r, s, lane, rings[threadIdx.x >> 5]);
+    occ = resident::team_anyhit(r, s, lane, rings[threadIdx.x >> 5]);
   }
   if (lane == 0) out_occ[i] = occ ? 1 : 0;
 }
@@ -464,13 +213,6 @@ Tables make_tables(const float* boxes, const float* table, const int32_t* tri_ma
 
 int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 int team_blocks(int n) { return static_cast<int>((n + kTeamWarps - 1LL) / kTeamWarps); }
-
-// K9 / K10 read the member boxes as float4: the table must be 16-byte
-// aligned.
-bool group_tables_ok(const float* gboxes, const float* mboxes, int kg) {
-  return gboxes != nullptr && mboxes != nullptr && kg >= 1 &&
-         reinterpret_cast<uintptr_t>(mboxes) % 16 == 0;
-}
 
 constexpr int kClusterBits = 12;
 constexpr int32_t kClusterMask = (1 << kClusterBits) - 1;
@@ -550,7 +292,7 @@ extern "C" int grouped_closest(
     int nk, int c, const float* xf, int kb, int tb, const float* gboxes,
     const float* mboxes, int kg, float* out_t, float* out_u, float* out_v,
     int32_t* out_tri, uint8_t* out_hit, void* stream) {
-  if (!group_tables_ok(gboxes, mboxes, kg)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!resident::group_tables_ok(gboxes, mboxes, kg)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     grouped_closest_kernel<<<team_blocks(n), kTeamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, tmin, tmax, active, n,
@@ -567,7 +309,7 @@ extern "C" int grouped_anyhit(
     const int32_t* counts, const float* scene_aabb, int nk, int c,
     const float* xf, int kb, const float* gboxes, const float* mboxes, int kg,
     uint8_t* out_occ, void* stream) {
-  if (!group_tables_ok(gboxes, mboxes, kg)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!resident::group_tables_ok(gboxes, mboxes, kg)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     grouped_anyhit_kernel<<<team_blocks(n), kTeamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         o, d, tmin, tmax, active, n,

@@ -1,8 +1,8 @@
 // Device functions of the resident ray-triangle traversal, shared by the
 // trace kernels (resident_trace.cu: K1 resident_closest, K2 resident_anyhit,
-// K9 grouped_closest, K10 grouped_anyhit) and the whole-sample frame kernel
-// (frame.cu: K3 frame_sample), so that the fused and the composed frame
-// intersect with identical arithmetic — the counterpart of
+// K9 grouped_closest, K10 grouped_anyhit), the whole-sample frame kernel
+// (frame.cu: K3 frame_sample) and the fused route (route.cu: K7), so that
+// the fused and the composed paths intersect with identical arithmetic — the counterpart of
 // pallas_frame.py::_frame_kernel reusing pallas_resident's _recull_loop /
 // _occl_recull_loop / _grouped_recull_loop / _mt_body_t.
 //
@@ -34,10 +34,14 @@
 //     space and its id is the virtual id instance * TB + base canonical id;
 //   * the grouped walks (_grouped_recull_loop / _grouped_occl_loop): the
 //     same results through a two-level cull over groups of 8 consecutive
-//     clusters. A group box contains its members' boxes and the slab
+//     clusters, walked by a warp per ray (the section "The warp walks"
+//     below). A group box contains its members' boxes and the slab
 //     arithmetic is monotone in the box bounds, so a member never enters
 //     before its group: the grouped walks visit the clusters the flat ones
-//     visit, in the same order, and their results are equal bit for bit.
+//     visit, in the same order, and their results are equal bit for bit;
+//   * the traces of K3 and K7 (closest / occluded at the end): each lane's
+//     ray through the flat walks, or the warp's rays one after another
+//     through the warp walks.
 //
 // Everything must be compiled with --fmad=false: contracted multiply-adds
 // would round grazing and edge hits differently from the plain versions.
@@ -350,83 +354,340 @@ __device__ __forceinline__ int group_cid0(const Tables& s, int g) {
               : g * kGroup;
 }
 
-// Closest hit through the two-level cull, one thread per ray (K3's grouped
-// mode; K9 walks the same picks a warp per ray, resident_trace.cu). It visits
-// the clusters closest_hit visits, in the same order: each pick finds the
-// next (enter, cluster) after the last one under the horizon, as
-// closest_hit's pass over the K boxes does, but passes over the Kg group
-// boxes and slab-tests the 8 member boxes only of the groups entered no
-// later than the best candidate so far. A member never enters before its
-// group, so a skipped group holds no better candidate, and the member boxes
-// equal the cluster boxes, so the picks are closest_hit's. The walk of the
-// JAX kernel (_grouped_recull_loop: groups front to back, then a group's
-// members) visits more clusters at 512 triangles each and lost to K1 on
-// the card at every K measured.
-__device__ __forceinline__ Hit closest_hit_grouped(const Ray& r,
-                                                   const Tables& s) {
-  const int kg = s.kg;
-  float best_t = kF32Max;
-  long long best_slot = -1;
-  float last_en = -1.0f;
-  int last_k = -1;
-  for (;;) {
-    const float hz = horizon(r, best_t, best_slot);
-    float next_en = CUDART_INF_F;
-    int next_k = -1;
-    for (int g = 0; g < kg; ++g) {
-      const float eg = cluster_enter(r, s.gboxes, g, kg);
-      if (!(eg <= hz) || eg > next_en) continue;
-      const float* mb = s.mboxes + static_cast<size_t>(g) * kGroup * 8;
-      const int cid0 = group_cid0(s, g);
-#pragma unroll
-      for (int m = 0; m < kGroup; ++m) {
-        const float en = slab_enter(r, mb + 8 * m, 1);
-        const int k = cid0 + m;
-        if (!(en <= hz)) continue;
-        if (en < last_en || (en == last_en && k <= last_k)) continue;
-        if (en < next_en || (en == next_en && k < next_k)) {
-          next_en = en;
-          next_k = k;
-        }
-      }
-    }
-    if (next_k < 0) break;
-    const Ray l = s.xf ? object_ray(r, s, next_k / s.kb) : r;
-    visit_closest(l, s, next_k, best_t, best_slot);
-    last_en = next_en;
-    last_k = next_k;
-  }
-  return refine(r, s, best_slot);
+// ---------------------------------------------------------------------------
+// The warp walks of the two-level cull (K9 / K10, and K3 and K7 in their
+// grouped mode): a warp (a team of 32 lanes) walks ONE ray, so the work of a
+// ray is spread over lanes:
+//   * group pass: lane j slab-tests group box base + j (planar (8, Kg) rows,
+//     coalesced); the entered groups go through a per-warp ring in shared
+//     memory, and lanes 8q..8q+7 test the 8 member boxes of the ring's q-th
+//     group (two 16-byte loads a lane; a group's (8, 8) block is 256
+//     contiguous bytes), four groups at a time;
+//   * closest hit: every member the ray enters under the horizon, after the
+//     last pick, goes into a per-warp candidate buffer in shared memory (up
+//     to kCandidates) while the least (enter, cluster) is kept by shuffles.
+//     When the buffer holds them all, every later pick is a lexicographic
+//     minimum over the buffer, under the current horizon (it only falls),
+//     so one pass over the Kg boxes serves the whole walk; when it
+//     overflows, the walk visits the least candidate and passes again;
+//   * cluster visits: lane j tests slots j, j + 32, ... of the (16, C) table
+//     slice (coalesced); the closest hit keeps the lexicographic (t, slot)
+//     minimum and reduces it across the warp after each visit, the any-hit
+//     leaves the walk at the first __any_sync hit.
+// The closest hit visits closest_hit's clusters in closest_hit's order: the
+// picks are the successive lexicographic (enter, cluster) minima under the
+// same horizon, and a member never enters before its group (a group box
+// contains its members' boxes and the slab arithmetic is monotone in the
+// bounds). The any-hit visits any_hit's entered clusters in index order. The
+// (t, slot) minimum and the any-hit OR do not depend on how the tests are
+// spread over lanes, so the results equal the flat walks' bit for bit.
+// Every lane of the warp must reach every call below: they shuffle, ballot
+// and __syncwarp over all 32 lanes.
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRing = 64;                        // entered groups in flight
+constexpr int kGroupsPerStep = 32 / kGroup;
+constexpr int kCandidates = 512;                 // buffered picks of a walk
+
+// Shared memory of one team (one warp).
+struct Team {
+  int ring[kRing];
+  float cand_en[kCandidates];
+  int cand_k[kCandidates];
+};
+
+// The warp walks read the member boxes as float4: the table must be 16-byte
+// aligned (ops/resident.py group_args copies a misaligned one).
+__host__ __device__ inline bool group_tables_ok(const float* gboxes, const float* mboxes,
+                                                int kg) {
+  return gboxes != nullptr && mboxes != nullptr && kg >= 1 &&
+         reinterpret_cast<uintptr_t>(mboxes) % 16 == 0;
 }
 
-// Any-hit through the two-level cull, one thread per ray (K3's grouped
-// mode; K10 walks it a warp per ray): entered
-// groups in index order, their entered members in index order, return at
-// the first accepted hit (_grouped_occl_loop). Equals any_hit: a member is
-// entered only inside an entered group.
-__device__ __forceinline__ bool any_hit_grouped(const Ray& r, const Tables& s) {
-  const int kg = s.kg;
-  for (int g = 0; g < kg; ++g) {
-    if (cluster_enter(r, s.gboxes, g, kg) == CUDART_INF_F) continue;
-    const float* mb = s.mboxes + static_cast<size_t>(g) * kGroup * 8;
-    const int cid0 = group_cid0(s, g);
-    const Ray l = s.xf ? object_ray(r, s, cid0 / s.kb) : r;
-    for (int m = 0; m < kGroup; ++m) {
-      if (slab_enter(r, mb + 8 * m, 1) == CUDART_INF_F) continue;
-      if (visit_any(l, s, cid0 + m)) return true;
+__device__ __forceinline__ unsigned lanes_below(int lane) {
+  return (1u << lane) - 1u;
+}
+
+// (en, k) before (en0, k0) in (enter, cluster) order; k < 0 is no candidate.
+__device__ __forceinline__ bool cand_before(float en, int k, float en0, int k0) {
+  return k >= 0 && (k0 < 0 || en < en0 || (en == en0 && k < k0));
+}
+
+// The least (en, k) over the warp, on every lane.
+__device__ __forceinline__ void warp_min_cand(float& en, int& k) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float en2 = __shfl_xor_sync(kFull, en, off);
+    const int k2 = __shfl_xor_sync(kFull, k, off);
+    if (cand_before(en2, k2, en, k)) {
+      en = en2;
+      k = k2;
+    }
+  }
+}
+
+// The lexicographic (t, slot) minimum over the warp, on every lane; slot < 0
+// is no hit.
+__device__ __forceinline__ void warp_min_hit(float& t, int& slot) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(kFull, t, off);
+    const int s2 = __shfl_xor_sync(kFull, slot, off);
+    if (s2 >= 0 && (slot < 0 || t2 < t || (t2 == t && s2 < slot))) {
+      t = t2;
+      slot = s2;
+    }
+  }
+}
+
+// Lane `lane`'s member of the ring's (lane / 8)-th group from `head`:
+// (enter, cluster), or (+inf, -1) past the ring's end. A group's member
+// boxes are 8 x 8 contiguous floats: lane m reads its box as two float4.
+__device__ __forceinline__ void member_enter(const Ray& r, const Tables& s,
+                                             const int* ring, int head, int tail,
+                                             int lane, float& en, int& k) {
+  en = CUDART_INF_F;
+  k = -1;
+  const int q = head + (lane >> 3);
+  if (q >= tail) return;
+  const int g = ring[q & (kRing - 1)];
+  const float4* mb = reinterpret_cast<const float4*>(
+      s.mboxes + static_cast<size_t>(g) * kGroup * 8 + 8 * (lane & 7));
+  const float4 a = __ldg(mb), b = __ldg(mb + 1);
+  const float lo[3] = {a.x, a.y, a.z};
+  const float hi[3] = {a.w, b.x, b.y};
+  en = slab_enter_box(r, lo, hi, b.z);
+  k = group_cid0(s, g) + (lane & 7);
+}
+
+// Appends this chunk's entered groups (lane j: group base + j) to the ring.
+__device__ __forceinline__ void push_groups(const Ray& r, const Tables& s, float hz,
+                                            int base, int lane, int* ring, int& tail) {
+  const int g = base + lane;
+  const float eg = g < s.kg ? cluster_enter(r, s.gboxes, g, s.kg) : CUDART_INF_F;
+  const bool in = eg <= hz && eg < CUDART_INF_F;
+  const unsigned mask = __ballot_sync(kFull, in);
+  if (in) ring[(tail + __popc(mask & lanes_below(lane))) & (kRing - 1)] = g;
+  tail += __popc(mask);
+  __syncwarp();
+}
+
+// The closest hit's pass: every cluster entered at en <= hz after
+// (last_en, last_k) in (enter, cluster) order. Returns their least (en, k)
+// on every lane (k = -1: none) and their number; they are in the team's
+// buffer when the number is at most kCandidates.
+__device__ __forceinline__ int closest_pass(const Ray& r, const Tables& s, float hz,
+                                            float last_en, int last_k, int lane, Team& tm,
+                                            float& next_en, int& next_k) {
+  int head = 0, tail = 0, count = 0;
+  float my_en = CUDART_INF_F;
+  int my_k = -1;
+  for (int base = 0; base < s.kg; base += 32) {
+    push_groups(r, s, hz, base, lane, tm.ring, tail);
+    const bool last_chunk = base + 32 >= s.kg;
+    while (tail - head >= kGroupsPerStep || (last_chunk && head < tail)) {
+      float en;
+      int k;
+      member_enter(r, s, tm.ring, head, tail, lane, en, k);
+      const bool ok = en <= hz && en < CUDART_INF_F &&
+                      !(en < last_en || (en == last_en && k <= last_k));
+      if (ok && cand_before(en, k, my_en, my_k)) {
+        my_en = en;
+        my_k = k;
+      }
+      const unsigned mask = __ballot_sync(kFull, ok);
+      const int at = count + __popc(mask & lanes_below(lane));
+      if (ok && at < kCandidates) {
+        tm.cand_en[at] = en;
+        tm.cand_k[at] = k;
+      }
+      count += __popc(mask);
+      head = min(head + kGroupsPerStep, tail);
+      __syncwarp();
+    }
+  }
+  warp_min_cand(my_en, my_k);
+  next_en = my_en;
+  next_k = my_k;
+  return count;
+}
+
+// The pick from a buffer that holds every candidate of its pass: the least
+// buffered (en, k) after (last_en, last_k) with en <= hz.
+__device__ __forceinline__ void buffered_pick(const Team& tm, int count, float hz,
+                                              float last_en, int last_k, int lane,
+                                              float& next_en, int& next_k) {
+  float my_en = CUDART_INF_F;
+  int my_k = -1;
+  for (int i = lane; i < count; i += 32) {
+    const float en = tm.cand_en[i];
+    const int k = tm.cand_k[i];
+    if (!(en <= hz) || en < last_en || (en == last_en && k <= last_k)) continue;
+    if (cand_before(en, k, my_en, my_k)) {
+      my_en = en;
+      my_k = k;
+    }
+  }
+  warp_min_cand(my_en, my_k);
+  next_en = my_en;
+  next_k = my_k;
+}
+
+// Tests cluster k's triangles against `l` (in the cluster's object space),
+// lane j slots j, j + 32, ...; the warp's lexicographic (t, slot) minimum
+// with the hits so far, on every lane.
+__device__ __forceinline__ void team_visit_closest(const Ray& l, const Tables& s, int k,
+                                                   int lane, float& best_t, int& best_slot) {
+  const int c = s.c;
+  const float* tab = s.table + static_cast<size_t>(s.xf ? k % s.kb : k) * 16 * c;
+  const int cnt = __ldg(s.counts + k);
+  float t_min = best_t;
+  int slot_min = best_slot;
+  for (int j = lane; j < cnt; j += 32) {
+    float t;
+    if (mt_test(l, tab, c, j, t) && t < l.tmax) {
+      const int slot = k * c + j;
+      if (slot_min < 0 || t < t_min || (t == t_min && slot < slot_min)) {
+        t_min = t;
+        slot_min = slot;
+      }
+    }
+  }
+  warp_min_hit(t_min, slot_min);
+  best_t = t_min;
+  best_slot = slot_min;
+}
+
+// Any accepted triangle of cluster k (`l` in its object space), 32 slots a
+// step; the same answer on every lane.
+__device__ __forceinline__ bool team_visit_any(const Ray& l, const Tables& s, int k,
+                                               int lane) {
+  const int c = s.c;
+  const float* tab = s.table + static_cast<size_t>(s.xf ? k % s.kb : k) * 16 * c;
+  const int cnt = __ldg(s.counts + k);
+  for (int j0 = 0; j0 < cnt; j0 += 32) {
+    const int j = j0 + lane;
+    float t;
+    const bool hit = j < cnt && mt_test(l, tab, c, j, t) && t < l.tmax;
+    if (__any_sync(kFull, hit)) return true;
+  }
+  return false;
+}
+
+// The closest-hit walk of one ray (K9): closest_hit's visits in its order;
+// returns the winning slot (-1: none) on every lane.
+__device__ __forceinline__ int team_closest(const Ray& r, const Tables& s, int lane,
+                                            Team& tm) {
+  float best_t = kF32Max;
+  int best_slot = -1;
+  float last_en = -1.0f;
+  int last_k = -1;
+  float hz = horizon(r, best_t, best_slot);
+  float next_en;
+  int next_k;
+  int count = closest_pass(r, s, hz, last_en, last_k, lane, tm, next_en, next_k);
+  bool buffered = count <= kCandidates;
+  while (next_k >= 0) {
+    // instanced: the ray in this cluster's instance frame, per visit
+    const Ray l = s.xf ? object_ray(r, s, next_k / s.kb) : r;
+    team_visit_closest(l, s, next_k, lane, best_t, best_slot);
+    last_en = next_en;
+    last_k = next_k;
+    hz = horizon(r, best_t, best_slot);
+    if (buffered) {
+      buffered_pick(tm, count, hz, last_en, last_k, lane, next_en, next_k);
+    } else {
+      count = closest_pass(r, s, hz, last_en, last_k, lane, tm, next_en, next_k);
+      buffered = count <= kCandidates;
+    }
+  }
+  return best_slot;
+}
+
+// The any-hit walk of one ray (K10): entered groups in index order, their
+// entered members in index order, leaving at the first accepted hit; the
+// same answer on every lane.
+__device__ __forceinline__ bool team_anyhit(const Ray& r, const Tables& s, int lane,
+                                            int* ring) {
+  int head = 0, tail = 0;
+  for (int base = 0; base < s.kg; base += 32) {
+    push_groups(r, s, r.tmax, base, lane, ring, tail);
+    const bool last_chunk = base + 32 >= s.kg;
+    while (tail - head >= kGroupsPerStep || (last_chunk && head < tail)) {
+      float en;
+      int k;
+      member_enter(r, s, ring, head, tail, lane, en, k);
+      unsigned mask = __ballot_sync(kFull, en < CUDART_INF_F);
+      head = min(head + kGroupsPerStep, tail);
+      __syncwarp();
+      while (mask) {
+        const int k0 = __shfl_sync(kFull, k, __ffs(mask) - 1);
+        mask &= mask - 1;
+        const Ray l = s.xf ? object_ray(r, s, k0 / s.kb) : r;
+        if (team_visit_any(l, s, k0, lane)) return true;
+      }
     }
   }
   return false;
 }
 
-// The closest hit and any-hit of K3: the grouped walks when the wrapper
-// passed group tables (ops/resident.py use_grouped), else the flat ones.
-__device__ __forceinline__ Hit closest(const Ray& r, const Tables& s) {
-  return s.gboxes ? closest_hit_grouped(r, s) : closest_hit(r, s);
+// Lane `src`'s ray on every lane.
+__device__ __forceinline__ Ray shfl_ray(const Ray& r, int src) {
+  Ray q;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    q.o[ax] = __shfl_sync(kFull, r.o[ax], src);
+    q.d[ax] = __shfl_sync(kFull, r.d[ax], src);
+    q.inv[ax] = __shfl_sync(kFull, r.inv[ax], src);
+  }
+  q.tmin = __shfl_sync(kFull, r.tmin, src);
+  q.tmax = __shfl_sync(kFull, r.tmax, src);
+  return q;
 }
 
-__device__ __forceinline__ bool occluded(const Ray& r, const Tables& s) {
-  return s.gboxes ? any_hit_grouped(r, s) : any_hit(r, s);
+// ---------------------------------------------------------------------------
+// The traces of K3 and K7: the closest hit and any-hit of each lane's capped
+// ray (`has`: the lane holds one). With group tables (ops/resident.py
+// use_grouped) the warp traces its rays one after another, all 32 lanes on
+// each (a ballot of the lanes that hold a ray; each such lane's ray is
+// broadcast by shuffles and walked by the team, the owner keeps the answer
+// and refines its own winner): a lane without a ray only skips its turn, and
+// a warp without any ray pays one ballot. Every lane of the warp must call
+// them then. Without group tables each lane walks its own ray through the
+// flat cull (closest_hit / any_hit). Either way the answers are the flat
+// walks'.
+
+__device__ __forceinline__ Hit closest(bool has, const Ray& r, const Tables& s,
+                                       Team& tm) {
+  const Hit miss = {kF32Max, 0.0f, 0.0f, -1, false};
+  if (!s.gboxes) return has ? closest_hit(r, s) : miss;
+  const int lane = threadIdx.x & 31;
+  unsigned todo = __ballot_sync(kFull, has);
+  int slot = -1;
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const int won = team_closest(shfl_ray(r, src), s, lane, tm);
+    if (lane == src) slot = won;
+    __syncwarp();  // the next walk refills the team's buffers
+  }
+  return slot >= 0 ? refine(r, s, slot) : miss;
+}
+
+__device__ __forceinline__ bool occluded(bool has, const Ray& r, const Tables& s,
+                                         Team& tm) {
+  if (!s.gboxes) return has && any_hit(r, s);
+  const int lane = threadIdx.x & 31;
+  unsigned todo = __ballot_sync(kFull, has);
+  bool occ = false;
+  while (todo) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const bool o = team_anyhit(shfl_ray(r, src), s, lane, tm.ring);
+    if (lane == src) occ = o;
+    __syncwarp();
+  }
+  return occ;
 }
 
 }  // namespace resident

@@ -8,17 +8,27 @@
 // Replaces the JAX package's Pallas kernel pallas_route.py::_route_kernel
 // (pallas_call at :729). It is built from the device functions of the
 // composed stage's kernels, so both paths share their arithmetic:
-// resident_trace.cuh (closest_hit / any_hit of K1 / K2; closest_hit already
-// returns the exact winner t, so the TPU kernel's _trace_exact_t scratch has
-// no counterpart), proxy_march.cuh (K4) and proxy_mlp.cuh (K5 / K6).
+// resident_trace.cuh (the traces of K1 / K2, or of K9 / K10 in the grouped
+// mode; the closest hit already returns the exact winner t, so the TPU
+// kernel's _trace_exact_t scratch has no counterpart), proxy_march.cuh (K4)
+// and proxy_mlp.cuh (K5 / K6).
 //
-// One block takes a tile of 256 rays, in two phases:
-//   1. one thread per ray: the local trace against the ray's tmax capped at
-//      the scene exit; then the march, bounded by the local hit's t or, on a
-//      miss, by the caller's UNCAPPED tmax (proxies lie outside the local
-//      scene). A shadow ray that is occluded locally does not march;
-//      survivors march against their full tmax. The ray's records go to
-//      shared memory (features, table row, inside flag, t, ratio).
+// One block of 256 threads takes a tile of kTileRays rays, in two phases:
+//   1. the local trace against the ray's tmax capped at the scene exit, by
+//      the rule every trace uses (ops/resident.py use_grouped): with the
+//      group tables, each warp traces its rays one after another through the
+//      warp walks of K9 / K10 (resident_trace.cuh closest / occluded: all 32
+//      lanes walk one ray; a lane without a ray, dead or past the end of the
+//      wavefront, only skips its turn, so a warp of dead rows costs one
+//      ballot); below the rule's threshold each thread walks its own ray
+//      through the flat cull of K1 / K2. The walks' team buffers alias the
+//      nets' activation planes, which phase 2 first touches after the
+//      barrier that ends phase 1. Then, one thread per ray, the march,
+//      bounded by the local hit's t or, on a miss, by the caller's UNCAPPED
+//      tmax (proxies lie outside the local scene). A shadow ray that is
+//      occluded locally does not march; survivors march against their full
+//      tmax. The ray's records go to shared memory (features, table row,
+//      inside flag, t, ratio).
 //   2. the block groups the tile's valid records by object (counting sort in
 //      shared memory) and runs each present object's vis and depth net over
 //      chunks of its records only (multi-geo mode: one shared net pair, one
@@ -47,11 +57,31 @@
 // What bounds it on an H100: operations — the ray-triangle and slab tests of
 // the trace plus 2 x 286,944 multiply-adds per valid record at the
 // production width (2 x 1,753,536 for the multi-geo nets at w512 / d3); the
-// nets run on the FP32 pipes in this first version.
+// nets run on the FP32 pipes in this first version. Before the warp walks,
+// each thread's flat walk made every pick a fresh pass over all K cluster
+// boxes (PERF.md, cycle counters).
+//
+// Tile size: 256 rays (kTileRays), measured against 64 and 128 on an H100
+// (scripts/torch_grouped_probe.py --parts tiles; PERF.md). The tile sets
+// both the trace's parallelism (8 warps walk kTileRays / 8 rays each in
+// series) and the fill of the nets' 16-row chunks (each object present in a
+// tile runs at least one chunk there). 256 was the fastest on every dense
+// production-width wavefront, 8-25 % ahead of 128 (the nets' fill decides),
+// and within 2 % of it in the multi-geo mode; 64 won only on a sparse
+// rooms_p8 partition, by 0.4 ms a pair of stage calls.
+//
+// Registers: at 2 blocks an SM a thread gets 128 registers. With the warp
+// walks inlined the secondary kernel then spills and its nets run slower,
+// and the multi-geo forward is faster with more registers in both stages;
+// the production-width shadow kernel fits 128 registers and gains from the
+// second block (the same probe part). So the kernel is instanced per stage
+// and net mode, and min_blocks gives 2 blocks an SM to the production-width
+// shadow kernel and 1 to the other three.
 //
 // Built with --fmad=false for the trace and march arithmetic; the nets'
 // sums use explicit fmaf (proxy_mlp.cuh).
 
+#include "cycles.cuh"
 #include "proxy_march.cuh"
 #include "proxy_mlp.cuh"
 #include "resident_trace.cuh"
@@ -63,7 +93,13 @@ using mlp::Nets;
 using resident::Ray;
 using resident::Tables;
 
-constexpr int kRays = mlp::kThreads;  // rays of a tile, one per thread
+// Rays of a tile (the tile size note in the header). Each warp holds
+// kTileRays / 8 of them, in lanes 0 .. kTileRays / 8 - 1.
+constexpr int kTileRays = 256;
+constexpr int kWarps = mlp::kThreads / 32;
+constexpr int kWarpRays = kTileRays / kWarps;
+static_assert(kTileRays % kWarps == 0 && kWarpRays >= 1 && kWarpRays <= 32,
+              "a tile spreads its rays evenly over the block's warps");
 constexpr float kF32Max = 3.402823466e38f;
 // the multi-geo net reads the object id as id / kInstanceDivisor
 // (models/proxy.py INSTANCE_DIVISOR)
@@ -90,21 +126,44 @@ struct Out {
   uint8_t* __restrict__ local_hit;
 };
 
-// Bytes of dynamic shared memory of a tile.
-size_t smem_bytes(const Dims& d, int max_hits, int n_obj) {
-  const size_t rows = (size_t)kRays * max_hits;
-  return mlp::smem_floats(d) * sizeof(float) + rows * 11 * 4 + (size_t)3 * n_obj * 4;
+// Floats at the front of a tile's shared memory: the nets' planes in phase
+// 2, the warps' team buffers of the grouped trace in phase 1 (aliased: phase
+// 1 ends at a barrier before phase 2 touches the planes).
+__host__ __device__ inline size_t front_floats(const Dims& d) {
+  const size_t teams = kWarps * sizeof(resident::Team) / sizeof(float);
+  const size_t nets = mlp::smem_floats(d);
+  return nets > teams ? nets : teams;
 }
 
-template <bool kShadow>
-__global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
+// Bytes of dynamic shared memory of a tile (ops/route.py route_smem_bytes).
+size_t smem_bytes(const Dims& d, int max_hits, int n_obj) {
+  const size_t rows = (size_t)kTileRays * max_hits;
+  return front_floats(d) * sizeof(float) + rows * 11 * 4 + (size_t)3 * n_obj * 4;
+}
+
+// Blocks an SM must hold (the register budget: 2 blocks cap a thread at 128
+// registers, 1 block lets it take up to 255). The nets want registers: at 2
+// blocks the secondary kernel spills and the multi-geo forward runs slower;
+// the production-width shadow kernel fits 128 without a spill and gains
+// from the second block (the register note in the header).
+template <bool kShadow, bool kMultiGeo>
+constexpr int min_blocks() {
+  return kShadow && !kMultiGeo ? 2 : 1;
+}
+
+template <bool kShadow, bool kMultiGeo>
+__global__ void __launch_bounds__(mlp::kThreads, (min_blocks<kShadow, kMultiGeo>())) route_kernel(
     Rays rays, Tables scene, march::Table tb, int max_hits, float eps, int n_obj,
-    Dims dm, Nets vis, Nets depth, Out out) {
+    Dims dm_arg, Nets vis, Nets depth, Out out) {
+  CYCLES_NOW(c_start);
+  // the mode as a constant, so each instance compiles one forward
+  Dims dm = dm_arg;
+  dm.multi_geo = kMultiGeo ? 1 : 0;
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
-  const int rows = kRays * max_hits;
-  // the tile's records, row = thread * max_hits + slot
-  float* q_feat = smem + mlp::smem_floats(dm);        // (rows, 5)
+  const int rows = kTileRays * max_hits;
+  // the tile's records, row = tile ray * max_hits + slot
+  float* q_feat = smem + front_floats(dm);            // (rows, 5)
   float* q_t = q_feat + 5 * rows;
   float* q_ratio = q_t + rows;
   float* q_vis = q_ratio + rows;
@@ -116,35 +175,45 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
   int* fill = start + n_obj;
 
   const int tid = threadIdx.x;
-  const int i = blockIdx.x * kRays + tid;
-  const int base = tid * max_hits;
+  const int warp = tid >> 5, lane = tid & 31;
+  // this thread's ray of the tile, if it holds one
+  const bool owner = lane < kWarpRays;
+  const int ray = warp * kWarpRays + lane;
+  const int i = blockIdx.x * kTileRays + ray;
+  const bool in_range = owner && i < rays.n;
+  const int base = ray * max_hits;
   for (int o = tid; o < n_obj; o += blockDim.x) cnt[o] = 0;
-  for (int k = 0; k < max_hits; ++k) {
+  for (int k = 0; owner && k < max_hits; ++k) {
     q_code[base + k] = -1;
     q_vis[base + k] = 0.0f;   // a record whose object has no net predicts 0
     q_depth[base + k] = 0.0f;
   }
 
-  // ---- 1. local trace and march, one thread per ray
+  // ---- 1. local trace (every lane of the warp: the grouped walks trace the
+  // warp's rays one after another) and march, one thread per ray
   bool act = false, local_hit = false, march_act = false;
   float cmp_t = 0.0f;
-  if (i < rays.n) {
-    Ray r;
+  Ray r = {};
+  if (in_range) {
     act = resident::load_ray(i, rays.o, rays.d, rays.tmin, rays.tmax, rays.active,
                              scene.scene_aabb, r);
-    const float tmax_raw = rays.tmax[i];
-    cmp_t = tmax_raw;
-    if (act) {
-      if (kShadow) {
-        local_hit = resident::any_hit(r, scene);
-        march_act = !local_hit;
-      } else {
-        const resident::Hit h = resident::closest_hit(r, scene);
-        local_hit = h.hit;
-        if (local_hit) cmp_t = h.t;
-        march_act = true;
-      }
-    }
+    cmp_t = rays.tmax[i];
+  }
+  resident::Team& team = reinterpret_cast<resident::Team*>(smem)[warp];
+  CYCLES_NOW(c_trace);
+  if (act) CYCLES_COUNT(5, 1);
+  if (kShadow) {
+    local_hit = resident::occluded(act, r, scene, team);
+    march_act = act && !local_hit;
+  } else {
+    const resident::Hit h = resident::closest(act, r, scene, team);
+    local_hit = act && h.hit;
+    if (local_hit) cmp_t = h.t;
+    march_act = act;
+  }
+  if (in_range) {
+    CYCLES_ADD(0, c_trace);
+    CYCLES_NOW(c_march);
     if (march_act) {
       march::march_ray(tb, r.o, r.d, cmp_t, max_hits, eps,
                        [&](int slot, const march::Record& rec) {
@@ -156,17 +225,25 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
                          q_code[q] = rec.row | (rec.inside ? 256 : 0);
                        });
     }
+    CYCLES_ADD(1, c_march);
+    CYCLES_COUNT(9, 1);
   }
   __syncthreads();
+  CYCLES_NOW(c_nets);
+  if (tid == 0) {
+    CYCLES_ADD(2, c_start);
+    CYCLES_COUNT(6, 1);
+  }
 
   // ---- 2. the nets over the tile's valid records, grouped by object
   // the net of a record: its object's pair, or the one shared multi-geo pair
   auto net_of = [&](int code) {
-    return code < 0 ? -1 : (dm.multi_geo ? 0 : tb.obj[code & 255]);
+    return code < 0 ? -1 : (kMultiGeo ? 0 : tb.obj[code & 255]);
   };
-  for (int k = 0; k < max_hits; ++k) {
+  for (int k = 0; owner && k < max_hits; ++k) {
     const int ob = net_of(q_code[base + k]);
     if (ob >= 0 && ob < n_obj) atomicAdd(&cnt[ob], 1);
+    if (ob >= 0) CYCLES_COUNT(7, 1);
   }
   __syncthreads();
   if (tid == 0) {
@@ -178,7 +255,7 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
     }
   }
   __syncthreads();
-  for (int k = 0; k < max_hits; ++k) {
+  for (int k = 0; owner && k < max_hits; ++k) {
     const int ob = net_of(q_code[base + k]);
     if (ob >= 0 && ob < n_obj) list[atomicAdd(&fill[ob], 1)] = base + k;
   }
@@ -186,6 +263,7 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
   for (int o = 0; o < n_obj; ++o) {
     const int total = cnt[o];
     for (int b0 = 0; b0 < total; b0 += mlp::kRows) {
+      if (tid == 0) CYCLES_COUNT(8, 1);
       const int* chunk = list + start[o] + b0;
       mlp::pair_chunk(
           dm, vis, depth, o, min(mlp::kRows, total - b0), smem,
@@ -201,8 +279,11 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
     }
   }
 
+  if (tid == 0) CYCLES_ADD(3, c_nets);
+
   // ---- 3. consumption, one thread per ray
-  if (i >= rays.n) return;
+  if (!in_range) return;
+  CYCLES_NOW(c_consume);
   if (kShadow) {
     bool occluded = false;
     for (int k = 0; k < max_hits; ++k) {
@@ -219,6 +300,7 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
     out.t[i] = march_act ? (occluded ? 0.0f : 1.0f) : 0.0f;
     out.local_hit[i] = local_hit ? 1 : 0;
     out.has_node[i] = march_act ? 1 : 0;
+    CYCLES_ADD(4, c_consume);
     return;
   }
   float best_t = kF32Max;
@@ -249,6 +331,32 @@ __global__ void __launch_bounds__(mlp::kThreads, 2) route_kernel(
   out.env_miss[i] = env_miss ? 1 : 0;
   out.no_route[i] = (act && !has_node && !env_miss) ? 1 : 0;
   out.local_hit[i] = local_hit ? 1 : 0;
+  CYCLES_ADD(4, c_consume);
+}
+
+Tables scene_tables(const float* boxes, const float* table, const int32_t* tri_map,
+                    const int32_t* counts, const float* scene_aabb, int nk, int c,
+                    const float* gboxes, const float* mboxes, int kg) {
+  Tables s{boxes, table, tri_map, counts, scene_aabb, nk, c};
+  s.gboxes = gboxes;  // nullptr: the flat trace
+  s.mboxes = mboxes;
+  s.kg = kg;
+  return s;
+}
+
+template <bool kShadow, bool kMultiGeo>
+int launch_as(const Rays& rays, const Tables& scene, const march::Table& tb,
+              int max_hits, float eps, int n_obj, const Dims& dm, const Nets& vis,
+              const Nets& depth, const Out& out, void* stream) {
+  const size_t bytes = smem_bytes(dm, max_hits, n_obj);
+  const cudaError_t rc = cudaFuncSetAttribute(
+      route_kernel<kShadow, kMultiGeo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  route_kernel<kShadow, kMultiGeo><<<(rays.n + kTileRays - 1) / kTileRays, mlp::kThreads,
+                                     bytes, static_cast<cudaStream_t>(stream)>>>(
+      rays, scene, tb, max_hits, eps, n_obj, dm, vis, depth, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kShadow>
@@ -257,33 +365,32 @@ int launch(const Rays& rays, const Tables& scene, const march::Table& tb,
            const Nets& depth, const Out& out, void* stream) {
   if (!mlp::dims_ok(dm) || dm.in_features != (dm.multi_geo ? 6 : 5) || n_obj < 1 ||
       (dm.multi_geo && n_obj != 1) || max_hits < 1 ||
-      tb.p < 1 || tb.p > march::kMaxRows) {
+      tb.p < 1 || tb.p > march::kMaxRows ||
+      (scene.gboxes != nullptr && !resident::group_tables_ok(scene.gboxes, scene.mboxes,
+                                                             scene.kg))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rays.n <= 0) return 0;
-  const size_t bytes = smem_bytes(dm, max_hits, n_obj);
-  const cudaError_t rc = cudaFuncSetAttribute(
-      route_kernel<kShadow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  route_kernel<kShadow><<<(rays.n + kRays - 1) / kRays, mlp::kThreads, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      rays, scene, tb, max_hits, eps, n_obj, dm, vis, depth, out);
-  return static_cast<int>(cudaGetLastError());
+  return dm.multi_geo
+             ? launch_as<kShadow, true>(rays, scene, tb, max_hits, eps, n_obj, dm, vis,
+                                        depth, out, stream)
+             : launch_as<kShadow, false>(rays, scene, tb, max_hits, eps, n_obj, dm, vis,
+                                         depth, out, stream);
 }
 
 }  // namespace
 
 // C entry points: launch on the caller's stream and return the first CUDA
 // error (0 = launched). Arguments in groups: the rays; the scene's cluster
-// tables; the proxy table (xf, omin, ospan null unless instanced); the
-// march's and the nets' parameters (n_obj net pairs; one with multi_geo);
-// the outputs.
+// tables and its group tables (gboxes null: the flat trace); the proxy
+// table (xf, omin, ospan null unless instanced); the march's and the nets'
+// parameters (n_obj net pairs; one with multi_geo); the outputs.
 #define ROUTE_ARGS                                                              \
   const float *o, const float *d, const float *tmin, const float *tmax,         \
       const uint8_t *active, int n, const float *boxes, const float *table,     \
       const int32_t *tri_map, const int32_t *counts, const float *scene_aabb,   \
-      int nk, int c, const float *bmin, const float *bmax,                      \
+      int nk, int c, const float *gboxes, const float *mboxes, int kg,          \
+      const float *bmin, const float *bmax,                                     \
       const float *max_length, const int32_t *node, const int32_t *obj,         \
       const float *xf, const float *omin, const float *ospan, int p,            \
       int my_node, int max_hits, float eps, int n_obj, const void *vis_w,       \
@@ -294,7 +401,8 @@ int launch(const Rays& rays, const Tables& scene, const march::Table& tb,
 #define ROUTE_LAUNCH(SHADOW, OUT)                                                \
   launch<SHADOW>(                                                                \
       Rays{o, d, tmin, tmax, active, n},                                         \
-      Tables{boxes, table, tri_map, counts, scene_aabb, nk, c},                  \
+      scene_tables(boxes, table, tri_map, counts, scene_aabb, nk, c, gboxes,     \
+                   mboxes, kg),                                                  \
       march::Table{bmin, bmax, max_length, node, obj, xf, omin, ospan, p,        \
                    my_node},                                                     \
       max_hits, eps, n_obj,                                                      \

@@ -49,7 +49,7 @@ ACTIVATIONS = {"none": 0, "leaky_relu": 1, "sigmoid": 2}
 MAX_FEATURES = 8      # csrc/proxy_mlp.cuh kMaxFeatures
 SMEM_LIMIT = 232448   # bytes of shared memory a block can use on an H100
 KERNEL_ROWS = 16      # csrc/proxy_mlp.cuh kRows
-KERNEL_THREADS = 256  # csrc/proxy_mlp.cuh kThreads (the rays of a route tile)
+KERNEL_THREADS = 256  # csrc/proxy_mlp.cuh kThreads (the threads of a route tile)
 
 
 def param_bytes(params: dict) -> int:

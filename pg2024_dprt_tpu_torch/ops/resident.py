@@ -58,18 +58,18 @@ LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0, "grouped_closest": 0,
 
 # the group fan-out the grouped kernels read (scene/geometry.py CL_GROUP)
 GROUP = 8
-# the default dispatch takes the grouped kernels (K9/K10, and the frame
-# kernel's grouped mode) at this many clusters and more. The JAX package's
-# rule is a budget of the TPU's fast memory and means nothing on this card.
-# On 65,536 camera / incoherent rays over the 64k soup cut at 2048 .. 128
-# triangles a cluster (scripts/torch_grouped_probe.py --parts rule, an H100
-# at 700 W; PERF.md), K9 took 0.08-0.23 of K1's time and K10 0.07-0.21 of
-# K2's at every K from 47 to 735, but 1.2-1.6x at K = 1 (cornell); the
-# frame kernel's grouped mode, which keeps the per-thread walks, took 1.00
-# of its flat mode's time at K = 47, 1.04 at 93, 0.96 at 185, 0.83 at 368
-# and 0.54 at 735. One rule serves both: from 185 on every grouped kernel
-# wins.
-GROUPED_MIN_CLUSTERS = 185
+# the default dispatch takes the grouped kernels (K9/K10, and the warp walks
+# of the frame kernel K3 and the fused route K7) at this many clusters and
+# more. The JAX package's rule is a budget of the TPU's fast memory and means
+# nothing on this card. On the 64k soup of the soup frame cut at 2048 .. 128
+# triangles a cluster (K = 47 .. 735; scripts/torch_grouped_probe.py --parts
+# rule, an H100 at 700 W; PERF.md), K9 took 0.09-0.23 of K1's time and K10
+# 0.07-0.18 of K2's, K3's warp walks 0.19-0.63 of its flat mode's, K7's
+# 0.82-0.93 (secondary) and 0.32-0.69 (shadow), and the composed frame
+# 0.74-0.99; on the cornell box (K = 1) K9 / K10 took 1.2-1.5x and K3 1.9x
+# the flat kernels' time. One rule serves them all: from K = 47, the
+# smallest K measured above 1, every grouped kernel wins.
+GROUPED_MIN_CLUSTERS = 47
 
 # the schedule key holds two cluster indices of this many bits
 SCHEDULE_CLUSTER_BITS = 12

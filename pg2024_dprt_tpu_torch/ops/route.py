@@ -48,11 +48,17 @@ from .mlp import (
     grouped_mlp_dense_plain, packed_pair, pair_refusal,
 )
 from .resident import (
-    F32_MAX, LAUNCHES, _check, _kernel_inputs, _ptr, _stream,
-    resident_anyhit_plain, resident_closest_plain, schedule_order, unsorted,
+    F32_MAX, LAUNCHES, _check, _kernel_inputs, _ptr, _stream, group_args,
+    resident_anyhit_plain, resident_closest_plain, scene_tables, schedule_order, unsorted,
+    use_grouped,
 )
 
 F32_EPS = 1.1920929e-7
+# csrc/route.cu kTileRays: the rays of one K7 tile (a block of KERNEL_THREADS)
+TILE_RAYS = 256
+# csrc/resident_trace.cuh Team: the shared memory of one warp's walk (ring of
+# 64 group ids, 512 buffered (enter, cluster) candidates)
+TEAM_BYTES = 4 * (64 + 2 * 512)
 
 
 def net_pairs(models) -> int:
@@ -62,9 +68,11 @@ def net_pairs(models) -> int:
 
 def route_smem_bytes(cfg, max_hits: int, num_nets: int) -> int:
     """Bytes of shared memory of one K7 tile (csrc/route.cu smem_bytes): the
-    nets' forward, 11 words per query record, 3 per net pair."""
-    return (forward_smem_bytes(cfg) + KERNEL_THREADS * max_hits * 11 * 4
-            + 3 * num_nets * 4)
+    nets' forward planes, which the warps' team buffers of the grouped trace
+    alias in phase 1 (the larger of the two), 11 words per query record, 3
+    per net pair."""
+    front = max(forward_smem_bytes(cfg), KERNEL_THREADS // 32 * TEAM_BYTES)
+    return front + TILE_RAYS * max_hits * 11 * 4 + 3 * num_nets * 4
 
 
 def fused_route_takes(models, proxies=None, max_hits: int = 1) -> bool:
@@ -151,8 +159,21 @@ _REFUSAL = ("the fused route takes separate single-output vis/depth nets of one 
             "pair, and a tile within shared memory (see fused_route_takes)")
 
 
+def scene_args(scene, device, grouped=None):
+    """The scene's arguments of K7's entry points: the cluster tables, K, C,
+    then the group tables (gboxes, a 16-byte-aligned mboxes, Kg) where
+    ops/resident.py::use_grouped(scene, grouped) takes the grouped trace, or
+    (None, None, 0) for the flat one. Returns (arguments, the tables by name,
+    to keep alive until the launch is enqueued)."""
+    grouped = use_grouped(scene, grouped)
+    tab, k, c = scene_tables(scene, device, grouped)
+    groups = group_args(tab) if grouped else (None, None, 0)
+    return [_ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]), _ptr(tab["cl_tri_map"]),
+            _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c, *groups], tab
+
+
 def _route_args(scene, proxies, models, origin, direction, t_min, t_max, active,
-                my_id, max_hits, eps, sort_rays):
+                my_id, max_hits, eps, sort_rays, grouped):
     """Validate what K7 reads. Returns (C arguments up to the outputs, N, the
     sort permutation or None, the tensors to keep alive until the launch is
     enqueued)."""
@@ -164,7 +185,8 @@ def _route_args(scene, proxies, models, origin, direction, t_min, t_max, active,
     n = origin.shape[0]
     t_min = _expand(t_min, n, dev)
     t_max = _expand(t_max, n, dev)
-    rays, tab, n, k, c = _kernel_inputs(scene, origin, direction, t_min, t_max, active)
+    rays, _, n, _, _ = _kernel_inputs(scene, origin, direction, t_min, t_max, active)
+    scene_ptrs, tab = scene_args(scene, dev, grouped)
     table = ProxyTableArgs(proxies, dev)
     packed = packed_pair(models)
     if packed[0].device != dev:
@@ -174,9 +196,7 @@ def _route_args(scene, proxies, models, origin, direction, t_min, t_max, active,
         rays = [x[perm] for x in rays]
     cfg = models.vis_cfg
     args = [
-        *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
-        _ptr(tab["cl_tri_map"]), _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c,
-        *table.pointers, table.p, int(my_id), int(max_hits), float(eps),
+        *map(_ptr, rays), n, *scene_ptrs, *table.pointers, table.p, int(my_id), int(max_hits), float(eps),
         net_pairs(models), *map(_ptr, packed), cfg.width, cfg.depth, cfg.in_features,
         cfg.head_hidden, int(models.multi_geo), ACTIVATIONS[models.vis_cfg.final_activation],
         ACTIVATIONS[models.depth_cfg.final_activation]]
@@ -188,16 +208,20 @@ def _in_order(out: dict, perm) -> dict:
 
 
 def route_fused(scene, proxies, models, origin, direction, t_min, t_max, active,
-                my_id: int, max_hits: int, eps: float, sort_rays: bool = True) -> dict:
+                my_id: int, max_hits: int, eps: float, sort_rays: bool = True,
+                grouped=None) -> dict:
     """One-kernel secondary routing. Returns the per-ray decisions:
     settled_node (my_id for a local settle, -1 for none), new_t, has_node,
     env_miss, no_route, local_hit. K7 for CUDA tensors (in schedule order
-    with sort_rays), the plain version for CPU tensors."""
+    with sort_rays; its trace takes the warp walks where
+    ops/resident.py::use_grouped(scene, grouped) says so, with the same
+    decisions either way), the plain version for CPU tensors."""
     if origin.device.type == "cpu":
         return route_fused_plain(scene, proxies, models, origin, direction, t_min,
                                  t_max, active, my_id, max_hits, eps)
     args, n, perm, keep = _route_args(scene, proxies, models, origin, direction, t_min,
-                                      t_max, active, my_id, max_hits, eps, sort_rays)
+                                      t_max, active, my_id, max_hits, eps, sort_rays,
+                                      grouped)
     dev = origin.device
     node = torch.empty((n,), dtype=torch.int32, device=dev)
     new_t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -214,16 +238,18 @@ def route_fused(scene, proxies, models, origin, direction, t_min, t_max, active,
 
 def shadow_route_fused(scene, proxies, models, origin, direction, t_min, t_max,
                        active, my_id: int, max_hits: int, eps: float,
-                       sort_rays: bool = False) -> dict:
+                       sort_rays: bool = False, grouped=None) -> dict:
     """One-kernel neural shadow visibility. Returns weight = survives * (1 -
     max occlusion), occluded_local and survives per ray; pass t_max already
     scaled by the caller's occlusion margin. K7 for CUDA tensors (in schedule
-    order with sort_rays), the plain version for CPU tensors."""
+    order with sort_rays; the trace by use_grouped(scene, grouped), as in
+    route_fused), the plain version for CPU tensors."""
     if origin.device.type == "cpu":
         return shadow_route_fused_plain(scene, proxies, models, origin, direction,
                                         t_min, t_max, active, my_id, max_hits, eps)
     args, n, perm, keep = _route_args(scene, proxies, models, origin, direction, t_min,
-                                      t_max, active, my_id, max_hits, eps, sort_rays)
+                                      t_max, active, my_id, max_hits, eps, sort_rays,
+                                      grouped)
     dev = origin.device
     weight = torch.empty((n,), dtype=torch.float32, device=dev)
     occluded = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -242,6 +268,7 @@ def _lib():
     if not getattr(lib, "_pg_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         common = ([p] * 5 + [i] + [p] * 5 + [i, i]      # rays, cluster tables
+                  + [p, p, i]                           # group tables
                   + [p] * 8 + [i, i, i, f]              # proxy table, march
                   + [i] + [p] * 4 + [i] * 7)            # nets
         lib.route_secondary.argtypes = common + [p] * 6 + [p]

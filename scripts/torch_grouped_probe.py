@@ -3,8 +3,8 @@
 (grouped_anyhit) spend their time, and what the large-scene frames pay for
 them, on one GPU.
 
-    python scripts/torch_grouped_probe.py [--root DIR ...] [--parts waves,frame,dist,rule]
-                                          [--ablate]
+    python scripts/torch_grouped_probe.py [--root DIR ...]
+        [--parts waves,frame,dist,rule,route,k3,tiles] [--ablate]
 
 Each --root is a checkout of this repository (default: the one holding this
 script). Each runs in a process of its own, in the order given (to compare
@@ -29,7 +29,32 @@ chip_smoke.py's (phase 7 and phase 9), from this script's checkout. Parts:
          and incoherent wavefronts, the frame kernel K3 in its grouped and
          flat modes on the soup frame's light, sky, camera and config, and
          the composed frame with the rule's threshold just above and at K
-         (medians of 7; K3 and the frames of 5).
+         (medians of 7; K3 and the frames of 5); K7 (the fused route) in its
+         grouped and flat modes on neural_route_64k's rays over each cut,
+         where the tree's route_fused takes a `grouped` argument.
+  route  where K7 (csrc/route.cu) spends its time: a build of route.cu with
+         the cycle counters of csrc/cycles.cuh (-DPG_CYCLES, into
+         build/cycles/) counts the thread cycles of phase 1's trace and
+         march, the block cycles of phase 1 and of phase 2 (the nets) and
+         the thread cycles of phase 3 (consumption), with the rows, live
+         rays, valid records and 16-row net chunks; secondary (K8's schedule
+         order, as the stage runs it) and shadow, on neural_route_64k
+         (K = 735), neural_route_1m (K = 3,028), the bounce-1 wavefronts of
+         the rooms_p8 neural partition with the most live rays (8 PROD pairs,
+         as parallel/distributed.py hands them to the stages, dead rows
+         included) and K7's multi-geo mode on neural_route_64k. Beside the
+         counts, the stage's and K7's ms with the package's own build.
+  k3     where K3 (csrc/frame.cu) spends its time: the same counters in a
+         build of frame.cu give, for each bounce, the paths alive and the
+         share of the bounce's thread cycles spent in the closest-hit and
+         the any-hit calls, on the 64k frame (soup_frame, K = 185) and
+         frame_1m (K = 3,028), by the dispatch rule; K3's ms beside them.
+  tiles  K7's tile size and register budget: copies of route.cu with
+         kTileRays set to 64, 128 and 256, and with every instance held to 1
+         or to 2 blocks an SM (min_blocks; build/tiles/), each with ptxas'
+         registers and spills, timed on the route part's secondary and
+         shadow wavefronts (CUDA-event medians of 7) and held equal to the
+         package's K7 on every ray.
 
 --ablate measures, on a tree whose K9 / K10 run the per-thread walks of
 csrc/resident_trace.cuh (closest_hit_grouped / any_hit_grouped), where those
@@ -45,8 +70,10 @@ launch brings against the card's 64 per SM). Needs CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
+import inspect
 import importlib.util
 import json
 import os
@@ -79,13 +106,13 @@ def _profile(pt, cs, render, stages):
             "k10_device_ms": device_ms(K10_FUNCTIONS)}
 
 
-def _scenes(pt, dev):
+def _scenes(pt, dev, instanced=True):
     soup = pt.scene.random_tri_soup
     frame64 = pt.scene.soup_frame(device=dev)
     scene64 = pt.scene.device_scene_from_meshes([soup(65536, seed=0)], tris_per_cluster=128,
                                                 device=dev)
     scene1m = pt.scene.device_scene_from_meshes([soup(1 << 20, seed=3)], device=dev)
-    inst = pt.scene.instanced_frame(device=dev)
+    inst = pt.scene.instanced_frame(device=dev) if instanced else None
     return frame64, scene64, scene1m, inst
 
 
@@ -145,6 +172,12 @@ def part_frame(pt, torch, cs, inst):
 def part_rule(pt, torch, np, cs, dev, frame64):
     ops, res = pt.ops, pt.ops.resident
     _, lights, env, cam, cfg = frame64
+    # K7 on neural_route_64k's rays and nets over each cut, in schedule order
+    route = None
+    if "grouped" in inspect.signature(ops.route_fused).parameters:
+        _, proxies, models, paths, shadow, _ = cs.route_config(pt, torch, np, dev)
+        route = (_route_args(paths, False, 8, cs), _route_args(shadow, True, 8, cs),
+                 (proxies, models))
     soup = pt.scene.random_tri_soup(65536, seed=0)
     meshes, c_lights = pt.scene.cornell_box(device=dev)
     scenes = [("cornell", pt.scene.device_scene_from_meshes(meshes, device=dev), c_lights)]
@@ -169,6 +202,12 @@ def part_rule(pt, torch, np, cs, dev, frame64):
                 rec[f"k3_{'grouped' if mode else 'flat'}_ms"] = cs.cuda_ms(
                     torch, lambda: ops.render_frame_fused(scene, li, env, cam, next(seeds), cfg,
                                                           grouped=mode), reps=5)
+            if route is not None and scene.cl_gboxes is not None:
+                for kind, fn, args in (("secondary", ops.route_fused, route[0]),
+                                       ("shadow", ops.shadow_route_fused, route[1])):
+                    for mode in (True, False):
+                        rec[f"k7_{kind}_{'grouped' if mode else 'flat'}_ms"] = cs.cuda_ms(
+                            torch, lambda: fn(scene, *route[2], *args, grouped=mode), reps=7)
             off = dataclasses.replace(cfg, fused_frame="off")
             for label, limit in (("flat", k + 1), ("grouped", k)):
                 res.GROUPED_MIN_CLUSTERS = limit
@@ -411,6 +450,201 @@ def part_ablate(pt, torch, cs, root, waves):
         _build._LIBS["resident_trace"] = saved
     return out
 
+# --------------------------------------------------------------------------
+# route / k3 / tiles: the cycle counters of csrc/cycles.cuh in K7 and K3
+
+MAX_HITS, MARCH_EPS = 3, 1e-3
+TILE_LINE = "constexpr int kTileRays = 256;"
+BLOCKS_LINE = "return kShadow && !kMultiGeo ? 2 : 1;"
+# (name, the line of route.cu, its replacement)
+ROUTE_VARIANTS = [(f"tile{t}", TILE_LINE, f"constexpr int kTileRays = {t};") for t in (64, 128, 256)]
+ROUTE_VARIANTS += [(f"blocks{b}", BLOCKS_LINE, f"return {b};") for b in (1, 2)]
+
+
+def _nvcc_lib(_build, src, so, *flags):
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    run = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-o", so, src],
+                         capture_output=True, text=True)
+    if run.returncode != 0:
+        raise SystemExit(f"nvcc failed on {src}\n" + run.stdout + run.stderr)
+    return ctypes.CDLL(so)
+
+
+def _cycles_lib(root, _build, name):
+    """csrc/<name>.cu built with its cycle counters (-DPG_CYCLES) into
+    build/cycles/."""
+    pkg = os.path.join(root, "pg2024_dprt_tpu_torch")
+    lib = _nvcc_lib(_build, os.path.join(pkg, "csrc", _build.SOURCES[name]),
+                    os.path.join(pkg, "build", "cycles", f"lib{name}.so"), "-DPG_CYCLES")
+    lib.cycles_read.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+@contextlib.contextmanager
+def _swapped(_build, name, lib):
+    """The package's wrappers launch from `lib` instead of their own build."""
+    saved = _build._LIBS.get(name)
+    _build._LIBS[name] = lib
+    try:
+        yield
+    finally:
+        if saved is None:
+            _build._LIBS.pop(name, None)
+        else:
+            _build._LIBS[name] = saved
+
+
+def _cycles(torch, lib, fn):
+    lib.cycles_clear()
+    fn()
+    torch.cuda.synchronize()
+    c = (ctypes.c_ulonglong * 64)()
+    lib.cycles_read(c)
+    return list(c)
+
+
+def _route_args(paths, shadow, my_id, cs):
+    """K7's arguments after the scene, proxies and models, as the stages
+    pass them (render/proxy_stages.py)."""
+    if shadow:
+        return (paths.origin, paths.direction, MARCH_EPS, paths.tmax * (1.0 - 1e-3),
+                paths.is_valid, my_id, MAX_HITS, MARCH_EPS)
+    return (paths.origin, paths.direction, MARCH_EPS, paths.tmax,
+            paths.is_valid & ~paths.is_shadow, my_id, MAX_HITS, MARCH_EPS)
+
+
+def _route_split(c, threads=256):
+    """K7's counters as shares of the block cycles: phase 1 split between
+    trace and march by their thread cycles, phase 2 (nets), phase 3
+    (consumption, thread cycles over the block's threads)."""
+    p1, p2, p3 = c[2], c[3], c[4] / threads
+    ts = c[0] / max(c[0] + c[1], 1)
+    total = max(p1 + p2 + p3, 1)
+    return {"trace": p1 * ts / total, "march": p1 * (1 - ts) / total, "nets": p2 / total,
+            "consume": p3 / total, "phase1_block_cycles": p1, "phase2_block_cycles": p2,
+            "trace_thread_cycles": c[0], "march_thread_cycles": c[1], "blocks": c[6],
+            "rows": c[9], "live_rays": c[5], "records": c[7], "chunks": c[8]}
+
+
+def _route_cases(pt, torch, np, cs, dev, scene1m):
+    """(label, scene, proxies, models, secondary paths, shadow paths, my_id)
+    of the route part."""
+    r64 = cs.route_config(pt, torch, np, dev)
+    r1m = cs.route_config(pt, torch, np, dev, scene=scene1m)
+    rng = np.random.RandomState(4)
+    mg = pt.models.multigeo_proxy_models(
+        pt.models.init_mlp(rng, pt.models.MULTIGEO_VIS, device=dev),
+        pt.models.init_mlp(rng, pt.models.MULTIGEO_DEPTH, device=dev), 8,
+        pt.models.MULTIGEO_VIS, pt.models.MULTIGEO_DEPTH)
+    # the rooms_p8 neural frame's bounce-1 stage calls (chip_smoke.py phase 9)
+    P, side = 8, 256
+    env = pt.scene.EnvironmentMap.constant(cs.ROOMS_ENV, device=dev)
+    cam = pt.core.Camera.look_at(*cs.ROOMS_CAMERA, side, side, device=dev)
+    cfg = pt.render.RenderConfig(width=side, height=side, spp=1, bounces=4,
+                                 use_neural_proxies=True)
+    meshes, lights = pt.scene.two_room_scene(num_rooms=P, tris_per_room=131072, seed=2,
+                                             device=dev)
+    part = pt.scene.build_partitioned_scene(meshes, P, device=dev)
+    prod = pt.models.random_proxy_models(np.random.RandomState(1), P, device=dev)
+    store = {}
+    with cs.captured_stages(pt, store):
+        pt.parallel.render_image_distributed(part, prod, lights, env, cam, cfg, device=dev)
+    busiest = max(range(P), key=lambda i: int(store["secondary"][i][2].is_valid.sum()))
+    sec, shd = store["secondary"][busiest], store["shadow"][P + busiest]
+    return [("neural_route_64k", r64[0], r64[1], r64[2], r64[3], r64[4], 8),
+            ("neural_route_1m", r1m[0], r1m[1], r1m[2], r1m[3], r1m[4], 8),
+            (f"rooms_p8_partition{busiest}_bounce1", sec[0], sec[1], prod, sec[2], shd[2],
+             sec[3]),
+            ("neural_route_64k_multigeo", r64[0], r64[1], mg, r64[3], r64[4], 8)]
+
+
+def part_route(pt, torch, np, cs, root, dev, cases):
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    ops = pt.ops
+    lib = _cycles_lib(root, _build, "route")
+    out = {}
+    for label, scene, proxies, models, paths, shadow, my_id in cases:
+        for kind, fn, rays in (("secondary", ops.route_fused, paths),
+                               ("shadow", ops.shadow_route_fused, shadow)):
+            args = _route_args(rays, kind == "shadow", my_id, cs)
+            call = lambda: fn(scene, proxies, models, *args)
+            rec = {"k": scene.num_clusters, "rows": int(rays.capacity),
+                   "live": int(args[4].sum()), "grouped_rule": bool(ops.use_grouped(scene)),
+                   "ms": cs.cuda_ms(torch, call, reps=7)}
+            with _swapped(_build, "route", lib):
+                rec["split"] = _route_split(_cycles(torch, lib, call))
+                rec["counter_ms"] = cs.cuda_ms(torch, call, reps=3)
+            out[f"{label}_{kind}"] = rec
+            print(f"probe route {label} {kind}: {rec}", flush=True)
+    return out
+
+
+def part_k3(pt, torch, cs, root, frame64, scene1m):
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    ops = pt.ops
+    _, lights, env, cam, cfg = frame64
+    lib = _cycles_lib(root, _build, "frame")
+    seeds = iter(range(1, 1000))
+    out = {}
+    for name, scene in (("frame_64k", frame64[0]), ("frame_1m", scene1m)):
+        call = lambda s=5: ops.render_frame_fused(scene, lights, env, cam, s, cfg)
+        rec = {"k": scene.num_clusters, "grouped_rule": bool(ops.use_grouped(scene)),
+               "ms": cs.cuda_ms(torch, lambda: call(next(seeds)), reps=5)}
+        with _swapped(_build, "frame", lib):
+            c = _cycles(torch, lib, call)
+            rec["counter_ms"] = cs.cuda_ms(torch, call, reps=3)
+        nb = cfg.bounces
+        rec["bounces"] = [{"alive": c[24 + b], "closest_share": c[8 + b] / max(c[b], 1),
+                           "anyhit_share": c[16 + b] / max(c[b], 1),
+                           "thread_cycles": c[b]} for b in range(nb)]
+        rec["trace_share"] = sum(c[8 + b] + c[16 + b] for b in range(nb)) / max(c[32], 1)
+        rec["kernel_thread_cycles"] = c[32]
+        out[name] = rec
+        print(f"probe k3 {name}: {rec}", flush=True)
+    return out
+
+
+def part_tiles(pt, torch, cs, root, cases):
+    """K7 built as ROUTE_VARIANTS, timed on the route part's wavefronts, each
+    equal to the package's K7."""
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    ops = pt.ops
+    pkg = os.path.join(root, "pg2024_dprt_tpu_torch")
+    src = open(os.path.join(pkg, "csrc", "route.cu")).read()
+    dst = os.path.join(pkg, "build", "tiles")
+    os.makedirs(dst, exist_ok=True)
+    out = {}
+    for name, line, repl in ROUTE_VARIANTS:
+        if line not in src:
+            raise SystemExit(f"--parts tiles: route.cu has no line {line!r}")
+        cu = os.path.join(dst, f"route_{name}.cu")
+        with open(cu, "w") as fh:
+            fh.write(src.replace(line, repl))
+        so = os.path.join(dst, f"libroute_{name}.so")
+        run = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", os.path.join(pkg, "csrc"),
+                              "-o", so, cu], capture_output=True, text=True)
+        if run.returncode != 0:
+            raise SystemExit(f"nvcc failed on {cu}\n" + run.stdout + run.stderr)
+        lib = ctypes.CDLL(so)
+        rec = {"ptxas": cs.ptxas_summary(run.stdout + run.stderr)}
+        for label, scene, proxies, models, paths, shadow, my_id in cases:
+            for kind, fn, rays in (("secondary", ops.route_fused, paths),
+                                   ("shadow", ops.shadow_route_fused, shadow)):
+                args = _route_args(rays, kind == "shadow", my_id, cs)
+                call = lambda: fn(scene, proxies, models, *args)
+                want = call()
+                with _swapped(_build, "route", lib):
+                    got = call()
+                    ms = cs.cuda_ms(torch, call, reps=7)
+                differs = int(sum((got[f] != want[f]).sum() for f in want))
+                rec[f"{label}_{kind}"] = {"ms": ms, "differs": differs}
+        out[name] = rec
+        print(f"probe tiles {name}: {rec}", flush=True)
+    return out
+
 
 # --------------------------------------------------------------------------
 
@@ -436,7 +670,7 @@ def child(root, parts, ablate):
     _build.build(force=True)
     dev = pt.core.resolve_device()
     out = {"root": root, "card": cs.card_line()}
-    scenes = _scenes(pt, dev)
+    scenes = _scenes(pt, dev, instanced=bool({"waves", "frame", "dist"} & parts) or ablate)
     waves = _waves(pt, torch, np, cs, dev, scenes) if ("waves" in parts or ablate) else None
     if "waves" in parts:
         out["waves"] = part_waves(pt, torch, cs, waves)
@@ -448,6 +682,14 @@ def child(root, parts, ablate):
         out["rule"] = part_rule(pt, torch, np, cs, dev, scenes[0])
     if ablate:
         out["ablate"] = part_ablate(pt, torch, cs, root, waves)
+    if "k3" in parts:
+        out["k3"] = part_k3(pt, torch, cs, root, scenes[0], scenes[2])
+    if {"route", "tiles"} & parts:
+        cases = _route_cases(pt, torch, np, cs, dev, scenes[2])
+        if "route" in parts:
+            out["route"] = part_route(pt, torch, np, cs, root, dev, cases)
+        if "tiles" in parts:
+            out["tiles"] = part_tiles(pt, torch, cs, root, cases)
     line = json.dumps(out, default=float)
     print("probe " + line, flush=True)
     os.makedirs(os.path.dirname(OUT), exist_ok=True)

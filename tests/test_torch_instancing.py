@@ -294,13 +294,13 @@ def test_grouped_dispatch_rule():
     finally:
         tres.GROUPED_MIN_CLUSTERS = saved
     # the threshold sits where it was measured (ops/resident.py): the soup
-    # frame's 64k soup at 512 a cluster (K = 185) takes the grouped kernels,
-    # the same soup at 1024 a cluster (K = 93) the flat ones
+    # frame's 64k soup at 2048 a cluster (K = 47) takes the grouped kernels,
+    # the same soup at 4096 a cluster (K = 24) the flat ones
     soup = random_tri_soup(65536, seed=0)
     at = {tpc: tscene.device_scene_from_meshes([soup], tris_per_cluster=tpc, device="cpu")
-          for tpc in (512, 1024)}
-    assert at[512].num_clusters == tres.GROUPED_MIN_CLUSTERS == 185
-    assert tres.use_grouped(at[512]) and not tres.use_grouped(at[1024])
+          for tpc in (2048, 4096)}
+    assert at[2048].num_clusters == tres.GROUPED_MIN_CLUSTERS == 47
+    assert tres.use_grouped(at[2048]) and not tres.use_grouped(at[4096])
 
 
 @pytest.mark.parametrize("kind", ["flat", "instanced"])

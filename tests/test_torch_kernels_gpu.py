@@ -365,6 +365,11 @@ def test_mlp_kernels_match_plain_on_gpu(kernel, width, depth, head, q, o_count):
     assert not torch.allclose(moved[1], depth_, rtol=2e-2, atol=2e-2)
 
 
+def _trace_kernel(scene, query):
+    """The trace kernel the dispatch rule picks for the composed stage."""
+    return ("grouped_" if tops.use_grouped(scene) else "resident_") + query
+
+
 def _route_case(device, vis_bias, depth_bias=0.0, n=6000, shadow=False, kind="unit"):
     import dataclasses
 
@@ -428,7 +433,8 @@ def test_route_kernel_secondary_matches_plain_and_composed_on_gpu(vis_bias, kind
     monkeypatch.setattr(tps, "_use_fused_route", lambda *a: False)
     composed, env_c, _ = tps.secondary_route(scene, table, m, env, paths, my_id, MH, EPS, 997)
     assert {k: v for k, v in tops.LAUNCHES.items() if v} == {
-        "schedule_keys": 1, "resident_closest": 1, "proxy_march": 1, "mlp_dense": 1}
+        "schedule_keys": 1, _trace_kernel(scene, "closest"): 1, "proxy_march": 1,
+        "mlp_dense": 1}
     for f in ("target_node", "current_node", "is_hit", "is_valid", "visited_mask"):
         assert torch.equal(getattr(fused, f), getattr(composed, f)), f
     assert torch.allclose(fused.tmax, composed.tmax, rtol=2e-3, atol=2e-3)
@@ -462,7 +468,8 @@ def test_route_kernel_shadow_matches_plain_and_composed_on_gpu(vis_bias, depth_b
     monkeypatch.setattr(tps, "_use_fused_route", lambda *a: False)
     composed, _ = tps.shadow_direct_light_nn(scene, table, m, paths, 8, MH, EPS, 4, 997)
     assert {k: v for k, v in tops.LAUNCHES.items() if v} == {
-        "schedule_keys": 1, "resident_anyhit": 1, "proxy_march": 1, "mlp_dense": 1}
+        "schedule_keys": 1, _trace_kernel(scene, "anyhit"): 1, "proxy_march": 1,
+        "mlp_dense": 1}
     assert torch.allclose(fused, composed, rtol=1e-5, atol=1e-6)
     assert float(fused.sum()) > 0.0
 
@@ -533,13 +540,92 @@ def test_route_kernel_multigeo_matches_plain_and_composed_on_gpu(
     monkeypatch.setattr(tps, "_use_fused_route", lambda *a: False)
     composed, env_c, _ = tps.secondary_route(scene, table, m, env, paths, my_id, MH, EPS, 997)
     assert {k: v for k, v in tops.LAUNCHES.items() if v} == {
-        "schedule_keys": 1, "resident_closest": 1, "proxy_march": 1}
+        "schedule_keys": 1, _trace_kernel(scene, "closest"): 1, "proxy_march": 1}
     for f in ("target_node", "current_node", "is_hit", "is_valid", "visited_mask"):
         assert torch.equal(getattr(fused, f), getattr(composed, f)), f
     assert torch.allclose(fused.tmax, composed.tmax, rtol=2e-3, atol=2e-3)
     assert torch.allclose(env_f, env_c, rtol=1e-5, atol=1e-6)
     if vis_bias > 0:
         assert (dec["has_node"] & ~dec["local_hit"]).sum() > 100
+
+
+def _grouped_route_case(stage, edge):
+    """(scene, table, models, paths) of the grouped-route test: a soup of
+    K around the dispatch rule's threshold (2,050 triangles at 16 a
+    cluster); `edge` "sparse" is a 65,536-row buffer with 0.6 % of its rows
+    active, "ragged" 6,001 rows (not a multiple of 32 or of a tile), the
+    rest 4,096 rows."""
+    n = {"sparse": 65536, "ragged": 6001}.get(edge, 4096)
+    shadow = stage.endswith("shadow")
+    if stage.startswith("multigeo"):
+        _, table, m, paths = _multigeo_case("unit", 10.0, -10.0 if shadow else 0.0, 64, 2,
+                                            shadow=shadow)
+    else:
+        _, table, m, _ = _route_case("cuda", 10.0, -10.0)
+    rng = np.random.RandomState(90)
+    on = lambda a: torch.as_tensor(a, device="cuda")
+    o = (rng.rand(n, 3) * 1.4 - 0.2).astype(np.float32)
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = (rng.rand(n) * 2.5 + 0.3).astype(np.float32) if shadow else np.full(n, 3.4e38,
+                                                                               np.float32)
+    live = rng.rand(n) < 0.006 if edge == "sparse" else rng.rand(n) > 0.1
+    paths = PathState.empty(n, device="cuda")._replace(
+        origin=on(o), direction=on(d), tmax=on(tmax),
+        throughput=on(rng.rand(n, 3).astype(np.float32)),
+        pixel_index=on((np.arange(n) % 997).astype(np.int64)), is_valid=on(live))
+    scene = device_scene_from_meshes([random_tri_soup(2050, seed=60)], tris_per_cluster=16,
+                                     device="cuda")
+    return scene, table, m, paths
+
+
+ROUTE_GROUPED_CASES = [(stage, edge) for stage in ("secondary", "shadow", "multigeo",
+                                                   "multigeo_shadow")
+                       for edge in ("sparse", "ragged", "above_rule", "below_rule")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage,edge", ROUTE_GROUPED_CASES)
+def test_route_kernel_grouped_mode_equals_flat_and_plain_on_gpu(stage, edge, monkeypatch):
+    """K7 through the warp walks (grouped=True) against its flat mode
+    (grouped=False) and its plain version: the traces equal K1 / K2 bit for
+    bit, so every decision and weight is equal on every ray (the heads'
+    biases are shifted by 10 so that no decision sits at a threshold of the
+    plain version's nets). With the rule's threshold at the scene's K
+    ("above_rule") or one above it ("below_rule"), the default dispatch
+    takes the grouped or the flat trace, and its decisions are the same."""
+    _need_cuda()
+    scene, table, m, paths = _grouped_route_case(stage, edge)
+    shadow = stage.endswith("shadow")
+    t_max = paths.tmax * (1.0 - 1e-3) if shadow else paths.tmax
+    args = (paths.origin, paths.direction, EPS, t_max, paths.is_valid, 8, MH, EPS)
+    entry = tops.shadow_route_fused if shadow else tops.route_fused
+    plain = tops.shadow_route_fused_plain if shadow else tops.route_fused_plain
+    k = scene.num_clusters
+    monkeypatch.setattr(tres, "GROUPED_MIN_CLUSTERS", k + 1 if edge == "below_rule" else k)
+    assert tops.use_grouped(scene) == (edge != "below_rule")
+    tops.reset_launch_counts()
+    by_rule = entry(scene, table, m, *args)
+    grouped = entry(scene, table, m, *args, grouped=True)
+    flat = entry(scene, table, m, *args, grouped=False)
+    torch.cuda.synchronize()
+    name = "route_shadow" if shadow else "route_secondary"
+    assert tops.LAUNCHES[name] == 3
+    assert tops.LAUNCHES["route_multigeo"] == (3 if m.multi_geo else 0)
+    for key in flat:
+        assert torch.equal(grouped[key], flat[key]), key
+        assert torch.equal(by_rule[key], flat[key]), key
+    ref = plain(scene, table, m, *args)
+    for key, val in grouped.items():
+        if key == "new_t":
+            assert torch.allclose(val, ref[key], rtol=2e-3, atol=2e-3)
+        else:
+            assert torch.equal(val.to(ref[key].dtype), ref[key]), key
+    live = int(paths.is_valid.sum())
+    if edge == "sparse":
+        assert 0 < live < paths.capacity // 100
+    hit = grouped["occluded_local"] if shadow else grouped["local_hit"]
+    assert int(hit.sum()) > (2 if edge == "sparse" else 100)
 
 
 @pytest.mark.cuda
@@ -704,16 +790,30 @@ def test_grouped_kernels_equal_flat_and_plain_on_gpu(kind, tpc, n, edge):
         assert set(inst.tolist()) == {0, 1, 2}
 
 
+# (width, height, nee_mode, roulette): the 64x64 soup frame, then a frame of
+# 45 x 37 = 1,665 pixels, not a multiple of 32, whose last warp holds lanes
+# past the last pixel, in both NEE modes with and without roulette
+K3_GROUPED_CASES = [(64, 64, "ris", 0), (45, 37, "ris", 0), (45, 37, "ris", 2),
+                    (45, 37, "sum", 0), (45, 37, "sum", 2)]
+
+
 @pytest.mark.cuda
-def test_frame_kernel_grouped_mode_is_bit_identical_on_gpu():
-    """K3 with the grouped walks gives the flat mode's image bit for bit."""
+@pytest.mark.parametrize("width,height,nee_mode,rr", K3_GROUPED_CASES)
+def test_frame_kernel_grouped_mode_is_bit_identical_on_gpu(width, height, nee_mode, rr):
+    """K3 with the warp walks gives the flat mode's image bit for bit: the
+    lanes of a warp reach every trace together (ended paths, zero-weight
+    light candidates and lanes past the last pixel only skip their turn)."""
     _need_cuda()
-    scene, lights, env, cam, kw = _frame_case("soup", "cuda")
-    cfg = RenderConfig(spp=2, **kw)
+    scene, lights, env, cam, _ = _frame_case("soup", "cuda")
+    if (width, height) != (cam.width, cam.height):
+        cam = Camera.look_at([0.5, 0.5, 3.0], [0.5, 0.5, 0.5], [0, 1, 0], 45.0, width, height,
+                             device="cuda")
+    cfg = RenderConfig(width=width, height=height, bounces=3, spp=2, nee_mode=nee_mode,
+                       russian_roulette=rr)
     flat = tops.render_frame_fused(scene, lights, env, cam, 1, cfg, spp=2, grouped=False)
     grouped = tops.render_frame_fused(scene, lights, env, cam, 1, cfg, spp=2, grouped=True)
     assert torch.equal(flat[0], grouped[0]) and torch.equal(flat[1], grouped[1])
-    assert float(flat[0].sum()) > 0.0
+    assert float(flat[0].sum()) > 0.0 and float(flat[1].sum()) > 0.0
 
 
 @pytest.mark.cuda

@@ -511,3 +511,76 @@ def test_routing_fields_default_and_existing_callers():
     out, _, _ = tps.secondary_route(ts, tt, m, _envs()[1], bare, MY_ID, MH, EPS, 16)
     assert (out.visited_mask[bare.is_valid] == 0xFFFFFFFF).all()
     assert (out.visited_mask[~bare.is_valid] == 0).all()
+
+
+def _csrc_int(name, pattern):
+    """An integer constant of the port's CUDA sources (csrc/<name>)."""
+    import os
+    import re
+
+    import pg2024_dprt_tpu_torch
+
+    path = os.path.join(os.path.dirname(pg2024_dprt_tpu_torch.__file__), "csrc", name)
+    return int(re.search(pattern, open(path).read()).group(1))
+
+
+@pytest.mark.parametrize("width,depth,in_features,multi_geo,max_hits,nets", [
+    (64, 2, 5, False, 3, 8), (128, 4, 5, False, 3, 8), (256, 4, 5, False, 14, 8),
+    (512, 3, 6, True, 8, 1)])
+def test_route_smem_bytes_follow_the_kernel_layout(width, depth, in_features, multi_geo,
+                                                   max_hits, nets):
+    """route_smem_bytes is csrc/route.cu's smem_bytes: the front region holds
+    the nets' planes in phase 2 and the 8 warps' team buffers of the grouped
+    trace in phase 1 (aliased: the larger of the two, never their sum), then
+    11 words per query record of a kTileRays-ray tile and 3 per net pair. The
+    sizes come from the sources: kTileRays, kRing and kCandidates."""
+    cfg = tmlp.MLPConfig(width=width, depth=depth, in_features=in_features,
+                         multi_geo=multi_geo)
+    tile = _csrc_int("route.cu", r"constexpr int kTileRays = (\d+);")
+    ring = _csrc_int("resident_trace.cuh", r"constexpr int kRing = (\d+);")
+    cands = _csrc_int("resident_trace.cuh", r"constexpr int kCandidates = (\d+);")
+    threads = _csrc_int("proxy_mlp.cuh", r"constexpr int kThreads = (\d+);")
+    assert (tile, troute.TEAM_BYTES) == (troute.TILE_RAYS, 4 * (ring + 2 * cands))
+    planes = (4 * width + 8 + 2) * 16 * 4
+    teams = threads // 32 * 4 * (ring + 2 * cands)
+    want = max(planes, teams) + tile * max_hits * 11 * 4 + 3 * nets * 4
+    assert troute.route_smem_bytes(cfg, max_hits, nets) == want
+    assert troute.route_smem_bytes(cfg, max_hits, nets) <= troute.SMEM_LIMIT
+    # the teams outgrow the planes only for narrow nets
+    assert (teams > planes) == (width < 256)
+
+
+@pytest.mark.parametrize("edge", ["above_rule", "below_rule", "forced_grouped",
+                                  "forced_flat", "misaligned"])
+def test_route_args_take_the_grouped_mode_by_the_rule(edge, monkeypatch):
+    """K7's scene arguments follow ops/resident.py::use_grouped: with the
+    rule's threshold at the scene's K (or `grouped=True`) they carry the
+    group tables (gboxes, a 16-byte-aligned member table, Kg), one above it
+    (or `grouped=False`) null group pointers and Kg = 0. A member table that
+    starts off 16 bytes (a view into a larger buffer) is passed as an aligned
+    copy of equal content, as the warp walks read it with 16-byte loads."""
+    _, ts = _scenes(3)
+    k = ts.num_clusters
+    monkeypatch.setattr(tres, "GROUPED_MIN_CLUSTERS", k + 1 if edge == "below_rule" else k)
+    grouped = {"forced_grouped": True, "forced_flat": False}.get(edge)
+    if edge == "forced_grouped":
+        monkeypatch.setattr(tres, "GROUPED_MIN_CLUSTERS", k + 1)
+    if edge == "misaligned":
+        buf = torch.zeros(ts.cl_mboxes.numel() + 1)
+        view = buf[1:].view(ts.cl_mboxes.shape)
+        view.copy_(ts.cl_mboxes)
+        assert view.data_ptr() % 16 != 0
+        ts = ts._replace(cl_mboxes=view)
+    args, tab = troute.scene_args(ts, torch.device("cpu"), grouped)
+    assert args[:7] == [tab["cl_boxes"].data_ptr(), tab["cl_mt_table"].data_ptr(),
+                        tab["cl_tri_map"].data_ptr(), tab["cl_count"].data_ptr(),
+                        tab["scene_aabb"].data_ptr(), k, ts.tris_per_cluster]
+    gptr, mptr, kg = args[7:]
+    if edge in ("below_rule", "forced_flat"):
+        assert (gptr, mptr, kg) == (None, None, 0) and "cl_mboxes" not in tab
+        return
+    assert gptr == tab["cl_gboxes"].data_ptr() and kg == ts.cl_gboxes.shape[1] >= 1
+    assert mptr == tab["cl_mboxes"].data_ptr() and mptr % 16 == 0
+    assert torch.equal(tab["cl_mboxes"], ts.cl_mboxes)
+    if edge == "misaligned":
+        assert mptr != ts.cl_mboxes.data_ptr()
