@@ -7,7 +7,9 @@ Phases, each reported on its own line; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit) and the nvcc build of every
      kernel source in pg2024_dprt_tpu_torch/csrc/ (sm_90a, one nvcc per
      source, all started together, into pg2024_dprt_tpu_torch/build/), with
-     ptxas' registers and spills per kernel;
+     ptxas' registers and spills per kernel; the HMMA (tensor-core)
+     instructions in the SASS of K5, K6 and the four K7 instances
+     (cuobjdump), failing where a kernel has none;
   2. cornell 32x32 spp2 b3 held against the golden EXR (rtol 1e-3 / atol
      1e-4) twice: through the composed path (fused_frame="off": K1/K2
      launched, K3 not) and through the fused frame with the default config
@@ -64,7 +66,9 @@ Phases, each reported on its own line; any failure exits non-zero:
      printed), on the seeded nets and on the straddling nets below, where
      outputs spread by 0.6 and the plain version with the object ids rotated
      by one must differ beyond the tolerance on most rows (a wrong object's
-     weights would show); K7 against its plain
+     weights would show); K5 equal to K6 bit for bit (a row's prediction
+     does not depend on its chunk), with each kernel's chunks, rows per
+     weight fetch and fill; K7 against its plain
      version and against the composed stage, on the seeded nets and on the
      same nets with the heads shifted so that predictions straddle the
      thresholds: 0 disagreeing decisions among the rays none of whose queries
@@ -74,7 +78,11 @@ Phases, each reported on its own line; any failure exits non-zero:
      warp walks (the rule's mode at K = 735) equal to its flat mode on every
      ray, both timed. CUDA-event medians
      of 7 for each kernel and stage, the plain versions' times, the bounds,
-     and the per-object bf16 torch.matmul chain as K5/K6's yardstick;
+     and the per-object bf16 torch.matmul chain as K5/K6's yardstick. Then
+     the neural stages on a scene with cutout textures (the scene of
+     tests/test_torch_route.py::test_cutout_scene_branch_matches_jax, 4,096
+     rays, 8 straddling width-64 pairs), which compose (the cutout trace, K4,
+     K6), against the same stages on the CPU outside the knife-edge set;
   7. large scenes (the rows of scripts/bench_suite.py, not cut): the 1M soup
      (random_tri_soup(1 << 20, seed=3), 512 per cluster) and the instanced
      scene (8 grid instances of random_tri_soup(1 << 19, seed=9): 4,194,304
@@ -276,6 +284,38 @@ def ptxas_summary(log: str) -> str:
         elif "registers" in ln or "spill" in ln:
             parts.append(f"{label}: {ln.strip().replace('ptxas info    : ', '')}")
     return " | ".join(parts)
+
+
+# the kernels whose nets must run on the tensor cores: (library, kernel
+# entry function)
+NET_KERNELS = (("proxy_mlp", "mlp_pair_kernel"), ("proxy_mlp", "mlp_dense_kernel"),
+               ("route", "route_kernel"))
+
+
+def hmma_counts(build_dir):
+    """HMMA instructions (tensor-core products) in the SASS of each entry
+    function of NET_KERNELS (cuobjdump -sass on the built libraries), by the
+    kernels line's label."""
+    import re
+
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    counts, label = {}, None
+    for lib in sorted({lib for lib, _ in NET_KERNELS}):
+        sass = subprocess.run([tool, "-sass", os.path.join(build_dir, f"lib{lib}.so")],
+                              check=True, capture_output=True, text=True).stdout
+        for ln in sass.splitlines():
+            if "Function : " in ln:
+                m = re.search(r"\d([A-Za-z_]+_kernel)((?:I(?:L[bi][0-9]E)+)?)", ln)
+                label = None
+                if m is not None and (lib, m.group(1)) in NET_KERNELS:
+                    args = "".join(re.findall(r"L[bi]([0-9])E", m.group(2))) or None
+                    label = KERNEL_LABELS.get((m.group(1), args), m.group(1))
+                    counts[label] = 0
+            elif label is not None and re.search(r"\bHMMA\b", ln):
+                counts[label] += 1
+    return counts
 
 
 def card_line():
@@ -763,12 +803,36 @@ def nets_work(pt, models, q_rows: int, valid_rows: int):
 
 def nets_bound(work):
     """(bound_ms, bound_by, FP32-pipe ms): the larger of the FLOPs at the
-    dense bf16 tensor-core rate and the bytes over the memory rate; the FP32
-    figure beside it, since these first kernels run on the FP32 pipes."""
+    dense bf16 tensor-core rate, where the kernels run the nets' products,
+    and the bytes over the memory rate; beside it the same FLOPs at the FP32
+    rate outside the tensor cores."""
     op_s = work["flops"] / BF16_TENSOR_FLOP_PER_S
     byte_s = work["bytes"] / HBM_BYTES_PER_S
     return (max(op_s, byte_s) * 1e3, "operations" if op_s >= byte_s else "bytes",
             work["flops"] / FP32_FLOP_PER_S * 1e3)
+
+
+def nets_chunks(pt, torch, models, obj, valid):
+    """The chunks K5 and K6 run on a query batch (ops/mlp.py's plan: chunks
+    of chunk_rows rows; K5 over each object's sorted segment, K6 over each
+    object's valid rows in each of dense_parts parts of the batch), with the
+    rows per weight fetch (valid rows / chunks: each chunk reads its
+    object's weights once) and the fill (valid rows / chunk capacity)."""
+    mlp = pt.ops.mlp
+    rows, o_count, q = mlp.chunk_rows(models.vis_cfg), models.num_objects, obj.shape[0]
+    live = valid & (obj >= 0) & (obj < o_count)
+    n_valid = int(live.sum())
+    chunks = lambda counts: int(((counts + rows - 1) // rows).sum())
+    k5 = chunks(torch.bincount(obj[live].long(), minlength=o_count))
+    parts = mlp.dense_parts(q, o_count, obj.device)
+    part = torch.arange(q, device=obj.device) // -(-q // parts)
+    k6 = chunks(torch.bincount((part * o_count + obj.long())[live],
+                               minlength=parts * o_count))
+    out = {"rows": rows, "parts": parts, "valid": n_valid}
+    for name, c in (("k5", k5), ("k6", k6)):
+        out.update({f"{name}_chunks": c, f"{name}_rows_per_fetch": n_valid / max(c, 1),
+                    f"{name}_fill": n_valid / max(rows * c, 1)})
+    return out
 
 
 def march_work(table, n_active: int, n: int, records: int):
@@ -1007,8 +1071,12 @@ def route_phase(pt, torch, np, dev, counted):
     nets_plain_ms = (time.perf_counter() - t0) * 1e3
     vis, depth = ops.grouped_mlp_dense(models, *nets_args(q.aabb_id))
     k6_err, k6_beyond, k6_fine = compare_nets("K6 mlp_dense", (vis, depth), want_nets)
-    k5_err, k5_beyond, k5_fine = compare_nets(
-        "K5 mlp_pair", ops.grouped_mlp_pair(models, *nets_args(q.aabb_id)), want_nets)
+    k5_out = ops.grouped_mlp_pair(models, *nets_args(q.aabb_id))
+    k5_err, k5_beyond, k5_fine = compare_nets("K5 mlp_pair", k5_out, want_nets)
+    # a row's prediction does not depend on its chunk: K5 (sorted segments)
+    # and K6 (rows gathered in ray order) give it the same bits
+    k56_dis = sum(int((a != b).sum()) for a, b in zip(k5_out, (vis, depth)))
+    check(k56_dis == 0, f"K5 and K6 differ on {k56_dis} predictions")
     # 12 objects: every second query moved to one of the four further nets
     obj12 = torch.where(q.is_valid & (q.path_index % 2 == 1), (q.aabb_id + 8) % 12, q.aabb_id)
     e12, b12, f12 = compare_nets(
@@ -1022,8 +1090,9 @@ def route_phase(pt, torch, np, dev, counted):
     want_wide = ops.grouped_mlp_dense_plain(wide, *nets_args(q.aabb_id))
     rotated = ops.grouped_mlp_dense_plain(wide, *nets_args((q.aabb_id + 1) % models.num_objects))
     share = {}
+    wide_out = {}
     for name, fn in (("K6 mlp_dense", ops.grouped_mlp_dense), ("K5 mlp_pair", ops.grouped_mlp_pair)):
-        got_wide = fn(wide, *nets_args(q.aabb_id))
+        got_wide = wide_out[name] = fn(wide, *nets_args(q.aabb_id))
         e, b, f = compare_nets(f"{name}, straddling nets", got_wide, want_wide)
         off = ~torch.isclose(got_wide[0], rotated[0], rtol=2e-2, atol=2e-2)
         share[name] = float(off[q.is_valid].float().mean())
@@ -1033,19 +1102,14 @@ def route_phase(pt, torch, np, dev, counted):
             k6_err, k6_beyond, k6_fine = max(k6_err, e), k6_beyond + b, k6_fine + f
         else:
             k5_err, k5_beyond, k5_fine = max(k5_err, e), k5_beyond + b, k5_fine + f
+    k56_dis = sum(int((a != b).sum()) for a, b in zip(*wide_out.values()))
+    check(k56_dis == 0, f"K5 and K6 differ on {k56_dis} predictions of the straddling nets")
     spread = float(want_wide[0][q.is_valid].std())
     k6_ms = cuda_ms(torch, lambda: ops.grouped_mlp_dense(models, *nets_args(q.aabb_id)), reps=7)
     k5_ms = cuda_ms(torch, lambda: ops.grouped_mlp_pair(models, *nets_args(q.aabb_id)), reps=7)
     chain_ms = cuda_ms(torch, matmul_chain(pt, torch, models, q.features, q.aabb_id, q.is_valid),
                        reps=7)
-    # chunks of at most 16 rows each kernel runs: K5 per object over the whole
-    # sorted batch, K6 per object inside each 256-row tile
-    rows_of = lambda key, size: torch.bincount(key[q.is_valid], minlength=size)
-    chunks = lambda counts: int(((counts + 15) // 16).sum())
-    o_count = models.num_objects
-    k5_chunks = chunks(rows_of(q.aabb_id.to(torch.int64), o_count))
-    tile = torch.arange(q_rows, device=dev) // 256
-    k6_chunks = chunks(rows_of(tile * o_count + q.aabb_id, (q_rows // 256 + 1) * o_count))
+    plan = nets_chunks(pt, torch, models, q.aabb_id, q.is_valid)
     n_work = nets_work(pt, models, q_rows, n_valid)
     n_bound, n_by, n_fp32 = nets_bound(n_work)
     print(f"phase6 K6 mlp_dense vs plain (seeded and straddling nets): max abs err "
@@ -1053,14 +1117,17 @@ def route_phase(pt, torch, np, dev, counted):
           f"12 objects): max abs err {k5_err:.3g}, {k5_beyond} beyond 2e-2, {k5_fine} beyond "
           f"1e-3 ok; straddling vis deviates by {spread:.3f}, and against the plain version "
           f"with rotated object ids {share['K6 mlp_dense']:.3f} / {share['K5 mlp_pair']:.3f} of "
-          f"the valid rows differ beyond 2e-2", flush=True)
+          f"the valid rows differ beyond 2e-2; K5 equals K6 bit for bit on both nets ok",
+          flush=True)
     print(f"phase6 nets on {n_valid} valid rows: K6 {k6_ms:.3f} ms, K5 {k5_ms:.3f} ms "
           f"(sort and un-sort included), plain {nets_plain_ms:.1f} ms (one run), per-object "
           f"bf16 matmul chain {chain_ms:.3f} ms; bound {n_bound:.6f} ms ({n_by}: "
           f"{n_work['flops']} FLOPs at the bf16 tensor rate, {n_work['bytes']} bytes), "
-          f"{n_fp32:.4f} ms at the FP32 rate; chunks of 16 rows: K5 {k5_chunks} "
-          f"(fill {n_valid / (16 * k5_chunks):.2f}), K6 {k6_chunks} "
-          f"(fill {n_valid / (16 * k6_chunks):.2f})", flush=True)
+          f"{n_fp32:.4f} ms at the FP32 rate; chunks of up to {plan['rows']} rows: K5 "
+          f"{plan['k5_chunks']} ({plan['k5_rows_per_fetch']:.1f} rows per weight fetch, fill "
+          f"{plan['k5_fill']:.2f}), K6 {plan['k6_chunks']} over {plan['parts']} parts "
+          f"({plan['k6_rows_per_fetch']:.1f} rows per weight fetch, fill "
+          f"{plan['k6_fill']:.2f})", flush=True)
 
     # ---- K7 against its plain version and against the composed stage
     sec_args = (paths.origin, paths.direction, MARCH_EPS, paths.tmax, live, my_id,
@@ -1189,12 +1256,14 @@ def route_phase(pt, torch, np, dev, counted):
          "replaces": "pg2024_dprt_tpu/ops/pallas_mlp.py:52 (_pair_kernel, pallas_call :113)",
          "launches": comp12["mlp_pair"], "max_abs_err": k5_err, "disagreements": k5_beyond,
          "ms": k5_ms, "plain_ms": nets_plain_ms, "bound_ms": n_bound, "bound_by": n_by,
-         "library_ms": None, "matmul_chain_ms": chain_ms, "fp32_rate_ms": n_fp32},
+         "library_ms": None, "matmul_chain_ms": chain_ms, "fp32_rate_ms": n_fp32,
+         "chunks": plan["k5_chunks"], "rows_per_fetch": plan["k5_rows_per_fetch"]},
         {"name": "mlp_dense", "route": "cuda", "source": csrc + "proxy_mlp.cu",
          "replaces": "pg2024_dprt_tpu/ops/pallas_mlp.py:129 (_dense_kernel, pallas_call :203)",
          "launches": comp_sec["mlp_dense"], "max_abs_err": k6_err, "disagreements": k6_beyond,
          "ms": k6_ms, "plain_ms": nets_plain_ms, "bound_ms": n_bound, "bound_by": n_by,
-         "library_ms": None, "matmul_chain_ms": chain_ms, "fp32_rate_ms": n_fp32},
+         "library_ms": None, "matmul_chain_ms": chain_ms, "fp32_rate_ms": n_fp32,
+         "chunks": plan["k6_chunks"], "rows_per_fetch": plan["k6_rows_per_fetch"]},
         {"name": "route", "route": "cuda", "source": csrc + "route.cu",
          "replaces": "pg2024_dprt_tpu/ops/pallas_route.py:196 (_route_kernel, pallas_call :729)",
          "launches": main_sec["route_secondary"] + main_shd["route_shadow"],
@@ -1211,6 +1280,106 @@ def route_phase(pt, torch, np, dev, counted):
          "disagreements": k8_dis, "ms": k8_ms, "plain_ms": k8_plain_ms, "bound_ms": k8_bound,
          "bound_by": k8_by, "library_ms": None, "key_and_sort_ms": order_ms},
     ]
+
+
+def cutout_phase(pt, torch, np, dev, counted, n=4096):
+    """The neural stages on a scene with a cutout texture (the scene of
+    tests/test_torch_route.py::test_cutout_scene_branch_matches_jax: two
+    stacked unit quads whose centres are transparent, between the rays and
+    the 8 unit proxy boxes of phase 6), which never take the fused route:
+    the cutout trace's kernels, K4 and K6 on the card, held against the same
+    stages on the CPU (each kernel's plain version), with seeded width-64 nets
+    whose heads straddle the thresholds (phase 6's straddling rule); 0
+    disagreements outside the knife-edge set, the same criteria as phase 6's
+    stages fused against composed. Returns the launch counts of both stages."""
+    stages = pt.render.proxy_stages
+    img = np.ones((16, 16, 4), np.float32)
+    img[4:12, 4:12, 3] = 0.0
+    meshes = []
+    for i in range(2):
+        z = 0.1 * (i + 1)
+        p = np.asarray([[0, 0, z], [1, 0, z], [1, 1, z], [0, 1, z]], np.float32)
+        meshes.append(pt.scene.MeshGeometry(
+            v0=np.stack([p[0], p[0]]), v1=np.stack([p[1], p[2]]), v2=np.stack([p[2], p[3]]),
+            uv0=np.zeros((2, 2), np.float32), uv1=np.asarray([[1, 0], [1, 1]], np.float32),
+            uv2=np.asarray([[1, 1], [0, 1]], np.float32), texture_index=0, name=f"q{i}"))
+    rng = np.random.default_rng(13)
+    o = np.concatenate([rng.uniform(0.02, 0.98, (n, 2)), np.full((n, 1), -0.5)],
+                       1).astype(np.float32)
+    d = np.tile(np.asarray([[0.0, 0.0, 1.0]], np.float32), (n, 1))
+    d[:, :2] += rng.normal(0, 0.05, (n, 2)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    valid = rng.uniform(size=n) > 0.1
+    offs = np.asarray(UNIT_PROXY_OFFSETS, np.float32)
+
+    def setup(device):
+        on = lambda a: torch.as_tensor(a, device=device)
+        scene = pt.scene.device_scene_from_meshes(meshes, textures=[img], device=device)
+        table = pt.scene.ProxyTable(aabb_min=on(offs), aabb_max=on(offs + 1.0),
+                                    max_length=on(np.full((8,), np.sqrt(3.0), np.float32)))
+        paths = pt.core.PathState.empty(n, device=device)._replace(
+            origin=on(o), direction=on(d), tmax=torch.full((n,), 3.4e38, device=device),
+            throughput=torch.ones((n, 3), device=device),
+            pixel_index=torch.arange(n, device=device), is_valid=on(valid))
+        env = pt.scene.EnvironmentMap.constant((0.4, 0.5, 0.7), device=device)
+        return scene, table, paths, paths._replace(tmax=torch.full((n,), 2.0, device=device)), env
+
+    cpu = setup("cpu")
+    card = setup(dev)
+    check(card[0].has_cutout, "the cutout scene has no cutout texture")
+    cfg = pt.models.MLPConfig(width=64, depth=2)
+    models = pt.models.random_proxy_models(np.random.RandomState(21), 8, cfg, cfg, device="cpu")
+    # the composed stages' queries and predictions on the CPU, for the
+    # straddling heads and the knife edges
+    scene, table, paths, shadow, _ = cpu
+    live = paths.is_valid
+    hits, _ = stages.trace_closest(scene, paths.origin, paths.direction, MARCH_EPS, paths.tmax,
+                                   live, sort_rays=True)
+    local_hit = live & hits.is_hit
+    local_t = torch.where(local_hit, hits.t, paths.tmax)
+    q = stages.march_proxies(table, paths.origin, paths.direction, local_t, live, 8, MAX_HITS,
+                             MARCH_EPS)
+    vis, depth = stages._nn_pair(models, q.features, q.aabb_id, q.is_valid)
+    models = straddling(pt, torch, models, vis, depth, q.is_valid)
+    vis, depth = stages._nn_pair(models, q.features, q.aabb_id, q.is_valid)
+    edge = knife_edges(torch, q, vis, depth, local_t, shadow=False)
+    t_shd = shadow.tmax * (1.0 - 1e-3)
+    occ, _ = stages.trace_occlusion(scene, shadow.origin, shadow.direction, MARCH_EPS, t_shd,
+                                    live, sort_rays=True)
+    q_s = stages.march_proxies(table, shadow.origin, shadow.direction, t_shd, live & ~occ, 8,
+                               MAX_HITS, MARCH_EPS)
+    v_s, d_s = stages._nn_pair(models, q_s.features, q_s.aabb_id, q_s.is_valid)
+    edge_s = knife_edges(torch, q_s, v_s, d_s, t_shd, shadow=True)
+
+    run = lambda c, m: (
+        stages.secondary_route(c[0], c[1], m, c[4], c[2], 8, MAX_HITS, MARCH_EPS, n),
+        stages.shadow_direct_light_nn(c[0], c[1], m, c[3], 8, MAX_HITS, MARCH_EPS, 1, n))
+    on_card = models.to(dev)
+    ((g_paths, g_env, _), (g_light, _)), launches = counted(lambda: run(card, on_card))
+    (w_paths, w_env, _), (w_light, _) = run(cpu, models)
+    check(launches.get("mlp_dense") == 2 and launches.get("proxy_march") == 2
+          and not {"route_secondary", "route_shadow"} & set(launches),
+          f"the cutout scene's stages launch {launches}")
+    diag = float(np.sqrt(3.0))
+    for f in ("target_node", "current_node", "is_hit", "is_valid", "visited_mask"):
+        bad = (getattr(g_paths, f).cpu() != getattr(w_paths, f)) & ~edge
+        check(not bool(bad.any()), f"cutout scene: paths differ in {f} on {int(bad.sum())} rays")
+    ok = torch.isclose(g_paths.tmax.cpu(), w_paths.tmax, rtol=2e-2, atol=2e-2 * diag) | edge
+    check(bool(ok.all()), f"cutout scene: tmax differs on {int((~ok).sum())} rays")
+    ok = torch.isclose(g_env.cpu(), w_env, rtol=1e-5, atol=1e-6).all(1) | edge
+    check(bool(ok.all()), f"cutout scene: env_add differs on {int((~ok).sum())} rays")
+    ok = torch.isclose(g_light.cpu(), w_light, rtol=1e-5, atol=1e-6).all(1) | edge_s
+    check(bool(ok.all()), f"cutout scene: the light image differs on {int((~ok).sum())} rays")
+    stopped = int((w_paths.target_node == 8).sum())
+    through = int((w_paths.is_valid & ~w_paths.is_hit).sum())
+    check(stopped > 50 and through > 20, "the cutout scene's rays do not take both branches")
+    print(f"phase6 cutout scene ({n} rays, two textured quads with transparent centres, 8 "
+          f"straddling width-64 pairs): composed on the card, secondary and shadow stage "
+          f"launches {launches}; {int(edge.sum())} / {int(edge_s.sum())} knife-edge rays set "
+          f"aside; outside them paths, env_add and the light image equal the stages' plain "
+          f"versions ok ({stopped} rays settled on a quad, {through} through both holes, "
+          f"{int((w_light.sum(1) > 0).sum())} lit)", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2484,6 +2653,11 @@ def main() -> int:
               f"| kernel build {build_s:.2f} s ({', '.join(report)})", flush=True)
         for name, (_, log) in report.items():
             print(f"phase1 ptxas {name}: {ptxas_summary(log)}", flush=True)
+        hmma = hmma_counts(_build.BUILD_DIR)
+        check(len(hmma) == 6 and all(hmma.values()),
+              f"the nets' kernels lack tensor-core products in their SASS: {hmma}")
+        print("phase1 HMMA instructions in the SASS: "
+              + ", ".join(f"{k} {v}" for k, v in hmma.items()) + " ok", flush=True)
 
         # ---- phase 2: cornell golden, composed and fused
         meshes, lights = pt.scene.cornell_box(device=dev)
@@ -2724,6 +2898,7 @@ def main() -> int:
 
         # ---- phase 6: the neural-proxy routing stage
         kernels += route_phase(pt, torch, np, dev, counted)
+        cutout_phase(pt, torch, np, dev, counted)
 
         # ---- phase 7: large scenes (grouped trace, instancing, K3 grouped)
         large, extra = large_phase(pt, torch, np, dev, counted,

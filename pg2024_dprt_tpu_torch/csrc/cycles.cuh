@@ -1,5 +1,5 @@
 // Cycle counters for measuring where a kernel spends its time
-// (scripts/torch_grouped_probe.py --parts route,k3). They exist only in a
+// (scripts/torch_grouped_probe.py --parts route,k3,nets). They exist only in a
 // build with -DPG_CYCLES, which the probe makes into a copy of the library
 // under build/cycles/; the package's own build compiles every macro below to
 // nothing, so the kernels it ships carry no counter.

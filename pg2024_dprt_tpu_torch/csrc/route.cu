@@ -31,7 +31,9 @@
 //      inside flag, t, ratio).
 //   2. the block groups the tile's valid records by object (counting sort in
 //      shared memory) and runs each present object's vis and depth net over
-//      chunks of its records only (multi-geo mode: one shared net pair, one
+//      chunks of at most kNetRows of its records only (two m16 tiles of the
+//      tensor-core forward of proxy_mlp.cuh, whose values equal K5's / K6's
+//      for the same record) (multi-geo mode: one shared net pair, one
 //      group of every valid record, the sixth feature max(obj, 0) /
 //      INSTANCE_DIVISOR of the record's proxy row, as the TPU kernel's
 //      multi_geo mode, pallas_route.py:411-415); invalid records cost
@@ -57,9 +59,9 @@
 // What bounds it on an H100: operations — the ray-triangle and slab tests of
 // the trace plus 2 x 286,944 multiply-adds per valid record at the
 // production width (2 x 1,753,536 for the multi-geo nets at w512 / d3); the
-// nets run on the FP32 pipes in this first version. Before the warp walks,
-// each thread's flat walk made every pick a fresh pass over all K cluster
-// boxes (PERF.md, cycle counters).
+// nets run on the tensor cores (proxy_mlp.cuh), the trace and the march on
+// the FP32 pipes. Before the warp walks, each thread's flat walk made every
+// pick a fresh pass over all K cluster boxes (PERF.md, cycle counters).
 //
 // Tile size: 256 rays (kTileRays), measured against 64 and 128 on an H100
 // (scripts/torch_grouped_probe.py --parts tiles; PERF.md). The tile sets
@@ -70,16 +72,13 @@
 // and within 2 % of it in the multi-geo mode; 64 won only on a sparse
 // rooms_p8 partition, by 0.4 ms a pair of stage calls.
 //
-// Registers: at 2 blocks an SM a thread gets 128 registers. With the warp
-// walks inlined the secondary kernel then spills and its nets run slower,
-// and the multi-geo forward is faster with more registers in both stages;
-// the production-width shadow kernel fits 128 registers and gains from the
-// second block (the same probe part). So the kernel is instanced per stage
-// and net mode, and min_blocks gives 2 blocks an SM to the production-width
-// shadow kernel and 1 to the other three.
+// Registers: one block an SM, so a thread may take up to 255 registers. At
+// 2 blocks (128 registers) every instance spills in the nets' forward, and
+// the measured times (scripts/torch_grouped_probe.py --parts tiles; PERF.md)
+// were no better: one budget serves all four instances (stage x net mode).
 //
 // Built with --fmad=false for the trace and march arithmetic; the nets'
-// sums use explicit fmaf (proxy_mlp.cuh).
+// sums run on the tensor cores in a fixed order (proxy_mlp.cuh).
 
 #include "cycles.cuh"
 #include "proxy_march.cuh"
@@ -97,6 +96,9 @@ using resident::Tables;
 // kTileRays / 8 of them, in lanes 0 .. kTileRays / 8 - 1.
 constexpr int kTileRays = 256;
 constexpr int kWarps = mlp::kThreads / 32;
+// records of a nets chunk: two m16 tiles (ops/route.py NET_ROWS)
+constexpr int kNetTiles = 2;
+constexpr int kNetRows = 16 * kNetTiles;
 constexpr int kWarpRays = kTileRays / kWarps;
 static_assert(kTileRays % kWarps == 0 && kWarpRays >= 1 && kWarpRays <= 32,
               "a tile spreads its rays evenly over the block's warps");
@@ -126,33 +128,26 @@ struct Out {
   uint8_t* __restrict__ local_hit;
 };
 
-// Floats at the front of a tile's shared memory: the nets' planes in phase
-// 2, the warps' team buffers of the grouped trace in phase 1 (aliased: phase
-// 1 ends at a barrier before phase 2 touches the planes).
-__host__ __device__ inline size_t front_floats(const Dims& d) {
-  const size_t teams = kWarps * sizeof(resident::Team) / sizeof(float);
-  const size_t nets = mlp::smem_floats(d);
+// Bytes at the front of a tile's shared memory: the nets' chunk of kNetRows
+// rows in phase 2, the warps' team buffers of the grouped trace in phase 1
+// (aliased: phase 1 ends at a barrier before phase 2 touches the planes).
+__host__ __device__ inline size_t front_bytes(const Dims& d) {
+  const size_t teams = kWarps * sizeof(resident::Team);
+  const size_t nets = mlp::smem_bytes(d, kNetRows);
   return nets > teams ? nets : teams;
 }
 
 // Bytes of dynamic shared memory of a tile (ops/route.py route_smem_bytes).
 size_t smem_bytes(const Dims& d, int max_hits, int n_obj) {
   const size_t rows = (size_t)kTileRays * max_hits;
-  return front_floats(d) * sizeof(float) + rows * 11 * 4 + (size_t)3 * n_obj * 4;
+  return front_bytes(d) + rows * 11 * 4 + (size_t)3 * n_obj * 4;
 }
 
-// Blocks an SM must hold (the register budget: 2 blocks cap a thread at 128
-// registers, 1 block lets it take up to 255). The nets want registers: at 2
-// blocks the secondary kernel spills and the multi-geo forward runs slower;
-// the production-width shadow kernel fits 128 without a spill and gains
-// from the second block (the register note in the header).
-template <bool kShadow, bool kMultiGeo>
-constexpr int min_blocks() {
-  return kShadow && !kMultiGeo ? 2 : 1;
-}
+// Blocks an SM must hold (the register budget; the note in the header).
+constexpr int kMinBlocks = 1;
 
 template <bool kShadow, bool kMultiGeo>
-__global__ void __launch_bounds__(mlp::kThreads, (min_blocks<kShadow, kMultiGeo>())) route_kernel(
+__global__ void __launch_bounds__(mlp::kThreads, kMinBlocks) route_kernel(
     Rays rays, Tables scene, march::Table tb, int max_hits, float eps, int n_obj,
     Dims dm_arg, Nets vis, Nets depth, Out out) {
   CYCLES_NOW(c_start);
@@ -160,10 +155,10 @@ __global__ void __launch_bounds__(mlp::kThreads, (min_blocks<kShadow, kMultiGeo>
   Dims dm = dm_arg;
   dm.multi_geo = kMultiGeo ? 1 : 0;
   extern __shared__ float4 smem_f4[];
-  float* smem = reinterpret_cast<float*>(smem_f4);
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f4);
   const int rows = kTileRays * max_hits;
   // the tile's records, row = tile ray * max_hits + slot
-  float* q_feat = smem + front_floats(dm);            // (rows, 5)
+  float* q_feat = reinterpret_cast<float*>(smem + front_bytes(dm));  // (rows, 5)
   float* q_t = q_feat + 5 * rows;
   float* q_ratio = q_t + rows;
   float* q_vis = q_ratio + rows;
@@ -262,11 +257,11 @@ __global__ void __launch_bounds__(mlp::kThreads, (min_blocks<kShadow, kMultiGeo>
   __syncthreads();
   for (int o = 0; o < n_obj; ++o) {
     const int total = cnt[o];
-    for (int b0 = 0; b0 < total; b0 += mlp::kRows) {
+    for (int b0 = 0; b0 < total; b0 += kNetRows) {
       if (tid == 0) CYCLES_COUNT(8, 1);
       const int* chunk = list + start[o] + b0;
-      mlp::pair_chunk(
-          dm, vis, depth, o, min(mlp::kRows, total - b0), smem,
+      mlp::pair_chunk<kNetTiles, kMultiGeo>(
+          dm, vis, depth, o, min(kNetRows, total - b0), kNetRows, smem,
           [&](int r, int f) {
             return f < 5 ? q_feat[5 * chunk[r] + f]
                          : fmaxf((float)tb.obj[q_code[chunk[r]] & 255], 0.0f) /
@@ -407,8 +402,8 @@ int launch(const Rays& rays, const Tables& scene, const march::Table& tb,
                    my_node},                                                     \
       max_hits, eps, n_obj,                                                      \
       Dims{width, depth, in_features, head_hidden, 1, multi_geo},                \
-      Nets{static_cast<const __nv_bfloat16*>(vis_w), vis_b, vis_act},            \
-      Nets{static_cast<const __nv_bfloat16*>(depth_w), depth_b, depth_act}, OUT, \
+      Nets{static_cast<const uint4*>(vis_w), vis_b, vis_act},                    \
+      Nets{static_cast<const uint4*>(depth_w), depth_b, depth_act}, OUT,         \
       stream)
 
 extern "C" int route_secondary(ROUTE_ARGS, int32_t* out_node, float* out_t,

@@ -7,12 +7,14 @@ Two kernels written by hand for Hopper, in csrc/proxy_mlp.cu:
     groups the queries by object with one stable sort, the kernel runs each
     object's nets over chunks of its segment, the wrapper un-sorts;
   * `mlp_dense` (K6, `grouped_mlp_dense`) replaces _dense_kernel: queries stay
-    in ray order with a per-row object id, nothing runs around the kernel.
+    in ray order with a per-row object id, nothing runs around the kernel;
+    a block per (part of the batch, object) gathers its object's rows.
 Both return (vis, depth) f32 of shape (Q,), zero where `valid` is false.
 They take the single-output, non-multi-geo architecture at any width, depth
-and head_hidden, with architecturally identical vis and depth nets. The
-products are in the kernels' own bodies (csrc/proxy_mlp.cuh): bf16 operands,
-f32 accumulation.
+and head_hidden, with architecturally identical vis and depth nets. Every
+Linear runs on the tensor cores in the kernels' own bodies
+(csrc/proxy_mlp.cuh): bf16 operands, f32 accumulation in a fixed order, so
+K5, K6 and the fused route kernel K7 give a row the same bits.
 
 Beside each is its plain PyTorch version (`grouped_mlp_pair_plain`,
 `grouped_mlp_dense_plain`): masked per-object passes with the same operand
@@ -20,10 +22,11 @@ rounding. A wrapper runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 
 The kernels read every object's nets from two packed buffers (`pack_nets`):
-weights bf16 (O, weights per net) and biases f32 (O, biases per net), per
-object the Linears in param_shapes order, each weight (in, out) row-major.
-The wrappers take the ProxyModels record; `packed_pair` keeps the packed
-copy on it and makes it anew when a param tensor changed.
+weights bf16 in fragment order (each Linear zero-padded to 16 x 16 blocks,
+laid out so that a lane's tensor-core B fragments are one 16-byte load) and
+biases f32 (O, biases per net), per object the Linears in param_shapes
+order. The wrappers take the ProxyModels record; `packed_pair` keeps the
+packed copy on it and makes it anew when a param tensor changed.
 
 Which kernel a model set takes is the JAX package's rule
 (`DENSE_WEIGHT_LIMIT` on the bf16 bytes of both nets' params): it is a
@@ -33,6 +36,7 @@ same models.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,8 +52,18 @@ DENSE_WEIGHT_LIMIT = 10 * 2**20
 ACTIVATIONS = {"none": 0, "leaky_relu": 1, "sigmoid": 2}
 MAX_FEATURES = 8      # csrc/proxy_mlp.cuh kMaxFeatures
 SMEM_LIMIT = 232448   # bytes of shared memory a block can use on an H100
-KERNEL_ROWS = 16      # csrc/proxy_mlp.cuh kRows
+KERNEL_ROWS = 16      # csrc/proxy_mlp.cuh kRows: an m16 tile
+MAX_CHUNK_ROWS = 64   # csrc/proxy_mlp.cu kMaxTiles x 16: K5 / K6 chunks at most
 KERNEL_THREADS = 256  # csrc/proxy_mlp.cuh kThreads (the threads of a route tile)
+# csrc/proxy_mlp.cuh: the feature plane's columns and every row's bf16 pad
+FEATURE_COLS, ROW_PAD = 32, 8
+# K6 (csrc/proxy_mlp.cu mlp_dense_kernel): its row list and warp counts
+# beside the forward's shared memory, at most
+DENSE_LIST_BYTES = (MAX_CHUNK_ROWS + KERNEL_THREADS + KERNEL_THREADS // 32) * 4
+# K6's grid: about this many (part, object) blocks an SM, parts of at least
+# DENSE_MIN_PART rows
+DENSE_BLOCKS_PER_SM = 2
+DENSE_MIN_PART = 1024
 
 
 def param_bytes(params: dict) -> int:
@@ -93,33 +107,76 @@ def _check_pair(vis_cfg: MLPConfig, depth_cfg: MLPConfig):
         raise ValueError(reason)
 
 
-def forward_smem_bytes(cfg: MLPConfig) -> int:
-    """Bytes of shared memory the nets' forward needs for one chunk
-    (csrc/proxy_mlp.cuh smem_floats)."""
-    return (4 * cfg.width + MAX_FEATURES + 2 * cfg.out_features) * KERNEL_ROWS * 4
+def _round16(v: int) -> int:
+    return (v + 15) // 16 * 16
+
+
+def forward_smem_bytes(cfg: MLPConfig, rows: int = KERNEL_ROWS) -> int:
+    """Bytes of shared memory the nets' forward needs for chunks of `rows`
+    (csrc/proxy_mlp.cuh smem_bytes): two bf16 activation planes, the bf16
+    feature plane, the f32 plane h, the f32 predictions."""
+    ld_act = max(_round16(cfg.width), 2 * _round16(cfg.width // 8)) + ROW_PAD
+    ld_f32 = cfg.width + ROW_PAD
+    return (rows * (2 * ld_act + FEATURE_COLS + ROW_PAD) * 2 + rows * ld_f32 * 4
+            + rows * 2 * cfg.out_features * 4)
+
+
+def chunk_rows(cfg: MLPConfig) -> int:
+    """Rows of a K5 / K6 chunk: the most, up to MAX_CHUNK_ROWS in steps of
+    an m16 tile, whose shared memory fits beside K6's row list."""
+    for rows in range(MAX_CHUNK_ROWS, KERNEL_ROWS - 1, -KERNEL_ROWS):
+        if forward_smem_bytes(cfg, rows) + DENSE_LIST_BYTES <= SMEM_LIMIT:
+            return rows
+    raise ValueError(f"width {cfg.width} exceeds the kernels' shared memory")
+
+
+def dense_parts(q: int, num_objects: int, device) -> int:
+    """Parts K6 cuts a batch of q rows into (its grid is parts x objects):
+    about DENSE_BLOCKS_PER_SM blocks an SM, no part under DENSE_MIN_PART
+    rows, at least one."""
+    device = torch.device(device)
+    sms = _sms(device.index if device.index is not None else torch.cuda.current_device())
+    return max(1, min(-(-q // DENSE_MIN_PART), -(-DENSE_BLOCKS_PER_SM * sms // num_objects)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    """The streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pack_nets(params: dict, cfg: MLPConfig, num_objects: int):
-    """(weights (O, W) bf16, biases (O, B) f32) of stacked params, per object
-    the Linears in param_shapes order."""
+    """(weights (O, W) bf16, biases (O, B) f32) of stacked params as the
+    kernels read them: per object the Linears in param_shapes order, each
+    weight (in, out) zero-padded to K = round16(in) rows and N = round16(out)
+    columns and laid out as [pair p of 16 columns][k-step s][lane][8] with
+    W[16 s + 8 half + 2 t + e][16 p + 8 h + g] at lane 4 g + t, element
+    4 h + 2 half + e (csrc/proxy_mlp.cuh: a lane's B fragments of two n-tiles
+    over one k-step are one 16-byte load)."""
     ws, bs = [], []
     for wn, fi, fo in param_shapes(cfg):
         w, b = params[wn], params[bias_name(wn)]
         if tuple(w.shape) != (num_objects, fi, fo) or tuple(b.shape) != (num_objects, fo):
             raise ValueError(f"{wn}: want stacked shapes {(num_objects, fi, fo)} and "
                              f"{(num_objects, fo)}, got {tuple(w.shape)} and {tuple(b.shape)}")
-        ws.append(w.reshape(num_objects, fi * fo))
+        k, n = _round16(fi), _round16(fo)
+        padded = torch.zeros((num_objects, k, n), dtype=torch.bfloat16, device=w.device)
+        padded[:, :fi, :fo] = w
+        # (o, s, half, t, e, p, h, g) -> (o, p, s, g, t, h, half, e)
+        frag = padded.view(num_objects, k // 16, 2, 4, 2, n // 16, 2, 8)
+        ws.append(frag.permute(0, 5, 1, 7, 3, 6, 2, 4).reshape(num_objects, k * n))
         bs.append(b)
-    return (torch.cat(ws, dim=1).to(torch.bfloat16).contiguous(),
+    return (torch.cat(ws, dim=1).contiguous(),
             torch.cat(bs, dim=1).to(torch.float32).contiguous())
 
 
 def packed_pair(models):
     """(vis weights, vis biases, depth weights, depth biases) of a
-    ProxyModels record, as the kernels read them (a multi-geo record's one
-    shared pair as a table of one net). The packed copy is kept on the
-    record beside the param tensors it was made from and their versions,
-    and is made anew when a param was replaced or written in place since."""
+    ProxyModels record packed by `pack_nets`, as K5, K6 and K7 read them (a
+    multi-geo record's one shared pair as a table of one net). The packed
+    copy is kept on the record beside the param tensors it was made from and
+    their versions, and is made anew when a param was replaced or written in
+    place since."""
     tensors = [*models.vis_params.values(), *models.depth_params.values()]
     versions = [t._version for t in tensors]
     kept = models.cache.get("packed_pair")
@@ -181,7 +238,7 @@ def grouped_mlp_pair(models, features, obj_id, valid):
     xs = x[perm]
     out_sorted = torch.zeros((q, 2), dtype=torch.float32, device=dev)
     rc = _lib().mlp_pair(_ptr(xs), _ptr(seg), q, num_objects, *map(_ptr, packed),
-                         *arch, _ptr(out_sorted), _stream(x))
+                         *arch, chunk_rows(models.vis_cfg), _ptr(out_sorted), _stream(x))
     _check(rc, "mlp_pair")
     if q:
         LAUNCHES["mlp_pair"] += 1
@@ -199,7 +256,8 @@ def grouped_mlp_dense(models, features, obj_id, valid):
     q = x.shape[0]
     out = torch.empty((q, 2), dtype=torch.float32, device=x.device)
     rc = _lib().mlp_dense(_ptr(x), _ptr(obj), _ptr(val), q, models.num_objects,
-                          *map(_ptr, packed), *arch, _ptr(out), _stream(x))
+                          dense_parts(q, models.num_objects, x.device), *map(_ptr, packed),
+                          *arch, chunk_rows(models.vis_cfg), _ptr(out), _stream(x))
     _check(rc, "mlp_dense")
     if q:
         LAUNCHES["mlp_dense"] += 1
@@ -210,9 +268,9 @@ def _lib():
     lib = _build.load("proxy_mlp")
     if not getattr(lib, "_pg_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mlp_pair.argtypes = [p, p, i, i] + [p] * 4 + [i] * 6 + [p, p]
+        lib.mlp_pair.argtypes = [p, p, i, i] + [p] * 4 + [i] * 7 + [p, p]
         lib.mlp_pair.restype = i
-        lib.mlp_dense.argtypes = [p, p, p, i, i] + [p] * 4 + [i] * 6 + [p, p]
+        lib.mlp_dense.argtypes = [p, p, p, i, i, i] + [p] * 4 + [i] * 7 + [p, p]
         lib.mlp_dense.restype = i
         lib._pg_typed = True
     return lib

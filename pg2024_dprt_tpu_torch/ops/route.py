@@ -56,6 +56,8 @@ from .resident import (
 F32_EPS = 1.1920929e-7
 # csrc/route.cu kTileRays: the rays of one K7 tile (a block of KERNEL_THREADS)
 TILE_RAYS = 256
+# csrc/route.cu kNetRows: the records of one K7 nets chunk
+NET_ROWS = 32
 # csrc/resident_trace.cuh Team: the shared memory of one warp's walk (ring of
 # 64 group ids, 512 buffered (enter, cluster) candidates)
 TEAM_BYTES = 4 * (64 + 2 * 512)
@@ -68,10 +70,10 @@ def net_pairs(models) -> int:
 
 def route_smem_bytes(cfg, max_hits: int, num_nets: int) -> int:
     """Bytes of shared memory of one K7 tile (csrc/route.cu smem_bytes): the
-    nets' forward planes, which the warps' team buffers of the grouped trace
-    alias in phase 1 (the larger of the two), 11 words per query record, 3
-    per net pair."""
-    front = max(forward_smem_bytes(cfg), KERNEL_THREADS // 32 * TEAM_BYTES)
+    nets' forward planes for chunks of NET_ROWS, which the warps' team
+    buffers of the grouped trace alias in phase 1 (the larger of the two), 11
+    words per query record, 3 per net pair."""
+    front = max(forward_smem_bytes(cfg, NET_ROWS), KERNEL_THREADS // 32 * TEAM_BYTES)
     return front + TILE_RAYS * max_hits * 11 * 4 + 3 * num_nets * 4
 
 

@@ -4,7 +4,7 @@
 them, on one GPU.
 
     python scripts/torch_grouped_probe.py [--root DIR ...]
-        [--parts waves,frame,dist,rule,route,k3,tiles] [--ablate]
+        [--parts waves,frame,dist,rule,route,k3,nets,tiles] [--ablate]
 
 Each --root is a checkout of this repository (default: the one holding this
 script). Each runs in a process of its own, in the order given (to compare
@@ -49,9 +49,19 @@ chip_smoke.py's (phase 7 and phase 9), from this script's checkout. Parts:
          share of the bounce's thread cycles spent in the closest-hit and
          the any-hit calls, on the 64k frame (soup_frame, K = 185) and
          frame_1m (K = 3,028), by the dispatch rule; K3's ms beside them.
+  nets   the proxy nets (csrc/proxy_mlp.cuh): K6 (mlp_dense), K5 (mlp_pair,
+         with its sort and un-sort) and the per-object bf16 matmul chain on
+         phase 6's query batch (neural_route_64k: 8 PROD pairs), with each
+         kernel's chunks, rows per weight fetch and fill by the tree's own
+         plan, and, where the tree's forward has the counters of
+         csrc/cycles.cuh, a build of proxy_mlp.cu with them (build/cycles/):
+         the cycles of each Linear group's k-loop and epilogue, per chunk
+         the block's; K7 on the route part's wavefronts: secondary in K8's schedule
+         order (as the stage runs it) and as given, shadow (CUDA-event
+         medians of 7).
   tiles  K7's tile size and register budget: copies of route.cu with
          kTileRays set to 64, 128 and 256, and with every instance held to 1
-         or to 2 blocks an SM (min_blocks; build/tiles/), each with ptxas'
+         or to 2 blocks an SM (kMinBlocks; build/tiles/), each with ptxas'
          registers and spills, timed on the route part's secondary and
          shadow wavefronts (CUDA-event medians of 7) and held equal to the
          package's K7 on every ray.
@@ -455,10 +465,14 @@ def part_ablate(pt, torch, cs, root, waves):
 
 MAX_HITS, MARCH_EPS = 3, 1e-3
 TILE_LINE = "constexpr int kTileRays = 256;"
-BLOCKS_LINE = "return kShadow && !kMultiGeo ? 2 : 1;"
-# (name, the line of route.cu, its replacement)
-ROUTE_VARIANTS = [(f"tile{t}", TILE_LINE, f"constexpr int kTileRays = {t};") for t in (64, 128, 256)]
-ROUTE_VARIANTS += [(f"blocks{b}", BLOCKS_LINE, f"return {b};") for b in (1, 2)]
+# the register budget of route.cu: one line for all instances, or (before
+# the nets ran on the tensor cores) one per stage and net mode
+BLOCKS_LINES = ("constexpr int kMinBlocks = 1;", "return kShadow && !kMultiGeo ? 2 : 1;")
+# (name, the lines of route.cu (the first present is replaced), its replacement)
+ROUTE_VARIANTS = [(f"tile{t}", (TILE_LINE,), f"constexpr int kTileRays = {t};")
+                  for t in (64, 128, 256)]
+ROUTE_VARIANTS += [(f"blocks{b}", BLOCKS_LINES, f"constexpr int kMinBlocks = {b};")
+                   for b in (1, 2)]
 
 
 def _nvcc_lib(_build, src, so, *flags):
@@ -606,6 +620,84 @@ def part_k3(pt, torch, cs, root, frame64, scene1m):
     return out
 
 
+def _legacy_chunks(torch, models, obj, valid, tile=256, rows=16):
+    """The chunks of the nets' first design (before the tensor cores): K5
+    16-row chunks of each object's segment, K6 16-row chunks of each object's
+    valid rows in each 256-row tile."""
+    o_count, q = models.num_objects, obj.shape[0]
+    live = valid & (obj >= 0) & (obj < o_count)
+    n_valid = int(live.sum())
+    chunks = lambda counts: int(((counts + rows - 1) // rows).sum())
+    k5 = chunks(torch.bincount(obj[live].long(), minlength=o_count))
+    t = torch.arange(q, device=obj.device) // tile
+    k6 = chunks(torch.bincount((t * o_count + obj.long())[live],
+                               minlength=(q // tile + 1) * o_count))
+    out = {"rows": rows, "valid": n_valid}
+    for name, c in (("k5", k5), ("k6", k6)):
+        out.update({f"{name}_chunks": c, f"{name}_rows_per_fetch": n_valid / max(c, 1),
+                    f"{name}_fill": n_valid / max(rows * c, 1)})
+    return out
+
+
+def _nets_split(c):
+    """The counters of csrc/proxy_mlp.cuh's forward: per output group of a
+    Linear (one warp), the cycles of its k-loop (weight loads, ldmatrix, mma)
+    and of its epilogue, and its k-steps x m16 tiles; per chunk, the block's
+    cycles."""
+    groups = max(c[18], 1)
+    return {"chunks": c[21], "chunk_cycles": c[20] / max(c[21], 1), "groups": c[18],
+            "kloop_cycles_per_group": c[16] / groups,
+            "epilogue_cycles_per_group": c[17] / groups,
+            "ktiles_per_group": c[19] / groups,
+            "kloop_cycles_per_ktile": c[16] / max(c[19], 1)}
+
+
+def part_nets(pt, torch, np, cs, root, dev, cases):
+    """K5, K6 and the chain on phase 6's batch (with the forward's cycle split
+    where the tree's proxy_mlp.cuh has counters); K7 on the route cases."""
+    ops = pt.ops
+    scene, proxies, models, paths, _, _ = cs.route_config(pt, torch, np, dev)
+    live = paths.is_valid
+    eps_v = torch.full_like(paths.tmax, MARCH_EPS)
+    hits = ops.resident_closest(scene, paths.origin, paths.direction, eps_v, paths.tmax, live)
+    local_t = torch.where(live & hits.is_hit, hits.t, paths.tmax)
+    q = ops.proxy_march(proxies, paths.origin, paths.direction, local_t, live, 8, MAX_HITS,
+                        MARCH_EPS)
+    args = (q.features, q.aabb_id, q.is_valid)
+    k6 = ops.grouped_mlp_dense(models, *args)
+    k5 = ops.grouped_mlp_pair(models, *args)
+    out = {"valid_rows": int(q.is_valid.sum()), "rows": int(q.is_valid.shape[0]),
+           "k6_ms": cs.cuda_ms(torch, lambda: ops.grouped_mlp_dense(models, *args), reps=7),
+           "k5_ms": cs.cuda_ms(torch, lambda: ops.grouped_mlp_pair(models, *args), reps=7),
+           "chain_ms": cs.cuda_ms(torch, cs.matmul_chain(pt, torch, models, *args), reps=7),
+           "k5_equals_k6": all(torch.equal(a, b) for a, b in zip(k5, k6)),
+           "chunks": (cs.nets_chunks(pt, torch, models, q.aabb_id, q.is_valid)
+                      if hasattr(ops.mlp, "chunk_rows")
+                      else _legacy_chunks(torch, models, q.aabb_id, q.is_valid))}
+    src = open(os.path.join(os.path.dirname(pt.__file__), "csrc", "proxy_mlp.cuh")).read()
+    if "CYCLES_ADD(16" in src:
+        from pg2024_dprt_tpu_torch.ops import _build
+
+        lib = _cycles_lib(root, _build, "proxy_mlp")
+        for key, fn in (("k6", ops.grouped_mlp_dense), ("k5", ops.grouped_mlp_pair)):
+            with _swapped(_build, "proxy_mlp", lib):
+                c = _cycles(torch, lib, lambda: fn(models, *args))
+            out[f"{key}_split"] = _nets_split(c)
+    print(f"probe nets phase 6 batch: {out}", flush=True)
+    for label, scene, proxies, models, paths, shadow, my_id in cases:
+        rec = {}
+        for kind, fn, rays, extra in (
+                ("secondary", ops.route_fused, paths, {}),
+                ("secondary_as_given", ops.route_fused, paths, {"sort_rays": False}),
+                ("shadow", ops.shadow_route_fused, shadow, {})):
+            a = _route_args(rays, kind == "shadow", my_id, cs)
+            rec[f"k7_{kind}_ms"] = cs.cuda_ms(
+                torch, lambda: fn(scene, proxies, models, *a, **extra), reps=7)
+        out[label] = rec
+        print(f"probe nets {label}: {rec}", flush=True)
+    return out
+
+
 def part_tiles(pt, torch, cs, root, cases):
     """K7 built as ROUTE_VARIANTS, timed on the route part's wavefronts, each
     equal to the package's K7."""
@@ -617,9 +709,12 @@ def part_tiles(pt, torch, cs, root, cases):
     dst = os.path.join(pkg, "build", "tiles")
     os.makedirs(dst, exist_ok=True)
     out = {}
-    for name, line, repl in ROUTE_VARIANTS:
-        if line not in src:
-            raise SystemExit(f"--parts tiles: route.cu has no line {line!r}")
+    for name, lines, repl in ROUTE_VARIANTS:
+        line = next((ln for ln in lines if ln in src), None)
+        if line is None:
+            raise SystemExit(f"--parts tiles: route.cu has none of the lines {lines!r}")
+        if line is BLOCKS_LINES[1]:
+            repl = "return " + repl.split("= ")[1]  # the older tree's form
         cu = os.path.join(dst, f"route_{name}.cu")
         with open(cu, "w") as fh:
             fh.write(src.replace(line, repl))
@@ -684,8 +779,10 @@ def child(root, parts, ablate):
         out["ablate"] = part_ablate(pt, torch, cs, root, waves)
     if "k3" in parts:
         out["k3"] = part_k3(pt, torch, cs, root, scenes[0], scenes[2])
-    if {"route", "tiles"} & parts:
+    if {"route", "tiles", "nets"} & parts:
         cases = _route_cases(pt, torch, np, cs, dev, scenes[2])
+        if "nets" in parts:
+            out["nets"] = part_nets(pt, torch, np, cs, root, dev, cases)
         if "route" in parts:
             out["route"] = part_route(pt, torch, np, cs, root, dev, cases)
         if "tiles" in parts:

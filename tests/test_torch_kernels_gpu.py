@@ -311,14 +311,32 @@ def test_march_kernel_matches_plain_on_gpu(kind, capped, my_node):
     assert bool(torch.isfinite(got.features).all())
 
 
-def _mlp_case(cfg, vis_cfg, q, o_count, device):
+# rows of each object in the "edges" batch of the MLP kernel test: chunk
+# edges of K5 / K6 (one row, an m16 tile, one past it, a 64-row chunk, one
+# past it, several chunks) and an object without rows
+EDGE_ROWS = (1, 16, 17, 64, 65, 300, 0)
+
+
+def _mlp_case(cfg, vis_cfg, q, o_count, device, layout="random"):
     m = tmodels.random_proxy_models(7, o_count, vis_cfg, cfg, device=device)
     # every object's depth net stands 0.5 above the one before it, so that
     # another object's weights show in the result
     m.depth_params["head_b1"].add_(0.5 * torch.arange(o_count, device=device)[:, None])
     rng = np.random.RandomState(8)
     on = lambda a: torch.as_tensor(a, device=device)
-    feats = on(rng.rand(q, 5).astype(np.float32))
+    feats = on(rng.rand(q, cfg.in_features).astype(np.float32))
+    if layout == "edges":
+        # the objects' rows in ray order among filler rows that are invalid
+        # or whose object has no net
+        n_fill = q - sum(EDGE_ROWS)
+        fill_obj = rng.randint(-1, o_count + 1, n_fill)
+        fill_valid = (rng.rand(n_fill) > 0.5) & ((fill_obj < 0) | (fill_obj >= o_count))
+        obj = np.concatenate([np.full(c, o) for o, c in enumerate(EDGE_ROWS)] + [fill_obj])
+        valid = np.concatenate([np.ones(sum(EDGE_ROWS), bool), fill_valid])
+        perm = rng.permutation(q)
+        return m, feats, on(obj[perm].astype(np.int32)), on(valid[perm])
+    if layout == "one_object":
+        return m, feats, on(np.zeros(q, np.int32)), on(rng.rand(q) > 0.2)
     obj = on(rng.randint(-1, o_count + 1, q).astype(np.int32))    # some out of range
     valid = on(rng.rand(q) > 0.3)
     return m, feats, obj, valid
@@ -326,22 +344,37 @@ def _mlp_case(cfg, vis_cfg, q, o_count, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["mlp_pair", "mlp_dense"])
-@pytest.mark.parametrize("width,depth,head,q,o_count", [
-    (64, 2, 64, 1777, 5), (256, 4, 64, 4099, 8), (128, 1, 32, 300, 3), (64, 0, 16, 33, 1)])
-def test_mlp_kernels_match_plain_on_gpu(kernel, width, depth, head, q, o_count):
+@pytest.mark.parametrize("width,depth,head,q,o_count,in_features,layout", [
+    (64, 2, 64, 1777, 5, 5, "random"), (256, 4, 64, 4099, 8, 5, "random"),
+    (128, 1, 32, 300, 3, 5, "random"), (64, 0, 16, 33, 1, 5, "random"),
+    (24, 2, 20, 901, 4, 3, "random"), (24, 1, 20, 901, 4, 8, "random"),
+    (64, 1, 20, 700, len(EDGE_ROWS), 5, "edges"), (64, 2, 64, 517, 3, 5, "one_object")])
+def test_mlp_kernels_match_plain_on_gpu(kernel, width, depth, head, q, o_count, in_features,
+                                        layout):
     """K5 / K6 on the card against their plain version on the card; the vis
     net ends in a sigmoid and the depth net in a LeakyReLU, so a swap would
-    show. Invalid rows and rows whose object has no net are zero."""
+    show. Invalid rows and rows whose object has no net are zero. Padded
+    shapes (width 24: encoders of 3 and 12, head 20, 3 and 8 inputs) and the
+    chunk edges of EDGE_ROWS (all of them in one K6 block: the batch is under
+    one part) and a batch of one object. K5 and K6 give every row the same
+    bits."""
     _need_cuda()
-    cfg = tmlp.MLPConfig(width=width, depth=depth, head_hidden=head)
+    cfg = tmlp.MLPConfig(width=width, depth=depth, head_hidden=head, in_features=in_features)
     vis_cfg = tmlp.MLPConfig(width=width, depth=depth, head_hidden=head,
-                             final_activation="sigmoid")
-    m, feats, obj, valid = _mlp_case(cfg, vis_cfg, q, o_count, "cuda")
+                             in_features=in_features, final_activation="sigmoid")
+    m, feats, obj, valid = _mlp_case(cfg, vis_cfg, q, o_count, "cuda", layout)
+    if layout == "edges":
+        assert tops.mlp.dense_parts(q, o_count, feats.device) == 1
+        live = valid & (obj >= 0) & (obj < o_count)
+        assert torch.bincount(obj[live].long(), minlength=o_count).tolist() == list(EDGE_ROWS)
     fn = {"mlp_pair": tops.grouped_mlp_pair, "mlp_dense": tops.grouped_mlp_dense}[kernel]
     before = dict(tops.LAUNCHES)
     vis, depth_ = fn(m, feats, obj, valid)
     torch.cuda.synchronize()
     assert tops.LAUNCHES == {**before, kernel: before[kernel] + 1}
+    other = {"mlp_pair": tops.grouped_mlp_dense, "mlp_dense": tops.grouped_mlp_pair}[kernel]
+    o_vis, o_depth = other(m, feats, obj, valid)
+    assert torch.equal(o_vis, vis) and torch.equal(o_depth, depth_)
     p_vis, p_depth = tops.grouped_mlp_pair_plain(m, feats, obj, valid)
     assert torch.allclose(vis, p_vis, rtol=2e-2, atol=2e-2)
     assert torch.allclose(depth_, p_depth, rtol=2e-2, atol=2e-2)

@@ -220,6 +220,23 @@ def test_pair_kernels_refuse_other_architectures():
     assert tops_mlp.pair_refusal(SMALL, SMALL) is None
 
 
+def _r16(v):
+    return (v + 15) // 16 * 16
+
+
+def _fragment_index(fan_in, fan_out):
+    """(round16(in), round16(out)) positions of a Linear's weights in its
+    block of pack_nets' fragment order (csrc/proxy_mlp.cuh): W[16 s + 8 half
+    + 2 t + e][16 p + 8 h + g] at lane 4 g + t, element 4 h + 2 half + e of
+    the 16-byte slot (pair p, k-step s). Written from that rule, not from
+    the packer's permutation."""
+    kk = torch.arange(_r16(fan_in))[:, None]
+    nn = torch.arange(_r16(fan_out))[None, :]
+    lane = 4 * (nn % 8) + (kk % 8) // 2
+    elem = 4 * ((nn % 16) // 8) + 2 * ((kk % 16) // 8) + kk % 2
+    return (((nn // 16) * (_r16(fan_in) // 16) + kk // 16) * 32 + lane) * 8 + elem
+
+
 def test_dense_rule_and_packed_layout():
     """The dispatch rule counts bf16 bytes as the JAX package does: 8
     production pairs take the dense kernel, 12 the pair kernel. The packed
@@ -236,10 +253,11 @@ def test_dense_rule_and_packed_layout():
     m, _, _, _ = _grouped_case(8, 3, SMALL, 50)
     w, b = tops_mlp.pack_nets(m.vis_params, SMALL, 3)
     assert w.dtype == torch.bfloat16 and b.dtype == torch.float32
-    assert tuple(w.shape) == (3, tmlp.macs_per_row(SMALL))
-    off = 3 * 8 + 8 * 32 + 2 * 8 + 8 * 32          # the four encoder Linears
-    assert torch.equal(w[1, off:off + 64 * 64].reshape(64, 64),
-                       m.vis_params["res_w0"][1].to(torch.bfloat16))
+    assert tuple(w.shape) == (3, sum(_r16(fi) * _r16(fo) for _, fi, fo in
+                                     tmlp.param_shapes(SMALL)))
+    off = 16 * 16 + 16 * 32 + 16 * 16 + 16 * 32    # the four encoder Linears, padded
+    res_w0 = lambda w: w[:, off + _fragment_index(64, 64)]
+    assert torch.equal(res_w0(w)[1], m.vis_params["res_w0"][1].to(torch.bfloat16))
     assert torch.equal(b[2, 8 + 32 + 8 + 32:8 + 32 + 8 + 32 + 64], m.vis_params["res_b0"][2])
     first = tops_mlp.packed_pair(m)
     assert tops_mlp.packed_pair(m) is first
@@ -251,11 +269,42 @@ def test_dense_rule_and_packed_layout():
     m.vis_params["res_w0"].mul_(2.0)
     second = tops_mlp.packed_pair(m)
     assert second is not first and tops_mlp.packed_pair(m) is second
-    assert torch.equal(second[0][1, off:off + 64 * 64].reshape(64, 64),
-                       m.vis_params["res_w0"][1].to(torch.bfloat16))
+    assert torch.equal(res_w0(second[0])[1], m.vis_params["res_w0"][1].to(torch.bfloat16))
     m.depth_params["head_b1"] = m.depth_params["head_b1"] + 1.0
     third = tops_mlp.packed_pair(m)
     assert third is not second and torch.equal(third[3][:, -1:], m.depth_params["head_b1"])
+
+
+FRAGMENT_CASES = [(w, h, i, False) for w in (16, 24, 64, 256) for h in (1, 20, 64)
+                  for i in (3, 8) if h <= w] + [(512, 64, 6, True)]
+
+
+@pytest.mark.parametrize("width,head,in_features,multi_geo", FRAGMENT_CASES)
+def test_fragment_pack_unpacks_to_every_param(width, head, in_features, multi_geo):
+    """pack_nets (csrc/proxy_mlp.cuh's fragment order) holds every weight of
+    every object exactly, rounded to bf16, at the place the kernels read it
+    (_fragment_index); the padding to 16 x 16 blocks is zero; the biases are
+    every Linear's, in param_shapes order."""
+    cfg = (tmlp.MULTIGEO_VIS if multi_geo else
+           tmlp.MLPConfig(width=width, depth=2, head_hidden=head, in_features=in_features))
+    o_count = 1 if multi_geo else 3
+    params = tmlp.stack_params([tmlp.init_mlp(np.random.RandomState(80 + i), cfg, device="cpu")
+                                for i in range(o_count)])
+    wf, bf = tops_mlp.pack_nets(params, cfg, o_count)
+    assert wf.dtype == torch.bfloat16 and bf.dtype == torch.float32
+    assert torch.equal(bf, torch.cat([params[tmlp.bias_name(wn)]
+                                      for wn, _, _ in tmlp.param_shapes(cfg)], dim=1))
+    off = 0
+    for wn, fi, fo in tmlp.param_shapes(cfg):
+        index = off + _fragment_index(fi, fo)
+        assert len(set(index.flatten().tolist())) == index.numel()
+        got = wf[:, index]                                    # (O, K, N)
+        assert torch.equal(got[:, :fi, :fo], params[wn].to(torch.bfloat16)), wn
+        pad = torch.ones_like(got, dtype=torch.bool)
+        pad[:, :fi, :fo] = False
+        assert bool((got[pad] == 0).all()), wn
+        off += _r16(fi) * _r16(fo)
+    assert off == wf.shape[1]
 
 
 def test_trained_checkpoints_predict_alike_in_both_packages():

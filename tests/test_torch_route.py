@@ -530,24 +530,35 @@ def _csrc_int(name, pattern):
 def test_route_smem_bytes_follow_the_kernel_layout(width, depth, in_features, multi_geo,
                                                    max_hits, nets):
     """route_smem_bytes is csrc/route.cu's smem_bytes: the front region holds
-    the nets' planes in phase 2 and the 8 warps' team buffers of the grouped
-    trace in phase 1 (aliased: the larger of the two, never their sum), then
-    11 words per query record of a kTileRays-ray tile and 3 per net pair. The
-    sizes come from the sources: kTileRays, kRing and kCandidates."""
+    the nets' chunk of kNetRows records in phase 2 and the 8 warps' team
+    buffers of the grouped trace in phase 1 (aliased: the larger of the two,
+    never their sum), then 11 words per query record of a kTileRays-ray tile
+    and 3 per net pair. The nets' chunk (csrc/proxy_mlp.cuh smem_bytes): two
+    bf16 activation planes of round16(width) columns (or the encoders' two
+    hidden blocks, if wider) plus kPad, the bf16 feature plane of kFeatCols +
+    kPad columns, the f32 plane h of width + kPad, the f32 predictions of
+    both nets. The sizes come from the sources: kTileRays, kNetTiles, kRing,
+    kCandidates, kFeatCols and kPad."""
     cfg = tmlp.MLPConfig(width=width, depth=depth, in_features=in_features,
                          multi_geo=multi_geo)
     tile = _csrc_int("route.cu", r"constexpr int kTileRays = (\d+);")
     ring = _csrc_int("resident_trace.cuh", r"constexpr int kRing = (\d+);")
     cands = _csrc_int("resident_trace.cuh", r"constexpr int kCandidates = (\d+);")
     threads = _csrc_int("proxy_mlp.cuh", r"constexpr int kThreads = (\d+);")
+    rows = 16 * _csrc_int("route.cu", r"constexpr int kNetTiles = (\d+);")
+    feat = _csrc_int("proxy_mlp.cuh", r"constexpr int kFeatCols = (\d+);")
+    pad = _csrc_int("proxy_mlp.cuh", r"constexpr int kPad = (\d+);")
     assert (tile, troute.TEAM_BYTES) == (troute.TILE_RAYS, 4 * (ring + 2 * cands))
-    planes = (4 * width + 8 + 2) * 16 * 4
+    r16 = lambda v: (v + 15) // 16 * 16
+    ld_act = max(r16(width), 2 * r16(width // 8)) + pad
+    assert rows == troute.NET_ROWS
+    planes = rows * ((2 * ld_act + feat + pad) * 2 + (width + pad) * 4 + 2 * 4)
     teams = threads // 32 * 4 * (ring + 2 * cands)
     want = max(planes, teams) + tile * max_hits * 11 * 4 + 3 * nets * 4
     assert troute.route_smem_bytes(cfg, max_hits, nets) == want
     assert troute.route_smem_bytes(cfg, max_hits, nets) <= troute.SMEM_LIMIT
     # the teams outgrow the planes only for narrow nets
-    assert (teams > planes) == (width < 256)
+    assert (teams > planes) == (width < 128)
 
 
 @pytest.mark.parametrize("edge", ["above_rule", "below_rule", "forced_grouped",
