@@ -76,9 +76,14 @@ Phases, each reported on its own line; any failure exits non-zero:
      within 2e-2 relative of what it is compared with), the size of that set
      printed; predicted t within 2e-2 of the box diagonal; K7 through the
      warp walks (the rule's mode at K = 735) equal to its flat mode on every
-     ray, both timed. CUDA-event medians
-     of 7 for each kernel and stage, the plain versions' times, the bounds,
-     and the per-object bf16 torch.matmul chain as K5/K6's yardstick. Then
+     ray, both timed. Each kernel's own device ms (the median of its
+     launches in a torch.profiler trace of 20 calls) beside its wrapper's
+     ms (a CUDA-event median of 7 around the whole call, the wrapper's host
+     work included), for K4 and K8 with the bound and the share of it the
+     device time reaches (K4's bound charges every one of the N x max_hits
+     rows it writes); CUDA-event medians of 7 for each stage, the plain
+     versions' times, the bounds, and the per-object bf16 torch.matmul
+     chain as K5/K6's yardstick. Then
      the neural stages on a scene with cutout textures (the scene of
      tests/test_torch_route.py::test_cutout_scene_branch_matches_jax, 4,096
      rays, 8 straddling width-64 pairs), which compose (the cutout trace, K4,
@@ -173,8 +178,11 @@ Phases, each reported on its own line; any failure exits non-zero:
         outside phase 6's knife-edge set (its size printed), and K7 by the
         rule equal to its flat mode on every ray; stage ms fused and
         composed and, on the busiest partition's wavefronts, K7 through the
-        warp walks and flat, and its bounds; K7's multi-geo time, plain time
-        and bounds; the idle share of the PROD frame;
+        warp walks and flat, and its bounds; K8 on that partition's sparse
+        bounce-1 secondary wavefront (dead rows included) against its plain
+        version, its device and wrapper ms and bound; K8's launches per
+        frame of the exact, instanced and neural frames; K7's multi-geo
+        time, plain time and bounds; the idle share of the PROD frame;
      9d the paper's A-B with the trained nets of
         artifacts/ab_scaled/weights.npz (separate, combined, multi-geo;
         w128/d4) on the 8-statue row of scripts/ab_neural_scaled.py (64x64,
@@ -183,7 +191,9 @@ Phases, each reported on its own line; any failure exits non-zero:
         for each family; a seeded random-weight control above 5e-4 (the
         gates of tests/test_neural_end_to_end.py).
 Then the whole script's seconds, the kernels line (JSON, fourteen entries: K1-K13
-and K7's multi-geo mode, route_multigeo;
+and K7's multi-geo mode, route_multigeo; `ms` is each kernel's own device
+time from the profiler and `wrapper_ms` the CUDA-event time of the call that
+launches it;
 K1/K2 carry the launches, times and plain-version checks of their main
 path, the composed cornell frame, and the phase-4 numbers of the 64k
 frame's wavefronts under frame_64k_*; `disagreements` is the flag
@@ -247,6 +257,56 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_name_matches(name: str, function: str) -> bool:
+    """Whether a profiler's (demangled) kernel name is the CUDA function
+    `function`, a template instance of it included."""
+    import re
+
+    return re.search(rf"(^|[ :]){function}[<(]", name) is not None
+
+
+def device_ms(torch, fn, function, reps: int = 20):
+    """The device ms of the CUDA function `function`, which fn() launches
+    once: the median of its own durations in torch.profiler over `reps`
+    back-to-back calls after a warm-up. The kernel's time without its
+    wrapper's host work, which `cuda_ms` around the same call includes (the
+    wrapper's time). The trace drops launches of kernels of several ms (on
+    the H100: 2 of 7 calls of a 24 ms kernel seen, none of 5 of a 4 ms one,
+    against 19-20 of 20 of short ones); where it holds none, the time is
+    that of `reps` back-to-back calls between two CUDA events, over which
+    such a kernel keeps the device busy while the host enqueues the next."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel_name_matches(e.name, function)]
+    check(len(spans) <= reps, f"the profile holds {len(spans)} launches of {function} in "
+                              f"{reps} calls")
+    if spans:
+        return statistics.median(spans) / 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def split_ms(torch, fn, function, reps: int = 7, device_reps: int = 20):
+    """(device ms, wrapper ms) of one call of fn(): `device_ms` of the
+    kernel `function` over `device_reps` calls, and the CUDA-event median
+    of `reps` calls around the whole call."""
+    return device_ms(torch, fn, function, device_reps), cuda_ms(torch, fn, reps=reps)
 
 
 # kernel entry functions of csrc/ by their template arguments (ILb0E / ILb1E,
@@ -599,9 +659,10 @@ MAX_HITS = 3
 MARCH_EPS = 1e-3
 # FP32 operations of one slab test plus candidate selection in the march
 MARCH_OPS = 25
-# bytes of one NNQuery record the march writes (features 20, six 4-byte
-# fields, two flags, path_index 4, normalized_t 4)
-QUERY_BYTES = 54
+# bytes of one NNQuery row the march writes (features 20, six 4-byte
+# fields, two flags, path_index 4, normalized_t 4, and the zero
+# pixel_index / shadow_path_id column 4)
+QUERY_BYTES = 58
 
 
 @contextlib.contextmanager
@@ -835,13 +896,49 @@ def nets_chunks(pt, torch, models, obj, valid):
     return out
 
 
-def march_work(table, n_active: int, n: int, records: int):
+def march_work(table, n_active: int, n: int):
     """What the march needs: every allowed box once per step and active ray,
-    the rays in (29 B), the records out, the table once."""
+    the rays in (29 B), every one of the N x MAX_HITS rows of the oracle's
+    layout out (the empty rows too), the table once."""
     p = table.num_partitions
     row_bytes = 36 + (72 if table.instanced else 0)
     return {"ops": n_active * MAX_HITS * p * MARCH_OPS,
-            "bytes": n * 29 + records * QUERY_BYTES + p * row_bytes}
+            "bytes": n * 29 + n * MAX_HITS * QUERY_BYTES + p * row_bytes}
+
+
+def keys_work(pt, scene, rays):
+    """What the schedule keys need: each active ray's least slab tests, the
+    smaller of the K cluster tests and the two-level count (every group box,
+    then the 8 members of each group whose masked enter bits do not exceed
+    those of the ray's second rank: no member of another group can be one
+    of its first two); the active flag of every ray and the rest of the
+    active rays' records in (32 B), the box table and the scene box once,
+    one key out per ray."""
+    import torch
+
+    o, d, tmin, tmax, active = rays
+    res = pt.ops.resident
+    n, k = o.shape[0], scene.num_clusters
+    live = torch.nonzero(active)[:, 0]
+    n_live = int(live.numel())
+    slabs = n_live * k
+    if scene.cl_gboxes is not None and k > 1:
+        kg = scene.cl_gboxes.shape[1]
+        cmask = ~((1 << res.SCHEDULE_CLUSTER_BITS) - 1)
+        inv, _, tcap = res.ray_limits(scene, o, d, tmin, tmax, active)
+        lanes = torch.arange(k, dtype=torch.int32, device=o.device)[None, :]
+        slabs = 0
+        for r0 in range(0, n_live, 4096):
+            r = live[r0:r0 + 4096]
+            en = res.cluster_enters_plain(scene, o[r], inv[r], tcap[r])
+            rank = torch.where(torch.isfinite(en), (en.view(torch.int32) & cmask) | lanes,
+                               res._NO_KEY)
+            second = rank.topk(2, dim=1, largest=False).values[:, 1]
+            eg = res.cluster_enters_plain(scene, o[r], inv[r], tcap[r], boxes=scene.cl_gboxes)
+            gbits = torch.where(torch.isfinite(eg), eg.view(torch.int32) & cmask, res._NO_KEY)
+            must = torch.isfinite(eg) & (gbits <= (second & cmask)[:, None])
+            slabs += int(torch.clamp(kg + 8 * must.sum(1), max=k).sum())
+    return {"tests": 0, "slabs": slabs, "bytes": n + 32 * n_live + 32 * k + 24 + 4 * n}
 
 
 def march_bound(work):
@@ -917,7 +1014,7 @@ def route_bound(pt, torch, scene, proxies, models, rays, shadow, records):
           else large_work(pt, torch, scene, rays, hits=traced))
     nw = nets_work(pt, models, 0, records)
     op_s = ((tw["tests"] * MT_OPS + tw["slabs"] * SLAB_OPS + tw["xforms"] * XFORM_OPS
-             + march_work(proxies, live, n, records)["ops"]) / FP32_FLOP_PER_S
+             + march_work(proxies, live, n)["ops"]) / FP32_FLOP_PER_S
             + nw["flops"] / BF16_TENSOR_FLOP_PER_S)
     byte_s = (tw["bytes"] + nw["bytes"] + proxies.num_partitions * 36) / HBM_BYTES_PER_S
     return max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s else "bytes"), tw, nw
@@ -1022,11 +1119,10 @@ def route_phase(pt, torch, np, dev, counted):
     perm = ops.schedule_order(scene, *sec_rays)
     check(bool((key[perm][1:] >= key[perm][:-1]).all()), "schedule_order is not sorted by key")
     in_order = tuple(x[perm] for x in sec_rays)
-    k8_ms = cuda_ms(torch, lambda: ops.schedule_keys(scene, *sec_rays), reps=7)
+    k8_dev, k8_ms = split_ms(torch, lambda: ops.schedule_keys(scene, *sec_rays),
+                             "schedule_keys_kernel")
     order_ms = cuda_ms(torch, lambda: ops.schedule_order(scene, *sec_rays), reps=7)
-    n_live = int(live.sum())
-    k8_work = {"tests": 0, "slabs": n_live * scene.num_clusters,
-               "bytes": n + 32 * n_live + 32 * scene.num_clusters + 24 + 4 * n}
+    k8_work = keys_work(pt, scene, sec_rays)
     k8_bound, k8_by = bound(k8_work)
     k1_ms = cuda_ms(torch, lambda: ops.resident_closest(scene, *sec_rays), reps=7)
     k1_order_ms = cuda_ms(torch, lambda: ops.resident_closest(scene, *in_order), reps=7)
@@ -1037,31 +1133,35 @@ def route_phase(pt, torch, np, dev, counted):
           "the sorted closest-hit trace differs from the unsorted one")
     print(f"phase6 K8 schedule_keys vs plain: {k8_dis} rays with another key ok "
           f"({int(entered.sum())} rays enter a cluster, {int(torch.unique(key).numel())} "
-          f"distinct keys); {k8_ms:.4f} ms, plain {k8_plain_ms:.1f} ms (one run), bound "
-          f"{k8_bound:.6f} ms ({k8_by}: {k8_work['slabs']} slab tests, {k8_work['bytes']} "
-          f"bytes); key + sort {order_ms:.4f} ms; K1 on the wavefront as given {k1_ms:.3f} ms, "
+          f"distinct keys); device {k8_dev:.4f} ms, wrapper {k8_ms:.4f} ms, plain "
+          f"{k8_plain_ms:.1f} ms (one run), bound {k8_bound:.6f} ms ({k8_by}: "
+          f"{k8_work['slabs']} slab tests, {k8_work['bytes']} bytes; device time at "
+          f"{k8_bound / k8_dev:.3f} of the bound); key + sort {order_ms:.4f} ms; K1 on the "
+          f"wavefront as given {k1_ms:.3f} ms, "
           f"in schedule order {k1_order_ms:.3f} ms, with key, sort, gather and un-sort "
           f"{k1_sorted_ms:.3f} ms", flush=True)
 
     # ---- K4 against its plain version, every row; the instanced table too
     k4_err, k4_dis = compare_march("K4 proxy_march", q, ops.march_proxies_plain(*march_args))
-    k4_ms = cuda_ms(torch, lambda: ops.proxy_march(*march_args), reps=7)
+    k4_dev, k4_ms = split_ms(torch, lambda: ops.proxy_march(*march_args), "proxy_march_kernel")
     k4_plain_ms = cuda_ms(torch, lambda: ops.march_proxies_plain(*march_args), reps=3)
-    k4_work = march_work(proxies, int(live.sum()), n, n_valid)
+    k4_work = march_work(proxies, int(live.sum()), n)
     k4_bound, k4_by = march_bound(k4_work)
     itable, irays, inode = instanced_march_config(pt, torch, np, dev)
     iargs = (itable, *irays, inode, MAX_HITS, MARCH_EPS)
     qi = ops.proxy_march(*iargs)
     ki_err, _ = compare_march("K4 instanced", qi, ops.march_proxies_plain(*iargs))
-    ki_ms = cuda_ms(torch, lambda: ops.proxy_march(*iargs), reps=7)
+    ki_dev, ki_ms = split_ms(torch, lambda: ops.proxy_march(*iargs), "proxy_march_kernel")
     ki_plain_ms = cuda_ms(torch, lambda: ops.march_proxies_plain(*iargs), reps=3)
-    ki_bound, ki_by = march_bound(march_work(itable, n, n, int(qi.is_valid.sum())))
+    ki_bound, ki_by = march_bound(march_work(itable, n, n))
     print(f"phase6 K4 proxy_march vs plain: every row equal, max abs err {k4_err:.3g} ok; "
-          f"{k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, bound {k4_bound:.6f} ms ({k4_by}: "
-          f"{k4_work['bytes']} bytes, {k4_work['ops']} operations)", flush=True)
+          f"device {k4_dev:.4f} ms, wrapper {k4_ms:.4f} ms, plain {k4_plain_ms:.3f} ms, bound "
+          f"{k4_bound:.6f} ms ({k4_by}: {k4_work['bytes']} bytes, {k4_work['ops']} operations; "
+          f"device time at {k4_bound / k4_dev:.3f} of the bound)", flush=True)
     print(f"phase6 K4 instanced march (16 rows, {int(qi.is_valid.sum())} valid records): "
-          f"every row equal, max abs err {ki_err:.3g} ok; {ki_ms:.4f} ms, plain "
-          f"{ki_plain_ms:.3f} ms, bound {ki_bound:.6f} ms ({ki_by})", flush=True)
+          f"every row equal, max abs err {ki_err:.3g} ok; device {ki_dev:.4f} ms, wrapper "
+          f"{ki_ms:.4f} ms, plain {ki_plain_ms:.3f} ms, bound {ki_bound:.6f} ms ({ki_by}; "
+          f"device time at {ki_bound / ki_dev:.3f} of the bound)", flush=True)
 
     # ---- K5 / K6 against the plain version on the stage's query batch
     nets_args = lambda obj: (q.features, obj, q.is_valid)
@@ -1105,8 +1205,10 @@ def route_phase(pt, torch, np, dev, counted):
     k56_dis = sum(int((a != b).sum()) for a, b in zip(*wide_out.values()))
     check(k56_dis == 0, f"K5 and K6 differ on {k56_dis} predictions of the straddling nets")
     spread = float(want_wide[0][q.is_valid].std())
-    k6_ms = cuda_ms(torch, lambda: ops.grouped_mlp_dense(models, *nets_args(q.aabb_id)), reps=7)
-    k5_ms = cuda_ms(torch, lambda: ops.grouped_mlp_pair(models, *nets_args(q.aabb_id)), reps=7)
+    k6_dev, k6_ms = split_ms(torch, lambda: ops.grouped_mlp_dense(models, *nets_args(q.aabb_id)),
+                             "mlp_dense_kernel")
+    k5_dev, k5_ms = split_ms(torch, lambda: ops.grouped_mlp_pair(models, *nets_args(q.aabb_id)),
+                             "mlp_pair_kernel")
     chain_ms = cuda_ms(torch, matmul_chain(pt, torch, models, q.features, q.aabb_id, q.is_valid),
                        reps=7)
     plan = nets_chunks(pt, torch, models, q.aabb_id, q.is_valid)
@@ -1119,7 +1221,8 @@ def route_phase(pt, torch, np, dev, counted):
           f"with rotated object ids {share['K6 mlp_dense']:.3f} / {share['K5 mlp_pair']:.3f} of "
           f"the valid rows differ beyond 2e-2; K5 equals K6 bit for bit on both nets ok",
           flush=True)
-    print(f"phase6 nets on {n_valid} valid rows: K6 {k6_ms:.3f} ms, K5 {k5_ms:.3f} ms "
+    print(f"phase6 nets on {n_valid} valid rows: K6 device {k6_dev:.3f} ms, wrapper "
+          f"{k6_ms:.3f} ms, K5 device {k5_dev:.3f} ms, wrapper {k5_ms:.3f} ms "
           f"(sort and un-sort included), plain {nets_plain_ms:.1f} ms (one run), per-object "
           f"bf16 matmul chain {chain_ms:.3f} ms; bound {n_bound:.6f} ms ({n_by}: "
           f"{n_work['flops']} FLOPs at the bf16 tensor rate, {n_work['bytes']} bytes), "
@@ -1210,10 +1313,10 @@ def route_phase(pt, torch, np, dev, counted):
         scene, proxies, models, *sec_args, sort_rays=False), reps=7)
     order_args = (in_order[0], in_order[1], MARCH_EPS, in_order[3], in_order[4], my_id,
                   MAX_HITS, MARCH_EPS)
-    k7_ms = cuda_ms(torch, lambda: ops.route_fused(
-        scene, proxies, models, *order_args, sort_rays=False), reps=7)
-    k7s_ms = cuda_ms(torch, lambda: ops.shadow_route_fused(scene, proxies, models, *shd_args),
-                     reps=7)
+    k7_dev, k7_ms = split_ms(torch, lambda: ops.route_fused(
+        scene, proxies, models, *order_args, sort_rays=False), "route_kernel")
+    k7s_dev, k7s_ms = split_ms(torch, lambda: ops.shadow_route_fused(
+        scene, proxies, models, *shd_args), "route_kernel")
     k7s_sched_ms = cuda_ms(torch, lambda: ops.shadow_route_fused(
         scene, proxies, models, *shd_args, sort_rays=True), reps=7)
     k2_ms = cuda_ms(torch, lambda: ops.resident_anyhit(scene, *shd_rays), reps=7)
@@ -1223,9 +1326,10 @@ def route_phase(pt, torch, np, dev, counted):
         stage_ms["secondary composed"] = cuda_ms(torch, secondary, reps=7)
         stage_ms["shadow composed"] = cuda_ms(torch, shadowed, reps=7)
     parts = k1_ms + k4_ms + k6_ms
-    print(f"phase6 K7: route_secondary on the wavefront in schedule order {k7_ms:.3f} ms (as "
-          f"given {k7_given_ms:.3f} ms; with K8, sort, gather and un-sort {k7_sched_ms:.3f} ms), "
-          f"route_shadow {k7s_ms:.3f} ms (with the schedule sort {k7s_sched_ms:.3f} ms) "
+    print(f"phase6 K7: route_secondary on the wavefront in schedule order device "
+          f"{k7_dev:.3f} ms, wrapper {k7_ms:.3f} ms (as given {k7_given_ms:.3f} ms; with K8, "
+          f"sort, gather and un-sort {k7_sched_ms:.3f} ms), route_shadow device {k7s_dev:.3f} "
+          f"ms, wrapper {k7s_ms:.3f} ms (with the schedule sort {k7s_sched_ms:.3f} ms) "
           f"(medians of 7); plain versions {k7_plain_ms:.1f} / {k7s_plain_ms:.1f} ms (one run); "
           f"the composed kernels on the rays as given: K1 {k1_ms:.3f} + K4 {k4_ms:.3f} + K6 "
           f"{k6_ms:.3f} = {parts:.3f} ms (trace {k1_ms / parts:.2f}, march "
@@ -1249,35 +1353,40 @@ def route_phase(pt, torch, np, dev, counted):
         {"name": "proxy_march", "route": "cuda", "source": csrc + "proxy_march.cu",
          "replaces": "pg2024_dprt_tpu/ops/pallas_march.py:42 (_march_kernel, pallas_call :240)",
          "launches": comp_sec["proxy_march"], "max_abs_err": max(k4_err, ki_err),
-         "disagreements": k4_dis, "ms": k4_ms, "plain_ms": k4_plain_ms, "bound_ms": k4_bound,
-         "bound_by": k4_by, "library_ms": None, "instanced_ms": ki_ms,
-         "instanced_plain_ms": ki_plain_ms, "instanced_bound_ms": ki_bound},
+         "disagreements": k4_dis, "ms": k4_dev, "wrapper_ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": None, "instanced_ms": ki_dev,
+         "instanced_wrapper_ms": ki_ms, "instanced_plain_ms": ki_plain_ms,
+         "instanced_bound_ms": ki_bound},
         {"name": "mlp_pair", "route": "cuda", "source": csrc + "proxy_mlp.cu",
          "replaces": "pg2024_dprt_tpu/ops/pallas_mlp.py:52 (_pair_kernel, pallas_call :113)",
          "launches": comp12["mlp_pair"], "max_abs_err": k5_err, "disagreements": k5_beyond,
-         "ms": k5_ms, "plain_ms": nets_plain_ms, "bound_ms": n_bound, "bound_by": n_by,
+         "ms": k5_dev, "wrapper_ms": k5_ms, "plain_ms": nets_plain_ms, "bound_ms": n_bound,
+         "bound_by": n_by,
          "library_ms": None, "matmul_chain_ms": chain_ms, "fp32_rate_ms": n_fp32,
          "chunks": plan["k5_chunks"], "rows_per_fetch": plan["k5_rows_per_fetch"]},
         {"name": "mlp_dense", "route": "cuda", "source": csrc + "proxy_mlp.cu",
          "replaces": "pg2024_dprt_tpu/ops/pallas_mlp.py:129 (_dense_kernel, pallas_call :203)",
          "launches": comp_sec["mlp_dense"], "max_abs_err": k6_err, "disagreements": k6_beyond,
-         "ms": k6_ms, "plain_ms": nets_plain_ms, "bound_ms": n_bound, "bound_by": n_by,
+         "ms": k6_dev, "wrapper_ms": k6_ms, "plain_ms": nets_plain_ms, "bound_ms": n_bound,
+         "bound_by": n_by,
          "library_ms": None, "matmul_chain_ms": chain_ms, "fp32_rate_ms": n_fp32,
          "chunks": plan["k6_chunks"], "rows_per_fetch": plan["k6_rows_per_fetch"]},
         {"name": "route", "route": "cuda", "source": csrc + "route.cu",
          "replaces": "pg2024_dprt_tpu/ops/pallas_route.py:196 (_route_kernel, pallas_call :729)",
          "launches": main_sec["route_secondary"] + main_shd["route_shadow"],
-         "max_abs_err": k7_err, "disagreements": k7_dis, "ms": k7_ms, "plain_ms": k7_plain_ms,
+         "max_abs_err": k7_err, "disagreements": k7_dis, "ms": k7_dev, "wrapper_ms": k7_ms,
+         "plain_ms": k7_plain_ms,
          "bound_ms": bounds["secondary"][0], "bound_by": bounds["secondary"][1],
          "library_ms": None, "as_given_ms": k7_given_ms, "with_schedule_ms": k7_sched_ms,
-         "shadow_ms": k7s_ms, "shadow_plain_ms": k7s_plain_ms,
+         "shadow_ms": k7s_dev, "shadow_wrapper_ms": k7s_ms, "shadow_plain_ms": k7s_plain_ms,
          "shadow_bound_ms": bounds["shadow"][0], "modes_ms": modes, "stage_ms": stage_ms},
         {"name": "schedule_keys", "route": "cuda", "source": csrc + "resident_trace.cu",
          "replaces": "pg2024_dprt_tpu/ops/pallas_resident.py:1167 (_sched_kernel, "
                      "pallas_call :1221)",
          "launches": main_sec["schedule_keys"],
          "max_abs_err": float((key.to(torch.int64) - want_key.to(torch.int64)).abs().max()),
-         "disagreements": k8_dis, "ms": k8_ms, "plain_ms": k8_plain_ms, "bound_ms": k8_bound,
+         "disagreements": k8_dis, "ms": k8_dev, "wrapper_ms": k8_ms, "plain_ms": k8_plain_ms,
+         "bound_ms": k8_bound,
          "bound_by": k8_by, "library_ms": None, "key_and_sort_ms": order_ms},
     ]
 
@@ -1399,10 +1508,7 @@ KERNEL_FUNCTIONS = {"resident_closest": "closest_kernel", "grouped_closest":
 def kernel_device_ms(prof, function):
     """Device ms of one CUDA function summed over its launches in a
     render_device_profile (its names are demangled signatures)."""
-    import re
-
-    pat = re.compile(rf"(^|[ :]){function}\(")
-    return sum(v for k, v in prof["top_kernels_ms"].items() if pat.search(k))
+    return sum(v for k, v in prof["top_kernels_ms"].items() if kernel_name_matches(k, function))
 # rays of the seeded subset each kernel is held against the plain version on
 SUBSET = 1024
 
@@ -1540,15 +1646,19 @@ def trace_pair(pt, torch, np, name, scene, rays):
     e1, ndis1, _ = compare_closest(pt, scene, sub, ops.resident_closest(scene, *sub), want)
     aerr, adis = compare_anyhit(pt, scene, sub, ops.grouped_anyhit(scene, *sub), want_occ)
     aerr2, adis2 = compare_anyhit(pt, scene, sub, ops.resident_anyhit(scene, *sub), want_occ)
-    ms = {kname: cuda_ms(torch, lambda fn=fn: fn(scene, *rays), reps=7)
-          for kname, fn in (("k1", ops.resident_closest), ("k9", ops.grouped_closest),
-                            ("k2", ops.resident_anyhit), ("k10", ops.grouped_anyhit))}
+    ms, dev_ms = {}, {}
+    for kname, wrapper in (("k1", "resident_closest"), ("k9", "grouped_closest"),
+                           ("k2", "resident_anyhit"), ("k10", "grouped_anyhit")):
+        fn = getattr(ops, wrapper)
+        dev_ms[kname], ms[kname] = split_ms(torch, lambda: fn(scene, *rays),
+                                            KERNEL_FUNCTIONS[wrapper], device_reps=7)
     cw = large_work(pt, torch, scene, rays, hits=k1)
     aw = large_work(pt, torch, scene, rays, occ=k2)
     rate = lambda t: n_act / t / 1e3
     print(f"phase7 {name}: {n_act} rays, K={scene.num_clusters} Kg={scene.cl_gboxes.shape[1]}, "
           f"{int(k1.is_hit.sum())} hits; closest K1 {ms['k1']:.3f} ms ({rate(ms['k1']):.1f} "
-          f"Mrays/s), K9 {ms['k9']:.3f} ms ({rate(ms['k9']):.1f} Mrays/s), K9 == K1 on every ray "
+          f"Mrays/s), K9 {ms['k9']:.3f} ms ({rate(ms['k9']):.1f} Mrays/s; device K1 "
+          f"{dev_ms['k1']:.3f}, K9 {dev_ms['k9']:.3f} ms), K9 == K1 on every ray "
           f"ok; slab tests run K1 {cw['slabs_k1']}, K9 at least {cw['slabs_k9']}; needed "
           f"{cw['tests']} ray-triangle tests, {cw['xforms']} transforms, bound "
           f"{cw['bound_ms']:.6f} ms ({cw['bound_by']}); subset vs plain: K9 {ndis} / K1 {ndis1} "
@@ -1556,11 +1666,13 @@ def trace_pair(pt, torch, np, name, scene, rays):
           f"{plain_ms:.1f} ms on {SUBSET} rays", flush=True)
     print(f"phase7 {name} any-hit: {int(k2.sum())} occluded; K2 {ms['k2']:.3f} ms "
           f"({rate(ms['k2']):.1f} Mrays/s), K10 {ms['k10']:.3f} ms ({rate(ms['k10']):.1f} "
-          f"Mrays/s), K10 == K2 on every ray ok; needed {aw['tests']} ray-triangle tests, bound "
+          f"Mrays/s; device K2 {dev_ms['k2']:.3f}, K10 {dev_ms['k10']:.3f} ms), K10 == K2 on "
+          f"every ray ok; needed {aw['tests']} ray-triangle tests, bound "
           f"{aw['bound_ms']:.6f} ms ({aw['bound_by']}); subset vs plain: K10 {adis} / K2 "
           f"{adis2} disagreements ok; plain {plain_any_ms:.1f} ms on {SUBSET} rays", flush=True)
     return {"rays": n_act, "k": scene.num_clusters, "max_id": int(k1.tri_index.max()),
             **{f"{kn}_ms": v for kn, v in ms.items()},
+            **{f"{kn}_device_ms": v for kn, v in dev_ms.items()},
             "plain_ms": plain_ms, "plain_anyhit_ms": plain_any_ms,
             "max_abs_err": max(err, e1), "anyhit_max_abs_err": max(aerr, aerr2),
             "flag_disagreements": ndis + ndis1, "anyhit_disagreements": adis + adis2,
@@ -1732,7 +1844,8 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
          "launches": counts_i.get("grouped_closest", 0),
          "max_abs_err": max(r["max_abs_err"] for r in results.values()),
          "disagreements": sum(r["flag_disagreements"] for r in results.values()),
-         "ms": cam_w["k9_ms"], "plain_ms": cam_w["plain_ms"], "plain_rays": SUBSET,
+         "ms": cam_w["k9_device_ms"], "wrapper_ms": cam_w["k9_ms"],
+         "plain_ms": cam_w["plain_ms"], "plain_rays": SUBSET,
          "bound_ms": cam_w["bound_ms"], "bound_by": cam_w["bound_by"], "library_ms": None,
          "wavefront": "frame_4m_camera", "k1_ms": cam_w["k1_ms"]},
         {"name": "grouped_anyhit", "route": "cuda", "source": csrc,
@@ -1741,7 +1854,8 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
          "launches": counts_i.get("grouped_anyhit", 0),
          "max_abs_err": max(r["anyhit_max_abs_err"] for r in results.values()),
          "disagreements": sum(r["anyhit_disagreements"] for r in results.values()),
-         "ms": shd_w["k10_ms"], "plain_ms": shd_w["plain_anyhit_ms"], "plain_rays": SUBSET,
+         "ms": shd_w["k10_device_ms"], "wrapper_ms": shd_w["k10_ms"],
+         "plain_ms": shd_w["plain_anyhit_ms"], "plain_rays": SUBSET,
          "bound_ms": shd_w["anyhit_bound_ms"], "bound_by": shd_w["anyhit_bound_by"],
          "library_ms": None, "wavefront": "frame_4m_shadow0", "k2_ms": shd_w["k2_ms"]},
     ]
@@ -1917,8 +2031,9 @@ def pair_run(pt, torch, counted, scene, wname, rays, srt, region, ref, ref_occ):
         check(same, f"{label}: {name} differs from its plain version")
         out[f"{name}_err"] = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
                                  for a, b in zip(got, want))
-        out[f"{name}_ms"] = cuda_ms(torch, lambda: kern(scene, prep.packed, prep.pairs, tm),
-                                    reps=7)
+        out[f"{name}_device_ms"], out[f"{name}_ms"] = split_ms(
+            torch, lambda: kern(scene, prep.packed, prep.pairs, tm), "pair_kernel",
+            device_reps=5)
     out["trace_ms"] = cuda_ms(torch, lambda: trc.trace_pairs(scene, *rays, **kw), reps=7)
     cmp = pair_vs_resident(torch, scene, prep, rays, hits, ref)
     n_hit = int(ref.is_hit.sum())
@@ -1939,7 +2054,9 @@ def pair_run(pt, torch, counted, scene, wname, rays, srt, region, ref, ref_occ):
     print(f"phase8 {label}: dropped {dropped} pairs ({out['unfit_tiles']} of "
           f"{prep.pairs.tile_fit.shape[0]} tiles unfit, {out['partial_tiles']} partly listed); "
           f"launches {out['launches']}; K11 / K12 "
-          f"/ K13 equal their plain versions on every ray ok; K11 "
+          f"/ K13 equal their plain versions on every ray ok; device K11 "
+          f"{out['pair_closest_device_ms']:.3f} / K12 {out['pair_anyhit_device_ms']:.3f} / K13 "
+          f"{out['pair_woop_device_ms']:.3f} ms; wrappers K11 "
           f"{out['pair_closest_ms']:.3f} ms ({rate(out['pair_closest_ms']):.1f} Mrays/s), K12 "
           f"{out['pair_anyhit_ms']:.3f} ms, K13 {out['pair_woop_ms']:.3f} ms, trace_pairs "
           f"{out['trace_ms']:.3f} ms (medians of 7); plain {out['pair_closest_plain_ms']:.1f} / "
@@ -2066,10 +2183,12 @@ def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536
                 "launches": launches,
                 "max_abs_err": max(out[f"{name}_err"] for out in runs.values()),
                 "disagreements": 0,
-                "ms": main[f"{name}_ms"], "plain_ms": main[f"{name}_plain_ms"],
+                "ms": main[f"{name}_device_ms"], "wrapper_ms": main[f"{name}_ms"],
+                "plain_ms": main[f"{name}_plain_ms"],
                 "bound_ms": bnd, "bound_by": by, "library_ms": None,
                 "wavefront": "camera, unsorted, region 96",
-                "runs": {k: {m: v[m] for m in (f"{name}_ms", "dropped", "trace_ms")}
+                "runs": {k: {m: v[m] for m in (f"{name}_device_ms", f"{name}_ms", "dropped",
+                                               "trace_ms")}
                          for k, v in per_run.items()}}
 
     entries = [entry("pair_closest", "186 (_kernel; pallas_call :540)",
@@ -2493,6 +2612,32 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
                "bounce1_queries": counted_q, "disagreements": outside, **st_n,
                "k7_modes_ms": modes, "k7_bound_ms": b_sec[0], "k7_bound_by": b_sec[1],
                "k7_shadow_bound_ms": b_shd[0]}
+        k8_frames = {"rooms_p8 exact": counts.get("schedule_keys", 0),
+                     "instanced_p8": counts_i.get("schedule_keys", 0),
+                     f"rooms_p8 neural {label}": counts_n.get("schedule_keys", 0)}
+        check(k8_frames["rooms_p8 exact"] > 0, f"K8 launches per frame {k8_frames}")
+        print("phase9 K8 schedule_keys launches per frame: "
+              + ", ".join(f"{k} {v}" for k, v in k8_frames.items()), flush=True)
+        row["k8_launches_per_frame"] = k8_frames
+        if not m.multi_geo:
+            # K8 on the partition's sparse bounce-1 wavefront, as the stage
+            # hands it over (dead rows included)
+            key_b = ops.schedule_keys(scene, *sec_b)
+            kb_dis = int((key_b != ops.schedule_keys_plain(scene, *sec_b)).sum())
+            check(kb_dis == 0, f"K8 on partition {my_id}'s bounce-1 wavefront: {kb_dis} rays "
+                               f"with another key than the plain version")
+            kb_dev, kb_ms = split_ms(torch, lambda: ops.schedule_keys(scene, *sec_b),
+                                     "schedule_keys_kernel")
+            kb_work = keys_work(pt, scene, sec_b)
+            kb_bound, kb_by = bound(kb_work)
+            print(f"phase9 9c K8 on partition {my_id}'s bounce-1 secondary wavefront "
+                  f"({int(live_b.sum())} live of {paths.capacity} rows, K="
+                  f"{scene.num_clusters}): every key equal to the plain version ok; device "
+                  f"{kb_dev:.4f} ms, wrapper {kb_ms:.4f} ms, bound {kb_bound:.6f} ms ({kb_by}; "
+                  f"device time at {kb_bound / kb_dev:.3f} of the bound)", flush=True)
+            row["k8_sparse"] = {"live": int(live_b.sum()), "rows": paths.capacity,
+                                "k": scene.num_clusters, "device_ms": kb_dev,
+                                "wrapper_ms": kb_ms, "bound_ms": kb_bound, "bound_by": kb_by}
         if not m.multi_geo:
             prof = pt.utils.profile.render_device_profile(
                 lambda s: frame(part, m, cfg_n, s), dist.distributed.STAGES, reps=3)
@@ -2521,8 +2666,8 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
         in_order = tuple(x[perm] for x in rays)
         k_args = (in_order[0], in_order[1], MARCH_EPS, in_order[3], in_order[4], 8, MAX_HITS,
                   MARCH_EPS)
-        k_ms = cuda_ms(torch, lambda: ops.route_fused(r_scene, r_proxies, m, *k_args,
-                                                      sort_rays=False), reps=7)
+        k_dev, k_ms = split_ms(torch, lambda: ops.route_fused(r_scene, r_proxies, m, *k_args,
+                                                              sort_rays=False), "route_kernel")
         sep_ms = cuda_ms(torch, lambda: ops.route_fused(r_scene, r_proxies, r_prod, *k_args,
                                                         sort_rays=False), reps=7)
         s_args = (r_shadow.origin, r_shadow.direction, MARCH_EPS, r_shadow.tmax * (1.0 - 1e-3),
@@ -2543,7 +2688,8 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
         print(f"phase9 K7 multi-geo mode, shadow: bound {bs_ms:.6f} ms ({bs_by}) on {nqs64} valid "
               f"queries", flush=True)
         print(f"phase9 K7 multi-geo mode on neural_route_64k in schedule order ({nq64} valid "
-              f"queries): {k_ms:.3f} ms (the 8 PROD pairs on the same rays: {sep_ms:.3f} ms), "
+              f"queries): device {k_dev:.3f} ms, wrapper {k_ms:.3f} ms (the 8 PROD pairs on the "
+              f"same rays: {sep_ms:.3f} ms), "
               f"shadow {ks_ms:.3f} ms (medians of 7); plain {plain_ms:.1f} ms (one run); bound "
               f"{b_ms:.6f} ms ({b_by}: {tw['tests']} ray-triangle tests, {tw['slabs']} slab "
               f"tests, {nw['flops']} net FLOPs at the bf16 rate)", flush=True)
@@ -2553,7 +2699,8 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
             "replaces": "pg2024_dprt_tpu/ops/pallas_route.py:196 (_route_kernel, multi_geo "
                         "mode: :202, :212-214, :354-355, :411-415, :426-427; pallas_call :729)",
             "launches": counts_n["route_multigeo"], "max_abs_err": max(err, e64),
-            "disagreements": outside + o64, "ms": k_ms, "plain_ms": plain_ms,
+            "disagreements": outside + o64, "ms": k_dev, "wrapper_ms": k_ms,
+            "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "wavefront": "neural_route_64k, schedule order", "shadow_ms": ks_ms,
             "shadow_bound_ms": bs_ms, "shadow_bound_by": bs_by,
@@ -2697,13 +2844,16 @@ def main() -> int:
                 err, ndis, _ = compare_closest(pt, scene, rays, kern(scene, *rays), want)
             else:
                 err, ndis = compare_anyhit(pt, scene, rays, kern(scene, *rays), want)
-            k_ms = cuda_ms(torch, lambda: kern(scene, *rays), reps=20)
+            d_ms, k_ms = split_ms(torch, lambda: kern(scene, *rays),
+                                  KERNEL_FUNCTIONS[kern.__name__], reps=20)
             p_ms = cuda_ms(torch, lambda: plain(scene, *rays), reps=3)
             b_ms, b_by = bound(work_fn(pt, scene, rays, want))
-            cornell[wname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                              "max_abs_err": err, "disagreements": ndis}
+            cornell[wname] = {"ms": d_ms, "wrapper_ms": k_ms, "plain_ms": p_ms,
+                              "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                              "disagreements": ndis}
             print(f"phase2 cornell wavefront {wname}: {int(rays[4].sum())} active rays, "
-                  f"{kern.__name__} {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"{kern.__name__} device {d_ms:.4f} ms, wrapper {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, "
                   f"bound {b_ms:.6f} ms ({b_by}); vs plain: {ndis} flag disagreements, max "
                   f"abs err {err:.3g} ok", flush=True)
 
@@ -2737,7 +2887,8 @@ def main() -> int:
               f"{composed_ms:.3f} ms (medians of 7); composed with the plain versions "
               f"{plain_frame_ms:.1f} ms (one run); launches fused {main_counts}, "
               f"composed {composed_counts}", flush=True)
-        k3_ms = cuda_ms(torch, lambda: samples(cfg, True, next(seeds)), reps=7)
+        k3_dev, k3_ms = split_ms(torch, lambda: samples(cfg, True, next(seeds)),
+                                 "frame_sample_kernel", device_reps=7)
         # K3's mode by the rule (the warp walks at K = 185) against its flat
         # mode: bit-identical images, on the frame and on an odd-sized frame
         # of the same soup (251 x 247 pixels: its last warp holds lanes past
@@ -2773,17 +2924,15 @@ def main() -> int:
         timings = {}
         for wname, rays in waves.items():
             n_act = int(rays[4].sum())
-            if wname == "shadow0":
-                k_fn = lambda: pt.ops.resident_anyhit(scene, *rays)
-                p_fn = lambda: pt.ops.resident_anyhit_plain(scene, *rays)
-            else:
-                k_fn = lambda: pt.ops.resident_closest(scene, *rays)
-                p_fn = lambda: pt.ops.resident_closest_plain(scene, *rays)
-            k_ms = cuda_ms(torch, k_fn, reps=20)
+            kname = "resident_anyhit" if wname == "shadow0" else "resident_closest"
+            k_fn = lambda: getattr(pt.ops, kname)(scene, *rays)
+            p_fn = lambda: getattr(pt.ops, f"{kname}_plain")(scene, *rays)
+            d_ms, k_ms = split_ms(torch, k_fn, KERNEL_FUNCTIONS[kname], reps=20)
             p_ms = cuda_ms(torch, p_fn, reps=3)
-            timings[wname] = (k_ms, p_ms, n_act)
-            print(f"phase3 wavefront {wname}: {n_act} active rays, kernel {k_ms:.4f} ms "
-                  f"({n_act / k_ms / 1e3:.1f} Mrays/s), plain {p_ms:.2f} ms", flush=True)
+            timings[wname] = (d_ms, p_ms, n_act, k_ms)
+            print(f"phase3 wavefront {wname}: {n_act} active rays, kernel device {d_ms:.4f} ms "
+                  f"({n_act / d_ms / 1e3:.1f} Mrays/s), wrapper {k_ms:.4f} ms, plain "
+                  f"{p_ms:.2f} ms", flush=True)
 
         # ---- phase 4: kernels vs plain versions on the card
         k1_err, k2_err = 0.0, 0.0
@@ -2863,7 +3012,8 @@ def main() -> int:
                          "_kernel_tiny_t :1284)",
              "launches": cornell_counts["resident_closest"], **cornell["camera"],
              "library_ms": None, "wavefront": "cornell camera",
-             "frame_64k_camera": {"ms": timings["camera"][0], "plain_ms": timings["camera"][1],
+             "frame_64k_camera": {"ms": timings["camera"][0], "wrapper_ms": timings["camera"][3],
+                                  "plain_ms": timings["camera"][1],
                                   "bound_ms": b1, "bound_by": b1_by, "max_abs_err": k1_err,
                                   "disagreements": k1_dis}},
             {"name": "resident_anyhit", "route": "cuda", "source": src,
@@ -2873,6 +3023,7 @@ def main() -> int:
              "launches": cornell_counts["resident_anyhit"], **cornell["shadow0"],
              "library_ms": None, "wavefront": "cornell shadow0",
              "frame_64k_shadow0": {"ms": timings["shadow0"][0],
+                                   "wrapper_ms": timings["shadow0"][3],
                                    "plain_ms": timings["shadow0"][1], "bound_ms": b2,
                                    "bound_by": b2_by, "max_abs_err": k2_err,
                                    "disagreements": k2_dis}},
@@ -2882,7 +3033,7 @@ def main() -> int:
                          "grouped and HBM modes, pallas_call :1087)",
              "launches": main_counts["frame_sample"], "max_abs_err": k3_err,
              "disagreements": k3_dis,
-             "ms": k3_ms, "plain_ms": k3_plain_ms,
+             "ms": k3_dev, "wrapper_ms": k3_ms, "plain_ms": k3_plain_ms,
              "bound_ms": b3, "bound_by": b3_by, "library_ms": None,
              "grouped_ms": k3_grouped_ms, "flat_ms": k3_flat_ms},
         ]
@@ -2894,7 +3045,8 @@ def main() -> int:
                   f"bound {bound(w)[0]:.6f} ms ({bound(w)[1]})", flush=True)
         print(f"phase5 work fused frame (all {cfg.bounces} bounces): {k3_work['tests']} "
               f"ray-triangle tests, {k3_work['slabs']} slab tests, {k3_work['bytes']} bytes "
-              f"needed; bound {b3:.6f} ms ({b3_by}); K3 {k3_ms:.3f} ms", flush=True)
+              f"needed; bound {b3:.6f} ms ({b3_by}); K3 device {k3_dev:.3f} ms, wrapper "
+              f"{k3_ms:.3f} ms", flush=True)
 
         # ---- phase 6: the neural-proxy routing stage
         kernels += route_phase(pt, torch, np, dev, counted)

@@ -90,13 +90,36 @@
 // cluster's rank is (enter bits with the low 12 bits cleared) | cluster, so
 // enter distances within 2^12 ulps rank by cluster index; a ray that enters
 // no cluster gets 0xFFF in both halves and an inactive ray 0x7FFFFFFF, which
-// sort last. Needs K < 4096. One thread per ray, one pass over the K boxes
-// that keeps the two smallest ranks in registers. Bound by FP32 operations
-// (K slab tests per active ray).
+// sort last. Needs K < 4096. Bound by FP32 operations: each active ray's
+// least cull, K slab tests or the group boxes and the members of the groups
+// that can hold its first two clusters.
+//
+// Design of K8: a warp per ray. Its first design ran a thread per ray over
+// all K boxes: on the sparse wavefronts the stages hand over (a rooms_p8
+// partition's bounce-1 buffer of 65,536 rows holds 1-4 % live rows, which
+// lie together) a few dozen warps each walked K ~ 1,500 boxes one after
+// another at the latency of a global load (about 340 cycles a box), and a
+// dense launch brought 16 warps an SM. Now each ray is a warp, so a dead
+// row costs one flag load and one store and the live rays spread over the
+// card wherever they lie in the buffer. (A block that compacted its 64
+// rows' live rays for its 8 warps left those concentrated rows to a few
+// blocks: 0.076 ms on the rooms buffer, PERF.md.) Where the dispatch rule
+// takes the grouped kernels (ops/resident.py use_grouped), the lanes test
+// the group boxes, 32 at a time, and then the members of the groups the ray
+// enters, 32 a step (a ray of neural_route_64k enters 6.8 of 92 groups,
+// of neural_route_1m 13.6 of 379: PERF.md); else they test clusters k = lane,
+// lane + 32, ..., four boxes at a time with their loads in flight. Each
+// lane keeps its own two smallest ranks without a branch, and a butterfly
+// of shuffles gives the warp's two smallest. A cluster the ray enters lies
+// in a group it enters, the ranks are distinct and their order of arrival
+// does not change the key, and every rank comes from the same slab
+// arithmetic (resident_trace.cuh, --fmad=false): the keys equal the plain
+// version's on every ray in both modes.
 //
 // Built with --fmad=false: contracted multiply-adds would round grazing
 // and edge hits differently from the plain version.
 
+#include "cycles.cuh"
 #include "resident_trace.cuh"
 
 namespace {
@@ -218,35 +241,123 @@ constexpr int kClusterBits = 12;
 constexpr int32_t kClusterMask = (1 << kClusterBits) - 1;
 constexpr int32_t kNoRank = 0x7FFFFFFF;
 
-__global__ void __launch_bounds__(kThreads) schedule_keys_kernel(
-    const float* __restrict__ o, const float* __restrict__ d,
-    const float* __restrict__ tmin, const float* __restrict__ tmax,
-    const uint8_t* __restrict__ active, int n, const float* __restrict__ boxes,
-    const float* __restrict__ scene_aabb, int nk, int32_t* __restrict__ out_key) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r;
-  if (!resident::load_ray(i, o, d, tmin, tmax, active, scene_aabb, r)) {
-    out_key[i] = kNoRank;
-    return;
-  }
-  // ranks are distinct (their low bits are the cluster), so the two
-  // smallest are the first and the second entered cluster
-  int32_t r1 = kNoRank, r2 = kNoRank;
-  for (int k = 0; k < nk; ++k) {
-    const float en = resident::cluster_enter(r, boxes, k, nk);
-    if (en == CUDART_INF_F) continue;
-    const int32_t rank = (__float_as_int(en) & ~kClusterMask) | k;
-    if (rank < r1) {
-      r2 = r1;
-      r1 = rank;
-    } else if (rank < r2) {
-      r2 = rank;
+// K8: a warp per ray, kKeyWarps rays a block (the design note above)
+constexpr int kKeyWarps = 8;
+constexpr int kKeyThreads = 32 * kKeyWarps;
+// boxes a lane of the flat mode loads before it tests them (their loads in
+// flight together)
+constexpr int kKeyBatch = 4;
+// counters of a -DPG_CYCLES build (csrc/cycles.cuh), kept for one row in
+// kKeysSample so that their atomics stay few: the live warps' cycles in the
+// box tests, every warp's cycles, the live rays and the warps
+constexpr int kKeysLoop = 0, kKeysWarp = 1, kKeysLive = 2, kKeysWarps = 3;
+constexpr int kKeysSample = 8;
+
+// A cluster's rank (enter bits with the low 12 bits cleared, then the
+// cluster) into a lane's two smallest, without a branch.
+__device__ __forceinline__ void keep_rank(float en, int k, int32_t& r1, int32_t& r2) {
+  const int32_t rank = en == CUDART_INF_F ? kNoRank : (__float_as_int(en) & ~kClusterMask) | k;
+  const int32_t above = max(r1, rank);
+  r1 = min(r1, rank);
+  r2 = min(r2, above);
+}
+
+// Flat mode: lane l tests clusters l, l + 32, ... of the (8, K) box table.
+__device__ __forceinline__ void lane_ranks_flat(const Ray& r, const Tables& s, int lane,
+                                                int32_t& r1, int32_t& r2) {
+  for (int k0 = lane; k0 < s.nk; k0 += 32 * kKeyBatch) {
+    float b[kKeyBatch][7];
+#pragma unroll
+    for (int u = 0; u < kKeyBatch; ++u) {
+      const float* bk = s.boxes + min(k0 + 32 * u, s.nk - 1);
+#pragma unroll
+      for (int q = 0; q < 7; ++q) b[u][q] = __ldg(bk + q * s.nk);
+      if (k0 + 32 * u >= s.nk) b[u][6] = 0.0f;  // past the last cluster: not entered
+    }
+#pragma unroll
+    for (int u = 0; u < kKeyBatch; ++u) {
+      const float lo[3] = {b[u][0], b[u][1], b[u][2]};
+      const float hi[3] = {b[u][3], b[u][4], b[u][5]};
+      keep_rank(resident::slab_enter_box(r, lo, hi, b[u][6]), k0 + 32 * u, r1, r2);
     }
   }
-  const int32_t first = r1 != kNoRank ? (r1 & kClusterMask) : kClusterMask;
-  const int32_t second = r2 != kNoRank ? (r2 & kClusterMask) : kClusterMask;
-  out_key[i] = (first << kClusterBits) | second;
+}
+
+// Grouped mode: the lanes test 32 group boxes at a time, and the members of
+// the groups the ray enters, 4 groups (32 members) a step, through the warp
+// walks' push_groups / member_enter. A cluster the ray enters lies in a
+// group it enters (the group box contains its members and the slab
+// arithmetic is monotone in the bounds), so every entered cluster is ranked
+// and each once: padding members carry flag 0.
+__device__ __forceinline__ void lane_ranks_grouped(const Ray& r, const Tables& s, int lane,
+                                                   int* ring, int32_t& r1, int32_t& r2) {
+  int head = 0, tail = 0;
+  for (int base = 0; base < s.kg; base += 32) {
+    resident::push_groups(r, s, CUDART_INF_F, base, lane, ring, tail);
+    for (; head < tail; head = min(head + resident::kGroupsPerStep, tail)) {
+      float en;
+      int k;
+      resident::member_enter(r, s, ring, head, tail, lane, en, k);
+      keep_rank(en, k, r1, r2);
+    }
+    __syncwarp();  // the ring's slots are read before the next push
+  }
+}
+
+__global__ void __launch_bounds__(kKeyThreads) schedule_keys_kernel(
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ tmin, const float* __restrict__ tmax,
+    const uint8_t* __restrict__ active, int n, Tables s, int32_t* __restrict__ out_key) {
+  CYCLES_NOW(t_warp);
+  __shared__ int rings[kKeyWarps][resident::kRing];
+  const int lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * kKeyWarps + (threadIdx.x >> 5);
+  if (row >= n) return;  // the whole warp
+  const int i = static_cast<int>(row);
+  // the flag and the ray in one round trip (load_ray reads the ray after
+  // the flag), then load_ray's scene-exit cap
+  const bool live = active[i] != 0;
+  Ray r;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    r.o[ax] = o[3 * i + ax];
+    r.d[ax] = d[3 * i + ax];
+  }
+  const float t0 = tmin[i], t1 = tmax[i];
+  if (live) {
+    resident::cap_ray(r, t0, t1, s.scene_aabb);
+    CYCLES_NOW(t_loop);
+    int32_t r1 = kNoRank, r2 = kNoRank;
+    if (s.gboxes != nullptr) {
+      lane_ranks_grouped(r, s, lane, rings[threadIdx.x >> 5], r1, r2);
+    } else {
+      lane_ranks_flat(r, s, lane, r1, r2);
+    }
+    // the warp's two smallest: the lanes' clusters are disjoint and their
+    // ranks distinct
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const int32_t b1 = __shfl_xor_sync(resident::kFull, r1, off);
+      const int32_t b2 = __shfl_xor_sync(resident::kFull, r2, off);
+      r2 = min(max(r1, b1), min(r2, b2));
+      r1 = min(r1, b1);
+    }
+    if (lane == 0) {
+      const int32_t first = r1 != kNoRank ? (r1 & kClusterMask) : kClusterMask;
+      const int32_t second = r2 != kNoRank ? (r2 & kClusterMask) : kClusterMask;
+      out_key[i] = (first << kClusterBits) | second;
+      if (i % kKeysSample == 0) {
+        CYCLES_ADD(kKeysLoop, t_loop);
+        CYCLES_COUNT(kKeysLive, 1);
+      }
+    }
+  } else if (lane == 0) {
+    out_key[i] = kNoRank;
+  }
+  if (lane == 0 && i % kKeysSample == 0) {
+    CYCLES_ADD(kKeysWarp, t_warp);
+    CYCLES_COUNT(kKeysWarps, 1);
+  }
 }
 
 }  // namespace
@@ -320,14 +431,24 @@ extern "C" int grouped_anyhit(
   return static_cast<int>(cudaGetLastError());
 }
 
+// gboxes nullptr: the flat mode; else the grouped mode over the group tables
+// (xf tells an instanced scene's group layout).
 extern "C" int schedule_keys(
     const float* o, const float* d, const float* tmin, const float* tmax,
     const uint8_t* active, int n, const float* boxes, const float* scene_aabb,
-    int nk, int32_t* out_key, void* stream) {
+    int nk, const float* xf, int kb, const float* gboxes, const float* mboxes, int kg,
+    int32_t* out_key, void* stream) {
   if (nk < 1 || nk > kClusterMask) return static_cast<int>(cudaErrorInvalidValue);
+  if (gboxes != nullptr && !resident::group_tables_ok(gboxes, mboxes, kg)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (n > 0) {
-    schedule_keys_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, tmin, tmax, active, n, boxes, scene_aabb, nk, out_key);
+    schedule_keys_kernel<<<static_cast<int>((n + kKeyWarps - 1LL) / kKeyWarps), kKeyThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmin, tmax, active, n,
+        make_tables(boxes, nullptr, nullptr, nullptr, scene_aabb, nk, 0, xf, kb, 0, gboxes,
+                    mboxes, gboxes != nullptr ? kg : 0),
+        out_key);
   }
   return static_cast<int>(cudaGetLastError());
 }

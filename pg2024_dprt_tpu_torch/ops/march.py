@@ -17,7 +17,9 @@ per ray) and take the lexicographic (t, row) minimum at each step, so they
 agree on ties. The wrapper runs the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.
 
-The dedup mask has 32 bits, so a table of more than 32 rows raises.
+The dedup mask has 32 bits, so a table of more than 32 rows raises; the
+kernel stages a block's rows in shared memory, so on CUDA tensors max_hits
+above MAX_HITS_LIMIT raises.
 """
 from __future__ import annotations
 
@@ -29,9 +31,11 @@ import torch
 from ..core import math as cmath
 from ..core.types import NNQuery
 from . import _build
-from .resident import F32_MAX, LAUNCHES, _check, _checked, _ptr, _stream
+from .resident import F32_MAX, LAUNCHES, _check, _checked, _ptr, _stream, stamped
 
 MAX_PROXY_ROWS = 32
+# the kernel stages a block's output rows in shared memory (kStageRows)
+MAX_HITS_LIMIT = 768
 
 
 def _check_table(proxies):
@@ -67,36 +71,68 @@ def proxy_march(proxies, origin, direction, t_cap, active, my_node: int,
     n = origin.shape[0]
     if n * max_hits >= 2**31:
         raise ValueError("query count exceeds int32")
-    f32, i32 = torch.float32, torch.int32
+    if not 0 <= max_hits <= MAX_HITS_LIMIT:
+        raise ValueError(f"max_hits {max_hits}: the kernel takes 0 .. {MAX_HITS_LIMIT}")
+    f32 = torch.float32
     rays = [_checked(name, x, dt, shape, dev) for name, x, dt, shape in (
         ("origin", origin, f32, (n, 3)), ("direction", direction, f32, (n, 3)),
         ("t_cap", t_cap, f32, (n,)), ("active", active, torch.bool, (n,)))]
-    table = ProxyTableArgs(proxies, dev)
-    q = n * max_hits
-    out = {name: torch.empty(shape, dtype=dt, device=dev) for name, shape, dt in (
-        ("features", (q, 5), f32), ("aabb_id", (q,), i32), ("node_id", (q,), i32),
-        ("hit_sequence", (q,), i32), ("is_inside", (q,), torch.bool),
-        ("is_valid", (q,), torch.bool), ("path_index", (q,), i32),
-        ("aabb_t", (q,), f32), ("max_length", (q,), f32), ("t_ratio", (q,), f32),
-        ("normalized_t", (q,), f32))}
+    table = ProxyTableArgs.of(proxies, dev)
+    out = query_columns(n * max_hits, dev)
     rc = _lib().proxy_march(
         *map(_ptr, rays), n, *table.pointers, table.p, int(my_node), int(max_hits),
-        float(eps), *(_ptr(out[name]) for name in (
-            "features", "aabb_id", "node_id", "hit_sequence", "is_inside", "is_valid",
-            "path_index", "aabb_t", "max_length", "t_ratio", "normalized_t")),
-        _stream(origin))
+        float(eps), *(_ptr(out[name]) for name in _KERNEL_COLUMNS), _stream(origin))
     _check(rc, "proxy_march")
-    if n:
+    if n and max_hits:
         LAUNCHES["proxy_march"] += 1
-    zeros = torch.zeros((q,), dtype=i32, device=dev)
+    zeros = out.pop("zeros")
     return NNQuery(pixel_index=zeros, shadow_path_id=zeros, **out)
+
+
+# the kernel's output columns in the order of its C interface; "zeros" is
+# the query's pixel_index and shadow_path_id
+_KERNEL_COLUMNS = ("features", "aabb_id", "node_id", "hit_sequence", "is_inside", "is_valid",
+                   "path_index", "aabb_t", "max_length", "t_ratio", "normalized_t", "zeros")
+_FLOAT_COLUMNS = ("features", "aabb_t", "max_length", "t_ratio", "normalized_t")
+_INT_COLUMNS = ("aabb_id", "node_id", "hit_sequence", "path_index", "zeros")
+
+
+def query_columns(q: int, device) -> dict:
+    """The march's output columns for q query rows (`_KERNEL_COLUMNS`), as
+    views into one allocation, each starting on 16 bytes: the float
+    columns (features five words a row), the int32 columns, the two flag
+    columns."""
+    qp = -(-q // 16) * 16
+    words = torch.empty(14 * qp + qp // 2, dtype=torch.int32, device=device)
+    floats = words[:9 * qp].view(torch.float32).split([5 * qp, qp, qp, qp, qp])
+    ints = words[9 * qp:14 * qp].split([qp] * 5)
+    flags = words[14 * qp:].view(torch.bool).split([qp, qp])
+    out = dict(zip(_FLOAT_COLUMNS, floats), **dict(zip(_INT_COLUMNS, ints)),
+               is_inside=flags[0], is_valid=flags[1])
+    if qp != q:
+        out = {name: x[:5 * q if name == "features" else q] for name, x in out.items()}
+    out["features"] = out["features"].view(q, 5)
+    return out
 
 
 class ProxyTableArgs:
     """A proxy table as the kernels read it: validated, contiguous tensors
     kept alive until the launch is enqueued, and their pointers in the order
     of the C interface (boxes min, boxes max, max_length, row node, row
-    object, then world_to_obj, obj_min, obj_span or nulls)."""
+    object, then world_to_obj, obj_min, obj_span or nulls). The wrappers
+    take it from `of`, which makes it once per table."""
+
+    @classmethod
+    def of(cls, proxies, device) -> "ProxyTableArgs":
+        """The arguments of `proxies` on `device`, made once per table and
+        kept (ops/resident.py `stamped`): a table tensor replaced or written
+        in place since makes them anew, and a table the kernels do not take
+        raises on every call."""
+        fields = (proxies.aabb_min, proxies.aabb_max, proxies.max_length, proxies.node_id,
+                  proxies.obj_id, proxies.world_to_obj, proxies.obj_min, proxies.obj_span)
+        present = tuple(t is not None for t in fields)
+        return stamped(("proxy_table", str(device), present),
+                       [t for t in fields if t is not None], lambda: cls(proxies, device))
 
     def __init__(self, proxies, device):
         p = _check_table(proxies)
@@ -124,7 +160,7 @@ def _lib():
     if not getattr(lib, "_pg_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.proxy_march.argtypes = ([p] * 4 + [i] + [p] * 8 + [i, i, i, f]
-                                    + [p] * 11 + [p])
+                                    + [p] * 12 + [p])
         lib.proxy_march.restype = i
         lib._pg_typed = True
     return lib

@@ -41,6 +41,7 @@ near-ties are the only place the two packages' ids may differ.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 
@@ -194,16 +195,22 @@ def _anyhit(name, scene, o, d, tmin, tmax, active) -> torch.Tensor:
 def schedule_keys(scene, o, d, tmin, tmax, active) -> torch.Tensor:
     """(N,) int32 cluster-schedule sort keys, (first entered cluster << 12) |
     second entered cluster: K8 for CUDA tensors, the plain version for CPU
-    tensors. Needs K < 4096."""
+    tensors. Needs K < 4096. K8 tests the group boxes first, and only the
+    members of the groups a ray enters, where `use_grouped` takes the
+    grouped kernels; the keys are the same."""
     if scene.num_clusters >= 1 << SCHEDULE_CLUSTER_BITS:
         raise ValueError(f"{scene.num_clusters} clusters: the schedule key holds "
                          f"{SCHEDULE_CLUSTER_BITS}-bit cluster indices")
     if o.device.type == "cpu":
         return schedule_keys_plain(scene, o, d, tmin, tmax, active)
-    rays, tab, n, k, _ = _kernel_inputs(scene, o, d, tmin, tmax, active)
+    grouped = use_grouped(scene)
+    rays, tab, n, k, _ = _kernel_inputs(scene, o, d, tmin, tmax, active, grouped)
     key = torch.empty(n, dtype=torch.int32, device=o.device)
+    xf, kb, _ = instancing_args(scene, tab)
     rc = _lib().schedule_keys(*map(_ptr, rays), n, _ptr(tab["cl_boxes"]),
-                              _ptr(tab["scene_aabb"]), k, _ptr(key), _stream(o))
+                              _ptr(tab["scene_aabb"]), k, xf, kb,
+                              *(group_args(tab) if grouped else (None, None, 0)),
+                              _ptr(key), _stream(o))
     _check(rc, "schedule_keys")
     if n:
         LAUNCHES["schedule_keys"] += 1
@@ -237,11 +244,57 @@ def _checked(name: str, x: torch.Tensor, dtype, shape, device) -> torch.Tensor:
     return x.contiguous()
 
 
+# results derived from tensors, by kind and the tensors' ids (`stamped`)
+_STAMPED: dict = {}
+_STAMPED_MAX = 64
+
+
+def stamped(kind, tensors, make):
+    """make(), kept under `kind` and the ids of `tensors` beside weak
+    references to them and their versions: a later call with the same
+    tensor objects, none written in place since, returns the kept result;
+    a replaced tensor or an in-place write makes it anew. An error of make()
+    keeps nothing. The newest _STAMPED_MAX results are kept."""
+    key = (kind, *map(id, tensors))
+    versions = [t._version for t in tensors]
+    kept = _STAMPED.get(key)
+    if (kept is not None and kept[1] == versions
+            and all(ref() is t for ref, t in zip(kept[0], tensors))):
+        return kept[2]
+    value = make()
+    _STAMPED.pop(key, None)
+    if len(_STAMPED) >= _STAMPED_MAX:
+        del _STAMPED[next(iter(_STAMPED))]
+    _STAMPED[key] = ([weakref.ref(t) for t in tensors], versions, value)
+    return value
+
+
 def scene_tables(scene, device, grouped: bool = False):
     """The cluster tables the kernels read, validated, by name, with K and
     C: an instanced scene's `cl_xf` too, and with `grouped` the group
     tables. Raises on tables the kernels cannot index (shapes that disagree,
-    int32 overflow of slots or virtual ids)."""
+    int32 overflow of slots or virtual ids). The checks run once per set of
+    tables, and the contiguous copies of strided tables (an instanced
+    scene's boxes) are made once: both are kept (`stamped`), and a table
+    replaced or written in place since is checked and copied again."""
+    names = ["cl_boxes", "cl_mt_table", "cl_tri_map", "cl_count", "scene_aabb"]
+    names += ["cl_xf"] if scene.instanced else []
+    names += ["cl_gboxes", "cl_mboxes"] if grouped else []
+    tensors = [getattr(scene, name) for name in names]
+    if any(t is None for t in tensors):
+        return _validated_tables(scene, device, grouped)     # raises
+
+    def validate():
+        tab, k, c = _validated_tables(scene, device, grouped)
+        # keep the copies only: the scene's own tables stay its to free
+        return {name: x for name, x in tab.items() if x is not getattr(scene, name)}, k, c
+
+    copies, k, c = stamped(("scene_tables", str(device), grouped, scene.num_base_tris),
+                           tensors, validate)
+    return {name: copies.get(name, t) for name, t in zip(names, tensors)}, k, c
+
+
+def _validated_tables(scene, device, grouped):
     kb, _, c = scene.cl_mt_table.shape
     k = scene.num_clusters
     if k * c >= 2**31:
@@ -323,7 +376,7 @@ def _lib():
         for fn in (lib.resident_closest, lib.grouped_closest, lib.resident_anyhit,
                    lib.grouped_anyhit):
             fn.restype = i
-        lib.schedule_keys.argtypes = [p, p, p, p, p, i, p, p, i, p, p]
+        lib.schedule_keys.argtypes = rays + [p, p, i] + inst + groups + [p, p]
         lib.schedule_keys.restype = i
         lib._pg_typed = True
     return lib

@@ -189,7 +189,7 @@ def _route_args(scene, proxies, models, origin, direction, t_min, t_max, active,
     t_max = _expand(t_max, n, dev)
     rays, _, n, _, _ = _kernel_inputs(scene, origin, direction, t_min, t_max, active)
     scene_ptrs, tab = scene_args(scene, dev, grouped)
-    table = ProxyTableArgs(proxies, dev)
+    table = ProxyTableArgs.of(proxies, dev)
     packed = packed_pair(models)
     if packed[0].device != dev:
         raise ValueError(f"nets on {packed[0].device}, rays on {dev}")

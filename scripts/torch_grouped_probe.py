@@ -4,7 +4,7 @@
 them, on one GPU.
 
     python scripts/torch_grouped_probe.py [--root DIR ...]
-        [--parts waves,frame,dist,rule,route,k3,nets,tiles] [--ablate]
+        [--parts waves,frame,dist,rule,route,k3,nets,tiles,keys,march] [--ablate]
 
 Each --root is a checkout of this repository (default: the one holding this
 script). Each runs in a process of its own, in the order given (to compare
@@ -65,6 +65,26 @@ chip_smoke.py's (phase 7 and phase 9), from this script's checkout. Parts:
          registers and spills, timed on the route part's secondary and
          shadow wavefronts (CUDA-event medians of 7) and held equal to the
          package's K7 on every ray.
+
+  keys   K8 (schedule_keys) on the secondary wavefronts of the route part
+         (neural_route_64k, neural_route_1m, the rooms_p8 partition's sparse
+         bounce-1 wavefront, dead rows included): the kernel's own device
+         ms (torch.profiler) beside its wrapper's ms (CUDA events around the
+         call), key + sort ms, the bound, the slab tests the keys need (the
+         least cull, chip_smoke.py keys_work) against the flat count and
+         those a thread per ray runs, the group boxes a live ray enters,
+         the keys' digest (two trees'
+         keys equal bit for bit where the digests are) and their equality
+         with the plain version; where the tree's resident_trace.cu has
+         counters in K8, a build with them (build/cycles/): the warps'
+         cycles in the box loop against their whole time.
+  march  K4 (proxy_march) on neural_route_64k's secondary rays (capped at
+         the local hit) and on the march_instanced table: device and
+         wrapper ms, the bound, every output's digest and chip_smoke.py's
+         compare_march against the plain version; where the tree's
+         proxy_march.cu has counters, the threads' cycles in the march
+         against those in the record stores; phase 6's secondary and shadow
+         stages fused and composed (CUDA-event medians of 7).
 
 --ablate measures, on a tree whose K9 / K10 run the per-thread walks of
 csrc/resident_trace.cuh (closest_hit_grouped / any_hit_grouped), where those
@@ -741,6 +761,173 @@ def part_tiles(pt, torch, cs, root, cases):
     return out
 
 
+def _digest(torch, *tensors):
+    """sha256 of the tensors' bytes in order: two trees' outputs are equal
+    bit for bit when their digests are."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _busy_warps(torch, active):
+    """Warps of 32 consecutive rows that hold a live row: a thread-per-ray
+    K8 walks all K boxes in each of them."""
+    pad = torch.nn.functional.pad(active.to(torch.int8), (0, -active.shape[0] % 32))
+    return int(pad.view(-1, 32).any(1).sum())
+
+
+def _groups_entered(pt, torch, scene, rays):
+    """The group boxes the live rays enter, summed (the plain slab test)."""
+    res = pt.ops.resident
+    inv, _, tcap = res.ray_limits(scene, *rays)
+    live = torch.nonzero(rays[4])[:, 0]
+    return sum(int(torch.isfinite(res.cluster_enters_plain(
+        scene, rays[0][r], inv[r], tcap[r], boxes=scene.cl_gboxes)).sum())
+        for r in live.split(4096))
+
+
+def _counter_lib(pt, root, name, marker):
+    """csrc/<name>.cu built with its cycle counters where the tree's source
+    has counters in the kernel (`marker`), else None."""
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    src = open(os.path.join(os.path.dirname(pt.__file__), "csrc", _build.SOURCES[name])).read()
+    return _cycles_lib(root, _build, name) if marker in src else None
+
+
+def part_keys(pt, torch, cs, root, cases):
+    """K8 (schedule_keys) on the secondary wavefront of each route case, as
+    the stage hands it over (dead rows included): the kernel's device ms
+    (profiler) and its wrapper's ms (CUDA events around the call), key + sort
+    ms, the bound, the slab tests the keys need against those a thread per
+    ray runs (every warp that holds a live row walks all K boxes), the keys'
+    digest and their equality with the plain version; with the tree's
+    counters (csrc/cycles.cuh; a sample of rows), the warps' cycles in the
+    box tests against their whole time."""
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    ops = pt.ops
+    lib = _counter_lib(pt, root, "resident_trace", "CYCLES_ADD(kKeysLoop")
+    out = {}
+    for label, scene, _, _, paths, _, _ in cases:
+        if label.endswith("multigeo"):
+            continue       # neural_route_64k's rays again
+        live = paths.is_valid & ~paths.is_shadow
+        rays = (paths.origin, paths.direction, torch.full_like(paths.tmax, MARCH_EPS),
+                paths.tmax, live)
+        call = lambda: ops.schedule_keys(scene, *rays)
+        key = call()
+        k, n_live = scene.num_clusters, int(live.sum())
+        work = cs.keys_work(pt, scene, rays)
+        b_ms, b_by = cs.bound(work)
+        dev_ms, wrap_ms = cs.split_ms(torch, call, "schedule_keys_kernel")
+        rec = {"k": k, "rows": int(paths.capacity), "live": n_live,
+               "equal_to_plain": bool(torch.equal(key, ops.schedule_keys_plain(scene, *rays))),
+               "digest": _digest(torch, key), "device_ms": dev_ms, "wrapper_ms": wrap_ms,
+               "key_and_sort_ms": cs.cuda_ms(torch, lambda: ops.schedule_order(scene, *rays),
+                                             reps=7),
+               "bound_ms": b_ms, "bound_by": b_by, "slab_tests_needed": work["slabs"],
+               "slab_tests_flat": n_live * k,
+               "slab_tests_thread_per_ray": 32 * _busy_warps(torch, live) * k}
+        if scene.cl_gboxes is not None:
+            rec["groups_entered_per_ray"] = _groups_entered(pt, torch, scene, rays) / max(n_live, 1)
+        if lib is not None:
+            with _swapped(_build, "resident_trace", lib):
+                c = _cycles(torch, lib, call)
+            rec["split"] = {"loop_warp_cycles": c[0], "warp_cycles": c[1],
+                            "loop_share": c[0] / max(c[1], 1), "live_rays": c[2],
+                            "warps": c[3]}
+        out[label] = rec
+        print(f"probe keys {label}: {rec}", flush=True)
+    return out
+
+
+def part_march(pt, torch, np, cs, root, dev):
+    """K4 (proxy_march) on phase 6's secondary rays (neural_route_64k, the
+    local trace's t as the cap) and on the instanced table of the
+    march_instanced row: device ms (profiler), wrapper ms (CUDA events), the
+    bound (every row of the oracle's layout written), every output's digest
+    (two trees equal bit for bit where they agree) and chip_smoke.py's
+    compare_march against the plain version; with the tree's counters
+    (csrc/cycles.cuh), the threads' cycles in the march against those in
+    the record stores."""
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    ops = pt.ops
+    lib = _counter_lib(pt, root, "proxy_march", "CYCLES_ADD(kMarchLoop")
+    scene, proxies, models, paths, shadow, env = cs.route_config(pt, torch, np, dev)
+    live = paths.is_valid
+    eps_v = torch.full_like(paths.tmax, MARCH_EPS)
+    hits = ops.resident_closest(scene, paths.origin, paths.direction, eps_v, paths.tmax, live)
+    local_t = torch.where(live & hits.is_hit, hits.t, paths.tmax)
+    itable, irays, inode = cs.instanced_march_config(pt, torch, np, dev)
+    out = {}
+    for label, args in (
+            ("neural_route_64k", (proxies, paths.origin, paths.direction, local_t, live, 8,
+                                  MAX_HITS, MARCH_EPS)),
+            ("march_instanced", (itable, *irays, inode, MAX_HITS, MARCH_EPS))):
+        call = lambda: ops.proxy_march(*args)
+        q = call()
+        err, _ = cs.compare_march(f"probe K4 {label}", q, ops.march_proxies_plain(*args))
+        n = args[1].shape[0]
+        b_ms, b_by = cs.march_bound(cs.march_work(args[0], int(args[4].sum()), n))
+        dev_ms, wrap_ms = cs.split_ms(torch, call, "proxy_march_kernel")
+        rec = {"rays": n, "rows": int(q.is_valid.shape[0]), "valid": int(q.is_valid.sum()),
+               "max_abs_err": err, "digest": _digest(torch, *q), "device_ms": dev_ms,
+               "wrapper_ms": wrap_ms, "bound_ms": b_ms, "bound_by": b_by}
+        if lib is not None:
+            with _swapped(_build, "proxy_march", lib):
+                c = _cycles(torch, lib, call)
+            rec["split"] = {"march_thread_cycles": c[0], "store_thread_cycles": c[1],
+                            "march_share": c[0] / max(c[0] + c[1], 1), "rays": c[2],
+                            "blocks": c[3]}
+        out[label] = rec
+        print(f"probe march {label}: {rec}", flush=True)
+    # phase 6's stages on the same rays, by the default dispatch (K8, sort,
+    # K7) and composed (K8, sort, the rule's trace kernel, K4, K6)
+    stages = pt.render.proxy_stages
+    n = paths.capacity
+    calls = {"secondary": lambda: stages.secondary_route(scene, proxies, models, env, paths, 8,
+                                                         MAX_HITS, MARCH_EPS, n),
+             "shadow": lambda: stages.shadow_direct_light_nn(scene, proxies, models, shadow, 8,
+                                                             MAX_HITS, MARCH_EPS, 1, n)}
+    out["stage_ms"] = {f"{name} fused": cs.cuda_ms(torch, fn, reps=7)
+                       for name, fn in calls.items()}
+    with cs.composed_route(pt):
+        out["stage_ms"].update({f"{name} composed": cs.cuda_ms(torch, fn, reps=7)
+                                for name, fn in calls.items()})
+    print(f"probe march stages: {out['stage_ms']}", flush=True)
+    if hasattr(ops.march, "query_columns"):
+        # the host time of the output columns: views of one allocation
+        # against one allocation a column (the first design's)
+        q = paths.capacity * MAX_HITS
+        empties = lambda: [torch.empty(q * w, dtype=dt, device=dev) for dt, w in (
+            [(torch.float32, 5)] + [(torch.int32, 1)] * 5 + [(torch.float32, 1)] * 4
+            + [(torch.bool, 1)] * 2)]
+        out["host_us"] = {name: _host_us(torch, fn) for name, fn in (
+            ("query_columns", lambda: ops.march.query_columns(q, dev)),
+            ("one_allocation_a_column", empties))}
+        print(f"probe march host: {out['host_us']}", flush=True)
+    return out
+
+
+def _host_us(torch, fn, reps=500):
+    """Host microseconds of one fn() call, the mean over `reps` calls."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 # --------------------------------------------------------------------------
 
 def child(root, parts, ablate):
@@ -779,8 +966,12 @@ def child(root, parts, ablate):
         out["ablate"] = part_ablate(pt, torch, cs, root, waves)
     if "k3" in parts:
         out["k3"] = part_k3(pt, torch, cs, root, scenes[0], scenes[2])
-    if {"route", "tiles", "nets"} & parts:
+    if "march" in parts:
+        out["march"] = part_march(pt, torch, np, cs, root, dev)
+    if {"route", "tiles", "nets", "keys"} & parts:
         cases = _route_cases(pt, torch, np, cs, dev, scenes[2])
+        if "keys" in parts:
+            out["keys"] = part_keys(pt, torch, cs, root, cases)
         if "nets" in parts:
             out["nets"] = part_nets(pt, torch, np, cs, root, dev, cases)
         if "route" in parts:

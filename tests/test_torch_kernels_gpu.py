@@ -1008,3 +1008,159 @@ def test_pair_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         ttr.pair_closest(scene._replace(cl_tri_table=None), packed, pairs, 512)
     assert tops.LAUNCHES == before
+
+
+# K8 as a warp per live ray: synthetic box tables of exactly K clusters (the
+# key reads only the boxes and the scene box), each case against the plain
+# version on every ray
+KEY_CASES = [  # (name, K, rays, live share)
+    ("k1", 1, 4096, 0.9), ("k33", 33, 4096, 0.9), ("k735", 735, 8192, 0.9),
+    ("k3028", 3028, 8192, 0.9), ("ties", 200, 4096, 0.9), ("sparse", 735, 65536, 0.02),
+    ("no_live_ray", 735, 4096, 0.0), ("n1001", 735, 1001, 0.7), ("instanced", None, 8192, 0.9)]
+
+
+def _key_case(name, k, n, share, device):
+    rng = np.random.RandomState(70)
+    on = lambda a: torch.as_tensor(a, device=device)
+    if name == "instanced":
+        xf = np.tile(np.eye(4, dtype=np.float32)[None, :3], (3, 1, 1))
+        xf[1, 0, 3], xf[2, 1, 3] = 1.2, -1.2
+        scene = tscene.device_scene_from_instances([random_tri_soup(3000, seed=71)], xf,
+                                                   tris_per_cluster=32, device=device)
+        lo, span = np.array([-0.5, -1.5, -0.5], np.float32), np.array([3.0, 4.0, 2.0], np.float32)
+    else:
+        base = device_scene_from_meshes([random_tri_soup(30, seed=60)], device=device)
+        boxes = np.zeros((8, k), np.float32)
+        if name == "ties":
+            # equal boxes shifted along x by about 500 ulps of their enter
+            # distance: eight to a 2^12-ulp rank bucket, met out of index order
+            shift = rng.permutation(k).astype(np.float32) * 3e-5
+            boxes[0], boxes[3] = 0.3 + shift, 0.6 + shift
+            boxes[1], boxes[4] = 0.3, 0.7
+            boxes[2], boxes[5] = 0.3, 0.7
+        else:
+            size = 0.02 if k > 100 else 0.2
+            lo = rng.rand(3, k).astype(np.float32)
+            boxes[:3], boxes[3:6] = lo, lo + size + rng.rand(3, k).astype(np.float32) * 2 * size
+        boxes[6] = rng.rand(k) > 0.05                 # some empty clusters
+        boxes[6, 0] = 1.0
+        # group tables as scene/geometry.py cuts them: 8 consecutive
+        # clusters a group (the random boxes of a group overlap)
+        kg = -(-k // 8)
+        mboxes = np.zeros((kg * 8, 8), np.float32)
+        mboxes[:k, :7] = boxes[:7].T
+        mboxes = mboxes.reshape(kg, 8, 8)
+        full = mboxes[:, :, 6:7] > 0
+        gboxes = np.zeros((8, kg), np.float32)
+        gboxes[:3] = np.where(full, mboxes[:, :, :3], np.inf).min(1).T
+        gboxes[3:6] = np.where(full, mboxes[:, :, 3:6], -np.inf).max(1).T
+        gboxes[6] = full[:, :, 0].any(1)
+        gboxes[:6, gboxes[6] == 0] = 0.0
+        scene = base._replace(
+            cl_boxes=on(boxes), cl_mt_table=torch.zeros((k, 16, 1), device=device),
+            cl_tri_map=torch.zeros((k,), dtype=torch.int32, device=device),
+            cl_count=torch.ones((k,), dtype=torch.int32, device=device),
+            scene_aabb=on(np.stack([boxes[:3].min(1), boxes[3:6].max(1)])),
+            cl_gboxes=on(gboxes), cl_mboxes=on(mboxes))
+        lo, span = np.full(3, -0.2, np.float32), np.full(3, 1.4, np.float32)
+    o = lo + rng.rand(n, 3).astype(np.float32) * span
+    d = rng.randn(n, 3).astype(np.float32)
+    if name == "ties":
+        o[:, 0], d[:, 0] = -0.5, 4.0 + np.abs(d[:, 0])
+        o[:, 1:] = 0.35 + rng.rand(n, 2).astype(np.float32) * 0.3
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.where(rng.rand(n) > 0.3, 3.4e38, rng.rand(n) * 2.0).astype(np.float32)
+    act = rng.rand(n) < share
+    return scene, (on(o), on(d), torch.full((n,), T_MIN, device=device), on(tmax), on(act))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k,n,share", KEY_CASES, ids=[c[0] for c in KEY_CASES])
+def test_schedule_keys_warp_per_ray_matches_plain_on_gpu(name, k, n, share):
+    """K8 (a warp per ray) equals its plain version on every ray, in its
+    grouped mode (the rule's at K >= 47: group boxes first, then the members
+    of the entered groups; the groups of the random boxes overlap) and in
+    its flat mode (a scene without group tables): K = 1, K not a multiple of
+    32, K = 3,028, ranks tied within 2^12 ulps (the cluster index decides),
+    2 % live rows of 65,536, no live ray, N not a multiple of the block, an
+    instanced scene (groups cut per instance); it counts its own launch and
+    the schedule order sorts by its keys."""
+    _need_cuda()
+    scene, rays = _key_case(name, k, n, share, "cuda")
+    assert k is None or scene.num_clusters == k
+    assert tops.use_grouped(scene) == (scene.num_clusters >= tops.resident.GROUPED_MIN_CLUSTERS)
+    before = dict(tops.LAUNCHES)
+    key = tops.schedule_keys(scene, *rays)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == {**before, "schedule_keys": before["schedule_keys"] + 1}
+    want = tops.schedule_keys_plain(scene, *rays)
+    assert key.dtype == torch.int32 and torch.equal(key, want)
+    flat = scene._replace(cl_gboxes=None, cl_mboxes=None)
+    assert torch.equal(tops.schedule_keys(flat, *rays), want)
+    act = rays[4]
+    assert (key[~act] == 0x7FFFFFFF).all()
+    if share > 0:
+        entered = (key[act] >> 12) != 0xFFF
+        assert entered.sum() > 50
+        if scene.num_clusters > 1:
+            assert ((key[act] & 0xFFF) != 0xFFF).sum() > 0
+    if name == "ties":
+        # the first two clusters of most rays share a rank bucket
+        first, second = key[act] >> 12, key[act] & 0xFFF
+        assert (first < second).float().mean() > 0.3
+    perm = tops.schedule_order(scene, *rays)
+    assert (key[perm][1:] >= key[perm][:-1]).all()
+
+
+# K4 with its table in shared memory and the block's rows staged and written
+# per output array: random overlapping boxes (repeated inside hits, so the
+# dedup acts), a row of the caller's node, an empty partition's inverted box
+MARCH_EDGES = [  # (P, my_node, N, max_hits)
+    (1, 5, 20000, 3), (8, 2, 1001, 3), (32, 7, 65536, 3), (32, 31, 4099, 8),
+    (8, 3, 2000, 300), (8, 8, 0, 3), (8, 8, 300, 0)]
+
+
+def _edge_table(p, device):
+    rng = np.random.RandomState(12)
+    lo = rng.rand(p, 3).astype(np.float32) * 2.0 - 0.5
+    hi = lo + 0.3 + rng.rand(p, 3).astype(np.float32) * 1.2
+    ml = np.linalg.norm(hi - lo, axis=1).astype(np.float32)
+    if p > 1:
+        lo[p // 2], hi[p // 2], ml[p // 2] = np.inf, -np.inf, 0.0
+    return tscene.proxy_table_from_arrays(
+        dict(aabb_min=lo, aabb_max=hi, max_length=ml, node_id=np.arange(p) % 8,
+             obj_id=(np.arange(p) * 3) % max(p // 2, 1)), device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,my_node,n,max_hits", MARCH_EDGES)
+def test_march_kernel_edges_match_plain_on_gpu(p, my_node, n, max_hits):
+    """K4 against its plain version on every row and field (the zero
+    pixel_index / shadow_path_id included): P = 1, 8, 32, the caller's node's
+    rows skipped, an empty partition, N = 0, N not a multiple of the block,
+    max_hits 0, 8 and 300 (fewer rays a block)."""
+    _need_cuda()
+    table = _edge_table(p, "cuda")
+    rng = np.random.RandomState(13)
+    o = rng.rand(n, 3).astype(np.float32) * 3.0 - 1.0
+    inside = table.aabb_min.cpu().numpy()[0] + 0.5 * rng.rand(n, 3).astype(np.float32)
+    o[::3] = inside[::3]
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.maximum(np.linalg.norm(d, axis=-1, keepdims=True), 1e-6)
+    t_cap = np.where(rng.rand(n) > 0.5, 3.4e38, 0.2 + rng.rand(n) * 3.0).astype(np.float32)
+    on = lambda a: torch.as_tensor(a, device="cuda")
+    rays = (on(o), on(d), on(t_cap), on(rng.rand(n) > 0.2))
+    before = dict(tops.LAUNCHES)
+    got = tops.proxy_march(table, *rays, my_node, max_hits, EPS)
+    torch.cuda.synchronize()
+    launched = int(n > 0 and max_hits > 0)
+    assert tops.LAUNCHES == {**before, "proxy_march": before["proxy_march"] + launched}
+    want = tops.march_proxies_plain(table, *rays, my_node, max_hits, EPS)
+    assert all(tuple(getattr(got, f).shape) == tuple(getattr(want, f).shape)
+               for f in want._fields)
+    _queries_agree(got, want)
+    assert (got.pixel_index == 0).all() and (got.shadow_path_id == 0).all()
+    if n >= 1000 and max_hits:
+        assert got.is_valid.sum() > n // 8 and got.is_inside.sum() > 0
+        hit_rows = got.aabb_id[got.is_valid]
+        assert not (got.node_id[got.is_valid] == my_node).any() and hit_rows.numel()

@@ -19,9 +19,13 @@ import torch
 from pg2024_dprt_tpu.ops.pallas_march import march_proxies_pallas
 from pg2024_dprt_tpu.render.proxy_stages import march_proxies_xla
 from pg2024_dprt_tpu.scene.geometry import ProxyTable as JProxyTable
+from pg2024_dprt_tpu_torch.ops import march as tmarch
+from pg2024_dprt_tpu_torch.ops import resident as tres
 from pg2024_dprt_tpu_torch.ops.march import march_proxies_plain, proxy_march
 from pg2024_dprt_tpu_torch.render.proxy_stages import march_proxies
-from pg2024_dprt_tpu_torch.scene import proxy_table_from_arrays
+from pg2024_dprt_tpu_torch.scene import (device_scene_from_instances,
+                                         device_scene_from_meshes, proxy_table_from_arrays,
+                                         random_tri_soup)
 
 MH = 3
 EPS = 1e-3
@@ -229,3 +233,119 @@ def test_more_than_32_rows_raise():
         march_proxies_plain(tt, *args)
     with pytest.raises(ValueError, match="32"):
         proxy_march(tt, *args)
+
+
+@pytest.mark.parametrize("kind", ["plain", "instanced"])
+def test_proxy_table_args_are_kept_until_a_table_tensor_changes(kind):
+    """The kernels' table arguments are made once per table: the same
+    object while the table's tensors are the same objects at the same
+    versions, made anew after a tensor is replaced or written in place."""
+    arrays = _boxes() if kind == "plain" else _instanced(4, 11, [0, 1, 0, 1], [1, 2, 3, 0])
+    table = proxy_table_from_arrays(arrays, device="cpu")
+    cpu = torch.device("cpu")
+    first = tmarch.ProxyTableArgs.of(table, cpu)
+    assert tmarch.ProxyTableArgs.of(table, cpu) is first
+    assert tmarch.ProxyTableArgs.of(table._replace(), cpu) is first
+    assert first.pointers[5:] == ([None] * 3 if kind == "plain" else first.pointers[5:])
+    replaced = table._replace(aabb_max=table.aabb_max.clone())
+    again = tmarch.ProxyTableArgs.of(replaced, cpu)
+    assert again is not first and again.keep[1] is replaced.aabb_max
+    table.max_length.mul_(1.0)                      # an in-place write
+    written = tmarch.ProxyTableArgs.of(table, cpu)
+    assert written is not first
+    assert tmarch.ProxyTableArgs.of(table, cpu) is written
+    if kind == "instanced":
+        table.world_to_obj[0, 0, 0] = 2.0
+        assert tmarch.ProxyTableArgs.of(table, cpu) is not written
+        # a table without its id columns takes the row index as both
+        bare = table._replace(obj_id=None, node_id=None)
+        ids = tmarch.ProxyTableArgs.of(bare, cpu).keep[3:5]
+        assert all(torch.equal(t, torch.arange(4, dtype=torch.int32)) for t in ids)
+
+
+def test_broken_tables_raise_on_every_call():
+    """A table the kernels cannot take raises the same ValueError on every
+    call (nothing of it is kept), for proxy tables and scene tables."""
+    cpu = torch.device("cpu")
+    wide = proxy_table_from_arrays(_boxes(p=33), device="cpu")
+    short = proxy_table_from_arrays(_boxes(), device="cpu")
+    short = short._replace(max_length=short.max_length[:7])
+    scene = device_scene_from_meshes([random_tri_soup(300, seed=2)], tris_per_cluster=32,
+                                     device="cpu")
+    bad_count = scene._replace(cl_count=scene.cl_count.to(torch.int64))
+    for _ in range(2):
+        with pytest.raises(ValueError, match="32"):
+            tmarch.ProxyTableArgs.of(wide, cpu)
+        with pytest.raises(ValueError, match="max_length"):
+            tmarch.ProxyTableArgs.of(short, cpu)
+        with pytest.raises(ValueError, match="cl_count"):
+            tres.scene_tables(bad_count, cpu)
+        with pytest.raises(ValueError, match="group tables"):
+            tres.scene_tables(scene._replace(cl_gboxes=None), cpu, grouped=True)
+
+
+@pytest.mark.parametrize("instanced", [False, True])
+def test_scene_tables_are_checked_once_per_table(instanced, monkeypatch):
+    """The trace kernels' scene tables are validated once per set of tables:
+    again after a table is replaced or written in place, never for a repeat
+    call; a strided table (an instanced scene's boxes) is made contiguous
+    once, with its checks."""
+    base = random_tri_soup(300, seed=2)
+    if instanced:
+        xf = np.tile(np.eye(4, dtype=np.float32)[None, :3], (2, 1, 1))
+        xf[1, 0, 3] = 3.0
+        scene = device_scene_from_instances([base], xf, tris_per_cluster=32, device="cpu")
+    else:
+        scene = device_scene_from_meshes([base], tris_per_cluster=32, device="cpu")
+    calls = []
+    real = tres._validated_tables
+    monkeypatch.setattr(tres, "_validated_tables",
+                        lambda *a: calls.append(1) or real(*a))
+    cpu = torch.device("cpu")
+    kept = {}
+    for grouped in (False, True, False):
+        tab, k, c = tres.scene_tables(scene, cpu, grouped)
+        assert k == scene.num_clusters and c == scene.tris_per_cluster
+        assert ("cl_xf" in tab) == instanced and ("cl_gboxes" in tab) == grouped
+        for name, t in tab.items():
+            own = getattr(scene, name)
+            assert t.is_contiguous() and torch.equal(t, own)
+            assert (t is own) == own.is_contiguous(), name
+            assert kept.setdefault((grouped, name), t) is t, name
+    assert len(calls) == 2                      # flat once, grouped once
+    scene.cl_boxes.add_(0.0)
+    tres.scene_tables(scene, cpu)
+    tres.scene_tables(scene, cpu)
+    assert len(calls) == 3
+    moved = scene._replace(scene_aabb=scene.scene_aabb.clone())
+    tres.scene_tables(moved, cpu)
+    assert len(calls) == 4
+    strided = scene._replace(cl_count=torch.stack([scene.cl_count] * 2, 1)[:, 0])
+    copies = [tres.scene_tables(strided, cpu)[0]["cl_count"] for _ in range(2)]
+    assert copies[0] is copies[1] and copies[0].is_contiguous()
+    assert torch.equal(copies[0], scene.cl_count)
+    assert len(calls) == 5
+    strided.cl_count.add_(0)                    # written through the view
+    assert tres.scene_tables(strided, cpu)[0]["cl_count"] is not copies[0]
+    assert len(calls) == 6
+
+
+@pytest.mark.parametrize("q", [0, 1, 7, 4099])
+def test_query_columns_are_aligned_views_of_one_allocation(q):
+    """The march kernel's output columns: views of one allocation with the
+    query's dtypes and shapes, each starting on 16 bytes, none overlapping."""
+    cols = tmarch.query_columns(q, "cpu")
+    assert set(cols) == set(tmarch._KERNEL_COLUMNS)
+    want = {"features": (torch.float32, (q, 5)), "is_inside": (torch.bool, (q,)),
+            "is_valid": (torch.bool, (q,)), "aabb_t": (torch.float32, (q,)),
+            "max_length": (torch.float32, (q,)), "t_ratio": (torch.float32, (q,)),
+            "normalized_t": (torch.float32, (q,))}
+    spans = []
+    for name, t in cols.items():
+        dtype, shape = want.get(name, (torch.int32, (q,)))
+        assert t.dtype == dtype and tuple(t.shape) == shape and t.is_contiguous(), name
+        assert t.untyped_storage().data_ptr() == cols["features"].untyped_storage().data_ptr()
+        assert t.data_ptr() % 16 == 0, name
+        spans.append((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))

@@ -14,6 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from pg2024_dprt_tpu.core import Camera as JCamera
 from pg2024_dprt_tpu.ops.pallas_resident import schedule_keys as j_schedule_keys
@@ -213,3 +215,60 @@ def test_schedule_keys_refuse_more_clusters_than_the_key_holds():
             torch.ones(4, dtype=torch.bool))
     with pytest.raises(ValueError, match="4096"):
         tops.schedule_keys(big, *rays)
+
+
+def _group_scenes():
+    """A flat soup and an instanced one (3 placements, so groups are cut
+    per instance) at 32 triangles a cluster, built once."""
+    from pg2024_dprt_tpu_torch.scene import device_scene_from_instances
+    from pg2024_dprt_tpu_torch.scene import device_scene_from_meshes as t_scene
+    from pg2024_dprt_tpu_torch.scene import random_tri_soup as t_soup
+
+    if not _GROUP_SCENES:
+        xf = np.tile(np.eye(4, dtype=np.float32)[None, :3], (3, 1, 1))
+        xf[1, 0, 3], xf[2, 1, 3] = 1.3, -1.1
+        _GROUP_SCENES["flat"] = t_scene([t_soup(2500, seed=40)], tris_per_cluster=32,
+                                        device="cpu")
+        _GROUP_SCENES["instanced"] = device_scene_from_instances(
+            [t_soup(1100, seed=41)], xf, tris_per_cluster=32, device="cpu")
+    return _GROUP_SCENES
+
+
+_GROUP_SCENES = {}
+
+
+@pytest.mark.parametrize("kind", ["flat", "instanced"])
+@settings(max_examples=15, deadline=None)
+@given(seed=st.integers(0, 2**31 - 1), finite=st.booleans())
+def test_group_enter_bounds_its_members_enter(kind, seed, finite):
+    """The premise of the schedule keys' group cull (K8's grouped mode):
+    with the plain slab arithmetic, every cluster a ray enters lies in a
+    group it enters, no earlier than the group box (so the group's enter
+    bits, masked or not, never exceed a member's); the member boxes are the
+    cluster boxes bit for bit, each non-empty cluster in one group."""
+    s = _group_scenes()[kind]
+    mb = s.cl_mboxes
+    kg = mb.shape[0]
+    cid0 = mb[:, 0, 7].round().long() if s.instanced else torch.arange(kg) * 8
+    member = cid0[:, None] + torch.arange(8)[None, :]
+    flagged = mb[:, :, 6] > 0
+    clusters = member[flagged]
+    assert sorted(clusters.tolist()) == torch.nonzero(s.cl_boxes[6] > 0)[:, 0].tolist()
+    assert torch.equal(mb[flagged][:, :7], s.cl_boxes[:7, clusters].T)
+    group_of = torch.empty(s.num_clusters, dtype=torch.long)
+    group_of[clusters] = torch.arange(kg)[:, None].expand(kg, 8)[flagged]
+    n = 256
+    lo, hi = s.scene_aabb[0].numpy(), s.scene_aabb[1].numpy()
+    o, d, rng = _random_rays(n, seed % (2**32), lo=lo - 0.3, span=(hi - lo) + 0.6)
+    tmax = (rng.rand(n) * 2.0 + 0.05).astype(np.float32) if finite else np.full(n, 3.4e38,
+                                                                                 np.float32)
+    o, d, tmax = torch.as_tensor(o), torch.as_tensor(d), torch.as_tensor(tmax)
+    act = torch.ones(n, dtype=torch.bool)
+    inv, _, tcap = tres.ray_limits(s, o, d, torch.full((n,), T_MIN), tmax, act)
+    en = tres.cluster_enters_plain(s, o, inv, tcap)
+    eg = tres.cluster_enters_plain(s, o, inv, tcap, boxes=s.cl_gboxes)
+    entered = torch.isfinite(en)
+    assert entered.any()
+    eg_of = eg[:, group_of]                          # each cluster's group enter
+    assert torch.isfinite(eg_of[entered]).all()
+    assert (eg_of[entered].view(torch.int32) <= en[entered].view(torch.int32)).all()
