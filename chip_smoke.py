@@ -190,6 +190,40 @@ Phases, each reported on its own line; any failure exits non-zero:
         tone-mapped error x/(1+x) under 3e-4 and mean ratio in (0.99, 1.01)
         for each family; a seeded random-weight control above 5e-4 (the
         gates of tests/test_neural_end_to_end.py).
+ 10. the proxy-training stack (train/), the sampled grid and the command
+     line, each path driven with the launch counts reset just before and
+     read just after:
+     10a datagen at scripts/ab_neural_scaled.py's sizes: the 8 statue
+        partitions, 200,000 rays each (seeds 100 + p), through the trace
+        kernels the rule picks (ceil(200,000 / 65,536) launches a
+        partition); rays/s and the hit fraction; 65,536 rays of partition 0
+        labelled through the kernels and through the plain traverse_bvh on
+        the card: hit flags equal, t equal on every hit or within 1e-5
+        relative (the largest difference printed), both timed;
+     10b the separate family (8 vis + 8 depth nets, w128/d4, batch
+        min(4096, max(1024, n)), lr 5e-4, the cosine schedule, the depth
+        fallback below 256 rows) through train.fit: ms a step measured
+        first (and what 30,000 steps a net would take) and its split (one
+        profiled fit: device events and busy ms a step, the idle share),
+        then 2,000 steps a net (30,000 cut; PERF.md section 4); each net's
+        final test loss beside artifacts/ab_scaled/train_losses.json;
+     10c the paper's A-B of phase 9d with these nets: mean tone-mapped
+        error under 3e-4 and mean ratio in (0.99, 1.01) against the exact
+        distributed frame, route_secondary and route_shadow launched; the
+        seeded random-weight control above 5e-4;
+     10d the 16 nets through save_checkpoint and convert.load_mlp_checkpoint:
+        K6 on 8 x 4,096 rows bit-identical;
+     10e build_visibility_grid of partition 0 (16 x 16 x 8, 200,000
+        samples) on the card equal to the build on the CPU, every marked bin
+        marked in the conservative grid of its triangle boxes, the share of
+        marked bins;
+     10f the command line through main(argv): cornell --size 256 --spp 1
+        --bounces 4 --format both (launches {frame_sample: 1}, a PNG and an
+        EXR written) and rooms:8 --partitions 8 at the CLI's defaults, with
+        a camera into the lit rooms, exact and --neural (route_secondary
+        launched in the neural run only; the exact frame lit; the neural
+        frame's mean within 10 % of the exact frame's; seconds of training
+        and of the frame).
 Then the whole script's seconds, the kernels line (JSON, fourteen entries: K1-K13
 and K7's multi-geo mode, route_multigeo; `ms` is each kernel's own device
 time from the profiler and `wrapper_ms` the CUDA-event time of the call that
@@ -204,7 +238,7 @@ rays with another key, K9/K10's against the plain
 version on the phase-7 subsets; K9 / K10 are timed on the instanced frame's
 wavefronts, their plain ms on the 1,024-ray subset; the route_multigeo
 entry carries phase 9's numbers), the card line, and the final {"ok": true,
-"device": {...}} line. No earlier phase was cut to make room for phases 7-9.
+"device": {...}} line. No earlier phase was cut to make room for phases 7-10.
 
 Without CUDA, or run alone outside the repository, it exits non-zero and
 prints no result.
@@ -2251,18 +2285,24 @@ def captured_stages(pt, store):
         dist.secondary_route, dist.shadow_direct_light_nn = sec0, shd0
 
 
-def statue_row(pt, np, dev, side=64):
-    """The 8-statue row of scripts/ab_neural_scaled.py::_scene: statue_mesh(32,
-    seed=i) 1.1 apart along x, one per partition, a side-grazing area light
-    past the row's end, a constant sky, the camera over the row. Returns
-    (partitioned scene, lights, env, camera)."""
+def statue_meshes(pt, np):
+    """The meshes of scripts/ab_neural_scaled.py::_scene: statue_mesh(32,
+    seed=i) 1.1 apart along x, one per partition."""
     meshes = []
     for i in range(STATUE_PARTS):
         m = pt.scene.statue_mesh(32, seed=i)
         off = np.asarray([1.1 * i, 0.0, 0.0], np.float32)
         meshes.append(pt.scene.MeshGeometry(v0=m.v0 + off, v1=m.v1 + off, v2=m.v2 + off,
                                             base_color=(0.75, 0.70, 0.62), name=f"statue{i}"))
-    part = pt.scene.build_partitioned_scene(meshes, STATUE_PARTS, device=dev)
+    return meshes
+
+
+def statue_row(pt, np, dev, side=64):
+    """The 8-statue row of scripts/ab_neural_scaled.py::_scene: statue_meshes,
+    one per partition, a side-grazing area light past the row's end, a
+    constant sky, the camera over the row. Returns (partitioned scene,
+    lights, env, camera)."""
+    part = pt.scene.build_partitioned_scene(statue_meshes(pt, np), STATUE_PARTS, device=dev)
     cx = 1.1 * (STATUE_PARTS - 1) * 0.5 + 0.5
     xe = 1.1 * (STATUE_PARTS - 1) + 2.5
     quad = np.asarray(
@@ -2740,6 +2780,309 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
     return mg_entry, out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the proxy-training stack, the sampled visibility grid and the
+# command-line renderer
+
+# scripts/ab_neural_scaled.py's recipe: rays a partition, target steps a
+# net, the nets' width and depth
+TRAIN_RAYS = 200_000
+TARGET_STEPS = 30_000
+TRAIN_WIDTH, TRAIN_DEPTH = 128, 4
+# steps a net in 10b: TARGET_STEPS cut, because the step is paced by the host
+# (its ms a step and the 16 nets' seconds on an H100 are in PERF.md
+# section 4); the A-B of 10c passes with nets trained this far
+TRAIN_STEPS = 2_000
+# rays of partition 0 labelled through the kernels and through traverse_bvh
+LABEL_RAYS = 65536
+# phase 10's files (checkpoints, the CLI's images), beside the kernels'
+# build (gitignored)
+SMOKE_OUT = os.path.join(ROOT, "pg2024_dprt_tpu_torch", "build", "chip_smoke")
+# 10f's rooms:8 camera: into rooms 0 and 1 under the light (the automatic
+# camera frames all 8 rooms from afar, and lights about 1 % of its pixels);
+# the exact frame must be lit, and the neural frame's mean within a loose
+# ratio of it (the CLI's nets are w64/d2, 25 epochs)
+ROOMS_CAM = ("1.75,1.8,3.6", "1.75,0.5,0.5")
+ROOMS_MIN_MEAN, ROOMS_MIN_LIT, ROOMS_RATIO = 1e-3, 0.05, (0.9, 1.1)
+# largest relative difference of a hit's t between the trace kernels and
+# traverse_bvh (their Moller-Trumbore forms differ: the kernels read
+# precomputed edges of cl_mt_table, traverse_bvh the vertices)
+LABEL_T_RTOL = 1e-5
+
+
+def synced_s(torch, fn):
+    """(fn(), seconds) with the card idle before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def recipe(pt, nn_type: str, n_rows: int, steps: int):
+    """ab_neural_scaled.py::phase_train's TrainConfig for `steps` steps:
+    batch min(4096, max(1024, n)), epochs to reach the step count, lr 5e-4,
+    the cosine schedule. Returns (config, the steps fit will take)."""
+    batch = min(4096, max(1024, n_rows))
+    per_epoch = max(1, (n_rows * 4) // (5 * batch))
+    cfg = pt.train.TrainConfig(nn_type=nn_type, epochs=max(1, steps // per_epoch), batch=batch,
+                               learn_rate=5e-4)
+    n_train = int(n_rows * 0.8)
+    return cfg, cfg.epochs * max(1, n_train // min(batch, n_train))
+
+
+def cli_run(torch, counted, cli, argv):
+    """The CLI's main(argv) with the launch counts reset just before and read
+    just after; returns (images, counts, seconds, the timing sections in ms)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (images, counts), secs = synced_s(torch, lambda: counted(lambda: cli(argv)))
+    sections = {}
+    for line in buf.getvalue().splitlines():
+        name, _, rest = line.partition(": ")
+        if rest.endswith(" calls") and " ms over " in rest:
+            sections[name] = float(rest.split(" ms over ")[0])
+    return images, counts, secs, sections
+
+
+def training_phase(pt, torch, np, dev, counted, side=64, rays=TRAIN_RAYS,
+                   steps=TRAIN_STEPS, cli_size=256):
+    """Phase 10 (10a-10f; see the module docstring). Returns its numbers."""
+    train, datagen = pt.train, pt.train.datagen
+    out = {}
+    meshes = statue_meshes(pt, np)
+    part, lights_s, env_s, cam_s = statue_row(pt, np, dev, side)
+    assignment = pt.scene.partition_meshes(meshes, STATUE_PARTS)
+
+    # ---- 10a: datagen through the trace kernels
+    subs, boxes, data = [], [], []
+    for p, idxs in enumerate(assignment):
+        sub = pt.scene.device_scene_from_meshes([meshes[i] for i in idxs], device=dev)
+        lo = part.proxies.aabb_min[p].cpu().numpy()
+        hi = part.proxies.aabb_max[p].cpu().numpy()
+        ((f, d), secs), counts = counted(lambda: synced_s(torch, lambda: (
+            datagen.generate_proxy_dataset(sub, lo, hi, rays, seed=100 + p))))
+        kern = "grouped_closest" if pt.ops.use_grouped(sub) else "resident_closest"
+        n_launch = -(-rays // datagen.BATCH)
+        hit = float((d != 1.0).mean())
+        check(counts == {kern: n_launch}, f"datagen partition {p} launches {counts}")
+        check(f.shape == (rays, 5) and d.shape == (rays,) and bool(np.isfinite(f).all())
+              and 0.0 < hit < 1.0, f"datagen partition {p}: shapes {f.shape} {d.shape}, "
+              f"hit fraction {hit}")
+        print(f"phase10 10a datagen partition {p} (K={sub.num_clusters}): {rays} rays in "
+              f"{secs:.3f} s ({rays / secs / 1e6:.2f} Mrays/s), hit fraction {hit:.4f}, "
+              f"launches {counts}", flush=True)
+        subs.append(sub)
+        boxes.append((lo, hi))
+        data.append((f, d))
+        out.setdefault("datagen", []).append({"seconds": secs, "hit_fraction": hit,
+                                              "launches": counts})
+    # partition 0's first batch, labelled through the kernels and through
+    # the plain stackless walk on the card
+    sub0, (lo0, hi0) = subs[0], boxes[0]
+    o, d = datagen._sample_entry_rays(torch.Generator().manual_seed(100), lo0, hi0,
+                                      LABEL_RAYS)
+    o, d = o.to(dev), d.to(dev)
+    (t_k, h_k), counts = counted(lambda: datagen.trace_labels(sub0, o, d, 1e-4))
+    k_ms = cuda_ms(torch, lambda: datagen.trace_labels(sub0, o, d, 1e-4), reps=7)
+    far = torch.full((LABEL_RAYS,), datagen.T_FAR, device=dev)
+    live = torch.ones((LABEL_RAYS,), dtype=torch.bool, device=dev)
+    plain, p_s = synced_s(torch, lambda: pt.ops.traverse_bvh(sub0, o, d, 1e-4, far, live))
+    flags = int((h_k != plain.is_hit).sum())
+    both = h_k & plain.is_hit
+    t_rel = float(((t_k - plain.t).abs() / plain.t.abs().clamp(min=1e-30))[both].max())
+    t_equal = bool(torch.equal(t_k[both], plain.t[both]))
+    check(flags == 0, f"labels: {flags} hit flags differ between the kernels and traverse_bvh")
+    check(t_rel <= LABEL_T_RTOL, f"labels: t differs by {t_rel:.3g} relative")
+    print(f"phase10 10a labels of {LABEL_RAYS} rays of partition 0: hit flags equal "
+          f"({int(h_k.sum())} hits) ok; t {'equal on every hit' if t_equal else 'largest relative difference %.3g (bound %g)' % (t_rel, LABEL_T_RTOL)} ok; "
+          f"kernel path {k_ms:.3f} ms (median of 7, launches {counts}), plain traverse_bvh on "
+          f"the card {p_s * 1e3:.1f} ms (one run)", flush=True)
+    out["labels"] = {"flags_differ": flags, "t_max_rel": t_rel, "kernel_ms": k_ms,
+                     "plain_ms": p_s * 1e3, "launches": counts}
+
+    # ---- 10b: the separate family, 8 vis + 8 depth nets
+    cfg_m = pt.models.MLPConfig(width=TRAIN_WIDTH, depth=TRAIN_DEPTH)
+    xv0, yv0 = train.balance_vis(*data[0])
+    warm, _ = recipe(pt, "vis", xv0.shape[0], 1)
+    train.fit(xv0, yv0, cfg_m, warm, device=dev)
+    probe, probe_steps = recipe(pt, "vis", xv0.shape[0], 80)
+    _, probe_s = synced_s(torch, lambda: train.fit(xv0, yv0, cfg_m, probe, device=dev))
+    ms_step = probe_s * 1e3 / probe_steps
+    nets = 2 * STATUE_PARTS
+    print(f"phase10 10b step: {ms_step:.3f} ms a step (w{TRAIN_WIDTH}/d{TRAIN_DEPTH}, batch "
+          f"{probe.batch}, {probe_steps} steps, per-epoch reads and reshuffles included); "
+          f"{nets} x {TARGET_STEPS} steps would take {nets * TARGET_STEPS * ms_step / 1e3:.0f} s, "
+          f"{nets} x {steps} about {nets * steps * ms_step / 1e3:.0f} s: {steps} steps a net"
+          + ("" if steps == TARGET_STEPS else f" (cut from {TARGET_STEPS})"), flush=True)
+    # where a step's time goes: one profiled fit of the probe's steps, its
+    # device events and their busy time against the wall
+    split = pt.utils.profile.render_device_profile(
+        lambda _s: train.fit(xv0, yv0, cfg_m, probe, device=dev), stages=(), top=3, reps=1)
+    busy_step = split["busy_ms"] / probe_steps
+    wall_step = split["unprofiled_wall_ms"] / probe_steps
+    print(f"phase10 10b step split (one profiled fit of {probe_steps} steps): "
+          f"{split['device_events'] / probe_steps:.1f} device events a step, device busy "
+          f"{busy_step:.4f} ms a step of {wall_step:.3f} ms (idle share "
+          f"{split['idle_share_unprofiled']:.3f}); top kernels (ms over the fit) "
+          + "; ".join(f"{k[:48]} {v:.2f}" for k, v in split["top_kernels_ms"].items()),
+          flush=True)
+    with open(os.path.join(ROOT, "artifacts", "ab_scaled", "train_losses.json")) as fh:
+        jax_losses = json.load(fh)
+    vis_list, depth_list, losses, total_steps = [], [], {}, 0
+    t_train = time.perf_counter()
+    for p, (f, d) in enumerate(data):
+        xv, yv = train.balance_vis(f, d)
+        xd, yd = train.depth_only(f, d)
+        if xd.shape[0] < 256:
+            xd, yd = f, d
+        row = {}
+        for nn_type, (x, y), dest in (("vis", (xv, yv), vis_list), ("depth", (xd, yd), depth_list)):
+            tcfg, n_steps = recipe(pt, nn_type, x.shape[0], steps)
+            (params, hist), secs = synced_s(torch, lambda: train.fit(x, y, cfg_m, tcfg, device=dev))
+            loss = hist["test_loss"][-1]
+            check(np.isfinite(loss) and loss < hist["test_loss"][0],
+                  f"{nn_type} net {p}: test loss {hist['test_loss'][0]} -> {loss}")
+            dest.append(params)
+            total_steps += n_steps
+            row[nn_type] = {"test_loss": loss, "jax_test_loss": jax_losses[f"p{p}"][nn_type],
+                            "rows": int(x.shape[0]), "steps": n_steps, "seconds": secs}
+        losses[f"p{p}"] = row
+        print(f"phase10 10b partition {p}: vis test loss {row['vis']['test_loss']:.5f} (JAX's "
+              f"30,000-step net: {row['vis']['jax_test_loss']:.5f}; {row['vis']['rows']} rows, "
+              f"{row['vis']['steps']} steps, {row['vis']['seconds']:.1f} s), depth "
+              f"{row['depth']['test_loss']:.5f} ({row['depth']['jax_test_loss']:.5f}; "
+              f"{row['depth']['rows']} rows, {row['depth']['steps']} steps, "
+              f"{row['depth']['seconds']:.1f} s)", flush=True)
+    train_s = time.perf_counter() - t_train
+    print(f"phase10 10b trained {nets} nets: {total_steps} steps in {train_s:.1f} s "
+          f"({train_s * 1e3 / total_steps:.3f} ms a step)", flush=True)
+    out["train"] = {"ms_per_step_probe": ms_step, "steps_per_net": steps, "total_steps": total_steps,
+                    "seconds": train_s, "nets": losses,
+                    "step_split": {"device_events_per_step": split["device_events"] / probe_steps,
+                                   "busy_ms_per_step": busy_step, "wall_ms_per_step": wall_step,
+                                   "idle_share": split["idle_share_unprofiled"]}}
+    models = pt.models.ProxyModels(pt.models.stack_params(vis_list),
+                                   pt.models.stack_params(depth_list), STATUE_PARTS, cfg_m, cfg_m)
+
+    # ---- 10c: the paper's A-B with the nets trained here
+    dist = pt.parallel.distributed
+    cfg_e = pt.render.RenderConfig(width=side, height=side, spp=2, bounces=2)
+    cfg_s = dataclasses.replace(cfg_e, use_neural_proxies=True)
+    control = pt.models.random_proxy_models(3, STATUE_PARTS, cfg_m, cfg_m, device=dev)
+    exact = dist.render_image_distributed(part, models, lights_s, env_s, cam_s, cfg_e, device=dev)
+    tm = lambda x: x / (1.0 + x)
+    ab = {}
+    for name, m in (("port-trained separate", models), ("random control", control)):
+        nn, counts_s = counted(lambda: dist.render_image_distributed(
+            part, m, lights_s, env_s, cam_s, cfg_s, device=dev))
+        e = float((tm(nn) - tm(exact)).abs().mean())
+        ratio = float(nn.mean() / exact.mean())
+        ab[name] = {"mean_err": e, "ratio": ratio, "launches": counts_s}
+        if name == "random control":
+            check(e > AB_CONTROL_ERR, f"A-B control too weak: {e:.3g}")
+        else:
+            check(e < AB_MEAN_ERR and 0.99 < ratio < 1.01,
+                  f"A-B {name}: mean tone-mapped error {e:.3g}, ratio {ratio:.6f}")
+            check(counts_s.get("route_secondary", 0) > 0 and counts_s.get("route_shadow", 0) > 0,
+                  f"A-B {name}: launches {counts_s}")
+        print(f"phase10 10c A-B {name} (w{TRAIN_WIDTH}/d{TRAIN_DEPTH}, {steps} steps a net): "
+              f"mean tone-mapped error {e:.3g}, mean ratio {ratio:.6f} (gates: < {AB_MEAN_ERR} "
+              f"and (0.99, 1.01); control > {AB_CONTROL_ERR}) ok; launches {counts_s}",
+              flush=True)
+    out["ab"] = ab
+
+    # ---- 10d: the checkpoints round trip, bit for bit through K6
+    ck_dir = os.path.join(SMOKE_OUT, "checkpoints")
+    back_v, back_d = [], []
+    for p in range(STATUE_PARTS):
+        for kind, src, dest in (("vis", vis_list, back_v), ("depth", depth_list, back_d)):
+            path = os.path.join(ck_dir, f"{kind}{p}")
+            train.loop.save_checkpoint(path, src[p])
+            dest.append(pt.scene.load_mlp_checkpoint(path + ".npz", cfg_m, device=dev))
+    back = pt.models.ProxyModels(pt.models.stack_params(back_v), pt.models.stack_params(back_d),
+                                 STATUE_PARTS, cfg_m, cfg_m)
+    nq = min(4096, rays)
+    xq = torch.as_tensor(np.concatenate([f[:nq] for f, _ in data]), device=dev)
+    obj = torch.arange(STATUE_PARTS, device=dev, dtype=torch.int32).repeat_interleave(nq)
+    valid = torch.ones_like(obj, dtype=torch.bool)
+    (a_v, a_d), counts = counted(lambda: pt.ops.grouped_mlp_dense(models, xq, obj, valid))
+    b_v, b_d = pt.ops.grouped_mlp_dense(back, xq, obj, valid)
+    check(counts == {"mlp_dense": 1} and torch.equal(a_v, b_v) and torch.equal(a_d, b_d),
+          f"checkpoint round trip: K6 outputs differ (launches {counts})")
+    print(f"phase10 10d checkpoints: {2 * STATUE_PARTS} nets saved (save_checkpoint) and read "
+          f"back (convert.load_mlp_checkpoint); K6 on {xq.shape[0]} rows bit-identical ok",
+          flush=True)
+
+    # ---- 10e: the sampled visibility grid of partition 0
+    sub0_cpu = pt.scene.device_scene_from_meshes([meshes[i] for i in assignment[0]],
+                                                 device="cpu")
+    (vg, counts), g_s = synced_s(torch, lambda: counted(
+        lambda: pt.scene.build_visibility_grid(sub0, lo0, hi0)))
+    vg_cpu, c_s = synced_s(torch, lambda: pt.scene.build_visibility_grid(sub0_cpu, lo0, hi0))
+    check(torch.equal(vg.grid.cpu(), vg_cpu.grid), "sampled grid: the card's differs from the CPU's")
+    tri = [meshes[i] for i in assignment[0]]
+    tmin = np.concatenate([np.minimum(np.minimum(m.v0, m.v1), m.v2) for m in tri])
+    tmax = np.concatenate([np.maximum(np.maximum(m.v0, m.v1), m.v2) for m in tri])
+    cons = pt.scene.build_conservative_grid(tmin, tmax, lo0, hi0, vg.width, vg.height, vg.angle)
+    marked = vg_cpu.grid.numpy().reshape(cons.shape)
+    outside = int((marked & ~cons).sum())
+    check(outside == 0, f"sampled grid: {outside} marked bins outside the conservative grid")
+    share = float(marked.mean())
+    print(f"phase10 10e sampled grid of partition 0 ({vg.width}x{vg.height}x{vg.angle}, 200,000 "
+          f"samples): equal to the CPU build ok; every marked bin in the conservative grid ok; "
+          f"{share:.4f} of the bins marked ({float(cons.mean()):.4f} conservative); card "
+          f"{g_s:.3f} s (launches {counts}), CPU {c_s:.1f} s", flush=True)
+    out["grid"] = {"share_marked": share, "share_conservative": float(cons.mean()),
+                   "card_s": g_s, "cpu_s": c_s, "launches": counts}
+
+    # ---- 10f: the command-line renderer on the card, in-process
+    from pg2024_dprt_tpu_torch.render.__main__ import main as cli
+
+    cli_out = os.path.join(SMOKE_OUT, "cli")
+    imgs, counts, secs, sections = cli_run(torch, counted, cli, [
+        "cornell", "--size", str(cli_size), "--spp", "1", "--bounces", "4", "--format", "both",
+        "--out", cli_out])
+    check(counts == {"frame_sample": 1} and len(imgs) == 1, f"CLI cornell launches {counts}")
+    check(all(os.path.getsize(os.path.join(cli_out, f"frame0.{ext}")) > 0
+              for ext in ("png", "exr")), "CLI cornell wrote no PNG or EXR")
+    check(imgs[0].shape == (cli_size, cli_size, 3) and bool(np.isfinite(imgs[0]).all())
+          and float(imgs[0].mean()) > 0.0, "CLI cornell image is not finite and lit")
+    print(f"phase10 10f CLI cornell --size {cli_size} --spp 1 --bounces 4 --format both: "
+          f"launches {counts} ok, PNG and EXR written, mean {float(imgs[0].mean()):.4f}; "
+          f"{secs:.2f} s in all, frame {sections.get('Sample', 0.0):.1f} ms", flush=True)
+    out["cli_cornell"] = {"launches": counts, "seconds": secs, "frame_ms": sections.get("Sample")}
+    rooms = ["rooms:8", "--partitions", "8", "--size", str(cli_size), "--cam-pos", ROOMS_CAM[0],
+             "--cam-target", ROOMS_CAM[1], "--out", cli_out]
+    ex_imgs, counts_e, secs_e, _ = cli_run(torch, counted, cli, rooms)
+    imgs, counts, secs, sections = cli_run(torch, counted, cli, rooms + ["--neural"])
+    ex, nn = ex_imgs[0], imgs[0]
+    lit = float((ex.sum(-1) > 0).mean())
+    ratio = float(nn.mean() / ex.mean())
+    tm_err = float(np.abs(nn / (1 + nn) - ex / (1 + ex)).mean())
+    check(counts.get("route_secondary", 0) > 0 and "route_secondary" not in counts_e
+          and nn.shape == ex.shape == (cli_size, cli_size, 3) and bool(np.isfinite(nn).all()),
+          f"CLI rooms:8 launches: neural {counts}, exact {counts_e}")
+    check(float(ex.mean()) > ROOMS_MIN_MEAN and lit > ROOMS_MIN_LIT,
+          f"CLI rooms:8 exact frame: mean {float(ex.mean()):.3g}, lit share {lit:.3f}")
+    check(ROOMS_RATIO[0] < ratio < ROOMS_RATIO[1],
+          f"CLI rooms:8 neural / exact mean ratio {ratio:.4f}")
+    print(f"phase10 10f CLI rooms:8 --partitions 8 --neural (30,000 samples, 25 epochs a net, "
+          f"{cli_size}x{cli_size}, spp 4, camera {ROOMS_CAM[0]} -> {ROOMS_CAM[1]}): mean "
+          f"{float(nn.mean()):.5f} against the exact frame's {float(ex.mean()):.5f} ({lit:.3f} of "
+          f"its pixels lit): ratio {ratio:.5f} (gate {ROOMS_RATIO}), tone-mapped error "
+          f"{tm_err:.3g} ok; training {sections.get('Train', 0.0) / 1e3:.2f} s, frame "
+          f"{sections.get('Sample', 0.0) / 1e3:.2f} s, {secs:.1f} s in all (exact: {secs_e:.1f} s); "
+          f"launches {counts}", flush=True)
+    out["cli_rooms8_neural"] = {"launches": counts, "seconds": secs, "ratio": ratio,
+                                "tm_err": tm_err, "exact_seconds": secs_e,
+                                "train_s": sections.get("Train", 0.0) / 1e3,
+                                "frame_s": sections.get("Sample", 0.0) / 1e3}
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2759,6 +3102,9 @@ def main() -> int:
         import pg2024_dprt_tpu_torch.parallel
         import pg2024_dprt_tpu_torch.render
         import pg2024_dprt_tpu_torch.scene
+        import pg2024_dprt_tpu_torch.train
+        import pg2024_dprt_tpu_torch.train.datagen
+        import pg2024_dprt_tpu_torch.train.loop
         import pg2024_dprt_tpu_torch.utils
         import pg2024_dprt_tpu_torch.utils.profile
         from pg2024_dprt_tpu_torch.ops import _build
@@ -3076,6 +3422,13 @@ def main() -> int:
         mg_entry, dist_out = distributed_phase(pt, torch, np, dev, counted, inst)
         mg_entry["distributed_phase"] = json.loads(json.dumps(dist_out, default=float))
         kernels.append(mg_entry)
+
+        # ---- phase 10: training, the sampled grid, the command line
+        ten = training_phase(pt, torch, np, dev, counted)
+        kernels[0]["phase10"] = {"datagen_launches": [r["launches"] for r in ten["datagen"]],
+                                 "labels": ten["labels"], "grid_launches": ten["grid"]["launches"]}
+        route_entry["phase10"] = {"ab": ten["ab"], "cli_rooms8_neural": ten["cli_rooms8_neural"]}
+        kernels[2]["phase10_cli_cornell"] = ten["cli_cornell"]
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -17,7 +17,11 @@ name:
              accumulation); the neural-proxy routing stages
   parallel/ — the distributed frame: P partitions on an in-process mesh,
              path migration, ring shadows, the image summed over partitions
-  utils/   — EXR IO, the per-frame device profile
+  train/   — the proxy nets' training: ray-cast datasets, the loop, npz
+             checkpoints, evaluation, `python -m pg2024_dprt_tpu_torch.train`
+  utils/   — EXR and PNG IO, timing, the per-frame device profile
+
+`python -m pg2024_dprt_tpu_torch.render` is the command-line renderer.
 
 The package imports torch and never JAX or the JAX package. Entry points put
 tensors on CUDA unless the caller passes device="cpu"; without CUDA and

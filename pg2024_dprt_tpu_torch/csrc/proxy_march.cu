@@ -23,21 +23,22 @@
 // at P = 8: 61 microseconds a million rays at 3.35 TB/s against 9 at 67
 // TFLOP/s.
 //
-// Design: a thread per ray, a block of kThreads rays (fewer when max_hits
-// is large: the block's rows must fit its staging area). The block copies
-// the proxy table into shared memory once (at most 32 rows of 36 bytes, 72
-// more when instanced), so the march's slab tests, which every ray repeats
-// max_hits times over all P rows, read shared memory. Each ray marches
-// (march::march_ray, the arithmetic K7 shares) and stages its records in
-// shared memory at their row of the block's output range; then the block
-// writes that range, which is contiguous in every output array
+// Design: a thread per ray, a block of kThreads rays (fewer when a ray may
+// record many hits: the block's records must fit its staging area). The
+// block copies the proxy table into shared memory once (at most 32 rows of
+// 36 bytes, 72 more when instanced), so the march's slab tests, which every
+// ray repeats max_hits times over all P rows, read shared memory. Each ray
+// marches (march::march_ray, the arithmetic K7 shares) and stages its
+// records in shared memory, min(max_hits, P) slots a ray: a table row
+// records at most once a ray (the inside-hit dedup), so no ray has more
+// records than rows, and any max_hits fits. Then the block writes its
+// output range, which is contiguous in every output array
 // ([i0 * max_hits, (i0 + rays) * max_hits)), field by field: thread t
 // writes rows t, t + kThreads, ..., so each warp store covers consecutive
 // rows (128 bytes of a 4-byte field), and the features, five floats a row,
-// are written by element. The empty rows and the zero column are written
-// by the same loop, so the wrapper launches nothing else. Its first design
-// wrote each ray's rows from the ray's own thread (stride max_hits rows
-// across a warp, 60 bytes for the features).
+// are written by element. The empty rows (every slot past a ray's records)
+// and the zero column are written by the same loop, so the wrapper launches
+// nothing else.
 //
 // Built with --fmad=false, so that distances and features round like the
 // plain version's.
@@ -48,7 +49,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-// output rows a block stages: kThreads rays up to max_hits 6
+// records a block stages: kThreads rays of up to 6 slots each
 constexpr int kStageRows = 768;
 // counters of a -DPG_CYCLES build (csrc/cycles.cuh): the threads' cycles in
 // the march and in the stores, the rays marched and the blocks
@@ -72,13 +73,13 @@ struct Out {
 __global__ void __launch_bounds__(kThreads) proxy_march_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ t_cap, const uint8_t* __restrict__ active, int n,
-    march::Table g, int max_hits, int rays_per_block, float eps, Out out) {
+    march::Table g, int max_hits, int slots, int rays_per_block, float eps, Out out) {
   CYCLES_NOW(t_start);
   constexpr int R = march::kMaxRows;
   __shared__ float s_bmin[3 * R], s_bmax[3 * R], s_ml[R];
   __shared__ float s_xf[12 * R], s_omin[3 * R], s_ospan[3 * R];
   __shared__ int32_t s_node[R], s_obj[R];
-  // the block's records, at their output row
+  // the block's records, `slots` a ray (ray * slots + slot)
   __shared__ float s_feat[5 * kStageRows], s_t[kStageRows], s_ratio[kStageRows];
   __shared__ int32_t s_row[kStageRows];  // proxy row << 1 | inside
   __shared__ int s_count[kThreads];
@@ -116,7 +117,7 @@ __global__ void __launch_bounds__(kThreads) proxy_march_kernel(
       count = march::march_ray(
           tb, ro, rd, t_cap[i], max_hits, eps,
           [&](int slot, const march::Record& rec) {
-            const int e = t * max_hits + slot;
+            const int e = t * slots + slot;
 #pragma unroll
             for (int f = 0; f < 5; ++f) s_feat[5 * e + f] = rec.feat[f];
             s_t[e] = rec.t;
@@ -144,17 +145,18 @@ __global__ void __launch_bounds__(kThreads) proxy_march_kernel(
     out.path_index[q] = i0 + ray;
     out.zeros[q] = 0;
     if (slot < s_count[ray]) {
-      const int r = s_row[e] >> 1;
+      const int es = ray * slots + slot;
+      const int r = s_row[es] >> 1;
       const float ml = s_ml[r];
       out.aabb_id[q] = s_obj[r];
       out.node_id[q] = s_node[r];
       out.hit_sequence[q] = slot;
-      out.is_inside[q] = static_cast<uint8_t>(s_row[e] & 1);
+      out.is_inside[q] = static_cast<uint8_t>(s_row[es] & 1);
       out.is_valid[q] = 1;
-      out.aabb_t[q] = s_t[e];
+      out.aabb_t[q] = s_t[es];
       out.max_length[q] = ml;
-      out.t_ratio[q] = s_ratio[e];
-      out.normalized_t[q] = s_t[e] / fmaxf(s_ratio[e] * ml, 1e-12f);
+      out.t_ratio[q] = s_ratio[es];
+      out.normalized_t[q] = s_t[es] / fmaxf(s_ratio[es] * ml, 1e-12f);
     } else {
       out.aabb_id[q] = -1;
       out.node_id[q] = -1;
@@ -171,7 +173,8 @@ __global__ void __launch_bounds__(kThreads) proxy_march_kernel(
   for (int e = t; e < 5 * rows; e += kThreads) {
     const int row = e / 5;
     const int ray = row / max_hits;
-    feat[e] = row - ray * max_hits < s_count[ray] ? s_feat[e] : 0.0f;
+    const int slot = row - ray * max_hits;
+    feat[e] = slot < s_count[ray] ? s_feat[5 * (ray * slots + slot) + (e - 5 * row)] : 0.0f;
   }
   CYCLES_ADD(kMarchStore, t_store);
   if (t == 0) CYCLES_COUNT(kMarchBlocks, 1);
@@ -181,7 +184,8 @@ __global__ void __launch_bounds__(kThreads) proxy_march_kernel(
 
 // C entry point: launches on the caller's stream and returns
 // cudaGetLastError() (0 = launched). zeros receives the zero pixel_index /
-// shadow_path_id column.
+// shadow_path_id column. The caller keeps 5 * n * max_hits below 2^31 (the
+// features' element count), so every index within a block fits an int.
 extern "C" int proxy_march(
     const float* o, const float* d, const float* t_cap, const uint8_t* active,
     int n, const float* bmin, const float* bmax, const float* max_length,
@@ -191,16 +195,18 @@ extern "C" int proxy_march(
     uint8_t* is_inside, uint8_t* is_valid, int32_t* path_index, float* aabb_t,
     float* out_max_length, float* t_ratio, float* normalized_t, int32_t* zeros,
     void* stream) {
-  if (p < 1 || p > march::kMaxRows || max_hits < 0 || max_hits > kStageRows) {
+  if (p < 1 || p > march::kMaxRows || max_hits < 0 ||
+      5LL * n * max_hits >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0 && max_hits > 0) {
-    const int rays = min(kThreads, kStageRows / max_hits);
+    const int slots = min(max_hits, p);
+    const int rays = min(kThreads, kStageRows / slots);
     proxy_march_kernel<<<static_cast<int>((n + rays - 1LL) / rays), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         o, d, t_cap, active, n,
         march::Table{bmin, bmax, max_length, node, obj, xf, omin, ospan, p, my_node},
-        max_hits, rays, eps,
+        max_hits, slots, rays, eps,
         Out{features, aabb_id, node_id, hit_sequence, is_inside, is_valid,
             path_index, aabb_t, out_max_length, t_ratio, normalized_t, zeros});
   }

@@ -17,9 +17,10 @@ per ray) and take the lexicographic (t, row) minimum at each step, so they
 agree on ties. The wrapper runs the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises.
 
-The dedup mask has 32 bits, so a table of more than 32 rows raises; the
-kernel stages a block's rows in shared memory, so on CUDA tensors max_hits
-above MAX_HITS_LIMIT raises.
+The dedup mask has 32 bits, so a table of more than 32 rows raises. A row
+records at most once a ray, so a ray has at most min(max_hits, P) records;
+the kernel stages that many a ray and writes the rest of its max_hits rows
+empty, so it takes any max_hits, as the plain version does.
 """
 from __future__ import annotations
 
@@ -34,8 +35,6 @@ from . import _build
 from .resident import F32_MAX, LAUNCHES, _check, _checked, _ptr, _stream, stamped
 
 MAX_PROXY_ROWS = 32
-# the kernel stages a block's output rows in shared memory (kStageRows)
-MAX_HITS_LIMIT = 768
 
 
 def _check_table(proxies):
@@ -69,10 +68,10 @@ def proxy_march(proxies, origin, direction, t_cap, active, my_node: int,
         raise ValueError(f"rays on {origin.device}: the kernel takes CUDA tensors")
     dev = origin.device
     n = origin.shape[0]
-    if n * max_hits >= 2**31:
-        raise ValueError("query count exceeds int32")
-    if not 0 <= max_hits <= MAX_HITS_LIMIT:
-        raise ValueError(f"max_hits {max_hits}: the kernel takes 0 .. {MAX_HITS_LIMIT}")
+    if max_hits < 0:
+        raise ValueError(f"max_hits {max_hits} < 0")
+    if 5 * n * max_hits >= 2**31:
+        raise ValueError("query feature count exceeds int32")
     f32 = torch.float32
     rays = [_checked(name, x, dt, shape, dev) for name, x, dt, shape in (
         ("origin", origin, f32, (n, 3)), ("direction", direction, f32, (n, 3)),

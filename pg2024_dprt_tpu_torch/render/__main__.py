@@ -1,0 +1,305 @@
+"""Command-line renderer (counterpart of pg2024_dprt_tpu/render/__main__.py):
+load a scene (an .obj from disk or a named builtin), set up the camera and
+lights, render N frames, write PNG / EXR.
+
+Usage:
+    python -m pg2024_dprt_tpu_torch.render SCENE [options]
+
+SCENE is a path to a .obj file (materials and PNG textures resolved
+relative to it, scene/obj.py) or a builtin:
+    cornell | cornell-water | city[:N] | soup[:N] | rooms[:N] | instanced[:I[,T]]
+
+Runs on the GPU (--device cuda, the default) or on the CPU (--device cpu).
+--partitions P renders through the P partitions of parallel/ on an
+in-process mesh on that one device, so the JAX CLI's --cpu-mesh (a virtual
+CPU mesh of P devices) is --device cpu here; --neural first trains every
+partition's vis / depth nets (train/) and then routes through them.
+
+Examples:
+    python -m pg2024_dprt_tpu_torch.render cornell --size 256 --spp 8 --out /tmp/r
+    python -m pg2024_dprt_tpu_torch.render bunny.obj --spp 4 --format both
+    python -m pg2024_dprt_tpu_torch.render rooms:8 --partitions 8 --neural
+    python -m pg2024_dprt_tpu_torch.render rooms:2 --partitions 2 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+
+import numpy as np
+
+from ..core.camera import Camera
+from ..core.device import resolve_device
+from ..scene.geometry import device_scene_from_instances, device_scene_from_meshes
+from ..scene.lights import EnvironmentMap
+from ..scene.procedural import auto_light
+from ..utils.timing import Timing
+from .config import RenderConfig
+
+BUILTINS = "cornell | cornell-water | city[:N] | soup[:N] | rooms[:N] | instanced[:I[,T]]"
+
+
+def _parse_vec3(s: str):
+    parts = [float(x) for x in s.split(",")]
+    if len(parts) != 3:
+        raise argparse.ArgumentTypeError(f"expected 'x,y,z', got {s!r}")
+    return parts
+
+
+def load_scene(spec: str, default_color=(0.8, 0.8, 0.8), device=None):
+    """Resolve a SCENE spec -> (meshes, lights or None, texture images or
+    None); an instanced spec gives ([base mesh], (I, 3, 4) transforms) as
+    its meshes. Lights go to `device` (CUDA unless given)."""
+    from ..scene.procedural import city_scene, cornell_box, random_tri_soup, two_room_scene
+
+    name, _, arg = spec.partition(":")
+    if name in ("cornell", "cornell-water"):
+        meshes, lights = cornell_box(with_water_sphere=name == "cornell-water", device=device)
+        return meshes, lights, None
+    if name == "city":
+        return [city_scene(int(arg or 20000))], None, None
+    if name == "soup":
+        return [random_tri_soup(int(arg or 65536))], None, None
+    if name == "rooms":
+        meshes, lights = two_room_scene(int(arg or 2), device=device)
+        return meshes, lights, None
+    if name == "instanced":
+        # instanced:I[,T]: a grid of I instances of one T-triangle soup over
+        # one shared triangle table
+        parts = (arg or "8").split(",")
+        ni = int(parts[0])
+        tris = int(parts[1]) if len(parts) > 1 else 65536
+        base = random_tri_soup(tris, seed=9)
+        cols = max(1, int(np.ceil(np.sqrt(ni))))
+        tf = np.zeros((ni, 3, 4), np.float32)
+        for i in range(ni):
+            tf[i, :, :3] = np.eye(3, dtype=np.float32)
+            tf[i, :, 3] = [2.2 * (i % cols), 0.0, 2.2 * (i // cols)]
+        return ([base], tf), None, None
+    if not os.path.exists(spec):
+        raise SystemExit(f"scene {spec!r}: no such file and not a builtin ({BUILTINS})")
+    from ..scene.obj import load_obj, load_texture_images
+
+    meshes, texture_paths = load_obj(spec, default_color=default_color)
+    images = load_texture_images(texture_paths, base_dir=os.path.dirname(spec))
+    return meshes, None, images
+
+
+def scene_bounds(meshes):
+    lo = np.full(3, np.inf, np.float32)
+    hi = np.full(3, -np.inf, np.float32)
+    for m in meshes:
+        for v in (m.v0, m.v1, m.v2):
+            lo = np.minimum(lo, np.asarray(v).min(axis=0))
+            hi = np.maximum(hi, np.asarray(v).max(axis=0))
+    return lo, hi
+
+
+def auto_camera(lo, hi, fov: float, width: int, height: int, device=None):
+    """Frame the scene box from a 3/4 view."""
+    center = 0.5 * (lo + hi)
+    radius = max(0.5 * float(np.linalg.norm(hi - lo)), 1e-3)
+    dist = radius / np.tan(np.deg2rad(fov) * 0.5) * 1.15
+    eye = center + np.asarray([0.45, 0.35, 1.0]) / np.linalg.norm([0.45, 0.35, 1.0]) * dist
+    return Camera.look_at(eye, center, [0.0, 1.0, 0.0], fov, width, height, device=device)
+
+
+def train_partition_proxies(meshes, part, parts: int, samples: int, epochs: int,
+                            width: int = 64, depth: int = 2, device=None):
+    """The offline stage of the neural workflow: train a vis and a depth net
+    per partition on its real geometry (rays cast at the partition's proxy
+    box, seeds 100 + p), on `device` (CUDA unless given), and stack them."""
+    from ..models.mlp import MLPConfig, stack_params
+    from ..models.proxy import ProxyModels
+    from ..scene.partition import partition_meshes
+    from ..train import TrainConfig, balance_vis, depth_only, fit, generate_proxy_dataset
+
+    dev = resolve_device(device)
+    assignment = partition_meshes(meshes, parts)
+    cfg = MLPConfig(width=width, depth=depth)
+    vis_list, depth_list = [], []
+    for p, idxs in enumerate(assignment):
+        sub = device_scene_from_meshes([meshes[i] for i in idxs], device=dev)
+        lo = part.proxies.aabb_min[p].cpu().numpy()
+        hi = part.proxies.aabb_max[p].cpu().numpy()
+        feats, d = generate_proxy_dataset(sub, lo, hi, samples, seed=100 + p)
+        xv, yv = balance_vis(feats, d)
+        vp, hist = fit(xv, yv, cfg, TrainConfig(nn_type="vis", epochs=epochs, batch=4096,
+                                                learn_rate=5e-3), device=dev)
+        print(f"partition {p}: vis loss {hist['test_loss'][-1]:.4f}", flush=True)
+        xd, yd = depth_only(feats, d)
+        if xd.shape[0] < 256:
+            xd, yd = feats, d
+        dp, hist = fit(xd, yd, cfg, TrainConfig(nn_type="depth", epochs=epochs, batch=4096,
+                                                learn_rate=5e-3), device=dev)
+        print(f"partition {p}: depth loss {hist['test_loss'][-1]:.4f}", flush=True)
+        vis_list.append(vp)
+        depth_list.append(dp)
+    return ProxyModels(vis_params=stack_params(vis_list), depth_params=stack_params(depth_list),
+                       num_objects=parts, vis_cfg=cfg, depth_cfg=cfg)
+
+
+def _train_base_object(base_meshes, samples: int, epochs: int, device):
+    """Neural instancing: ONE vis / depth pair trained on the shared base
+    object serves every instance through the instance-level proxy rows."""
+    from ..models.mlp import MLPConfig, stack_params
+    from ..models.proxy import ProxyModels
+    from ..scene.partition import _meshes_aabb
+    from ..train.loop import TrainConfig, train_proxy_for_partition
+
+    blo, bhi = _meshes_aabb(base_meshes)
+    base_scene = device_scene_from_meshes(base_meshes, device=device)
+    mcfg = MLPConfig(width=64, depth=2)
+    nets = {}
+    for nn_type in ("vis", "depth"):
+        nets[nn_type] = train_proxy_for_partition(
+            base_scene, blo, bhi, nn_type, mlp_cfg=mcfg,
+            train_cfg=TrainConfig(nn_type=nn_type, epochs=epochs, batch=4096,
+                                  learn_rate=5e-3),
+            num_samples=samples)
+    print(f"base-object nets: vis {nets['vis'][1]['test_loss'][-1]:.4f} "
+          f"depth {nets['depth'][1]['test_loss'][-1]:.4f}", flush=True)
+    return ProxyModels(stack_params([nets["vis"][0]]), stack_params([nets["depth"][0]]), 1,
+                       mcfg, mcfg)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m pg2024_dprt_tpu_torch.render", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("scene", help=f".obj path or builtin ({BUILTINS})")
+    p.add_argument("--size", type=int, default=256, help="square image size")
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--height", type=int, default=None)
+    p.add_argument("--spp", type=int, default=4)
+    p.add_argument("--bounces", type=int, default=4)
+    p.add_argument("--shadow-paths", type=int, default=4,
+                   help="NEE samples per shading point")
+    p.add_argument("--frames", type=int, default=1)
+    p.add_argument("--out", default="out", help="output directory")
+    p.add_argument("--format", choices=("png", "exr", "both"), default="png")
+    p.add_argument("--partitions", type=int, default=0,
+                   help="render through N partitions on an in-process mesh on the one "
+                        "device (exact mode: migration + ring shadows)")
+    p.add_argument("--neural", action="store_true",
+                   help="with --partitions: train per-partition vis/depth proxies, then "
+                        "route secondary/shadow rays through them")
+    p.add_argument("--proxy-samples", type=int, default=30000,
+                   help="--neural: training rays per partition")
+    p.add_argument("--proxy-epochs", type=int, default=25,
+                   help="--neural: training epochs per net")
+    p.add_argument("--env", type=_parse_vec3, default=[0.0, 0.0, 0.0],
+                   metavar="R,G,B", help="constant environment radiance")
+    p.add_argument("--cam-pos", type=_parse_vec3, default=None, metavar="X,Y,Z")
+    p.add_argument("--cam-target", type=_parse_vec3, default=None, metavar="X,Y,Z")
+    p.add_argument("--fov", type=float, default=45.0)
+    p.add_argument("--light-intensity", type=float, default=8.0,
+                   help="auto area-light radiance scale (scenes without emitters)")
+    p.add_argument("--light-velocity", type=_parse_vec3, default=None,
+                   metavar="X,Y,Z", help="LIGHT_MOVE: light offset per frame")
+    p.add_argument("--dolly", type=_parse_vec3, default=None, metavar="X,Y,Z",
+                   help="CAMERA_MOVE: camera offset per frame")
+    p.add_argument("--device", default=None,
+                   help="torch device: cuda (the default; raises without CUDA) or cpu")
+    p.add_argument("--tracer", default="auto",
+                   choices=("auto", "stackless", "cluster", "resident"))
+    p.add_argument("--fused-frame", default="auto", choices=("auto", "on", "off"))
+    p.add_argument("--nee", default="ris", choices=("ris", "sum"),
+                   help="NEE estimator: reservoir-selected single occlusion ray (ris) or "
+                        "the S-ray sum")
+    p.add_argument("--visibility-grids", action="store_true",
+                   help="with --partitions (exact mode): conservative per-partition "
+                        "visibility grids pre-filter migrations and ring-shadow hops "
+                        "(image unchanged)")
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+
+    w = args.width or args.size
+    h = args.height or args.size
+    meshes, lights, textures = load_scene(args.scene, device=dev)
+    instanced_spec = isinstance(meshes, tuple)
+    if instanced_spec:
+        base_meshes, transforms = meshes
+        blo, bhi = scene_bounds(base_meshes)
+        corners = np.stack([np.where(np.asarray(sel), bhi, blo)
+                            for sel in np.ndindex(2, 2, 2)])
+        wc = (np.einsum("iab,cb->ica", transforms[:, :, :3], corners)
+              + transforms[:, None, :, 3])
+        lo = wc.reshape(-1, 3).min(axis=0).astype(np.float32)
+        hi = wc.reshape(-1, 3).max(axis=0).astype(np.float32)
+    else:
+        lo, hi = scene_bounds(meshes)
+    if lights is None:
+        lights = auto_light(lo, hi, args.light_intensity, device=dev)
+    if args.cam_pos is not None:
+        target = args.cam_target if args.cam_target is not None else list(0.5 * (lo + hi))
+        camera = Camera.look_at(args.cam_pos, target, [0, 1, 0], args.fov, w, h, device=dev)
+    else:
+        camera = auto_camera(lo, hi, args.fov, w, h, device=dev)
+    env = EnvironmentMap.constant(args.env, device=dev)
+    cfg = RenderConfig(width=w, height=h, spp=args.spp, bounces=args.bounces,
+                       shadow_path_count=args.shadow_paths, tracer=args.tracer,
+                       fused_frame=args.fused_frame, nee_mode=args.nee,
+                       use_visibility_grids=args.visibility_grids)
+    timing = Timing()
+
+    from .frames import render_frames
+
+    if args.partitions > 1:
+        from ..parallel import make_mesh
+        from ..scene.partition import build_partitioned_scene, build_partitioned_scene_instanced
+
+        if instanced_spec:
+            part = build_partitioned_scene_instanced(
+                base_meshes, transforms, args.partitions,
+                visibility_grids=args.visibility_grids, device=dev)
+        else:
+            part = build_partitioned_scene(meshes, args.partitions, textures=textures,
+                                           visibility_grids=args.visibility_grids, device=dev)
+        mesh = make_mesh(args.partitions, dev)
+        # exact mode reads no nets (JAX passes random ones for its compiled
+        # program's structure)
+        models = None
+        if args.neural:
+            with timing.section("Train"):
+                if instanced_spec:
+                    models = _train_base_object(base_meshes, args.proxy_samples,
+                                                args.proxy_epochs, dev)
+                else:
+                    models = train_partition_proxies(meshes, part, args.partitions,
+                                                     args.proxy_samples, args.proxy_epochs,
+                                                     device=dev)
+            cfg = dataclasses.replace(cfg, use_neural_proxies=True)
+        images = render_frames(
+            None, lights, env, camera, cfg, num_frames=args.frames, timing=timing,
+            distributed=(part, models, mesh), light_velocity=args.light_velocity,
+            camera_velocity=args.dolly)
+    else:
+        if instanced_spec:
+            scene = device_scene_from_instances(base_meshes, transforms, device=dev)
+        else:
+            scene = device_scene_from_meshes(meshes, textures=textures, device=dev)
+        images = render_frames(scene, lights, env, camera, cfg, num_frames=args.frames,
+                               timing=timing, light_velocity=args.light_velocity,
+                               camera_velocity=args.dolly, device=dev)
+
+    os.makedirs(args.out, exist_ok=True)
+    for i, img in enumerate(images):
+        if args.format in ("exr", "both"):
+            from ..utils.exr import write_exr
+
+            write_exr(os.path.join(args.out, f"frame{i}.exr"), img)
+        if args.format in ("png", "both"):
+            from ..utils.png import write_png
+
+            write_png(os.path.join(args.out, f"frame{i}.png"), img)
+    print(timing.report())
+    print(f"wrote {len(images)} frame(s) ({w}x{h}, {args.spp}spp, {args.bounces} bounces) "
+          f"to {args.out}/; mean luminance {float(np.mean(images[0])):.4f}")
+    return images
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -23,6 +23,7 @@ from .geometry import (
 from .lights import EnvironmentMap, LightTable
 from .procedural import (
     auto_light,
+    city_scene,
     cornell_box,
     instance_grid,
     instanced_frame,
@@ -39,5 +40,12 @@ from .partition import (
     partition_instances,
     partition_meshes,
 )
-from .visibility_grid import build_conservative_grid, query_conservative_grids
+from .obj import load_obj, load_texture_images, scene_from_obj
+from .visibility_grid import (
+    VisibilityGrid,
+    build_conservative_grid,
+    build_visibility_grid,
+    query_conservative_grids,
+    query_visibility,
+)
 from .textures import PackedTextures, build_textures, checkerboard, sample_textures

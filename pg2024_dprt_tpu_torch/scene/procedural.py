@@ -1,7 +1,8 @@
 """Procedural test scenes (counterpart of pg2024_dprt_tpu/scene/procedural.py:
-the cornell box, the random triangle soup, the statue object and the rooms
-of the distributed tests) and the frame configurations built on them.
-Meshes are host numpy; the light table goes to `device`."""
+the cornell box, the random triangle soup, the statue object, the city
+surface and the rooms of the distributed tests) and the frame
+configurations built on them. Meshes are host numpy; the light table goes
+to `device`."""
 from __future__ import annotations
 
 import numpy as np
@@ -138,6 +139,53 @@ def statue_mesh(res: int = 48, seed: int = 0, extent: float = 1.0):
     keep = np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1) > 1e-12
     return MeshGeometry(v0=v0[keep], v1=v1[keep], v2=v2[keep],
                         base_color=(0.75, 0.72, 0.68), name=f"statue{res}")
+
+
+def city_scene(n: int, seed: int = 0, extent: float = 1.0):
+    """About n triangles of a city-like surface: a jittered, smoothed height
+    field plus axis-aligned box buildings (rays hit a surface and stop, and
+    cluster boxes tile the surface). Deterministic in (n, seed); the count
+    is within a few percent of n."""
+    rng = np.random.RandomState(seed)
+    n_build = max(1, n // 24)           # each box = 12 tris, half the budget
+    n_terrain = max(2, n - 12 * n_build)
+
+    # terrain: jittered heightfield grid of g x g cells, 2 tris per cell
+    g = max(1, int(np.sqrt(n_terrain / 2)))
+    xs = np.linspace(0.0, extent, g + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    h = rng.rand(g + 1, g + 1).astype(np.float32)
+    # smooth the noise a little so the surface is rolling, not spiky
+    for _ in range(2):
+        h = 0.25 * (np.roll(h, 1, 0) + np.roll(h, -1, 0)
+                    + np.roll(h, 1, 1) + np.roll(h, -1, 1))
+    gy = h * (0.15 * extent)
+    p = np.stack([gx, gy, gz], axis=-1)                       # (g+1, g+1, 3)
+    a = p[:-1, :-1].reshape(-1, 3)
+    b = p[1:, :-1].reshape(-1, 3)
+    c = p[1:, 1:].reshape(-1, 3)
+    d = p[:-1, 1:].reshape(-1, 3)
+    v0 = np.concatenate([a, a])
+    v1 = np.concatenate([b, c])
+    v2 = np.concatenate([c, d])
+
+    # buildings: axis-aligned boxes scattered on the terrain
+    bs = []
+    for _ in range(n_build):
+        cx, cz = rng.rand(2).astype(np.float32) * extent * 0.9 + 0.05 * extent
+        w, dep = (rng.rand(2).astype(np.float32) * 0.02 + 0.004) * extent
+        ht = (rng.rand() * 0.12 + 0.02) * extent
+        y0 = 0.0
+        bs.append(_box([cx - w, y0, cz - dep], [cx + w, y0 + ht, cz + dep]))
+    if bs:
+        bv0 = np.concatenate([q[0] for q in bs])
+        bv1 = np.concatenate([q[1] for q in bs])
+        bv2 = np.concatenate([q[2] for q in bs])
+        v0 = np.concatenate([v0, bv0])
+        v1 = np.concatenate([v1, bv1])
+        v2 = np.concatenate([v2, bv2])
+    return MeshGeometry(v0=v0.astype(np.float32), v1=v1.astype(np.float32),
+                        v2=v2.astype(np.float32), name=f"city{n}")
 
 
 def two_room_scene(num_rooms: int = 2, tris_per_room: int = 512, seed: int = 1,

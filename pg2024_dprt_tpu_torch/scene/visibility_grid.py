@@ -1,27 +1,114 @@
-"""Conservative visibility grids (counterpart of the conservative part of
-pg2024_dprt_tpu/scene/visibility_grid.py): the exact-mode culling of
-cross-partition work.
+"""Visibility grids (counterpart of pg2024_dprt_tpu/scene/visibility_grid.py).
 
-A partition's grid has 6 faces x (height x width) cells x `angle` azimuth
-bins over the partition's box. `build_conservative_grid` marks a (face,
-cell, bin) when any ray entering the box through that cell rectangle with
-that azimuth can reach any content box (triangle or instance-cluster
-boxes); every real hit's entry lands in a marked bin, so a ray whose entry
-bin is unmarked provably hits nothing there. The migration loop and the
-ring shadow test skip such partitions (parallel/distributed.py,
-parallel/exchange.py) and the image stays exact.
+A grid has 6 faces x (height x width) cells x `angle` azimuth bins over a
+box: a ray entering the box maps to (entry face, face cell, azimuth bin of
+its direction re-oriented so the face axis leads), and the bin says whether
+anything may be hit through that entry.
 
-The grid is built in host numpy, as in JAX, and equals JAX's bit for bit; the
-lookup `query_conservative_grids` is PyTorch. (JAX's sampled grids,
-`build_visibility_grid`, label rays by training-data generation, which is
-not ported.)
+* The sampled grid (`build_visibility_grid`, `query_visibility`) casts
+  random entry rays at the geometry (train/datagen.py's sampler and trace)
+  and marks the bins of the rays that hit: a cheap predictor, not a
+  guarantee, since an unsampled ray may hit through an unmarked bin.
+* The conservative grid (`build_conservative_grid`) marks a (face, cell,
+  bin) when any ray entering the box through that cell rectangle with that
+  azimuth can reach any content box (triangle or instance-cluster boxes);
+  every real hit's entry lands in a marked bin, so a ray whose entry bin is
+  unmarked provably hits nothing there. The migration loop and the ring
+  shadow test skip such partitions (parallel/distributed.py,
+  parallel/exchange.py) and the image stays exact. It is built in host
+  numpy, as in JAX, and equals JAX's bit for bit; the lookup
+  `query_conservative_grids` is PyTorch.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+
+class VisibilityGrid(NamedTuple):
+    """One object's sampled grid; index = face * (W * H * A) + cell * A +
+    angle bin, cell = row * W + col (the conservative grid's (6, H, W, A)
+    layout, flattened)."""
+
+    grid: torch.Tensor      # (6 * W * H * A,) bool
+    aabb_min: torch.Tensor  # (3,)
+    aabb_max: torch.Tensor  # (3,)
+    width: int
+    height: int
+    angle: int
+
+
+def _face_and_cell(aabb_min, aabb_max, point, direction, width, height, angle):
+    """Flat grid index of box surface points and directions (N,): the face
+    is the nearest face plane (0/1 = -x/+x, 2/3 = -y/+y, 4/5 = -z/+z), the
+    cell the point's (row, col) on it, the bin the azimuth of the direction
+    re-oriented so that the face axis leads."""
+    span = torch.clamp(aabb_max - aabb_min, min=1e-12)
+    rel = (point - aabb_min) / span
+    d_face = torch.stack([rel[:, 0], 1 - rel[:, 0], rel[:, 1], 1 - rel[:, 1], rel[:, 2],
+                          1 - rel[:, 2]], dim=-1)
+    face = torch.argmin(d_face, dim=-1)
+    axis = face // 2
+    col = torch.where(axis == 0, rel[:, 1], torch.where(axis == 1, 1 - rel[:, 0], rel[:, 1]))
+    row = torch.where(axis == 2, rel[:, 0], 1 - rel[:, 2])
+    ci = (col * width).to(torch.int32).clamp(0, width - 1).long()
+    ri = (row * height).to(torch.int32).clamp(0, height - 1).long()
+    cell = ri * width + ci
+
+    dx, dy, dz = direction[:, 0], direction[:, 1], direction[:, 2]
+    sgn = lambda c: torch.where(c > 0, 1.0, -1.0)
+    du = torch.where(axis == 0, sgn(dx) * dy, torch.where(axis == 1, sgn(dy) * dz, sgn(dz) * dx))
+    dv = torch.where(axis == 0, sgn(dx) * dz, torch.where(axis == 1, sgn(dy) * dx, sgn(dz) * dy))
+    phi = torch.atan2(dv, du)
+    phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+    ab = (phi / (2 * math.pi) * angle).to(torch.int32).clamp(0, angle - 1).long()
+    return face * (width * height * angle) + cell * angle + ab
+
+
+def grid_from_rays(scene, aabb_min, aabb_max, origin, direction, width: int = 16,
+                   height: int = 16, angle: int = 8, eps: float = 1e-4) -> VisibilityGrid:
+    """The sampled grid of the entry rays (origin on the box's surface)
+    traced against `scene` on its device (train/datagen.py trace_labels,
+    in batches of its BATCH rays): a bin is marked when a ray entering
+    through it hits."""
+    from ..train.datagen import BATCH, trace_labels
+
+    dev = scene.cl_boxes.device
+    lo = torch.as_tensor(np.asarray(aabb_min, np.float32), device=dev)
+    hi = torch.as_tensor(np.asarray(aabb_max, np.float32), device=dev)
+    origin, direction = origin.to(dev), direction.to(dev)
+    grid = torch.zeros((6 * width * height * angle,), dtype=torch.bool, device=dev)
+    for s in range(0, origin.shape[0], BATCH):
+        o, d = origin[s:s + BATCH], direction[s:s + BATCH]
+        _, is_hit = trace_labels(scene, o, d, eps)
+        idx = _face_and_cell(lo, hi, o, d, width, height, angle)
+        grid[idx[is_hit]] = True
+    return VisibilityGrid(grid, lo, hi, width, height, angle)
+
+
+def build_visibility_grid(scene, aabb_min, aabb_max, width: int = 16, height: int = 16,
+                          angle: int = 8, samples: int = 200_000,
+                          seed: int = 0) -> VisibilityGrid:
+    """Cast `samples` random entry rays (train/datagen.py's sampler, a CPU
+    torch.Generator seeded with `seed`, so every device draws the same
+    rays) at the object's geometry and mark the bins of the rays that hit."""
+    from ..train.datagen import _sample_entry_rays
+
+    gen = torch.Generator().manual_seed(int(seed))
+    o, d = _sample_entry_rays(gen, aabb_min, aabb_max, samples)
+    return grid_from_rays(scene, aabb_min, aabb_max, o, d, width, height, angle)
+
+
+def query_visibility(vg: VisibilityGrid, origin, direction, t_enter):
+    """For (N,) rays entering the box at parameter t_enter: True = something
+    may be hit through that entry (up to the grid's resolution and sampling)."""
+    point = origin + t_enter[:, None] * direction
+    idx = _face_and_cell(vg.aabb_min, vg.aabb_max, point, direction,
+                         vg.width, vg.height, vg.angle)
+    return vg.grid[idx]
 
 
 def _face_frames():

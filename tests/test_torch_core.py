@@ -124,7 +124,8 @@ def _port_sources():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every .py of the port, and chip_smoke.py, imports torch-side code
-    only: no `jax`, no `pg2024_dprt_tpu` (the port keeps its own copies)."""
+    only: no `jax`, no `pg2024_dprt_tpu` (the port keeps its own copies), no
+    `optax` or `orbax` (both import JAX)."""
     bad = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
@@ -137,7 +138,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 root = name.split(".")[0]
-                if root in ("jax", "jaxlib", "pg2024_dprt_tpu"):
+                if root in ("jax", "jaxlib", "pg2024_dprt_tpu", "optax", "orbax"):
                     bad.append(f"{os.path.relpath(path, ROOT)}:{node.lineno} {name}")
     assert not bad, bad
 
@@ -182,7 +183,20 @@ def test_kernel_sources_include_only_cuda_and_their_own_headers():
             "pg2024_dprt_tpu_torch/parallel/exchange.py",
             "pg2024_dprt_tpu_torch/parallel/distributed.py",
             "pg2024_dprt_tpu_torch/scene/partition.py",
-            "pg2024_dprt_tpu_torch/scene/visibility_grid.py"} <= scanned
+            "pg2024_dprt_tpu_torch/scene/visibility_grid.py",
+            "pg2024_dprt_tpu_torch/scene/obj.py",
+            "pg2024_dprt_tpu_torch/train/datagen.py",
+            "pg2024_dprt_tpu_torch/train/datasets.py",
+            "pg2024_dprt_tpu_torch/train/loop.py",
+            "pg2024_dprt_tpu_torch/train/eval.py",
+            "pg2024_dprt_tpu_torch/train/__main__.py",
+            "pg2024_dprt_tpu_torch/render/__main__.py",
+            "pg2024_dprt_tpu_torch/render/frames.py",
+            "pg2024_dprt_tpu_torch/render/animation.py",
+            "pg2024_dprt_tpu_torch/utils/png.py",
+            "pg2024_dprt_tpu_torch/utils/timing.py",
+            "pg2024_dprt_tpu_torch/utils/benchmarking.py",
+            "pg2024_dprt_tpu_torch/utils/memory.py"} <= scanned
 
 
 def test_entry_points_need_cuda_unless_told(monkeypatch):

@@ -1112,12 +1112,15 @@ def test_schedule_keys_warp_per_ray_matches_plain_on_gpu(name, k, n, share):
     assert (key[perm][1:] >= key[perm][:-1]).all()
 
 
-# K4 with its table in shared memory and the block's rows staged and written
-# per output array: random overlapping boxes (repeated inside hits, so the
-# dedup acts), a row of the caller's node, an empty partition's inverted box
+# K4 with its table in shared memory and the block's records staged and
+# written per output array: random overlapping boxes (repeated inside hits,
+# so the dedup acts), a row of the caller's node, an empty partition's
+# inverted box; max_hits past the 768 staged slots of a block (a ray stages
+# min(max_hits, P) records and every further row is written empty)
 MARCH_EDGES = [  # (P, my_node, N, max_hits)
     (1, 5, 20000, 3), (8, 2, 1001, 3), (32, 7, 65536, 3), (32, 31, 4099, 8),
-    (8, 3, 2000, 300), (8, 8, 0, 3), (8, 8, 300, 0)]
+    (8, 3, 2000, 300), (8, 8, 0, 3), (8, 8, 300, 0),
+    (8, 3, 2000, 769), (32, 7, 1001, 1000), (16, 2, 500, 4096)]
 
 
 def _edge_table(p, device):
@@ -1136,9 +1139,10 @@ def _edge_table(p, device):
 @pytest.mark.parametrize("p,my_node,n,max_hits", MARCH_EDGES)
 def test_march_kernel_edges_match_plain_on_gpu(p, my_node, n, max_hits):
     """K4 against its plain version on every row and field (the zero
-    pixel_index / shadow_path_id included): P = 1, 8, 32, the caller's node's
-    rows skipped, an empty partition, N = 0, N not a multiple of the block,
-    max_hits 0, 8 and 300 (fewer rays a block)."""
+    pixel_index / shadow_path_id included): P = 1, 8, 16, 32, the caller's
+    node's rows skipped, an empty partition, N = 0, N not a multiple of the
+    block, max_hits 0, 8, 300 (fewer rays a block) and 769, 1000, 4096 (more
+    rows a ray than a block stages)."""
     _need_cuda()
     table = _edge_table(p, "cuda")
     rng = np.random.RandomState(13)
