@@ -224,12 +224,29 @@ Phases, each reported on its own line; any failure exits non-zero:
         launched in the neural run only; the exact frame lit; the neural
         frame's mean within 10 % of the exact frame's; seconds of training
         and of the frame).
+ 11. (run after phase 5) the flat trace kernels K1 / K2 (a lane, or a team
+     of 8 (K1) or 32 (K2) lanes a ray, by ops/resident.py flat_lanes) where the
+     dispatch rule takes them: cornell (phase 2's 32x32 camera, and at
+     256x256), partition 0 of the CLI's rooms:2 (K = 6), the
+     CLI's instanced:4,512 (K = 24) and the statues statue_mesh(32, seed)
+     for seeds 0, 1, 4 (K = 45-46) on their camera, first shadow and (the
+     statues) 65,536 datagen entry rays, and the 64k frame's camera,
+     first-shadow and bounce-1 wavefronts with K1 / K2 called directly (K =
+     185): each against its plain version by phase 4's criterion, its
+     device ms and wrapper ms beside the time before the team walks
+     (FLAT_BEFORE_MS) and its bound; K1 = K9 and K2 = K10 bit for bit on
+     statues 2 and 3 (K = 49, 47); train/datagen.py label_rays on statue 0
+     through K1, launches {resident_closest: 1}. A reading of its timing
+     conditions (flat_reading: cornell's and statue 0's device ms, a matmul
+     clock probe, the card's clocks, power and limit reasons) is taken
+     there and again after phase 10.
 Then the whole script's seconds, the kernels line (JSON, fourteen entries: K1-K13
 and K7's multi-geo mode, route_multigeo; `ms` is each kernel's own device
 time from the profiler and `wrapper_ms` the CUDA-event time of the call that
 launches it;
 K1/K2 carry the launches, times and plain-version checks of their main
-path, the composed cornell frame, and the phase-4 numbers of the 64k
+path, the composed cornell frame, phase 11's numbers under `phase11`, and
+the phase-4 numbers of the 64k
 frame's wavefronts under frame_64k_*; `disagreements` is the flag
 disagreements of K1/K2 against their plain versions, K3's outlier pixels
 against its plain version, K4's rows with another id or flag, K5/K6's
@@ -344,11 +361,13 @@ def split_ms(torch, fn, function, reps: int = 7, device_reps: int = 20):
 
 
 # kernel entry functions of csrc/ by their template arguments (ILb0E / ILb1E,
-# ILb0ELb1E or ILi0E .. ILi2E in the mangled name: the digits in order), as
+# ILb0ELb1E, ILi0E .. ILi2E or ILi32E in the mangled name: the numbers in order), as
 # the kernels line names them
-KERNEL_LABELS = {("closest_kernel", None): "K1 resident_closest",
+KERNEL_LABELS = {("closest_kernel", "1"): "K1 resident_closest (a lane a ray)",
+                 ("closest_kernel", "8"): "K1 resident_closest (teams of 8)",
                  ("grouped_closest_kernel", None): "K9 grouped_closest",
-                 ("anyhit_kernel", None): "K2 resident_anyhit",
+                 ("anyhit_kernel", "1"): "K2 resident_anyhit (a lane a ray)",
+                 ("anyhit_kernel", "32"): "K2 resident_anyhit (warp teams)",
                  ("grouped_anyhit_kernel", None): "K10 grouped_anyhit",
                  ("schedule_keys_kernel", None): "K8 schedule_keys",
                  ("frame_sample_kernel", None): "K3 frame_sample",
@@ -371,9 +390,9 @@ def ptxas_summary(log: str) -> str:
 
     parts, label = [], "?"
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function .*?\d([A-Za-z_]+_kernel)((?:I(?:L[bi][0-9]E)+)?)", ln)
+        m = re.search(r"Compiling entry function .*?\d([A-Za-z_]+_kernel)((?:I(?:L[bi][0-9]+E)+)?)", ln)
         if m:
-            args = "".join(re.findall(r"L[bi]([0-9])E", m.group(2))) or None
+            args = "".join(re.findall(r"L[bi]([0-9]+)E", m.group(2))) or None
             label = KERNEL_LABELS.get((m.group(1), args), m.group(1))
         elif "registers" in ln or "spill" in ln:
             parts.append(f"{label}: {ln.strip().replace('ptxas info    : ', '')}")
@@ -401,10 +420,10 @@ def hmma_counts(build_dir):
                               check=True, capture_output=True, text=True).stdout
         for ln in sass.splitlines():
             if "Function : " in ln:
-                m = re.search(r"\d([A-Za-z_]+_kernel)((?:I(?:L[bi][0-9]E)+)?)", ln)
+                m = re.search(r"\d([A-Za-z_]+_kernel)((?:I(?:L[bi][0-9]+E)+)?)", ln)
                 label = None
                 if m is not None and (lib, m.group(1)) in NET_KERNELS:
-                    args = "".join(re.findall(r"L[bi]([0-9])E", m.group(2))) or None
+                    args = "".join(re.findall(r"L[bi]([0-9]+)E", m.group(2))) or None
                     label = KERNEL_LABELS.get((m.group(1), args), m.group(1))
                     counts[label] = 0
             elif label is not None and re.search(r"\bHMMA\b", ln):
@@ -1103,11 +1122,10 @@ def route_phase(pt, torch, np, dev, counted):
               and ops.mlp.use_dense(models.vis_params, models.depth_params),
               "the dense rule does not split 8 and 12 production pairs")
         _, comp12 = counted(lambda: secondary(models12))
-    # the composed trace takes the kernels of the dispatch rule (K9 / K10
-    # from GROUPED_MIN_CLUSTERS clusters on)
-    grouped = ops.use_grouped(scene)
-    t_closest = "grouped_closest" if grouped else "resident_closest"
-    t_anyhit = "grouped_anyhit" if grouped else "resident_anyhit"
+    # the composed trace takes the kernels of the dispatch rule (ops/resident.py
+    # trace_grouped)
+    t_closest = "grouped_closest" if ops.trace_grouped(scene) else "resident_closest"
+    t_anyhit = "grouped_anyhit" if ops.trace_grouped(scene, True) else "resident_anyhit"
     check(comp_sec == {"schedule_keys": 1, t_closest: 1, "proxy_march": 1,
                        "mlp_dense": 1}, f"composed secondary_route launches {comp_sec}")
     check(comp_shd == {"schedule_keys": 1, t_anyhit: 1, "proxy_march": 1,
@@ -1761,8 +1779,9 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
               f"Kg={sc.cl_gboxes.shape[1]} C={sc.tris_per_cluster}, "
               f"{sc.num_base_tris * (sc.cl_xf.shape[0] if sc.instanced else 1)} effective "
               f"triangles; host build {secs:.1f} s, {mb:.1f} MB of device tables; the rule "
-              f"takes the {'grouped' if res.use_grouped(sc) else 'flat'} kernels "
-              f"(GROUPED_MIN_CLUSTERS {res.GROUPED_MIN_CLUSTERS})", flush=True)
+              f"takes the {'grouped' if res.trace_grouped(sc) else 'flat'} trace kernels "
+              f"(CLOSEST_GROUPED_MIN_CLUSTERS {res.CLOSEST_GROUPED_MIN_CLUSTERS}, "
+              f"ANYHIT_GROUPED_MIN_CLUSTERS {res.ANYHIT_GROUPED_MIN_CLUSTERS})", flush=True)
 
     # ---- path 2: the large-scene traces, K1 / K9 and K2 / K10 on each
     lo_i, hi_i = scene_i.scene_aabb.cpu().numpy()
@@ -1815,8 +1834,8 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
             flush=True)
 
     # ---- path 1: the instanced frame through render_image (the main path)
-    closest = "grouped_closest" if res.use_grouped(scene_i) else "resident_closest"
-    anyhit = "grouped_anyhit" if res.use_grouped(scene_i) else "resident_anyhit"
+    closest = "grouped_closest" if res.trace_grouped(scene_i) else "resident_closest"
+    anyhit = "grouped_anyhit" if res.trace_grouped(scene_i, True) else "resident_anyhit"
     render = lambda s=0: pt.render.render_image(scene_i, lights_i, env_i, cam_i, cfg_i,
                                                 base_sample=s)
     img, counts_i = counted(render)
@@ -2238,6 +2257,216 @@ def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the flat trace kernels K1 / K2 (flat team walks) under the
+# dispatch rule's cluster count
+
+# K1 / K2 device ms of their thread walks, before the team walks (PERF.md
+# section 6): chip_smoke.py's own run for cornell and the 64k frame's
+# wavefronts, scripts/torch_grouped_probe.py --parts flat for the others;
+# all on an NVIDIA H100 80GB HBM3 at 700 W
+FLAT_BEFORE_MS = {"cornell camera": 0.01069, "cornell shadow0": 0.00861,
+                  "cornell_256 camera": 0.0143, "cornell_256 shadow0": 0.0126,
+                  "frame_64k camera": 1.1417, "frame_64k shadow0": 0.9756,
+                  "rooms_partition0 camera": 0.12913, "rooms_partition0 shadow0": 0.10136,
+                  "instanced_4x512 camera": 0.17454, "instanced_4x512 shadow0": 0.11354,
+                  "statue0 camera": 0.17744, "statue0 shadow0": 0.14743,
+                  "statue0 datagen": 0.49544, "statue1 camera": 0.18927,
+                  "statue1 shadow0": 0.14860, "statue1 datagen": 0.49484,
+                  "statue4 camera": 0.18190, "statue4 shadow0": 0.15206,
+                  "statue4 datagen": 0.52433}
+
+
+def entry_wavefront(pt, torch, dev, scene, n=65536, seed=0):
+    """n datagen entry rays into the scene box (train/datagen.py
+    _sample_entry_rays, seeded; tmin 1e-4, tmax T_FAR), as label_rays
+    traces them."""
+    from pg2024_dprt_tpu_torch.train import datagen
+
+    lo, hi = scene.scene_aabb.cpu().numpy()
+    o, d = datagen._sample_entry_rays(torch.Generator().manual_seed(seed), lo, hi, n)
+    return (o.to(dev), d.to(dev), torch.full((n,), 1e-4, device=dev),
+            torch.full((n,), datagen.T_FAR, device=dev), torch.ones(n, dtype=torch.bool,
+                                                                    device=dev))
+
+
+def card_state():
+    """The card's SM and memory clocks (MHz), power draw (W), performance
+    state and active clock-limit reasons as nvidia-smi reads them now."""
+    fields = "clocks.sm,clocks.mem,power.draw,pstate,temperature.gpu"
+    err = ""
+    for extra in (",clocks_throttle_reasons.active", ""):
+        try:
+            run = subprocess.run(["nvidia-smi", f"--query-gpu={fields}{extra}",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True)
+        except OSError as e:
+            return {"nvidia-smi": str(e)}
+        if run.returncode == 0:
+            keys = fields.split(",") + (["limit_reasons"] if extra else [])
+            return dict(zip(keys, (v.strip() for v in run.stdout.splitlines()[0].split(","))))
+        err = run.stderr.strip() or run.stdout.strip()
+    return {"nvidia-smi": err[:200]}
+
+
+def graph_ms(torch, fn, reps: int = 50):
+    """Device ms of one fn() call without the profiler and without its host
+    work: `reps` calls captured in one CUDA graph, the CUDA-event median of
+    5 replays over `reps`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(torch, graph.replay, reps=5) / reps
+
+
+def compute_apps():
+    """The processes nvidia-smi sees on the card (pid, MiB)."""
+    try:
+        run = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    except OSError as e:
+        return str(e)
+    return run.stdout.strip().splitlines() if run.returncode == 0 else run.stderr.strip()[:200]
+
+
+def flat_reading(pt, torch, dev, cases, tag):
+    """One reading of phase 11's timing conditions: each case's device ms
+    by the profiler (as split_ms) and from a CUDA graph of its calls
+    (graph_ms), with the card's state just after; the CUDA-event ms of 20
+    back-to-back bf16 4096^3 matmuls, a clock probe that no wrapper paces;
+    the processes on the card and this process's allocator. Prints one
+    line; returns the numbers."""
+    a = torch.randn(4096, 4096, device=dev, dtype=torch.bfloat16,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    out = {"matmul_ms": cuda_ms(torch, lambda: [a @ a for _ in range(20)], reps=5) / 20,
+           "matmul_state": card_state(), "compute_apps": compute_apps(),
+           "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+           "reserved_gib": torch.cuda.memory_reserved() / 2**30}
+    for label, scene, rays, anyhit in cases:
+        name = "resident_anyhit" if anyhit else "resident_closest"
+        call = lambda kern=getattr(pt.ops, name): kern(scene, *rays)
+        out[label] = {"ms": device_ms(torch, call, KERNEL_FUNCTIONS[name]),
+                      "graph_ms": graph_ms(torch, call), "state": card_state()}
+    print(f"phase11 reading {tag}: {json.dumps(out)}", flush=True)
+    return out
+
+
+def flat_case(pt, torch, label, scene, rays, anyhit):
+    """One K1 or K2 wavefront: the kernel against its plain version (phase
+    4's criterion), its device and wrapper ms, the bound (large_work). Prints
+    one line; returns the numbers."""
+    ops = pt.ops
+    name = "resident_anyhit" if anyhit else "resident_closest"
+    kern, plain = getattr(ops, name), getattr(ops, f"{name}_plain")
+    got, want = kern(scene, *rays), plain(scene, *rays)
+    if anyhit:
+        err, ndis = compare_anyhit(pt, scene, rays, got, want)
+        work = large_work(pt, torch, scene, rays, occ=want)
+    else:
+        err, ndis, _ = compare_closest(pt, scene, rays, got, want)
+        work = large_work(pt, torch, scene, rays, hits=want)
+    d_ms, w_ms = split_ms(torch, lambda: kern(scene, *rays), KERNEL_FUNCTIONS[name], reps=7)
+    before = FLAT_BEFORE_MS.get(label)
+    lanes = ops.resident.flat_lanes(scene.num_clusters, rays[0].shape[0], anyhit)
+    print(f"phase11 {label}: K={scene.num_clusters} C={scene.tris_per_cluster}, "
+          f"{int(rays[4].sum())} rays, {'K2' if anyhit else 'K1'} ({lanes} lanes a ray) device "
+          f"{d_ms:.5f} ms (before {before if before is not None else 'not measured'}), "
+          f"wrapper {w_ms:.4f} ms, bound {work['bound_ms']:.6f} ms ({work['bound_by']}); vs plain: "
+          f"{ndis} disagreements, max abs err {err:.3g} ok", flush=True)
+    return {"ms": d_ms, "wrapper_ms": w_ms, "bound_ms": work["bound_ms"],
+            "bound_by": work["bound_by"], "max_abs_err": err, "disagreements": ndis,
+            "k": scene.num_clusters, "lanes": lanes}
+
+
+def flat_phase(pt, torch, np, dev, counted):
+    """Phase 11: K1 / K2 on the scenes that trace through them by the rule
+    (cornell, partition 0 of the CLI's rooms:2, the CLI's instanced:4,512,
+    the statues statue_mesh(32, seed=i) for i = 0, 1, 4) and on the 64k
+    frame's wavefronts with K1 / K2 forced (K = 185): every record against
+    the plain version, device / wrapper ms and bound beside the time before
+    the redesign; K1 = K9 and K2 = K10 bit for bit on statues 2 and 3 (K =
+    49, 47; K3 and K7 take their grouped modes there); the main path of a statue:
+    train/datagen.py label_rays on statue 0 (K = 45), launches
+    {resident_closest: 1}. Returns ({label: numbers}, the cases of
+    `flat_reading`: cornell's and statue 0's camera and shadow rays)."""
+    from pg2024_dprt_tpu_torch.render.__main__ import auto_camera, load_scene
+
+    ops = pt.ops
+    env = pt.scene.EnvironmentMap.constant((0.2, 0.3, 0.4), device=dev)
+
+    def framed(scene):
+        lo, hi = scene.scene_aabb.cpu().numpy()
+        return (pt.scene.auto_light(lo, hi, 8.0, device=dev), env,
+                auto_camera(lo, hi, 45.0, 256, 256, device=dev))
+
+    meshes, lights = pt.scene.cornell_box(device=dev)
+    cornell = pt.scene.device_scene_from_meshes(meshes, device=dev)
+    cases = [(label, cornell, lights, env, pt.core.Camera.look_at(
+        [0.5, 0.5, 2.4], [0.5, 0.5, 0.0], [0, 1, 0], 40.0, side, side, device=dev))
+        for label, side in (("cornell", 32), ("cornell_256", 256))]
+    meshes, lights = pt.scene.two_room_scene(2, device=dev)
+    rooms = pt.scene.build_partitioned_scene(meshes, 2, device=dev).scenes[0]
+    cases.append(("rooms_partition0", rooms, lights, env, framed(rooms)[2]))
+    (base, tf), _, _ = load_scene("instanced:4,512", device=dev)
+    inst = pt.scene.device_scene_from_instances(base, tf, device=dev)
+    cases.append(("instanced_4x512", inst, *framed(inst)))
+    statues = {i: pt.scene.device_scene_from_meshes([pt.scene.statue_mesh(32, seed=i)],
+                                                    device=dev) for i in (0, 1, 2, 3, 4)}
+    cases += [(f"statue{i}", statues[i], *framed(statues[i])) for i in (0, 1, 4)]
+    out, reading = {}, []
+    for label, scene, li, en, cam in cases:
+        check(not ops.trace_grouped(scene) and not ops.trace_grouped(scene, True),
+              f"{label}: K = {scene.num_clusters} is not under the dispatch rule")
+        cfg = pt.render.RenderConfig(width=cam.width, height=cam.height, spp=1, bounces=1)
+        first = frame_wavefronts(pt, scene, li, en, cam, cfg)[0]
+        waves = {"camera": first["closest"], "shadow0": first["shadow"]}
+        if label.startswith("statue"):
+            waves["datagen"] = entry_wavefront(pt, torch, dev, scene)
+        for wname, rays in waves.items():
+            out[f"{label} {wname}"] = flat_case(pt, torch, f"{label} {wname}", scene, rays,
+                                                wname == "shadow0")
+            if label in ("cornell", "cornell_256", "statue0") and wname != "datagen":
+                reading.append((f"{label} {wname}", scene, rays, wname == "shadow0"))
+    scene, lights, env64, cam, cfg = pt.scene.soup_frame(device=dev)
+    for wname, rays in named_wavefronts(frame_wavefronts(pt, scene, lights, env64, cam,
+                                                         cfg)).items():
+        out[f"frame_64k {wname}"] = flat_case(pt, torch, f"frame_64k {wname}", scene, rays,
+                                              wname == "shadow0")
+    for i in (2, 3):
+        scene = statues[i]
+        lo, hi = scene.scene_aabb.cpu().numpy()
+        cfg = pt.render.RenderConfig(width=256, height=256, spp=1, bounces=1)
+        first = frame_wavefronts(pt, scene, *framed(scene), cfg)[0]
+        for wname, rays in (("camera", first["closest"]), ("shadow0", first["shadow"]),
+                            ("datagen", entry_wavefront(pt, torch, dev, scene))):
+            if wname == "shadow0":
+                dis = int((ops.resident_anyhit(scene, *rays)
+                           != ops.grouped_anyhit(scene, *rays)).sum())
+            else:
+                k1, k9 = ops.resident_closest(scene, *rays), ops.grouped_closest(scene, *rays)
+                dis = int(sum((getattr(k1, f) != getattr(k9, f)).sum() for f in k1._fields))
+            check(dis == 0, f"statue{i} {wname}: K1/K2 differ from K9/K10 in {dis} fields")
+        print(f"phase11 statue{i} (K={scene.num_clusters}): K1 == K9 and K2 == K10 on every "
+              f"ray of its camera, shadow and datagen wavefronts ok", flush=True)
+    # the main path of a statue partition: datagen's labels (K1 at K = 45)
+    scene = statues[0]
+    lo, hi = scene.scene_aabb.cpu().numpy()
+    o, d = entry_wavefront(pt, torch, dev, scene)[:2]
+    (feats, depth), counts = counted(lambda: pt.train.datagen.label_rays(scene, o, d, lo, hi))
+    check(counts == {"resident_closest": 1} and bool(torch.isfinite(depth).all())
+          and tuple(feats.shape) == (o.shape[0], 5),
+          f"statue0 datagen labels: launches {counts}")
+    print(f"phase11 statue0 datagen labels (label_rays, {o.shape[0]} rays): launches {counts} "
+          f"ok; {float((depth < 1.0).float().mean()):.4f} of the rays hit", flush=True)
+    return out, reading
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the distributed frame (partitions, migration, ring shadows, neural
 # routing in a frame) and K7's multi-geo mode
 
@@ -2484,13 +2713,12 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
                                   dataclasses.replace(cfg, fused_frame="off"), device=dev)
     print(f"phase9 rooms_p8: {P} partitions of {part.scenes[0].num_triangles} triangles "
           f"(K={part.scenes[0].num_clusters} clusters of C={part.scenes[0].tris_per_cluster} "
-          f"each; the rule takes the {'grouped' if ops.use_grouped(part.scenes[0]) else 'flat'} "
+          f"each; the rule takes the {'grouped' if ops.trace_grouped(part.scenes[0]) else 'flat'} "
           f"kernels), host build {build_s:.1f} s, {mb:.1f} MB of device tables; reference: "
           f"render_image of the same meshes on one scene, fused_frame='off'", flush=True)
     (img, st), counts = counted(lambda: frame(part, None, cfg))
-    grouped = ops.use_grouped(part.scenes[0])
-    t_closest = "grouped_closest" if grouped else "resident_closest"
-    t_anyhit = "grouped_anyhit" if grouped else "resident_anyhit"
+    t_closest = "grouped_closest" if ops.trace_grouped(part.scenes[0]) else "resident_closest"
+    t_anyhit = "grouped_anyhit" if ops.trace_grouped(part.scenes[0], True) else "resident_anyhit"
     check(set(counts) == {t_closest, t_anyhit, "schedule_keys"} and counts[t_anyhit] == P * 4,
           f"rooms_p8 exact launches {counts}")
     check(tuple(img.shape) == (side, side, 3) and st["migration_truncated"] == 0,
@@ -2864,7 +3092,7 @@ def training_phase(pt, torch, np, dev, counted, side=64, rays=TRAIN_RAYS,
         hi = part.proxies.aabb_max[p].cpu().numpy()
         ((f, d), secs), counts = counted(lambda: synced_s(torch, lambda: (
             datagen.generate_proxy_dataset(sub, lo, hi, rays, seed=100 + p))))
-        kern = "grouped_closest" if pt.ops.use_grouped(sub) else "resident_closest"
+        kern = "grouped_closest" if pt.ops.trace_grouped(sub) else "resident_closest"
         n_launch = -(-rays // datagen.BATCH)
         hit = float((d != 1.0).mean())
         check(counts == {kern: n_launch}, f"datagen partition {p} launches {counts}")
@@ -3216,10 +3444,10 @@ def main() -> int:
               "frame image is not finite, nonnegative and lit")
         _, composed_counts = counted(
             lambda: pt.render.render_image(scene, lights, env, cam, off(cfg)))
-        grouped3 = pt.ops.use_grouped(scene)
         check(composed_counts == {
-            "grouped_closest" if grouped3 else "resident_closest": cfg.bounces,
-            "grouped_anyhit" if grouped3 else "resident_anyhit": cfg.bounces},
+            "grouped_closest" if pt.ops.trace_grouped(scene) else "resident_closest": cfg.bounces,
+            "grouped_anyhit" if pt.ops.trace_grouped(scene, True)
+            else "resident_anyhit": cfg.bounces},
               f"composed frame launches {composed_counts}")
         seeds = iter(range(1, 1000))
         frame_ms = cuda_ms(torch, lambda: pt.render.render_image(
@@ -3394,6 +3622,13 @@ def main() -> int:
               f"needed; bound {b3:.6f} ms ({b3_by}); K3 device {k3_dev:.3f} ms, wrapper "
               f"{k3_ms:.3f} ms", flush=True)
 
+        # ---- phase 11: K1 / K2 (flat walks) under the dispatch rule, with a
+        # reading of its timing conditions here and one after phase 10
+        flat, reading_cases = flat_phase(pt, torch, np, dev, counted)
+        kernels[0]["phase11"] = {k: v for k, v in flat.items() if not k.endswith("shadow0")}
+        kernels[1]["phase11"] = {k: v for k, v in flat.items() if k.endswith("shadow0")}
+        readings = {"after_phase5": flat_reading(pt, torch, dev, reading_cases, "after phase 5")}
+
         # ---- phase 6: the neural-proxy routing stage
         kernels += route_phase(pt, torch, np, dev, counted)
         cutout_phase(pt, torch, np, dev, counted)
@@ -3429,6 +3664,10 @@ def main() -> int:
                                  "labels": ten["labels"], "grid_launches": ten["grid"]["launches"]}
         route_entry["phase10"] = {"ab": ten["ab"], "cli_rooms8_neural": ten["cli_rooms8_neural"]}
         kernels[2]["phase10_cli_cornell"] = ten["cli_cornell"]
+
+        # ---- phase 11's reading again, after phase 10
+        readings["after_phase10"] = flat_reading(pt, torch, dev, reading_cases, "after phase 10")
+        kernels[0]["phase11_readings"] = readings
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -33,25 +33,35 @@
 // in ops/resident.py.
 //
 // The per-ray device functions (scene-exit cap, slab test, MT test, the
-// closest-hit and any-hit loops, the refinement) and the warp walks of the
-// two-level cull live in resident_trace.cuh, which the frame kernel
-// (frame.cu) and the fused route (route.cu) share; K1, K2, K8, K9 and K10
-// here are thin wrappers that load one ray of a wavefront and store its
-// record.
+// closest-hit and any-hit loops, the refinement), the flat team walks of K1
+// / K2 and the warp walks of the two-level cull live in resident_trace.cuh,
+// which the frame kernel (frame.cu) and the fused route (route.cu) share;
+// K1, K2, K8, K9 and K10 here are thin wrappers that load one ray of a
+// wavefront and store its record.
 //
-// Design of K1 / K2: one thread per ray. K1 visits the clusters the ray
-// enters in front-to-back order of (enter distance, cluster), selecting the
-// next one by a fresh O(K) slab pass (no per-ray list in memory), and stops when the
-// next enter distance is beyond the current best t (with the guard the TPU
-// kernels use). K2 visits entered clusters in index order and returns at
-// the first accepted hit. Neighbouring rays (tiled pixel order) visit the
-// same clusters, so a warp's table loads are mostly broadcasts and hit L1.
-//
-// What bounds it on an H100: FP32 operations. Each ray-triangle test is
-// about 40 FP32 operations and reads 48 bytes of table that neighbouring
+// What bounds K1 / K2 on an H100: FP32 operations. Each ray-triangle test
+// is about 40 FP32 operations and reads 48 bytes of table that neighbouring
 // rays share from cache, each cluster slab test about 30 operations; the
 // bytes every call must move (rays in, records out, the table once) are
 // far below the operations' time at 67 TFLOP/s FP32.
+//
+// Design: a team of W lanes walks one ray (flat_team_closest /
+// flat_team_anyhit in resident_trace.cuh): lane j slab-tests clusters j, j
+// + W, ... of the box table in one pass whose entered clusters fill a
+// per-team candidate buffer in shared memory, every later pick comes from
+// that buffer, and a visit spreads the cluster's slots over the lanes. So
+// a ray's work is spread over W lanes and a launch brings W times the
+// threads: 8 lanes for K1 (4 rays a warp: fewer idle lanes on small
+// clusters and few boxes), a warp for K2 (whose visits leave at the first
+// hit). At one cluster on a large launch a lane walks its own ray instead
+// (closest_hit / any_hit, the walks K3 and K7 run too): there a team would
+// repeat its ray's set-up on every lane and wait on one lane's refinement,
+// and the launch fills the card without teams. The wrapper picks the walk
+// per launch from K and N (ops/resident.py flat_lanes). A team visits
+// closest_hit's clusters in its order (K1) or ORs any_hit's entered
+// clusters (K2), so both walks' results are equal bit for bit. What bounds
+// the team walks (PERF.md): 21-39x the bound on the statues (K = 45-46),
+// the box pass and picks a third of a team's cycles.
 //
 // K9 grouped_closest replaces _kernel_grouped and _kernel_grouped_hbm
 // (pallas_call at :2269); K10 grouped_anyhit replaces _occl_kernel_grouped
@@ -128,22 +138,46 @@ using resident::Hit;
 using resident::Ray;
 using resident::Tables;
 
-constexpr int kThreads = 128;
+// K1 / K2: W lanes a ray (the design note above), kFlatThreads threads a
+// block. Two instances each: W = 1 (a lane walks its own ray) and a team,
+// kClosestTeam lanes for K1, kAnyhitTeam for K2 (the widths that won on the
+// card: PERF.md).
+constexpr int kClosestTeam = 8;
+constexpr int kAnyhitTeam = 32;
+constexpr int kFlatThreads = 128;
 
-// K1 / K2: one thread per ray.
-__global__ void __launch_bounds__(kThreads) closest_kernel(
+template <int W>
+__global__ void __launch_bounds__(kFlatThreads) closest_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
     const uint8_t* __restrict__ active, int n, Tables s,
     float* __restrict__ out_t, float* __restrict__ out_u,
     float* __restrict__ out_v, int32_t* __restrict__ out_tri,
     uint8_t* __restrict__ out_hit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Hit h = {resident::kF32Max, 0.0f, 0.0f, -1, false};
+  constexpr int kRays = kFlatThreads / W;
+  const int team = threadIdx.x / W;
+  const long long row = static_cast<long long>(blockIdx.x) * kRays + team;
+  if (row >= n) return;  // the whole team
+  const int i = static_cast<int>(row);
   Ray r;
-  if (resident::load_ray(i, o, d, tmin, tmax, active, s.scene_aabb, r)) {
-    h = resident::closest_hit(r, s);
+  const bool live = resident::load_ray(i, o, d, tmin, tmax, active, s.scene_aabb, r);
+  Hit h = {resident::kF32Max, 0.0f, 0.0f, -1, false};
+  if constexpr (W == 1) {
+    if (live) h = resident::closest_hit(r, s);
+  } else {
+    __shared__ resident::FlatBuf bufs[kRays];
+    CYCLES_NOW(t_walk);
+    const resident::Lanes<W> tl(threadIdx.x & 31);
+    const bool sample = tl.t == 0 && i % resident::kFlatSample == 0;
+    const int slot = live ? resident::flat_team_closest(r, s, tl, bufs[team], sample) : -1;
+    if (tl.t != 0) return;
+    CYCLES_NOW(t_refine);
+    if (slot >= 0) h = resident::refine(r, s, slot);
+    if (sample && live) {
+      CYCLES_ADD(resident::kFlatRefine, t_refine);
+      CYCLES_ADD(resident::kFlatWalk, t_walk);
+      CYCLES_COUNT(resident::kFlatRays, 1);
+    }
   }
   out_t[i] = h.t;
   out_u[i] = h.u;
@@ -152,19 +186,43 @@ __global__ void __launch_bounds__(kThreads) closest_kernel(
   out_hit[i] = h.hit ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(kThreads) anyhit_kernel(
+template <int W>
+__global__ void __launch_bounds__(kFlatThreads) anyhit_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
     const uint8_t* __restrict__ active, int n, Tables s,
     uint8_t* __restrict__ out_occ) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bool occ = false;
-  Ray r;
-  if (resident::load_ray(i, o, d, tmin, tmax, active, s.scene_aabb, r)) {
-    occ = resident::any_hit(r, s);
+  // the lane walk keeps the first design's kernel body: the team walk's
+  // indexing in its place ran 1-8 % slower on cornell's shadow rays
+  // (PERF.md)
+  if constexpr (W == 1) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    bool occ = false;
+    Ray r;
+    if (resident::load_ray(i, o, d, tmin, tmax, active, s.scene_aabb, r)) {
+      occ = resident::any_hit(r, s);
+    }
+    out_occ[i] = occ ? 1 : 0;
+  } else {
+    constexpr int kRays = kFlatThreads / W;
+    const resident::Lanes<W> tl(threadIdx.x & 31);
+    const long long row = static_cast<long long>(blockIdx.x) * kRays + threadIdx.x / W;
+    if (row >= n) return;  // the whole team
+    const int i = static_cast<int>(row);
+    Ray r;
+    bool occ = false;
+    if (resident::load_ray(i, o, d, tmin, tmax, active, s.scene_aabb, r)) {
+      occ = resident::flat_team_anyhit(r, s, tl);
+    }
+    if (tl.t == 0) out_occ[i] = occ ? 1 : 0;
   }
-  out_occ[i] = occ ? 1 : 0;
+}
+
+// blocks of kFlatThreads for n rays at `lanes` lanes a ray
+int flat_blocks(int n, int lanes) {
+  const int rays = kFlatThreads / lanes;
+  return static_cast<int>((n + rays - 1LL) / rays);
 }
 
 // ---------------------------------------------------------------------------
@@ -234,7 +292,6 @@ Tables make_tables(const float* boxes, const float* table, const int32_t* tri_ma
   return s;
 }
 
-int blocks(int n) { return (n + kThreads - 1) / kThreads; }
 int team_blocks(int n) { return static_cast<int>((n + kTeamWarps - 1LL) / kTeamWarps); }
 
 constexpr int kClusterBits = 12;
@@ -364,19 +421,21 @@ __global__ void __launch_bounds__(kKeyThreads) schedule_keys_kernel(
 
 // C entry points: launch on the caller's stream and return
 // cudaGetLastError() (0 = launched). xf is nullptr for a flat scene; the
-// grouped entry points need the group tables.
+// grouped entry points need the group tables. K1 / K2 take `lanes`, the
+// lanes that walk a ray: 1, or kClosestTeam (K1) / kAnyhitTeam (K2).
 extern "C" int resident_closest(
     const float* o, const float* d, const float* tmin, const float* tmax,
     const uint8_t* active, int n, const float* boxes, const float* table,
     const int32_t* tri_map, const int32_t* counts, const float* scene_aabb,
-    int nk, int c, const float* xf, int kb, int tb, float* out_t, float* out_u,
-    float* out_v, int32_t* out_tri, uint8_t* out_hit, void* stream) {
+    int nk, int c, const float* xf, int kb, int tb, int lanes, float* out_t,
+    float* out_u, float* out_v, int32_t* out_tri, uint8_t* out_hit, void* stream) {
+  if (lanes != 1 && lanes != kClosestTeam) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    closest_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, tmin, tmax, active, n,
-        make_tables(boxes, table, tri_map, counts, scene_aabb, nk, c, xf, kb, tb,
-                    nullptr, nullptr, 0),
-        out_t, out_u, out_v, out_tri, out_hit);
+    const Tables s = make_tables(boxes, table, tri_map, counts, scene_aabb, nk, c, xf, kb, tb,
+                                 nullptr, nullptr, 0);
+    auto kernel = lanes == 1 ? closest_kernel<1> : closest_kernel<kClosestTeam>;
+    kernel<<<flat_blocks(n, lanes), kFlatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmin, tmax, active, n, s, out_t, out_u, out_v, out_tri, out_hit);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -385,13 +444,14 @@ extern "C" int resident_anyhit(
     const float* o, const float* d, const float* tmin, const float* tmax,
     const uint8_t* active, int n, const float* boxes, const float* table,
     const int32_t* counts, const float* scene_aabb, int nk, int c,
-    const float* xf, int kb, uint8_t* out_occ, void* stream) {
+    const float* xf, int kb, int lanes, uint8_t* out_occ, void* stream) {
+  if (lanes != 1 && lanes != kAnyhitTeam) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    anyhit_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        o, d, tmin, tmax, active, n,
-        make_tables(boxes, table, nullptr, counts, scene_aabb, nk, c, xf, kb, 0,
-                    nullptr, nullptr, 0),
-        out_occ);
+    const Tables s = make_tables(boxes, table, nullptr, counts, scene_aabb, nk, c, xf, kb, 0,
+                                 nullptr, nullptr, 0);
+    auto kernel = lanes == 1 ? anyhit_kernel<1> : anyhit_kernel<kAnyhitTeam>;
+    kernel<<<flat_blocks(n, lanes), kFlatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        o, d, tmin, tmax, active, n, s, out_occ);
   }
   return static_cast<int>(cudaGetLastError());
 }

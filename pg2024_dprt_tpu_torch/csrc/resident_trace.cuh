@@ -1,6 +1,6 @@
 // Device functions of the resident ray-triangle traversal, shared by the
 // trace kernels (resident_trace.cu: K1 resident_closest, K2 resident_anyhit,
-// K9 grouped_closest, K10 grouped_anyhit), the whole-sample frame kernel
+// K9 grouped_closest, K10 grouped_anyhit, K8 schedule_keys), the whole-sample frame kernel
 // (frame.cu: K3 frame_sample) and the fused route (route.cu: K7), so that
 // the fused and the composed paths intersect with identical arithmetic — the counterpart of
 // pallas_frame.py::_frame_kernel reusing pallas_resident's _recull_loop /
@@ -39,6 +39,10 @@
 //     arithmetic is monotone in the box bounds, so a member never enters
 //     before its group: the grouped walks visit the clusters the flat ones
 //     visit, in the same order, and their results are equal bit for bit;
+//   * the flat team walks of K1 / K2 (flat_team_closest / flat_team_anyhit,
+//     the section "The flat team walks"): the flat walks' results by a team
+//     of W lanes a ray; at one cluster on a large launch K1 / K2 walk a
+//     lane a ray through closest_hit / any_hit;
 //   * the traces of K3 and K7 (closest / occluded at the end): each lane's
 //     ray through the flat walks, or the warp's rays one after another
 //     through the warp walks.
@@ -50,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "cycles.cuh"
 
 namespace resident {
 
@@ -626,6 +632,274 @@ __device__ __forceinline__ bool team_anyhit(const Ray& r, const Tables& s, int l
         const Ray l = s.xf ? object_ray(r, s, k0 / s.kb) : r;
         if (team_visit_any(l, s, k0, lane)) return true;
       }
+    }
+  }
+  return false;
+}
+
+// ---------------------------------------------------------------------------
+// The flat team walks (K1 / K2): a team of W lanes (W = 4 .. 32, a power of
+// two; a warp carries 32 / W rays) walks ONE ray through the flat cull, the
+// one-level counterpart of the warp walks above:
+//   * box pass: lane j slab-tests clusters j, j + W, ... of the planar
+//     (8, K) box table (the team's loads coalesced, the warp's teams read
+//     the same boxes); the closest hit puts every cluster entered under the
+//     horizon after the last pick into the team's candidate buffer in shared
+//     memory (up to kFlatCandidates) and keeps the least (enter, cluster);
+//   * picks: when the buffer holds every candidate of its pass, each later
+//     pick is the least buffered (enter, cluster) after the last one under
+//     the current horizon (it only falls), so one pass serves the whole
+//     walk; when it overflows (many clusters, e.g. a forced-flat K1 on a
+//     large scene), the walk visits the least candidate and passes again;
+//   * visits: lane j tests slots j, j + W, ... of the (16, C) table slice;
+//     the closest hit reduces the lexicographic (t, slot) minimum across
+//     the team by shuffles after each visit, the any-hit visits the entered
+//     clusters in index order and leaves at the first __any_sync hit; lane
+//     0 refines the winner (refine).
+// The picks are closest_hit's successive (enter, cluster) minima under the
+// same horizon, so the team visits closest_hit's clusters in its order; the
+// any-hit ORs any_hit's entered clusters. The (t, slot) minimum and the OR do
+// not depend on how the tests are spread over lanes, so the results equal
+// the thread walks' bit for bit. Every decision of a walk is the same on all
+// lanes of its team (ballots and reductions), so every lane of the team
+// reaches every shuffle, ballot and __syncwarp below, each over the team's
+// own lanes; the teams of a warp need not walk in step.
+
+constexpr int kFlatCandidates = 64;  // buffered picks of a walk (K < 64: all)
+
+// Shared memory of one flat team.
+struct FlatBuf {
+  float en[kFlatCandidates];
+  int k[kFlatCandidates];
+};
+
+// counters of a -DPG_CYCLES build (csrc/cycles.cuh): kept by lane 0 of the
+// team of one ray in kFlatSample (scripts/torch_grouped_probe.py --parts
+// flat): cycles in the box pass and the picks, in the visits, in the
+// refinement and in the whole walk; the rays, passes and picks, visits and
+// triangles tested
+constexpr int kFlatPass = 8, kFlatVisit = 9, kFlatRefine = 10, kFlatRays = 11,
+              kFlatPasses = 12, kFlatVisits = 13, kFlatWalk = 14, kFlatTris = 15;
+constexpr int kFlatSample = 8;
+
+// The lanes of one team of W in its warp.
+template <int W>
+struct Lanes {
+  static_assert(W >= 4 && W <= 32 && (W & (W - 1)) == 0, "a team is 4 .. 32 lanes, a power of two");
+  int t;          // this lane's index in its team
+  int first;      // the team's first lane in the warp
+  unsigned mask;  // the team's lanes
+
+  __device__ explicit Lanes(int lane)
+      : t(lane & (W - 1)), first(lane & ~(W - 1)), mask(team_mask(lane)) {}
+
+  static __device__ unsigned team_mask(int lane) {
+    if constexpr (W == 32) {
+      return kFull;
+    } else {
+      return ((1u << W) - 1u) << (lane & ~(W - 1));
+    }
+  }
+  // the team's ballot, bit j for team lane j
+  __device__ unsigned ballot(bool p) const {
+    const unsigned b = __ballot_sync(mask, p);
+    if constexpr (W == 32) {
+      return b;
+    } else {
+      return (b >> first) & ((1u << W) - 1u);
+    }
+  }
+  __device__ bool any(bool p) const { return __any_sync(mask, p); }
+  __device__ void sync() const { __syncwarp(mask); }
+  // the least (en, k) over the team, on every lane of it
+  __device__ void min_cand(float& en, int& k) const {
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1) {
+      const float en2 = __shfl_xor_sync(mask, en, off, W);
+      const int k2 = __shfl_xor_sync(mask, k, off, W);
+      if (cand_before(en2, k2, en, k)) {
+        en = en2;
+        k = k2;
+      }
+    }
+  }
+  // the lexicographic (t, slot) minimum over the team; slot < 0 is no hit
+  __device__ void min_hit(float& tv, int& slot) const {
+#pragma unroll
+    for (int off = W / 2; off > 0; off >>= 1) {
+      const float t2 = __shfl_xor_sync(mask, tv, off, W);
+      const int s2 = __shfl_xor_sync(mask, slot, off, W);
+      if (s2 >= 0 && (slot < 0 || t2 < tv || (t2 == tv && s2 < slot))) {
+        tv = t2;
+        slot = s2;
+      }
+    }
+  }
+};
+
+// The closest hit's box pass: every cluster entered at en <= hz after
+// (last_en, last_k) in (enter, cluster) order. Returns their least (en, k)
+// on every lane of the team (k = -1: none) and their number; they are in
+// the team's buffer when the number is at most kFlatCandidates.
+template <int W>
+__device__ __forceinline__ int flat_pass(const Ray& r, const Tables& s, float hz,
+                                         float last_en, int last_k, const Lanes<W>& tl,
+                                         FlatBuf& fb, float& next_en, int& next_k) {
+  int count = 0;
+  float my_en = CUDART_INF_F;
+  int my_k = -1;
+  for (int base = 0; base < s.nk; base += W) {
+    const int k = base + tl.t;
+    const float en = k < s.nk ? cluster_enter(r, s.boxes, k, s.nk) : CUDART_INF_F;
+    const bool ok = en <= hz && en < CUDART_INF_F &&
+                    !(en < last_en || (en == last_en && k <= last_k));
+    if (ok && cand_before(en, k, my_en, my_k)) {
+      my_en = en;
+      my_k = k;
+    }
+    const unsigned m = tl.ballot(ok);
+    const int at = count + __popc(m & lanes_below(tl.t));
+    if (ok && at < kFlatCandidates) {
+      fb.en[at] = en;
+      fb.k[at] = k;
+    }
+    count += __popc(m);
+  }
+  tl.sync();
+  tl.min_cand(my_en, my_k);
+  next_en = my_en;
+  next_k = my_k;
+  return count;
+}
+
+// The pick from a buffer that holds every candidate of its pass: the least
+// buffered (en, k) after (last_en, last_k) with en <= hz.
+template <int W>
+__device__ __forceinline__ void flat_pick(const FlatBuf& fb, int count, float hz, float last_en,
+                                          int last_k, const Lanes<W>& tl, float& next_en,
+                                          int& next_k) {
+  float my_en = CUDART_INF_F;
+  int my_k = -1;
+  for (int i = tl.t; i < count; i += W) {
+    const float en = fb.en[i];
+    const int k = fb.k[i];
+    if (!(en <= hz) || en < last_en || (en == last_en && k <= last_k)) continue;
+    if (cand_before(en, k, my_en, my_k)) {
+      my_en = en;
+      my_k = k;
+    }
+  }
+  tl.min_cand(my_en, my_k);
+  next_en = my_en;
+  next_k = my_k;
+}
+
+// Tests cluster k's triangles against `l` (in the cluster's object space),
+// lane j slots j, j + W, ...; the team's (t, slot) minimum with the hits so
+// far, on every lane of it.
+template <int W>
+__device__ __forceinline__ void flat_visit_closest(const Ray& l, const Tables& s, int k,
+                                                   const Lanes<W>& tl, float& best_t,
+                                                   int& best_slot) {
+  const int c = s.c;
+  const float* tab = s.table + static_cast<size_t>(s.xf ? k % s.kb : k) * 16 * c;
+  const int cnt = __ldg(s.counts + k);
+  float t_min = best_t;
+  int slot_min = best_slot;
+  for (int j = tl.t; j < cnt; j += W) {
+    float t;
+    if (mt_test(l, tab, c, j, t) && t < l.tmax) {
+      const int slot = k * c + j;
+      if (slot_min < 0 || t < t_min || (t == t_min && slot < slot_min)) {
+        t_min = t;
+        slot_min = slot;
+      }
+    }
+  }
+  tl.min_hit(t_min, slot_min);
+  best_t = t_min;
+  best_slot = slot_min;
+}
+
+// Any accepted triangle of cluster k (`l` in its object space), W slots a
+// step; the same answer on every lane of the team.
+template <int W>
+__device__ __forceinline__ bool flat_visit_any(const Ray& l, const Tables& s, int k,
+                                               const Lanes<W>& tl) {
+  const int c = s.c;
+  const float* tab = s.table + static_cast<size_t>(s.xf ? k % s.kb : k) * 16 * c;
+  const int cnt = __ldg(s.counts + k);
+  for (int j0 = 0; j0 < cnt; j0 += W) {
+    const int j = j0 + tl.t;
+    float t;
+    const bool hit = j < cnt && mt_test(l, tab, c, j, t) && t < l.tmax;
+    if (tl.any(hit)) return true;
+  }
+  return false;
+}
+
+// The closest-hit walk of one ray (K1): closest_hit's visits in its order;
+// returns the winning slot (-1: none) on every lane of the team. `sample`:
+// this lane keeps the counters of a -DPG_CYCLES build.
+template <int W>
+__device__ __forceinline__ int flat_team_closest(const Ray& r, const Tables& s,
+                                                 const Lanes<W>& tl, FlatBuf& fb,
+                                                 bool sample) {
+  float best_t = kF32Max;
+  int best_slot = -1;
+  float last_en = -1.0f;
+  int last_k = -1;
+  float hz = horizon(r, best_t, best_slot);
+  float next_en;
+  int next_k;
+  CYCLES_NOW(t_pass);
+  int count = flat_pass(r, s, hz, last_en, last_k, tl, fb, next_en, next_k);
+  bool buffered = count <= kFlatCandidates;
+  if (sample) {
+    CYCLES_ADD(kFlatPass, t_pass);
+    CYCLES_COUNT(kFlatPasses, 1);
+  }
+  while (next_k >= 0) {
+    CYCLES_NOW(t_visit);
+    // instanced: the ray in this cluster's instance frame, per visit
+    const Ray l = s.xf ? object_ray(r, s, next_k / s.kb) : r;
+    flat_visit_closest(l, s, next_k, tl, best_t, best_slot);
+    if (sample) {
+      CYCLES_ADD(kFlatVisit, t_visit);
+      CYCLES_COUNT(kFlatVisits, 1);
+      CYCLES_COUNT(kFlatTris, __ldg(s.counts + next_k));
+    }
+    last_en = next_en;
+    last_k = next_k;
+    hz = horizon(r, best_t, best_slot);
+    CYCLES_NOW(t_pick);
+    if (buffered) {
+      flat_pick(fb, count, hz, last_en, last_k, tl, next_en, next_k);
+    } else {
+      count = flat_pass(r, s, hz, last_en, last_k, tl, fb, next_en, next_k);
+      buffered = count <= kFlatCandidates;
+    }
+    if (sample) {
+      CYCLES_ADD(kFlatPass, t_pick);
+      CYCLES_COUNT(kFlatPasses, 1);
+    }
+  }
+  return best_slot;
+}
+
+// The any-hit walk of one ray (K2): entered clusters in index order, leaving
+// at the first accepted hit; the same answer on every lane of the team.
+template <int W>
+__device__ __forceinline__ bool flat_team_anyhit(const Ray& r, const Tables& s,
+                                                 const Lanes<W>& tl) {
+  for (int base = 0; base < s.nk; base += W) {
+    const int k = base + tl.t;
+    unsigned m = tl.ballot(k < s.nk && cluster_enter(r, s.boxes, k, s.nk) < CUDART_INF_F);
+    while (m) {
+      const int k0 = base + __ffs(m) - 1;
+      m &= m - 1;
+      const Ray l = s.xf ? object_ray(r, s, k0 / s.kb) : r;
+      if (flat_visit_any(l, s, k0, tl)) return true;
     }
   }
   return false;

@@ -27,6 +27,7 @@ from .resident import (
     schedule_keys,
     schedule_keys_plain,
     schedule_order,
+    trace_grouped,
     trace_resident,
     use_grouped,
 )

@@ -10,7 +10,7 @@ Five kernels written by hand for Hopper, in csrc/resident_trace.cu:
   * `grouped_closest` (K9) and `grouped_anyhit` (K10) replace
     _kernel_grouped[_hbm] and _occl_kernel_grouped[_hbm]: K1's and K2's
     functions through the two-level cull over groups of CL_GROUP clusters,
-    which large scenes take (`use_grouped`);
+    which large scenes take (`trace_grouped`);
   * `schedule_keys` (K8) replaces _sched_kernel: the per-ray sort key of the
     wavefront sort (`sort_rays=True`, `schedule_order`), which puts rays that
     visit the same clusters next to each other before K1, K2 or the fused
@@ -59,18 +59,61 @@ LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0, "grouped_closest": 0,
 
 # the group fan-out the grouped kernels read (scene/geometry.py CL_GROUP)
 GROUP = 8
-# the default dispatch takes the grouped kernels (K9/K10, and the warp walks
-# of the frame kernel K3 and the fused route K7) at this many clusters and
-# more. The JAX package's rule is a budget of the TPU's fast memory and means
-# nothing on this card. On the 64k soup of the soup frame cut at 2048 .. 128
-# triangles a cluster (K = 47 .. 735; scripts/torch_grouped_probe.py --parts
-# rule, an H100 at 700 W; PERF.md), K9 took 0.09-0.23 of K1's time and K10
-# 0.07-0.18 of K2's, K3's warp walks 0.19-0.63 of its flat mode's, K7's
-# 0.82-0.93 (secondary) and 0.32-0.69 (shadow), and the composed frame
-# 0.74-0.99; on the cornell box (K = 1) K9 / K10 took 1.2-1.5x and K3 1.9x
-# the flat kernels' time. One rule serves them all: from K = 47, the
-# smallest K measured above 1, every grouped kernel wins.
+# The dispatch rule (`use_grouped`): the grouped modes of the frame kernel
+# K3, the fused route K7 and the schedule keys K8 (their warp walks, or
+# K8's group cull) from GROUPED_MIN_CLUSTERS clusters on; trace_resident's
+# grouped kernels (`trace_grouped`) K9 from CLOSEST_GROUPED_MIN_CLUSTERS and
+# K10 from ANYHIT_GROUPED_MIN_CLUSTERS on. The JAX package's rule is a
+# budget of the TPU's fast memory and means nothing on this card. Measured
+# on an H100 at 700 W (scripts/torch_grouped_probe.py --parts flat, and
+# --parts rule for K3 / K7; PERF.md): device ms of the grouped kernel over
+# the flat one by its rule (below 1: the grouped kernel wins) on camera /
+# incoherent / datagen rays, first-shadow rays for K10 / K2, and CUDA
+# events around the calls for K3 and K7 (secondary):
+#   K    scene (C, rays)        K9/K1        K10/K2       K3      K7
+#   1    cornell (128, 1,024)   0.98         1.21         -       -
+#   1    cornell (128, 65,536)  5.4-5.8      2.9          2.0-2.5 1.04-1.09
+#   32   soup (2048)            0.48-0.73    1.24         -       -
+#   45   statue 0 (128)         1.04-1.13    1.09         -       -
+#   47   soup (2048)            -            -            0.62    0.68
+#   49   statue 2 (128)         1.15         -            -       -
+#   62   soup (128)             0.94-1.08    1.12         -       -
+#   90   soup (128)             0.80-0.97    1.16         -       -
+#   129  soup (128)             0.76-0.92    1.13         -       -
+#   185  64k frame (512)        0.61         1.12-1.15    0.35-0.39 0.75-0.82
+#   239  soup (128)             0.61-0.88    1.14         -       -
+#   368  soup (128)             0.58-0.79    1.03         -       -
+#   533  soup (128)             0.48-0.72    1.02         -       -
+#   735  soup (128)             -            0.58-0.73    0.19    0.48
+# K3, K7 and K8 walk as they did, and win from 47, the smallest K measured
+# above 1. The trace kernels K1 / K2 walk a ray with a team of lanes (the
+# flat team walks), which moved their crossover: K9 wins the closest hit
+# from K between 62 and 90, K10 the any-hit above 533 (at C = 128: every
+# scene under 262,144 triangles; larger ones have K >= 512). On the 64k
+# frame composed, the rule's K9 + K2 took 1.079 ms of device time a frame
+# against 1.159 for K9 + K10.
 GROUPED_MIN_CLUSTERS = 47
+CLOSEST_GROUPED_MIN_CLUSTERS = 64
+ANYHIT_GROUPED_MIN_CLUSTERS = 512
+# K1 / K2 walk each ray with a team of lanes (csrc/resident_trace.cuh, the
+# flat team walks: CLOSEST_TEAM lanes for K1, ANYHIT_TEAM for K2), or at
+# one cluster on a large launch with a lane a ray (the thread walks
+# closest_hit / any_hit). Measured on the same card (probe flat; PERF.md):
+# teams of 8 win the closest hit at C = 128 under 47 clusters (1.4-2.2x
+# over warp teams on camera rays at K = 1-12; on the statues of K = 45-46
+# 0.86-0.89 of the warp teams' time on camera rays, a tie on datagen rays),
+# warp teams the any-hit from K = 2 (1.2x at K = 2, 2.2-3.4x at K = 24-46).
+# At one cluster (cornell at 1,024 .. 65,536 camera rays) teams win up to
+# 16,384 rays (K1 0.0087 against 0.0108 ms; K2 a tie) and a lane a ray
+# from 32,761 (K1 0.0118 against 0.0153, K2 0.0100 against 0.0169): there
+# a team repeats its ray's set-up on every lane and the launch fills the
+# card without teams. Each kernel is built in its two walks only: the lane
+# walk in the body of the narrow teams' instance slowed both (PERF.md).
+CLOSEST_TEAM = 8   # kClosestTeam in csrc/resident_trace.cu
+ANYHIT_TEAM = 32   # kAnyhitTeam
+LANE_MAX_CLUSTERS = 1
+CLOSEST_LANE_MIN_RAYS = 24576
+ANYHIT_LANE_MIN_RAYS = 16384
 
 # the schedule key holds two cluster indices of this many bits
 SCHEDULE_CLUSTER_BITS = 12
@@ -85,16 +128,35 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
-def use_grouped(scene, grouped=None) -> bool:
-    """Whether a trace of `scene` takes the grouped kernels. `grouped`
-    True/False forces either (True on a scene without group tables runs
-    the flat kernels, as in JAX); None applies the port's rule: the scene
-    has group tables and at least GROUPED_MIN_CLUSTERS clusters."""
+def use_grouped(scene, grouped=None, min_clusters=None) -> bool:
+    """Whether `scene` takes the grouped kernels. `grouped` True/False
+    forces either (True on a scene without group tables runs the flat
+    kernels, as in JAX); None applies the port's rule: the scene has group
+    tables and at least `min_clusters` clusters (GROUPED_MIN_CLUSTERS, the
+    rule of K3, K7 and K8, unless given)."""
     if scene.cl_gboxes is None or scene.cl_mboxes is None:
         return False
     if grouped is None:
-        return scene.num_clusters >= GROUPED_MIN_CLUSTERS
+        limit = GROUPED_MIN_CLUSTERS if min_clusters is None else min_clusters
+        return scene.num_clusters >= limit
     return bool(grouped)
+
+
+def trace_grouped(scene, any_hit: bool = False, grouped=None) -> bool:
+    """`use_grouped` for trace_resident: K9 from CLOSEST_GROUPED_MIN_CLUSTERS
+    clusters on, K10 (`any_hit`) from ANYHIT_GROUPED_MIN_CLUSTERS."""
+    return use_grouped(scene, grouped, ANYHIT_GROUPED_MIN_CLUSTERS if any_hit
+                       else CLOSEST_GROUPED_MIN_CLUSTERS)
+
+
+def flat_lanes(k: int, n: int, any_hit: bool = False) -> int:
+    """The lanes that walk each ray of K1 (or K2, `any_hit`) on a launch of
+    N rows over K clusters: 1 (a lane a ray), or CLOSEST_TEAM (K1) /
+    ANYHIT_TEAM (K2)."""
+    least = ANYHIT_LANE_MIN_RAYS if any_hit else CLOSEST_LANE_MIN_RAYS
+    if k <= LANE_MAX_CLUSTERS and n >= least:
+        return 1
+    return ANYHIT_TEAM if any_hit else CLOSEST_TEAM
 
 
 def trace_resident(scene, origin, direction, t_min, t_max, active,
@@ -105,7 +167,7 @@ def trace_resident(scene, origin, direction, t_min, t_max, active,
     sort_rays runs the kernel on the wavefront in schedule order
     (`schedule_order`) and returns the result in the caller's order;
     `grouped` picks the flat (K1/K2) or the grouped (K9/K10) kernels by
-    `use_grouped`. The result is the same per ray either way."""
+    `trace_grouped`. The result is the same per ray either way."""
     n = origin.shape[0]
     t_min = torch.as_tensor(t_min, dtype=torch.float32, device=origin.device).expand(n)
     t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device).expand(n)
@@ -113,7 +175,7 @@ def trace_resident(scene, origin, direction, t_min, t_max, active,
     perm = schedule_order(scene, *rays) if sort_rays else None
     if perm is not None:
         rays = tuple(x[perm] for x in rays)
-    if use_grouped(scene, grouped):
+    if trace_grouped(scene, any_hit, grouped):
         out = grouped_anyhit(scene, *rays) if any_hit else grouped_closest(scene, *rays)
     else:
         out = resident_anyhit(scene, *rays) if any_hit else resident_closest(scene, *rays)
@@ -169,7 +231,7 @@ def _closest(name, scene, o, d, tmin, tmax, active) -> HitRecord:
     rc = getattr(_lib(), name)(
         *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
         _ptr(tab["cl_tri_map"]), _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]),
-        k, c, xf, kb, tb, *(group_args(tab) if grouped else ()),
+        k, c, xf, kb, tb, *(group_args(tab) if grouped else (flat_lanes(k, n),)),
         _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit), _stream(o))
     _check(rc, name)
     if n:
@@ -185,7 +247,8 @@ def _anyhit(name, scene, o, d, tmin, tmax, active) -> torch.Tensor:
     rc = getattr(_lib(), name)(
         *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
         _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c, xf, kb,
-        *(group_args(tab) if grouped else ()), _ptr(occ), _stream(o))
+        *(group_args(tab) if grouped else (flat_lanes(k, n, True),)), _ptr(occ),
+        _stream(o))
     _check(rc, name)
     if n:
         LAUNCHES[name] += 1
@@ -344,7 +407,9 @@ def _kernel_inputs(scene, o, d, tmin, tmax, active, grouped: bool = False):
     take. Returns (rays, tables, N, K, C): the five ray tensors and the scene
     tables by name, all contiguous. The caller holds them until the launch is
     enqueued; after that the caching allocator orders any reuse of their
-    memory behind the stream."""
+    memory behind the stream. The ray checks run on every call: a
+    wavefront's tensors are new at every bounce, and keeping their checks
+    (`stamped`) cost more host time than it saved (PERF.md)."""
     if o.device.type != "cuda":
         raise ValueError(f"rays on {o.device}: the kernels take CUDA tensors")
     n = o.shape[0]
@@ -369,9 +434,9 @@ def _lib():
         groups = [p, p, i]                  # gboxes, mboxes, Kg
         closest = rays + [p, p, p, p, p, i, i] + inst + [i]   # ... TB
         anyhit = rays + [p, p, p, p, i, i] + inst
-        lib.resident_closest.argtypes = closest + [p] * 5 + [p]
+        lib.resident_closest.argtypes = closest + [i] + [p] * 5 + [p]   # lanes, ...
         lib.grouped_closest.argtypes = closest + groups + [p] * 5 + [p]
-        lib.resident_anyhit.argtypes = anyhit + [p, p]
+        lib.resident_anyhit.argtypes = anyhit + [i, p, p]
         lib.grouped_anyhit.argtypes = anyhit + groups + [p, p]
         for fn in (lib.resident_closest, lib.grouped_closest, lib.resident_anyhit,
                    lib.grouped_anyhit):

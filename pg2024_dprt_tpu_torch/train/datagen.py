@@ -10,8 +10,8 @@ The rays are drawn from an explicit torch.Generator on the host and then
 moved to the scene's device, so a seed gives the same rays on every device
 (the JAX package draws them from jax.random: a different stream). The
 labeller is the trace the renderer runs: on CUDA tensors the closest-hit
-kernels of ops/resident.py (K1, or K9 from GROUPED_MIN_CLUSTERS clusters on,
-by `use_grouped`); on CPU tensors the stackless walk ops/traversal.py
+kernels of ops/resident.py (K1, or K9 from CLOSEST_GROUPED_MIN_CLUSTERS
+clusters on, by `trace_grouped`); on CPU tensors the stackless walk ops/traversal.py
 traverse_bvh, which the JAX module runs everywhere. Only t and the hit flag
 enter a label, so two triangles tied at the same t give the same label.
 """

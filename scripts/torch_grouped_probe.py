@@ -4,7 +4,8 @@
 them, on one GPU.
 
     python scripts/torch_grouped_probe.py [--root DIR ...]
-        [--parts waves,frame,dist,rule,route,k3,nets,tiles,keys,march] [--ablate]
+        [--parts waves,frame,dist,rule,route,k3,nets,tiles,keys,march,flat]
+        [--ablate]
 
 Each --root is a checkout of this repository (default: the one holding this
 script). Each runs in a process of its own, in the order given (to compare
@@ -23,10 +24,11 @@ chip_smoke.py's (phase 7 and phase 9), from this script's checkout. Parts:
   dist   phase 9's frames, rooms_p8 exact, rooms_p8 neural (8 PROD pairs) and
          instanced_p8: frame ms (medians of 3) and the stage ms, idle share
          and K9 / K10 device ms of one profiled frame.
-  rule   the dispatch rule (ops/resident.py GROUPED_MIN_CLUSTERS) at small
-         K: the 64k soup of the soup frame cut at 2048 .. 128 triangles a
-         cluster, and the cornell box: K1 / K9 and K2 / K10 on its camera
-         and incoherent wavefronts, the frame kernel K3 in its grouped and
+  rule   the dispatch rule (ops/resident.py GROUPED_MIN_CLUSTERS and the
+         trace kernels' constants) at small K: the 64k soup of the soup
+         frame cut at 2048 .. 128 triangles a cluster, and the cornell box:
+         K1 / K9 and K2 / K10 on its camera and incoherent wavefronts (device
+         ms and CUDA events around the wrappers), the frame kernel K3 in its grouped and
          flat modes on the soup frame's light, sky, camera and config, and
          the composed frame with the rule's threshold just above and at K
          (medians of 7; K3 and the frames of 5); K7 (the fused route) in its
@@ -78,6 +80,32 @@ chip_smoke.py's (phase 7 and phase 9), from this script's checkout. Parts:
          with the plain version; where the tree's resident_trace.cu has
          counters in K8, a build with them (build/cycles/): the warps'
          cycles in the box loop against their whole time.
+  flat   K1 (resident_closest) and K2 (resident_anyhit) where the dispatch
+         rule takes them (ops/resident.py trace_grouped: under its cluster
+         count): a K sweep at 128 triangles a cluster (random_tri_soup(n,
+         seed=0) with n chosen for K = 1, 2, 4, 6, 12, 24, 36, 45, 46 and,
+         past the rule's 47, 62, 90, 129, 239, 368, 533; and 40,000
+         triangles at 2048 a cluster, K = 32), the cornell box at 32x32,
+         64x64, 128x128, 181x181 and 256x256 (1,024 to 65,536 camera rays),
+         partition 0 of the CLI's rooms:2, the CLI's instanced:4,512, the
+         statues statue_mesh(32, seed=i) for i = 0, 1, 4, the eight
+         partitions of the statue row (chip_smoke.py statue_row; its
+         datagen wavefront only) and the 64k frame (soup_frame, K = 185 at
+         512 a cluster; camera and first shadow, and its composed frame by
+         the tree's rule: frame ms and the trace kernels' device ms).
+         Wavefronts: the camera (tiled order) and the first shadow
+         wavefront of a 1-bounce frame, 65,536 random rays in schedule
+         order and 65,536 datagen entry rays (train/datagen.py
+         _sample_entry_rays, seed 0, into the scene box). Per wavefront: K1
+         and K9 (closest) or K2 and K10 (shadow), each kernel's device ms
+         (torch.profiler) and wrapper ms (CUDA events), the bound
+         (chip_smoke.py large_work), digests of K1's records and K2's flags
+         (two trees equal bit for bit where the digests are), K9 = K1 / K10
+         = K2; where the tree's resident_trace.cu has the counters of
+         csrc/cycles.cuh, K1's cycle split (box passes, visits, refine; a
+         -DPG_CYCLES build into build/cycles/); where the tree's K1/K2 pick
+         their walk per launch (ops/resident.py flat_lanes), the device ms
+         of each walk forced: a lane a ray, a team a ray.
   march  K4 (proxy_march) on neural_route_64k's secondary rays (capped at
          the local hit) and on the march_instanced table: device and
          wrapper ms, the bound, every output's digest and chip_smoke.py's
@@ -114,9 +142,24 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(HERE, "chiprun_out", "grouped_probe.jsonl")
 
-# the CUDA functions of K9 / K10, whichever design the tree has
-K9_FUNCTIONS = ("closest_kernel<true>", "grouped_closest_kernel")
-K10_FUNCTIONS = ("anyhit_kernel<true>", "grouped_anyhit_kernel")
+# the CUDA functions of K1 / K2 / K9 / K10 (a template instance matches), by
+# the probe's short names and the wrappers that launch them
+FLAT_FUNCTIONS = {"k1": "closest_kernel", "k2": "anyhit_kernel", "k9": "grouped_closest_kernel",
+                  "k10": "grouped_anyhit_kernel"}
+FLAT_WRAPPERS = {"k1": "resident_closest", "k2": "resident_anyhit", "k9": "grouped_closest",
+                 "k10": "grouped_anyhit"}
+# the flat part's K sweep: (K, triangles of random_tri_soup(n, seed=0),
+# triangles a cluster)
+FLAT_SWEEP = ((1, 70, 128), (2, 140, 128), (4, 280, 128), (6, 480, 128), (12, 1008, 128),
+              (24, 2080, 128), (36, 3440, 128), (45, 4036, 128), (46, 4140, 128),
+              (32, 40000, 2048), (62, 5000, 128), (90, 8000, 128), (129, 12000, 128),
+              (239, 20000, 128), (368, 32000, 128), (533, 48000, 128))
+# the CLI's automatic light (render/__main__.py --light-intensity)
+AUTO_LIGHT = 8.0
+
+# the CUDA functions of K9 / K10
+K9_FUNCTIONS = ("grouped_closest_kernel",)
+K10_FUNCTIONS = ("grouped_anyhit_kernel",)
 
 
 def _chip_smoke():
@@ -214,7 +257,9 @@ def part_rule(pt, torch, np, cs, dev, frame64):
     scenes += [(f"soup64k_c{tpc}", pt.scene.device_scene_from_meshes(
         [soup], tris_per_cluster=tpc, device=dev), lights) for tpc in (2048, 1024, 512, 256, 128)]
     seeds = iter(range(1, 10000))
-    saved = res.GROUPED_MIN_CLUSTERS
+    limits = [n for n in ("GROUPED_MIN_CLUSTERS", "CLOSEST_GROUPED_MIN_CLUSTERS",
+                          "ANYHIT_GROUPED_MIN_CLUSTERS") if hasattr(res, n)]
+    saved = {n: getattr(res, n) for n in limits}
     out = {}
     try:
         for name, scene, li in scenes:
@@ -225,9 +270,10 @@ def part_rule(pt, torch, np, cs, dev, frame64):
                                                    [0.5, 0.5, 0.5], 45.0, tiled=True)),
                     ("incoherent", cs.random_wavefront(pt, torch, np, dev, scene, -0.2, 1.4,
                                                        1))):
-                for kn, fn in (("k1", ops.resident_closest), ("k9", ops.grouped_closest),
-                               ("k2", ops.resident_anyhit), ("k10", ops.grouped_anyhit)):
-                    rec[f"{wname}_{kn}_ms"] = cs.cuda_ms(torch, lambda: fn(scene, *rays), reps=7)
+                for kn in ("k1", "k9", "k2", "k10"):
+                    fn = getattr(ops, FLAT_WRAPPERS[kn])
+                    rec[f"{wname}_{kn}_device_ms"], rec[f"{wname}_{kn}_ms"] = cs.split_ms(
+                        torch, lambda: fn(scene, *rays), FLAT_FUNCTIONS[kn])
             for mode in (True, False):
                 rec[f"k3_{'grouped' if mode else 'flat'}_ms"] = cs.cuda_ms(
                     torch, lambda: ops.render_frame_fused(scene, li, env, cam, next(seeds), cfg,
@@ -240,14 +286,17 @@ def part_rule(pt, torch, np, cs, dev, frame64):
                             torch, lambda: fn(scene, *route[2], *args, grouped=mode), reps=7)
             off = dataclasses.replace(cfg, fused_frame="off")
             for label, limit in (("flat", k + 1), ("grouped", k)):
-                res.GROUPED_MIN_CLUSTERS = limit
+                for n in limits:
+                    setattr(res, n, limit)
                 rec[f"composed_{label}_ms"] = cs.cuda_ms(torch, lambda: pt.render.render_image(
                     scene, li, env, cam, off, base_sample=next(seeds)), reps=5)
-            res.GROUPED_MIN_CLUSTERS = saved
+            for n, v in saved.items():
+                setattr(res, n, v)
             out[name] = rec
             print(f"probe rule {name}: {rec}", flush=True)
     finally:
-        res.GROUPED_MIN_CLUSTERS = saved
+        for n, v in saved.items():
+            setattr(res, n, v)
     return out
 
 
@@ -929,6 +978,170 @@ def _host_us(torch, fn, reps=500):
 
 
 # --------------------------------------------------------------------------
+# flat: K1 and K2 under the dispatch rule's cluster count
+
+def _flat_cycles_lib(root):
+    """resident_trace.cu of the tree with the flat part's counters
+    (-DPG_CYCLES), or None where its source has none."""
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    src = os.path.join(root, "pg2024_dprt_tpu_torch", "csrc")
+    text = "".join(open(os.path.join(src, f)).read() for f in ("resident_trace.cu",
+                                                                "resident_trace.cuh"))
+    return _cycles_lib(root, _build, "resident_trace") if "CYCLES_ADD(kFlatPass" in text else None
+
+
+def _flat_split(c):
+    """K1's counters (one ray in 8): the shares of a walk's cycles in the box
+    passes, the visits and the refinement, and per ray the passes, visits,
+    triangles and cycles."""
+    rays, walk = max(c[11], 1), max(c[14], 1)
+    return {"pass_share": c[8] / walk, "visit_share": c[9] / walk,
+            "refine_share": c[10] / walk, "passes_per_ray": c[12] / rays,
+            "visits_per_ray": c[13] / rays, "triangles_per_ray": c[15] / rays,
+            "walk_cycles_per_ray": c[14] / rays, "sampled_rays": c[11]}
+
+
+def _flat_scenes(pt, np, cs, dev, frame64):
+    """(name, scene, lights, env, camera, wavefront names) of the flat part."""
+    from pg2024_dprt_tpu_torch.render.__main__ import auto_camera, load_scene
+
+    _, f_lights, f_env, f_cam, _ = frame64
+    env = pt.scene.EnvironmentMap.constant((0.2, 0.3, 0.4), device=dev)
+    every = ("camera", "shadow0", "incoherent", "datagen")
+
+    def framed(scene):
+        lo, hi = scene.scene_aabb.cpu().numpy()
+        return (pt.scene.auto_light(lo, hi, AUTO_LIGHT, device=dev), env,
+                auto_camera(lo, hi, 45.0, 256, 256, device=dev))
+
+    out = []
+    for k, n, c in FLAT_SWEEP:
+        s = pt.scene.device_scene_from_meshes([pt.scene.random_tri_soup(n, seed=0)],
+                                              tris_per_cluster=c, device=dev)
+        out.append((f"soup_k{k}_c{c}", s, f_lights, f_env, f_cam, every))
+    meshes, lights = pt.scene.cornell_box(device=dev)
+    s = pt.scene.device_scene_from_meshes(meshes, device=dev)
+    for side in (32, 64, 128, 181, 256):
+        cam = pt.core.Camera.look_at([0.5, 0.5, 2.4], [0.5, 0.5, 0.0], [0, 1, 0], 40.0, side,
+                                     side, device=dev)
+        out.append((f"cornell_{side}", s, lights, env, cam,
+                    every if side == 256 else ("camera", "shadow0")))
+    meshes, lights = pt.scene.two_room_scene(2, device=dev)
+    s = pt.scene.build_partitioned_scene(meshes, 2, device=dev).scenes[0]
+    out.append(("rooms_partition0", s, lights, env, framed(s)[2], every))
+    (base, tf), _, _ = load_scene("instanced:4,512", device=dev)
+    s = pt.scene.device_scene_from_instances(base, tf, device=dev)
+    out.append(("instanced_4x512", s, *framed(s), every))
+    for i in (0, 1, 4):
+        s = pt.scene.device_scene_from_meshes([pt.scene.statue_mesh(32, seed=i)], device=dev)
+        out.append((f"statue{i}", s, *framed(s), every))
+    for p, s in enumerate(cs.statue_row(pt, np, dev)[0].scenes):
+        out.append((f"statue_row_p{p}", s, None, None, None, ("datagen",)))
+    out.append(("frame_64k", *frame64[:4], ("camera", "shadow0")))
+    return out
+
+
+def _flat_waves(pt, torch, np, cs, dev, scene, lights, env, cam, names):
+    """The flat part's wavefronts of one scene, by name."""
+    from pg2024_dprt_tpu_torch.train import datagen
+
+    lo, hi = scene.scene_aabb.cpu().numpy()
+    w = {}
+    if "camera" in names:
+        cfg = pt.render.RenderConfig(width=cam.width, height=cam.height, spp=1, bounces=1)
+        first = cs.frame_wavefronts(pt, scene, lights, env, cam, cfg)[0]
+        w["camera"], w["shadow0"] = first["closest"], first["shadow"]
+    if "incoherent" in names:
+        w["incoherent"] = cs.random_wavefront(pt, torch, np, dev, scene, lo, hi - lo, 1)
+    if "datagen" in names:
+        o, d = datagen._sample_entry_rays(torch.Generator().manual_seed(0), lo, hi, datagen.BATCH)
+        n = o.shape[0]
+        w["datagen"] = (o.to(dev), d.to(dev), torch.full((n,), 1e-4, device=dev),
+                        torch.full((n,), datagen.T_FAR, device=dev),
+                        torch.ones(n, dtype=torch.bool, device=dev))
+    return {k: v for k, v in w.items() if k in names}
+
+
+@contextlib.contextmanager
+def _flat_walk(res, team):
+    """K1/K2 walk each ray with their team (`team`) or a lane whatever their
+    rule says."""
+    saved = res.flat_lanes
+    res.flat_lanes = lambda k, n, any_hit=False: ((res.ANYHIT_TEAM if any_hit else
+                                                   res.CLOSEST_TEAM) if team else 1)
+    try:
+        yield
+    finally:
+        res.flat_lanes = saved
+
+
+def _composed_frame(pt, torch, cs, frame64):
+    """The 64k frame composed (fused_frame off) by the tree's dispatch rule:
+    its frame ms (median of 5, unprofiled) and the device ms of each trace
+    kernel summed over one profiled frame."""
+    scene, lights, env, cam, cfg = frame64
+    off = dataclasses.replace(cfg, fused_frame="off")
+    prof = pt.utils.profile.render_device_profile(
+        lambda s: pt.render.render_image(scene, lights, env, cam, off, base_sample=s),
+        pt.utils.profile.STAGES, top=256, reps=5)
+    return {"frame_ms": prof["unprofiled_wall_ms"], "busy_ms": prof["busy_ms"],
+            **{f"{kn}_device_ms": cs.kernel_device_ms(prof, fn)
+               for kn, fn in FLAT_FUNCTIONS.items()}}
+
+
+def part_flat(pt, torch, np, cs, root, dev, frame64):
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    ops, res = pt.ops, pt.ops.resident
+    lib = _flat_cycles_lib(root)
+    walks = hasattr(res, "flat_lanes")
+    out = {}
+    for name, scene, lights, env, cam, names in _flat_scenes(pt, np, cs, dev, frame64):
+        rule = getattr(ops, "trace_grouped", None)
+        rec = {"k": scene.num_clusters, "c": scene.tris_per_cluster,
+               "grouped_rule": ([rule(scene), rule(scene, True)] if rule is not None
+                                else ops.use_grouped(scene))}
+        for wname, rays in _flat_waves(pt, torch, np, cs, dev, scene, lights, env, cam,
+                                       names).items():
+            anyhit = wname == "shadow0"
+            flat_k, grouped_k = ("k2", "k10") if anyhit else ("k1", "k9")
+            flat = getattr(ops, FLAT_WRAPPERS[flat_k])(scene, *rays)
+            grouped = getattr(ops, FLAT_WRAPPERS[grouped_k])(scene, *rays)
+            fields = (flat,) if anyhit else tuple(flat)
+            w = {"rays": int(rays[4].sum()), "rows": int(rays[0].shape[0]),
+                 "digest": _digest(torch, *fields),
+                 "grouped_equal": all(torch.equal(a, b) for a, b in
+                                      zip(fields, (grouped,) if anyhit else tuple(grouped)))}
+            if not anyhit:
+                w["hits"] = int(flat.is_hit.sum())
+            for kn in (flat_k, grouped_k):
+                fn = getattr(ops, FLAT_WRAPPERS[kn])
+                w[f"{kn}_device_ms"], w[f"{kn}_wrapper_ms"] = cs.split_ms(
+                    torch, lambda: fn(scene, *rays), FLAT_FUNCTIONS[kn])
+            work = cs.large_work(pt, torch, scene, rays, **({"occ": flat} if anyhit
+                                                          else {"hits": flat}))
+            w["bound_ms"], w["bound_by"] = work["bound_ms"], work["bound_by"]
+            if walks:
+                fn = getattr(ops, FLAT_WRAPPERS[flat_k])
+                w["lanes_rule"] = res.flat_lanes(scene.num_clusters, rays[0].shape[0], anyhit)
+                for team in (False, True):
+                    with _flat_walk(res, team):
+                        w[f"{flat_k}_{'team' if team else 'lane'}_device_ms"] = cs.device_ms(
+                            torch, lambda: fn(scene, *rays), FLAT_FUNCTIONS[flat_k])
+            if not anyhit and lib is not None:
+                with _swapped(_build, "resident_trace", lib):
+                    w["k1_split"] = _flat_split(_cycles(
+                        torch, lib, lambda: ops.resident_closest(scene, *rays)))
+            rec[wname] = w
+        if name == "frame_64k":
+            rec["composed"] = _composed_frame(pt, torch, cs, frame64)
+        out[name] = rec
+        print(f"probe flat {name}: {rec}", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 
 def child(root, parts, ablate):
     sys.path.insert(0, root)
@@ -968,6 +1181,8 @@ def child(root, parts, ablate):
         out["k3"] = part_k3(pt, torch, cs, root, scenes[0], scenes[2])
     if "march" in parts:
         out["march"] = part_march(pt, torch, np, cs, root, dev)
+    if "flat" in parts:
+        out["flat"] = part_flat(pt, torch, np, cs, root, dev, scenes[0])
     if {"route", "tiles", "nets", "keys"} & parts:
         cases = _route_cases(pt, torch, np, cs, dev, scenes[2])
         if "keys" in parts:

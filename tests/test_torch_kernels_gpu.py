@@ -400,7 +400,8 @@ def test_mlp_kernels_match_plain_on_gpu(kernel, width, depth, head, q, o_count, 
 
 def _trace_kernel(scene, query):
     """The trace kernel the dispatch rule picks for the composed stage."""
-    return ("grouped_" if tops.use_grouped(scene) else "resident_") + query
+    return ("grouped_" if tops.trace_grouped(scene, query == "anyhit")
+            else "resident_") + query
 
 
 def _route_case(device, vis_bias, depth_bias=0.0, n=6000, shadow=False, kind="unit"):
@@ -851,19 +852,21 @@ def test_frame_kernel_grouped_mode_is_bit_identical_on_gpu(width, height, nee_mo
 
 @pytest.mark.cuda
 def test_grouped_routing_through_launches_on_gpu():
-    """trace_resident and the composed frame take K9/K10 from
-    GROUPED_MIN_CLUSTERS clusters on and K1/K2 below; the frame kernel
-    never launches on an instanced scene."""
+    """trace_resident and the composed frame take K9 from
+    CLOSEST_GROUPED_MIN_CLUSTERS clusters on and K10 from
+    ANYHIT_GROUPED_MIN_CLUSTERS on, K1/K2 below; the frame kernel never
+    launches on an instanced scene."""
     from pg2024_dprt_tpu_torch.render import render_image
 
     _need_cuda()
     scene, rays = _large_case("instanced", 64, "cuda", n=1024)
     k = scene.num_clusters
-    saved = tres.GROUPED_MIN_CLUSTERS
+    saved = (tres.CLOSEST_GROUPED_MIN_CLUSTERS, tres.ANYHIT_GROUPED_MIN_CLUSTERS)
     try:
-        for limit, closest, anyhit in ((k, "grouped_closest", "grouped_anyhit"),
-                                       (k + 1, "resident_closest", "resident_anyhit")):
-            tres.GROUPED_MIN_CLUSTERS = limit
+        for limits, closest, anyhit in (((k, k), "grouped_closest", "grouped_anyhit"),
+                                        ((k, k + 1), "grouped_closest", "resident_anyhit"),
+                                        ((k + 1, k + 1), "resident_closest", "resident_anyhit")):
+            tres.CLOSEST_GROUPED_MIN_CLUSTERS, tres.ANYHIT_GROUPED_MIN_CLUSTERS = limits
             tops.reset_launch_counts()
             tops.trace_resident(scene, *rays)
             tops.trace_resident(scene, *rays, any_hit=True)
@@ -882,7 +885,7 @@ def test_grouped_routing_through_launches_on_gpu():
             assert {n: v for n, v in tops.LAUNCHES.items() if v} == {closest: 3, anyhit: 3}
             assert bool(torch.isfinite(img).all()) and float(img.max()) > 0.0
     finally:
-        tres.GROUPED_MIN_CLUSTERS = saved
+        tres.CLOSEST_GROUPED_MIN_CLUSTERS, tres.ANYHIT_GROUPED_MIN_CLUSTERS = saved
 
 
 @pytest.mark.cuda
@@ -1168,3 +1171,123 @@ def test_march_kernel_edges_match_plain_on_gpu(p, my_node, n, max_hits):
         assert got.is_valid.sum() > n // 8 and got.is_inside.sum() > 0
         hit_rows = got.aabb_id[got.is_valid]
         assert not (got.node_id[got.is_valid] == my_node).any() and hit_rows.numel()
+
+
+# --------------------------------------------------------------------------
+# K1 / K2 as flat team walks (a team of 8 or 32 lanes a ray). Tolerance:
+# exact. The teams visit the thread walks' clusters in their order and keep
+# the same (t, slot) winner, so both widths equal the plain versions and
+# K9 / K10 bit for bit.
+
+# (name, triangles of random_tri_soup(n, seed=0), triangles a cluster): the
+# K sweep of scripts/torch_grouped_probe.py --parts flat (K = 1 .. 46 at C =
+# 128, K = 32 at C = 2048) and a soup of large triangles (K = 733 clusters
+# of 16), whose rays often enter more clusters than a team's candidate
+# buffer holds
+TEAM_CASES = [(f"k{k}_c{c}", n, c) for k, n, c in (
+    (1, 70, 128), (2, 140, 128), (4, 280, 128), (6, 480, 128), (12, 1008, 128),
+    (24, 2080, 128), (36, 3440, 128), (45, 4036, 128), (46, 4140, 128), (32, 40000, 2048))]
+TEAM_CASES += [("overflow", 8000, 16), ("instanced", 0, 64), ("instanced_ragged", 0, 48)]
+
+
+def _team_rays(scene, n, device, seed=81):
+    """n random rays over the scene box (a quarter capped short, a tenth
+    inactive)."""
+    rng = np.random.RandomState(seed)
+    lo, hi = (x.cpu().numpy() for x in scene.scene_aabb)
+    o = (lo - 0.2 + rng.rand(n, 3) * (hi - lo + 0.4)).astype(np.float32)
+    d = rng.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.where(rng.rand(n) < 0.25, 0.3, 3.4e38).astype(np.float32)
+    on = lambda a: torch.as_tensor(a, device=device)
+    return (on(o), on(d), torch.full((n,), T_MIN, device=device), on(tmax),
+            on(rng.rand(n) > 0.1))
+
+
+def _walk(team):
+    """flat_lanes forcing K1 and K2 into their team walks (`team`) or a
+    lane a ray."""
+    return lambda k, n, any_hit=False: ((tres.ANYHIT_TEAM if any_hit else tres.CLOSEST_TEAM)
+                                        if team else 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("team", [False, True], ids=["lane", "team"])
+@pytest.mark.parametrize("name,n_tris,tpc", TEAM_CASES, ids=[c[0] for c in TEAM_CASES])
+def test_flat_team_walks_match_plain_on_gpu(name, n_tris, tpc, team, monkeypatch):
+    """K1 and K2 in both walks (a lane a ray, a team a ray) equal their
+    plain versions field by field over the K sweep, past the candidate
+    buffer and on instanced scenes (virtual ids, ragged counts), and each
+    counts its own launch."""
+    _need_cuda()
+    monkeypatch.setattr(tres, "flat_lanes", _walk(team))
+    if name.startswith("instanced"):
+        scene, rays = _large_case("instanced", tpc, "cuda",
+                                  edge="ragged" if name.endswith("ragged") else None)
+    else:
+        jitter = 0.4 if name == "overflow" else 0.08
+        scene = device_scene_from_meshes([random_tri_soup(n_tris, seed=0, jitter=jitter)],
+                                         tris_per_cluster=tpc, device="cuda")
+        rays = _team_rays(scene, 8192, "cuda")
+    if name == "overflow":
+        inv, _, tcap = tres.ray_limits(scene, *rays)
+        entered = torch.isfinite(tres.cluster_enters_plain(scene, rays[0], inv, tcap)).sum(1)
+        assert int((entered > 64).sum()) > 100
+    before = dict(tops.LAUNCHES)
+    k1 = tops.resident_closest(scene, *rays)
+    k2 = tops.resident_anyhit(scene, *rays)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES == {**before, "resident_closest": before["resident_closest"] + 1,
+                             "resident_anyhit": before["resident_anyhit"] + 1}
+    want = tops.resident_closest_plain(scene, *rays)
+    for f in k1._fields:
+        assert torch.equal(getattr(k1, f), getattr(want, f)), f
+    assert torch.equal(k2, tops.resident_anyhit_plain(scene, *rays))
+    assert k1.is_hit.sum() > 0 and k2.sum() >= k1.is_hit.sum() // 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2, 3])
+def test_flat_team_walks_equal_grouped_on_statues_on_gpu(seed, monkeypatch):
+    """On statues of the A-B row with K >= 47 (statue_mesh(32, seed) for
+    seeds 2 and 3: K = 49, 47), K1 equals K9 and K2 equals K10 on every ray
+    in both walks (a lane a ray, a team a ray), on 16,384 rays entering
+    the box (datagen's recipe)."""
+    _need_cuda()
+    scene = device_scene_from_meshes([tscene.statue_mesh(32, seed=seed)], device="cuda")
+    assert scene.num_clusters >= 47
+    lo, hi = (x.cpu().numpy() for x in scene.scene_aabb)
+    rng = np.random.RandomState(90 + seed)
+    n = 16384
+    p = lo + rng.rand(n, 3) * (hi - lo)
+    face = rng.randint(0, 6, n)
+    p[np.arange(n), face // 2] = np.where(face % 2 == 1, hi[face // 2], lo[face // 2])
+    d = lo + rng.rand(n, 3) * (hi - lo) - p
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    on = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    rays = (on(p), on(d), torch.full((n,), 1e-4, device="cuda"), on(np.full(n, 3.4e38)),
+            torch.ones(n, dtype=torch.bool, device="cuda"))
+    k9 = tops.grouped_closest(scene, *rays)
+    k10 = tops.grouped_anyhit(scene, *rays)
+    assert k9.is_hit.sum() > n // 2
+    for team in (False, True):
+        monkeypatch.setattr(tres, "flat_lanes", _walk(team))
+        k1 = tops.resident_closest(scene, *rays)
+        for f in k1._fields:
+            assert torch.equal(getattr(k1, f), getattr(k9, f)), f
+        assert torch.equal(tops.resident_anyhit(scene, *rays), k10)
+
+
+@pytest.mark.cuda
+def test_flat_walk_of_another_width_raises_on_gpu(monkeypatch):
+    """K1 and K2 are built in two walks each (a lane a ray, their team); a
+    launch asking for another width raises: no fallback."""
+    _need_cuda()
+    scene = device_scene_from_meshes([random_tri_soup(140, seed=0)], tris_per_cluster=128,
+                                     device="cuda")
+    rays = _team_rays(scene, 64, "cuda")
+    monkeypatch.setattr(tres, "flat_lanes", lambda k, n, any_hit=False: 8 if any_hit else 32)
+    with pytest.raises(RuntimeError, match="resident_closest"):
+        tops.resident_closest(scene, *rays)
+    with pytest.raises(RuntimeError, match="resident_anyhit"):
+        tops.resident_anyhit(scene, *rays)

@@ -22,7 +22,9 @@ from pg2024_dprt_tpu.ops.pallas_resident import schedule_keys as j_schedule_keys
 from pg2024_dprt_tpu.ops.pallas_resident import trace_resident as j_trace
 from pg2024_dprt_tpu.ops.pallas_tracer import _morton_key as j_morton_key
 from pg2024_dprt_tpu.scene import cornell_box, device_scene_from_meshes, random_tri_soup
+from pg2024_dprt_tpu.scene.procedural import statue_mesh
 from pg2024_dprt_tpu_torch import ops as tops
+from pg2024_dprt_tpu_torch import scene as tscene
 from pg2024_dprt_tpu_torch.ops import resident as tres
 from pg2024_dprt_tpu_torch.scene import device_scene_from_arrays
 
@@ -272,3 +274,77 @@ def test_group_enter_bounds_its_members_enter(kind, seed, finite):
     eg_of = eg[:, group_of]                          # each cluster's group enter
     assert torch.isfinite(eg_of[entered]).all()
     assert (eg_of[entered].view(torch.int32) <= en[entered].view(torch.int32)).all()
+
+
+def _entry_rays(n, seed, lo, hi):
+    """n seeded rays that enter the box [lo, hi] (train/datagen.py's recipe:
+    the origin on a random face, the direction toward a random interior
+    point), drawn with numpy."""
+    rng = np.random.RandomState(seed)
+    p = lo + rng.rand(n, 3) * (hi - lo)
+    face = rng.randint(0, 6, n)
+    axis = face // 2
+    p[np.arange(n), axis] = np.where(face % 2 == 1, hi[axis], lo[axis])
+    d = lo + rng.rand(n, 3) * (hi - lo) - p
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return p.astype(np.float32), d.astype(np.float32), rng
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_statue_matches_jax(any_hit):
+    """A statue of the paper's A-B row (statue_mesh(32, seed=0): K = 45
+    clusters of C = 128, the most the flat kernels K1/K2 take by the
+    dispatch rule): 384 seeded rays entering its box, a tenth inactive,
+    closest hit with unbounded tmax and any-hit with finite tmax; the port's
+    plain version against JAX's trace_resident at the file's tolerances."""
+    js, ts = _scenes([statue_mesh(32, seed=0)], None)
+    assert ts.num_clusters == 45 and ts.tris_per_cluster == 128
+    lo, hi = ts.scene_aabb.numpy()
+    n = 384
+    o, d, rng = _entry_rays(n, 62, lo, hi)
+    act = rng.rand(n) > 0.1
+    if any_hit:
+        tmax = (rng.rand(n) * 0.8 + 0.05).astype(np.float32)
+        got, want = _both(js, ts, o, d, tmax, act, any_hit=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        assert 20 < got.sum() < act.sum()
+    else:
+        got, want = _both(js, ts, o, d, np.full(n, 1e30, np.float32), act)
+        _assert_hits_match(got, want)
+        assert got.is_hit.sum() > n // 2 and not got.is_hit.numpy()[~act].any()
+
+
+@pytest.mark.parametrize("k,n,any_hit,lanes", [
+    (1, 1024, False, 8), (1, 1024, True, 32), (1, 65536, False, 1), (1, 65536, True, 1),
+    (2, 65536, False, 8), (2, 65536, True, 32), (46, 65536, False, 8), (45, 65536, True, 32),
+    (47, 1024, False, 8), (1, 4096, False, 8), (1, 4096, True, 32), (185, 65536, True, 32)])
+def test_flat_team_width_rule(k, n, any_hit, lanes):
+    """The lanes that walk a ray of K1/K2 by the measured rule
+    (ops/resident.py flat_lanes): a lane a ray up to LANE_MAX_CLUSTERS
+    clusters from CLOSEST_LANE_MIN_RAYS (K1) or ANYHIT_LANE_MIN_RAYS (K2)
+    rows; else teams of CLOSEST_TEAM (K1) or ANYHIT_TEAM (K2) lanes."""
+    assert (tres.CLOSEST_TEAM, tres.ANYHIT_TEAM, tres.LANE_MAX_CLUSTERS) == (8, 32, 1)
+    assert 4096 < tres.ANYHIT_LANE_MIN_RAYS <= 65536
+    assert 4096 < tres.CLOSEST_LANE_MIN_RAYS <= 65536
+    assert tres.flat_lanes(k, n, any_hit) == lanes
+
+
+# (seed, K) of the eight statues of the A-B row, statue_mesh(32, seed)
+STATUE_K = [(0, 45), (1, 46), (2, 49), (3, 47), (4, 46), (5, 49), (6, 48), (7, 48)]
+
+
+@pytest.mark.parametrize("seed,k", STATUE_K)
+def test_dispatch_rule_on_the_statue_row(seed, k):
+    """The dispatch rule's constants where they were measured
+    (ops/resident.py): on the statues of the A-B row, K3, K7 and K8 take
+    their grouped modes from K = 47 on, while trace_resident keeps K1 under
+    64 clusters and K2 under 512 (`trace_grouped`); K1 walks them with
+    teams of 8 lanes, K2 with warp teams (`flat_lanes`)."""
+    ts = tscene.device_scene_from_meshes([tscene.statue_mesh(32, seed=seed)], device="cpu")
+    assert ts.num_clusters == k and ts.tris_per_cluster == 128
+    assert (tres.GROUPED_MIN_CLUSTERS, tres.CLOSEST_GROUPED_MIN_CLUSTERS,
+            tres.ANYHIT_GROUPED_MIN_CLUSTERS) == (47, 64, 512)
+    assert tres.use_grouped(ts) == (k >= 47)
+    assert not tres.trace_grouped(ts) and not tres.trace_grouped(ts, True)
+    assert tres.trace_grouped(ts, True, grouped=True) and not tres.use_grouped(ts, False)
+    assert tres.flat_lanes(k, 65536) == 8 and tres.flat_lanes(k, 65536, any_hit=True) == 32
