@@ -138,7 +138,13 @@ Phases, each reported on its own line; any failure exits non-zero:
      dropped and other, K12 against K2 on the tiles whose every admitted
      pair got a slot, K13's flags
      against K11's (at most 1e-3 of the hits outside the forced, cull and
-     dropped misses); dropped pairs per run; CUDA-event medians of 7, Mrays/s
+     dropped misses); dropped pairs per run; each kernel's device ms
+     (torch.profiler; K11 / K13: the walk and the resolve kernel summed),
+     with the method that read it (profiler or events), its CUDA-graph
+     ms, and, in the printed line only, the first design's graph ms
+     (PAIR_BEFORE_MS); the ray-triangle tests K11's / K13's walk runs
+     (the kernel's counter, one extra launch) and their floor at 40 operations each at
+     the card's FP32 rate without FMA; CUDA-event medians of 7, Mrays/s
      and the bounds of K1's / K2's work on the wavefront. The escalating entry
      (_pairs_escalating from REGION = 32, sorted) on both wavefronts: its
      launches and residue equal what the dropped count at each budget
@@ -319,30 +325,42 @@ def kernel_name_matches(name: str, function: str) -> bool:
 
 
 def device_ms(torch, fn, function, reps: int = 20):
-    """The device ms of the CUDA function `function`, which fn() launches
-    once: the median of its own durations in torch.profiler over `reps`
-    back-to-back calls after a warm-up. The kernel's time without its
-    wrapper's host work, which `cuda_ms` around the same call includes (the
-    wrapper's time). The trace drops launches of kernels of several ms (on
-    the H100: 2 of 7 calls of a 24 ms kernel seen, none of 5 of a 4 ms one,
-    against 19-20 of 20 of short ones); where it holds none, the time is
-    that of `reps` back-to-back calls between two CUDA events, over which
-    such a kernel keeps the device busy while the host enqueues the next."""
+    """The device ms of `device_reading`, without its method."""
+    return device_reading(torch, fn, function, reps)[0]
+
+
+def device_reading(torch, fn, function, reps: int = 20):
+    """(ms, method): the device ms of the CUDA function `function`, which
+    fn() launches once: the median of its own durations in torch.profiler
+    over `reps` back-to-back calls after a warm-up ("profiler"). The
+    kernel's time without its wrapper's host work, which `cuda_ms` around
+    the same call includes (the wrapper's time). `function` may be a tuple
+    of the CUDA functions that fn() launches once each (a kernel in
+    passes): the sum of their medians. Work of fn() that is not one of
+    these kernels, such as a cudaMemsetAsync of a kernel's scratch (K11 /
+    K13's keys), is left out; `graph_ms` includes it. The trace drops
+    launches of kernels of several ms (on the H100: 2 of 7 calls of a 24 ms
+    kernel seen, none of 5 of a 4 ms one, against 19-20 of 20 of short
+    ones); where it holds none of one of the functions, the time is that of
+    `reps` back-to-back calls between two CUDA events ("events"), over
+    which such a kernel keeps the device busy while the host enqueues the
+    next, and which include all of fn()'s device work."""
     from torch.profiler import ProfilerActivity, profile
 
+    functions = (function,) if isinstance(function, str) else tuple(function)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel_name_matches(e.name, function)]
-    check(len(spans) <= reps, f"the profile holds {len(spans)} launches of {function} in "
-                              f"{reps} calls")
-    if spans:
-        return statistics.median(spans) / 1e3
+    spans = {f: [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel_name_matches(e.name, f)] for f in functions}
+    for f, sp in spans.items():
+        check(len(sp) <= reps, f"the profile holds {len(sp)} launches of {f} in {reps} calls")
+    if all(spans.values()):
+        return sum(statistics.median(sp) for sp in spans.values()) / 1e3, "profiler"
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -350,7 +368,7 @@ def device_ms(torch, fn, function, reps: int = 20):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, "events"
 
 
 def split_ms(torch, fn, function, reps: int = 7, device_reps: int = 20):
@@ -378,9 +396,11 @@ KERNEL_LABELS = {("closest_kernel", "1"): "K1 resident_closest (a lane a ray)",
                  ("route_kernel", "01"): "K7 route (secondary, multi-geo)",
                  ("route_kernel", "10"): "K7 route (shadow)",
                  ("route_kernel", "11"): "K7 route (shadow, multi-geo)",
-                 ("pair_kernel", "0"): "K11 pair_closest",
-                 ("pair_kernel", "1"): "K12 pair_anyhit",
-                 ("pair_kernel", "2"): "K13 pair_woop"}
+                 ("pair_walk_kernel", "0"): "K11 pair_closest (walk)",
+                 ("pair_resolve_kernel", "0"): "K11 pair_closest (resolve)",
+                 ("pair_anyhit_kernel", None): "K12 pair_anyhit",
+                 ("pair_walk_kernel", "1"): "K13 pair_woop (walk)",
+                 ("pair_resolve_kernel", "1"): "K13 pair_woop (resolve)"}
 
 
 def ptxas_summary(log: str) -> str:
@@ -2002,10 +2022,37 @@ def route_1m(pt, torch, np, dev, counted, scene):
 # tile, 4 slots a step
 PAIR_KW = dict(region=96, tile_rays=512, pairs_per_step=4)
 PAIR_KERNELS = (("pair_closest", "closest"), ("pair_anyhit", "anyhit"), ("pair_woop", "woop"))
+# the CUDA functions each wrapper launches once (K11 / K13: the walk and the
+# resolve pass, told apart by their template argument)
+PAIR_FUNCTIONS = {"pair_closest": ("pair_walk_kernel", "pair_resolve_kernel"),
+                  "pair_anyhit": ("pair_anyhit_kernel",),
+                   "pair_woop": ("pair_walk_kernel", "pair_resolve_kernel")}
+# the card's FP32 rate for the tests' arithmetic: built without FMA
+# contraction, a mul-add is two instructions, half the FMA peak
+FP32_NO_FMA_OPS_PER_S = FP32_FLOP_PER_S / 2
 # (wavefront, sorted, region): bench_tracer's four runs, and the random
 # wavefront at a budget every tile fits (its tiles admit all K clusters)
 PAIR_RUNS = (("camera", False, 96), ("camera", True, 96), ("random", False, 96),
              ("random", True, 96), ("random", False, 768))
+
+
+# K11 / K12 / K13 in their first design (a block a tile, a thread a ray; the
+# tree at 0eb7a16), by run: CUDA-graph
+# ms (graph_ms of 20 calls, the method of the kernels' "graph_ms"), the mean
+# of the two parent readings of a P A A P run of
+# scripts/torch_grouped_probe.py --parts pairs on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md section 6)
+PAIR_BEFORE_MS = {
+    "camera region 96": {"pair_closest": 4.3501, "pair_anyhit": 3.5218,
+                         "pair_woop": 4.1711},
+    "camera sorted region 96": {"pair_closest": 9.4803, "pair_anyhit": 7.0929,
+                                "pair_woop": 9.0965},
+    "random region 96": {"pair_closest": 22.6576, "pair_anyhit": 21.8043,
+                         "pair_woop": 21.6902},
+    "random sorted region 96": {"pair_closest": 22.6523, "pair_anyhit": 21.7995,
+                                "pair_woop": 21.6832},
+    "random region 768": {"pair_closest": 22.7497, "pair_anyhit": 21.8931,
+                          "pair_woop": 21.7793}}
 
 
 def host_ms(torch, fn):
@@ -2075,8 +2122,8 @@ def pair_run(pt, torch, counted, scene, wname, rays, srt, region, ref, ref_occ):
                                                        > prep.pairs.budget)).sum()),
            "launches": {**c1, **c2, **c3}}
     for name, mode in PAIR_KERNELS:
-        kern = getattr(trc, name)
-        got = kern(scene, prep.packed, prep.pairs, tm)
+        call = lambda kern=getattr(trc, name): kern(scene, prep.packed, prep.pairs, tm)
+        got = call()
         want, out[f"{name}_plain_ms"] = host_ms(torch, lambda: trc.pair_trace_plain(
             scene, prep.packed, prep.pairs, tm, mode=mode))
         got, want = (got,) if mode == "anyhit" else got, (want,) if mode == "anyhit" else want
@@ -2084,9 +2131,16 @@ def pair_run(pt, torch, counted, scene, wname, rays, srt, region, ref, ref_occ):
         check(same, f"{label}: {name} differs from its plain version")
         out[f"{name}_err"] = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
                                  for a, b in zip(got, want))
-        out[f"{name}_device_ms"], out[f"{name}_ms"] = split_ms(
-            torch, lambda: kern(scene, prep.packed, prep.pairs, tm), "pair_kernel",
-            device_reps=5)
+        # K12 keeps the first design's walk, whose launches of several ms the
+        # profiler drops
+        out[f"{name}_device_ms"], out[f"{name}_ms_by"] = device_reading(
+            torch, call, PAIR_FUNCTIONS[name], 5 if mode == "anyhit" else 20)
+        out[f"{name}_ms"] = cuda_ms(torch, call, reps=7)
+        out[f"{name}_graph_ms"] = graph_ms(torch, call, reps=20)
+        if mode != "anyhit":
+            tests = trc.pair_walk_tests(scene, prep.packed, prep.pairs, tm, woop=mode == "woop")
+            out[f"{name}_walk_tests"] = tests
+            out[f"{name}_walk_floor_ms"] = tests * MT_OPS / FP32_NO_FMA_OPS_PER_S * 1e3
     out["trace_ms"] = cuda_ms(torch, lambda: trc.trace_pairs(scene, *rays, **kw), reps=7)
     cmp = pair_vs_resident(torch, scene, prep, rays, hits, ref)
     n_hit = int(ref.is_hit.sum())
@@ -2104,12 +2158,17 @@ def pair_run(pt, torch, counted, scene, wname, rays, srt, region, ref, ref_occ):
     check(occ_dis <= 1e-3 * n_hit + 4 and woop_dis <= 1e-3 * n_hit + 4,
           f"{label}: K12 / K2 disagree on {occ_dis}, K13 / K11 flags on {woop_dis} rays")
     rate = lambda t: n_act / t / 1e3
+    ms = lambda name: (f"{out[name + '_device_ms']:.4f} (by {out[name + '_ms_by']}; graph "
+                       f"{out[name + '_graph_ms']:.4f}, the parent's "
+                       f"{PAIR_BEFORE_MS[label][name]:.4f})")
+    walk = lambda name: (f"{out[name + '_walk_tests']} tests, floor "
+                         f"{out[name + '_walk_floor_ms']:.4f} ms")
     print(f"phase8 {label}: dropped {dropped} pairs ({out['unfit_tiles']} of "
           f"{prep.pairs.tile_fit.shape[0]} tiles unfit, {out['partial_tiles']} partly listed); "
           f"launches {out['launches']}; K11 / K12 "
-          f"/ K13 equal their plain versions on every ray ok; device K11 "
-          f"{out['pair_closest_device_ms']:.3f} / K12 {out['pair_anyhit_device_ms']:.3f} / K13 "
-          f"{out['pair_woop_device_ms']:.3f} ms; wrappers K11 "
+          f"/ K13 equal their plain versions on every ray ok; device ms K11 "
+          f"{ms('pair_closest')} / K12 {ms('pair_anyhit')} / K13 {ms('pair_woop')}; walks "
+          f"K11 {walk('pair_closest')}, K13 {walk('pair_woop')}; wrappers K11 "
           f"{out['pair_closest_ms']:.3f} ms ({rate(out['pair_closest_ms']):.1f} Mrays/s), K12 "
           f"{out['pair_anyhit_ms']:.3f} ms, K13 {out['pair_woop_ms']:.3f} ms, trace_pairs "
           f"{out['trace_ms']:.3f} ms (medians of 7); plain {out['pair_closest_plain_ms']:.1f} / "
@@ -2123,13 +2182,9 @@ def pair_run(pt, torch, counted, scene, wname, rays, srt, region, ref, ref_occ):
     return out
 
 
-def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536, side=256):
-    """Phase 8; returns the kernels-line entries of K11-K13. `tris` and
-    `side` (the soup and the camera wavefront's side) are cut only to
-    rehearse the phase on the CPU."""
-    ops, trc = pt.ops, pt.ops.tracer
-    from pg2024_dprt_tpu_torch.ops.trace_api import _pairs_escalating
-
+def pair_setup(pt, torch, np, dev, tris=65536, side=256):
+    """Phase 8's scene and wavefronts: (scene, host build s, device MB,
+    {"camera": rays, "random": rays})."""
     scene, build_s, mb = table_mb(torch, lambda: pt.scene.device_scene_from_meshes(
         [pt.scene.random_tri_soup(tris, seed=0)], tris_per_cluster=128, device=dev))
     rng = np.random.RandomState(1)
@@ -2140,6 +2195,17 @@ def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536
                                         tiled=True, side=side),
              "random": wavefront(torch, torch.as_tensor(ro, device=dev),
                                  torch.as_tensor(rd, device=dev), dev)}
+    return scene, build_s, mb, waves
+
+
+def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536, side=256):
+    """Phase 8; returns the kernels-line entries of K11-K13. `tris` and
+    `side` (the soup and the camera wavefront's side) are cut only to
+    rehearse the phase on the CPU."""
+    ops, trc = pt.ops, pt.ops.tracer
+    from pg2024_dprt_tpu_torch.ops.trace_api import _pairs_escalating
+
+    scene, build_s, mb, waves = pair_setup(pt, torch, np, dev, tris, side)
     print(f"phase8 scene: {tris}-triangle soup, K={scene.num_clusters} C="
           f"{scene.tris_per_cluster}; host build {build_s:.1f} s, {mb:.1f} MB of device tables "
           f"(cl_tri_table {scene.cl_tri_table.numel() * 4 / 2**20:.1f} MB, cl_woop_table "
@@ -2237,11 +2303,16 @@ def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536
                 "max_abs_err": max(out[f"{name}_err"] for out in runs.values()),
                 "disagreements": 0,
                 "ms": main[f"{name}_device_ms"], "wrapper_ms": main[f"{name}_ms"],
+                "ms_by": main[f"{name}_ms_by"], "graph_ms": main[f"{name}_graph_ms"],
+                **{k: main[f"{name}_{k}"] for k in ("walk_tests", "walk_floor_ms")
+                   if f"{name}_{k}" in main},
                 "plain_ms": main[f"{name}_plain_ms"],
                 "bound_ms": bnd, "bound_by": by, "library_ms": None,
                 "wavefront": "camera, unsorted, region 96",
-                "runs": {k: {m: v[m] for m in (f"{name}_device_ms", f"{name}_ms", "dropped",
-                                               "trace_ms")}
+                "runs": {k: {m: v[m] for m in (f"{name}_device_ms", f"{name}_ms_by",
+                                               f"{name}_ms", f"{name}_graph_ms",
+                                               f"{name}_walk_tests", f"{name}_walk_floor_ms",
+                                               "dropped", "trace_ms") if m in v}
                          for k, v in per_run.items()}}
 
     entries = [entry("pair_closest", "186 (_kernel; pallas_call :540)",

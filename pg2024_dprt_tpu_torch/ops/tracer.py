@@ -16,9 +16,12 @@ Pipeline (the host prep is plain PyTorch, as it is plain XLA in JAX):
      to back by conservative enter distance (stable sorts: the slot order
      decides ties at equal t across clusters). Tiles that do not fit the
      static budget are reported (`dropped`) and forced to miss;
-  2. one kernel launch over the tiles (csrc/pair_trace.cu): K11
-     `pair_closest` (replaces pallas_tracer.py::_kernel), K12 `pair_anyhit`
-     (_occl_kernel) or K13 `pair_woop` (_woop_kernel).
+  2. the kernels (csrc/pair_trace.cu): K11 `pair_closest` (replaces
+     pallas_tracer.py::_kernel) or K13 `pair_woop` (_woop_kernel), a walk
+     split across the card into warps of 32 rays x a share of each
+     cluster's triangles x a piece of the region, merged per ray by a
+     64-bit atomic min, then a resolve pass; K12 `pair_anyhit`
+     (_occl_kernel), one block per tile.
 
 Beside each kernel is its plain PyTorch version, which computes the same
 function densely: for each slot index r, every tile's r-th slot gets the
@@ -248,13 +251,22 @@ def pair_anyhit(scene, packed, pairs: PairList, tile_rays: int) -> torch.Tensor:
     return _launch("pair_anyhit", scene, packed, pairs, tile_rays)
 
 
-def _launch(name, scene, packed, pairs: PairList, tile_rays: int):
+def pair_walk_tests(scene, packed, pairs: PairList, tile_rays: int, woop: bool = False) -> int:
+    """The ray-triangle tests (lanes x triangles) that K11's walk (K13's
+    with woop=True) runs on these inputs: one launch with the kernel's
+    counter on. CUDA tensors only."""
+    counters = torch.zeros(1, dtype=torch.int64, device=packed.device)
+    _launch("pair_woop" if woop else "pair_closest", scene, packed, pairs, tile_rays, counters)
+    return int(counters[0])
+
+
+def _launch(name, scene, packed, pairs: PairList, tile_rays: int, counters=None):
     dev = packed.device
     if dev.type != "cuda":
         raise ValueError(f"rays on {dev}: the kernels take CUDA tensors")
     if tile_rays % 32 or not 32 <= tile_rays <= 1024:
         raise ValueError(f"tile_rays {tile_rays}: the kernels take a multiple of 32 "
-                         "up to 1024 (one thread per ray)")
+                         "up to 1024 (K12 runs a block of one thread per ray)")
     mp = packed.shape[0]
     if mp % tile_rays:
         raise ValueError(f"{mp} packed rays are not whole tiles of {tile_rays}")
@@ -284,8 +296,10 @@ def _launch(name, scene, packed, pairs: PairList, tile_rays: int):
         t = torch.empty(mp, dtype=torch.float32, device=dev)
         u, v = torch.empty_like(t), torch.empty_like(t)
         tri = torch.empty(mp, dtype=torch.int32, device=dev)
-        rc = getattr(_lib(), name)(*args, _ptr(tri_map), c, _ptr(t), _ptr(tri), _ptr(u),
-                                   _ptr(v), _stream(packed))
+        keys = torch.empty(mp, dtype=torch.int64, device=dev)  # the walk's scratch
+        rc = getattr(_lib(), name)(*args, _ptr(tri_map), c, _ptr(keys),
+                                   None if counters is None else _ptr(counters), _ptr(t),
+                                   _ptr(tri), _ptr(u), _ptr(v), _stream(packed))
         out = (t, tri, u, v)
     _check(rc, name)
     if mp:
@@ -298,8 +312,9 @@ def _lib():
     if not getattr(lib, "_pg_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         head = [p, i, i, p, p, p, p, p, p, i, p]  # rays .. budget, table
-        lib.pair_closest.argtypes = head + [p, i, p, p, p, p, p]
-        lib.pair_woop.argtypes = head + [p, i, p, p, p, p, p]
+        closest = head + [p, i, p, p, p, p, p, p, p]
+        lib.pair_closest.argtypes = closest
+        lib.pair_woop.argtypes = closest
         lib.pair_anyhit.argtypes = head + [i, p, p]
         for fn in (lib.pair_closest, lib.pair_woop, lib.pair_anyhit):
             fn.restype = i

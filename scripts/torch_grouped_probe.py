@@ -4,7 +4,7 @@
 them, on one GPU.
 
     python scripts/torch_grouped_probe.py [--root DIR ...]
-        [--parts waves,frame,dist,rule,route,k3,nets,tiles,keys,march,flat]
+        [--parts waves,frame,dist,rule,route,k3,nets,tiles,keys,march,flat,pairs]
         [--ablate]
 
 Each --root is a checkout of this repository (default: the one holding this
@@ -114,6 +114,22 @@ chip_smoke.py's (phase 7 and phase 9), from this script's checkout. Parts:
          against those in the record stores; phase 6's secondary and shadow
          stages fused and composed (CUDA-event medians of 7).
 
+  pairs  the streaming pair tracer K11 (pair_closest), K12 (pair_anyhit) and
+         K13 (pair_woop) on chip_smoke.py phase 8's five runs (the 64k soup
+         at 128 a cluster, K = 735; camera and random wavefronts, unsorted
+         and sorted, region 96, and random at region 768; 512 rays a tile):
+         each kernel's device ms and the method that read it
+         (torch.profiler, the sum over the walk and resolve kernels where
+         the tree has them; CUDA events where the profiler drops a long
+         kernel's launches), its CUDA-graph ms and
+         its wrapper's ms, the digest of every output (two trees equal bit
+         for bit where the digests are); where the tree's K11 / K13 count
+         them, the walk's ray-triangle tests and their floor at 40
+         operations each at the card's FP32 rate without FMA; where the
+         tree has a walk and a resolve kernel, each one's device ms. Then
+         the digests of the three kernels on every case of
+         tests/test_torch_kernels_gpu.py PAIR_CASES.
+
 --ablate measures, on a tree whose K9 / K10 run the per-thread walks of
 csrc/resident_trace.cuh (closest_hit_grouped / any_hit_grouped), where those
 walks spend their time: it builds a copy of csrc/resident_trace.cu whose K9 /
@@ -156,6 +172,10 @@ FLAT_SWEEP = ((1, 70, 128), (2, 140, 128), (4, 280, 128), (6, 480, 128), (12, 10
               (239, 20000, 128), (368, 32000, 128), (533, 48000, 128))
 # the CLI's automatic light (render/__main__.py --light-intensity)
 AUTO_LIGHT = 8.0
+
+# the CUDA functions of K11-K13 in a tree whose csrc/pair_trace.cu is the
+# first design's (one template, pair_kernel<mode>, a block a tile)
+PAIR_FUNCTIONS_FIRST = {n: ("pair_kernel",) for n in ("pair_closest", "pair_anyhit", "pair_woop")}
 
 # the CUDA functions of K9 / K10
 K9_FUNCTIONS = ("grouped_closest_kernel",)
@@ -1141,6 +1161,59 @@ def part_flat(pt, torch, np, cs, root, dev, frame64):
     return out
 
 
+def _gpu_tests():
+    spec = importlib.util.spec_from_file_location(
+        "gpu_tests_probe", os.path.join(HERE, "tests", "test_torch_kernels_gpu.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pair_outputs(got, anyhit):
+    return (got,) if anyhit else tuple(got)
+
+
+def part_pairs(pt, torch, np, cs, root, dev):
+    trc = pt.ops.tracer
+    with open(os.path.join(root, "pg2024_dprt_tpu_torch", "csrc", "pair_trace.cu")) as fh:
+        functions = cs.PAIR_FUNCTIONS if "pair_walk_kernel" in fh.read() else PAIR_FUNCTIONS_FIRST
+    scene, _, _, waves = cs.pair_setup(pt, torch, np, dev)
+    out = {"runs": {}, "cases": {}}
+    for wname, srt, region in cs.PAIR_RUNS:
+        kw = dict(cs.PAIR_KW, region=region, sort_rays=srt)
+        tm = kw["tile_rays"]
+        prep = trc.prepare_pairs(scene, *waves[wname], **kw)
+        label = f"{wname}{' sorted' if srt else ''} region {region}"
+        rec = {}
+        for name, mode in cs.PAIR_KERNELS:
+            anyhit = mode == "anyhit"
+            call = lambda kern=getattr(trc, name): kern(scene, prep.packed, prep.pairs, tm)
+            digest = _digest(torch, *_pair_outputs(call(), anyhit))
+            r = {"digest": digest}
+            r["device_ms"], r["ms_by"] = cs.device_reading(
+                torch, call, functions[name], 5 if anyhit else 20)
+            r["wrapper_ms"] = cs.cuda_ms(torch, call, reps=7)
+            r["graph_ms"] = cs.graph_ms(torch, call, reps=20)
+            if len(functions[name]) > 1:
+                r["functions_ms"] = {f: cs.device_ms(torch, call, f) for f in functions[name]}
+            if not anyhit and hasattr(trc, "pair_walk_tests"):
+                r["walk_tests"] = trc.pair_walk_tests(scene, prep.packed, prep.pairs, tm,
+                                                      woop=mode == "woop")
+                r["walk_floor_ms"] = r["walk_tests"] * cs.MT_OPS / cs.FP32_NO_FMA_OPS_PER_S * 1e3
+            rec[name] = r
+        out["runs"][label] = rec
+        print(f"probe pairs {label}: {rec}", flush=True)
+    tests = _gpu_tests()
+    for case in tests.PAIR_CASES:
+        scene_c, _, packed, pairs = tests._pair_case(dev, case[0], 4096, *case[1:])
+        out["cases"][str(case)] = {
+            name: _digest(torch, *_pair_outputs(
+                getattr(trc, name)(scene_c, packed, pairs, case[2]), mode == "anyhit"))
+            for name, mode in cs.PAIR_KERNELS}
+    print(f"probe pairs cases: {out['cases']}", flush=True)
+    return out
+
+
 # --------------------------------------------------------------------------
 
 def child(root, parts, ablate):
@@ -1165,7 +1238,8 @@ def child(root, parts, ablate):
     _build.build(force=True)
     dev = pt.core.resolve_device()
     out = {"root": root, "card": cs.card_line()}
-    scenes = _scenes(pt, dev, instanced=bool({"waves", "frame", "dist"} & parts) or ablate)
+    scenes = (_scenes(pt, dev, instanced=bool({"waves", "frame", "dist"} & parts) or ablate)
+              if parts - {"pairs"} or ablate else None)
     waves = _waves(pt, torch, np, cs, dev, scenes) if ("waves" in parts or ablate) else None
     if "waves" in parts:
         out["waves"] = part_waves(pt, torch, cs, waves)
@@ -1183,6 +1257,8 @@ def child(root, parts, ablate):
         out["march"] = part_march(pt, torch, np, cs, root, dev)
     if "flat" in parts:
         out["flat"] = part_flat(pt, torch, np, cs, root, dev, scenes[0])
+    if "pairs" in parts:
+        out["pairs"] = part_pairs(pt, torch, np, cs, root, dev)
     if {"route", "tiles", "nets", "keys"} & parts:
         cases = _route_cases(pt, torch, np, cs, dev, scenes[2])
         if "keys" in parts:

@@ -909,12 +909,18 @@ def test_route_kernel_refuses_instanced_local_geometry_on_gpu():
 # the streaming pair tracer (K11 pair_closest, K12 pair_anyhit, K13
 # pair_woop): each kernel equals its plain version ray for ray
 
-def _pair_case(device, tpc, n, region, tile_rays, camera):
-    """A soup and its packed pair list, as trace_pairs prepares them."""
+def _pair_case(device, tpc, n, region, tile_rays, camera, twice=False, dead_tile=None):
+    """A soup and its packed pair list, as trace_pairs prepares them.
+    twice: two coincident copies of every triangle (equal t in two lanes or
+    two clusters, so the slot and lane order must decide); dead_tile: a tile
+    whose rays are all inactive."""
     from pg2024_dprt_tpu_torch.ops import tracer as ttr
 
-    scene = device_scene_from_meshes([random_tri_soup(5000, seed=60)], tris_per_cluster=tpc,
-                                     device=device)
+    mesh = random_tri_soup(5000, seed=60)
+    if twice:
+        mesh = tscene.MeshGeometry(*(np.concatenate([a, a]) for a in (mesh.v0, mesh.v1,
+                                                                       mesh.v2)))
+    scene = device_scene_from_meshes([mesh], tris_per_cluster=tpc, device=device)
     if camera:
         side = int(np.sqrt(n))
         cam = Camera.look_at([0.5, 0.5, 3.0], [0.5, 0.5, 0.5], [0, 1, 0], 45.0, side, side,
@@ -927,23 +933,42 @@ def _pair_case(device, tpc, n, region, tile_rays, camera):
                 torch.ones(o.shape[0], dtype=torch.bool, device=device))
     else:
         _, rays = _case(device, n=n)
+    if dead_tile is not None:
+        active = rays[4].clone()
+        active[dead_tile * tile_rays:(dead_tile + 1) * tile_rays] = False
+        rays = (*rays[:4], active)
     prep = ttr.prepare_pairs(scene, *rays, tile_rays=tile_rays, region=region)
     packed, pairs = prep.packed, prep.pairs
     return scene, rays, packed, pairs
 
 
+# (triangles a cluster, region, tile_rays, camera wavefront, coincident
+# copies, all-inactive tile); scripts/torch_grouped_probe.py --parts pairs
+# compares two trees' kernels on these cases too
+PAIR_CASES = [
+    (128, 96, 512, True, False, None), (128, 96, 256, False, False, None),
+    (64, 8, 512, False, False, None), (2048, 16, 128, True, False, None),
+    (128, 96, 1024, True, False, 1), (100, 96, 32, False, False, None),
+    (37, 192, 64, False, False, None), (16, 96, 128, True, True, None),
+    (128, 96, 32, True, True, 5)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tpc,region,tile_rays,camera", [
-    (128, 96, 512, True), (128, 96, 256, False), (64, 8, 512, False), (2048, 16, 128, True)])
-def test_pair_kernels_match_plain_on_gpu(tpc, region, tile_rays, camera):
+@pytest.mark.parametrize("tpc,region,tile_rays,camera,twice,dead_tile", PAIR_CASES)
+def test_pair_kernels_match_plain_on_gpu(tpc, region, tile_rays, camera, twice, dead_tile):
     """K11, K12 and K13 against their plain versions on the same pair list:
     every output equal (t bit for bit). region 8 leaves tiles unfit (forced
-    misses); 2,048 triangles a cluster stage 128 KB rows for K13 (opt-in
-    shared memory)."""
+    misses); 2,048 triangles a cluster: 16 staged chunks a slot in K11 /
+    K13's walk, 128 KB rows for K12 (opt-in shared memory); 100 a cluster:
+    shares and chunks that are not whole; 37: 4-byte copies and the
+    scalar tail; coincident copies of every triangle: ties at equal t that
+    the slot, then the lane order decides; tile_rays 32 and 1,024, and a
+    tile whose rays are all inactive (its outputs: tmax 0, no hit)."""
     _need_cuda()
     from pg2024_dprt_tpu_torch.ops import tracer as ttr
 
-    scene, _, packed, pairs = _pair_case("cuda", tpc, 4096, region, tile_rays, camera)
+    scene, _, packed, pairs = _pair_case("cuda", tpc, 4096, region, tile_rays, camera, twice,
+                                         dead_tile)
     for name, kern, mode in (("pair_closest", ttr.pair_closest, "closest"),
                              ("pair_woop", ttr.pair_woop, "woop"),
                              ("pair_anyhit", ttr.pair_anyhit, "anyhit")):
@@ -959,6 +984,9 @@ def test_pair_kernels_match_plain_on_gpu(tpc, region, tile_rays, camera):
         for a, b in zip(got, want):
             assert torch.equal(a, b), name
         assert int((got[1] >= 0).sum()) > 50
+        if dead_tile is not None:
+            dead = slice(dead_tile * tile_rays, (dead_tile + 1) * tile_rays)
+            assert bool((got[0][dead] == 0).all()) and bool((got[1][dead] == -1).all())
     if region == 8:
         assert int(pairs.dropped) > 0 and not bool(pairs.tile_fit.all())
 
