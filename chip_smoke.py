@@ -139,16 +139,19 @@ Phases, each reported on its own line; any failure exits non-zero:
      pair got a slot, K13's flags
      against K11's (at most 1e-3 of the hits outside the forced, cull and
      dropped misses); dropped pairs per run; each kernel's device ms
-     (torch.profiler; K11 / K13: the walk and the resolve kernel summed),
-     with the method that read it (profiler or events), its CUDA-graph
-     ms, and, in the printed line only, the first design's graph ms
-     (PAIR_BEFORE_MS); the ray-triangle tests K11's / K13's walk runs
-     (the kernel's counter, one extra launch) and their floor at 40 operations each at
-     the card's FP32 rate without FMA; CUDA-event medians of 7, Mrays/s
-     and the bounds of K1's / K2's work on the wavefront. The escalating entry
-     (_pairs_escalating from REGION = 32, sorted) on both wavefronts: its
-     launches and residue equal what the dropped count at each budget
-     implies, residue 0 on the camera wavefront. The stackless and cluster
+     (torch.profiler over 20 calls; K11 / K13: the walk and the resolve
+     kernel summed), with the method that read it (profiler or events),
+     its CUDA-graph ms, and, in the printed line only, the first design's
+     graph ms (PAIR_BEFORE_MS); the ray-triangle tests each walk runs (the
+     kernel's counter, one extra launch: K11 / K13 lanes x triangles of
+     each walked chunk, K12 open rays x triangles) and their floor at 40
+     operations each at the card's FP32 rate without FMA; CUDA-event
+     medians of 7, Mrays/s and the bounds of K1's / K2's work on the
+     wavefront. The escalating entry (_pairs_escalating from REGION = 32,
+     sorted) on both wavefronts, closest and any hit: its launches and
+     residue equal what the dropped count at each budget implies, residue
+     0 on the camera wavefront, and its any-hit flags equal to K12's at the
+     final budget. The stackless and cluster
      back ends: cornell 32x32 spp2 b3 through render_image against the golden
      EXR (no kernel launched), and the 64k frame's camera and first shadow
      wavefronts (phase 3) against K1 / K2 (at most 1e-3 of the rays apart),
@@ -398,7 +401,7 @@ KERNEL_LABELS = {("closest_kernel", "1"): "K1 resident_closest (a lane a ray)",
                  ("route_kernel", "11"): "K7 route (shadow, multi-geo)",
                  ("pair_walk_kernel", "0"): "K11 pair_closest (walk)",
                  ("pair_resolve_kernel", "0"): "K11 pair_closest (resolve)",
-                 ("pair_anyhit_kernel", None): "K12 pair_anyhit",
+                 ("pair_anyhit_walk_kernel", None): "K12 pair_anyhit (walk)",
                  ("pair_walk_kernel", "1"): "K13 pair_woop (walk)",
                  ("pair_resolve_kernel", "1"): "K13 pair_woop (resolve)"}
 
@@ -2025,8 +2028,8 @@ PAIR_KERNELS = (("pair_closest", "closest"), ("pair_anyhit", "anyhit"), ("pair_w
 # the CUDA functions each wrapper launches once (K11 / K13: the walk and the
 # resolve pass, told apart by their template argument)
 PAIR_FUNCTIONS = {"pair_closest": ("pair_walk_kernel", "pair_resolve_kernel"),
-                  "pair_anyhit": ("pair_anyhit_kernel",),
-                   "pair_woop": ("pair_walk_kernel", "pair_resolve_kernel")}
+                  "pair_anyhit": ("pair_anyhit_walk_kernel",),
+                  "pair_woop": ("pair_walk_kernel", "pair_resolve_kernel")}
 # the card's FP32 rate for the tests' arithmetic: built without FMA
 # contraction, a mul-add is two instructions, half the FMA peak
 FP32_NO_FMA_OPS_PER_S = FP32_FLOP_PER_S / 2
@@ -2037,7 +2040,7 @@ PAIR_RUNS = (("camera", False, 96), ("camera", True, 96), ("random", False, 96),
 
 
 # K11 / K12 / K13 in their first design (a block a tile, a thread a ray; the
-# tree at 0eb7a16), by run: CUDA-graph
+# tree at 0eb7a16, whose K12 stayed so until the tree at f2d3876), by run: CUDA-graph
 # ms (graph_ms of 20 calls, the method of the kernels' "graph_ms"), the mean
 # of the two parent readings of a P A A P run of
 # scripts/torch_grouped_probe.py --parts pairs on an NVIDIA H100 80GB HBM3 at
@@ -2131,16 +2134,14 @@ def pair_run(pt, torch, counted, scene, wname, rays, srt, region, ref, ref_occ):
         check(same, f"{label}: {name} differs from its plain version")
         out[f"{name}_err"] = max(float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
                                  for a, b in zip(got, want))
-        # K12 keeps the first design's walk, whose launches of several ms the
-        # profiler drops
         out[f"{name}_device_ms"], out[f"{name}_ms_by"] = device_reading(
-            torch, call, PAIR_FUNCTIONS[name], 5 if mode == "anyhit" else 20)
+            torch, call, PAIR_FUNCTIONS[name], 20)
         out[f"{name}_ms"] = cuda_ms(torch, call, reps=7)
         out[f"{name}_graph_ms"] = graph_ms(torch, call, reps=20)
-        if mode != "anyhit":
-            tests = trc.pair_walk_tests(scene, prep.packed, prep.pairs, tm, woop=mode == "woop")
-            out[f"{name}_walk_tests"] = tests
-            out[f"{name}_walk_floor_ms"] = tests * MT_OPS / FP32_NO_FMA_OPS_PER_S * 1e3
+        tests = trc.pair_walk_tests(scene, prep.packed, prep.pairs, tm, woop=mode == "woop",
+                                    any_hit=mode == "anyhit")
+        out[f"{name}_walk_tests"] = tests
+        out[f"{name}_walk_floor_ms"] = tests * MT_OPS / FP32_NO_FMA_OPS_PER_S * 1e3
     out["trace_ms"] = cuda_ms(torch, lambda: trc.trace_pairs(scene, *rays, **kw), reps=7)
     cmp = pair_vs_resident(torch, scene, prep, rays, hits, ref)
     n_hit = int(ref.is_hit.sum())
@@ -2168,7 +2169,9 @@ def pair_run(pt, torch, counted, scene, wname, rays, srt, region, ref, ref_occ):
           f"launches {out['launches']}; K11 / K12 "
           f"/ K13 equal their plain versions on every ray ok; device ms K11 "
           f"{ms('pair_closest')} / K12 {ms('pair_anyhit')} / K13 {ms('pair_woop')}; walks "
-          f"K11 {walk('pair_closest')}, K13 {walk('pair_woop')}; wrappers K11 "
+          f"K11 {walk('pair_closest')}, K12 {walk('pair_anyhit')} (K11's x"
+          f"{out['pair_anyhit_walk_tests'] / max(out['pair_closest_walk_tests'], 1):.3f}), "
+          f"K13 {walk('pair_woop')}; wrappers K11 "
           f"{out['pair_closest_ms']:.3f} ms ({rate(out['pair_closest_ms']):.1f} Mrays/s), K12 "
           f"{out['pair_anyhit_ms']:.3f} ms, K13 {out['pair_woop_ms']:.3f} ms, trace_pairs "
           f"{out['trace_ms']:.3f} ms (medians of 7); plain {out['pair_closest_plain_ms']:.1f} / "
@@ -2228,16 +2231,26 @@ def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536
         regions = [trc.REGION * f for f in (1, 4, 16)]
         drops = [int(trc.prepare_pairs(scene, *rays, region=r, sort_rays=True).pairs.dropped)
                  for r in regions]
-        (res, resid), c = counted(lambda: _pairs_escalating(scene, *rays))
         runs_needed = next((i + 1 for i, dr in enumerate(drops) if dr == 0), 3)
-        check(c == {"pair_closest": runs_needed} and resid == drops[runs_needed - 1],
-              f"escalation {wname}: launches {c}, residue {resid}, dropped per budget {drops}")
-        if wname == "camera":
-            check(resid == 0, f"escalation on the camera wavefront leaves {resid} pairs")
-        escalation[wname] = {"dropped_per_region": dict(zip(regions, drops)), "residue": resid,
-                             "launches": c["pair_closest"]}
-        print(f"phase8 escalation {wname} (sorted, regions {regions}): dropped {drops}; "
-              f"{c['pair_closest']} launches, residue {resid} pairs", flush=True)
+        for any_hit, kern in ((False, "pair_closest"), (True, "pair_anyhit")):
+            label = f"{wname}{' any-hit' if any_hit else ''}"
+            (res, resid), c = counted(lambda: _pairs_escalating(scene, *rays, any_hit=any_hit))
+            check(c == {kern: runs_needed} and resid == drops[runs_needed - 1],
+                  f"escalation {label}: launches {c}, residue {resid}, dropped per budget "
+                  f"{drops}")
+            if wname == "camera":
+                check(resid == 0, f"escalation on the camera wavefront leaves {resid} pairs")
+            escalation[label] = {"dropped_per_region": dict(zip(regions, drops)),
+                                 "residue": resid, "launches": c[kern]}
+            extra = ""
+            if any_hit:  # K12's flags at the final budget, traced directly
+                occ, _ = trc.trace_pairs(scene, *rays, any_hit=True, sort_rays=True,
+                                         region=regions[runs_needed - 1])
+                check(torch.equal(res, occ), f"escalation {label}: flags differ from K12's at "
+                      f"region {regions[runs_needed - 1]}")
+                extra = f"; flags equal K12's at region {regions[runs_needed - 1]} ok"
+            print(f"phase8 escalation {label} (sorted, regions {regions}): dropped {drops}; "
+                  f"{c[kern]} launches, residue {resid} pairs{extra}", flush=True)
 
     # the stackless and cluster back ends: cornell through render_image
     # (composed path, no kernel) and the 64k frame's wavefronts against K1/K2

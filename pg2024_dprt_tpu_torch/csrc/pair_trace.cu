@@ -20,9 +20,9 @@
 // stays the validity test.
 //
 // K11 and K13: the walk split across the card.
-//   * What bounds them. About 40 FP32 operations a ray-triangle test, at
-//     half the FMA peak (the library is built with --fmad=false, so that
-//     every kernel rounds as its plain version; a mul-add is two
+//   * What bounds them (and K12). About 40 FP32 operations a ray-triangle
+//     test, at half the FMA peak (the library is built with --fmad=false,
+//     so that every kernel rounds as its plain version; a mul-add is two
 //     instructions), plus the correctly rounded divide, the comparisons
 //     and the loads. A block a tile would last as long as its longest
 //     tile, whose region may walk several times the mean, on one SM; so
@@ -74,10 +74,29 @@
 //     versions compute them on the CPU, with their range check and slow
 //     path. No early rejection.
 //
-// K12 keeps the first design's walk until its own redesign: a block of tile_rays threads
-// (a ray a thread) walks its tile's region slot by slot, stages the row in
-// shared memory behind two barriers, and stops once every ray is occluded
-// (__syncthreads_and).
+// K12: the same units, slot metadata and staging (decode_unit, Slots,
+// fetch_chunk and walk_piece are shared), with an occlusion flag a ray in
+// place of the key.
+//   * Units of one share (kAnyShares): a ray found occluded in a chunk is
+//     closed for the slot's later chunks at once, and the slot scan and
+//     its box tests run once for a group's rays, not once a share.
+//   * A team loop. In a chunk a lane holds one triangle (its planes and
+//     edges in registers, read from the stage without bank conflicts) and
+//     the warp takes its open rays in turn, each read from shared memory by
+//     broadcast: every lane tests its triangle, a ballot says whether the
+//     ray is occluded. A ray is open for a slot while it is active, not
+//     yet occluded, its capped tmax lies above the slot's enter (no
+//     triangle of the slot lies nearer, the assumption K11's horizon
+//     makes), and its own segment may enter the cluster's box, grown by
+//     2^-14 of its magnitude and extent (a tile's rays share its pair
+//     list, but an incoherent ray passes through few of its boxes). A
+//     chunk costs as many warp steps as it has open rays, a slot no step
+//     and no copy when no ray is open, and a unit ends when none is left.
+//   * Publication. out_occ, zeroed by the entry, is the output and the
+//     shared state: a unit stores 1 for the rays it finds occluded and
+//     reads its rays' bytes from L2 a slot ahead, so later pieces (and
+//     other shares, where there are several) drop rays already found. OR
+//     is order-free: no key, no resolve pass.
 //
 // The tests:
 //   * K11 / K12 compute the edges (e1 = v1 - v0, e2 = v2 - v0) and run the
@@ -99,10 +118,11 @@
 
 namespace {
 
-constexpr int kMaxWarps = 32;  // K12: tile_rays / 32
+constexpr int kMaxWarps = 32;  // tile_rays / 32, at most (JAX's tiles)
 constexpr int kWalkWarps = 4;  // warps of a walk block
 constexpr int kChunk = 32;     // triangles of a staged chunk
 constexpr int kShares = 4;     // K11 / K13: shares of a cluster's triangles, at most
+constexpr int kAnyShares = 1;  // K12: a unit walks all of a slot's triangles
 constexpr int kPieces = 32;    // pieces of a tile's region, at most
 constexpr int kMinPiece = 2;   // slots of a piece, at least
 constexpr unsigned kFull = 0xffffffffu;
@@ -241,8 +261,149 @@ struct Job {
   int chunk;
 };
 
-// K11 (WOOP false) and K13 (WOOP true): the walk. Warp u of the grid is
-// (piece, tile, ray group, share), piece-major.
+// A unit of a walk: warp `unit` of the grid as (piece, tile, ray group,
+// share), piece-major; the piece's positions [a, b) in the region that
+// starts at slot s0, the share's triangles [j0, j1) and its chunks, the
+// lane's ray r. False when the unit has nothing to walk.
+struct Unit {
+  int tile, s0, a, b, j0, j1, chunks;
+  int64_t r;
+};
+
+__device__ __forceinline__ bool decode_unit(int64_t unit, const Pairs& pairs, int tiles,
+                                            int tile_rays, int c, int subsets, int lane,
+                                            Unit& u) {
+  const int groups = tile_rays >> 5;
+  const int share_id = static_cast<int>(unit % subsets);
+  unit /= subsets;
+  const int group = static_cast<int>(unit % groups);
+  unit /= groups;
+  u.tile = static_cast<int>(unit % tiles);
+  const int64_t piece = unit / tiles;
+  if (piece >= kPieces || !pairs.tile_fit[u.tile]) return false;
+  u.s0 = pairs.tile_offset[u.tile];
+  const int len = static_cast<int>(
+      max(int64_t{0}, min(static_cast<int64_t>(pairs.tile_region[u.tile]),
+                          static_cast<int64_t>(pairs.budget) - u.s0)));
+  const int per = max(kMinPiece, (len + kPieces - 1) / kPieces);
+  if (piece * per >= len) return false;
+  u.a = static_cast<int>(piece * per);
+  u.b = min(len, u.a + per);
+  const int share = ((c + subsets - 1) / subsets + 3) & ~3;
+  u.j0 = share_id * share;
+  if (u.j0 >= c) return false;
+  u.j1 = min(c, u.j0 + share);
+  u.chunks = (u.j1 - u.j0 + kChunk - 1) / kChunk;
+  u.r = static_cast<int64_t>(u.tile) * tile_rays + group * 32 + lane;
+  return true;
+}
+
+// The listed slots of a unit's piece: flags, enter and cluster read 32
+// positions at a time, a lane each, handed to the walk by ballot and
+// shuffles.
+struct Slots {
+  const Pairs& pairs;
+  const Unit& u;
+  int lane;
+  int base, m_enter, m_cluster;
+  unsigned listed;
+
+  __device__ __forceinline__ void load() {
+    const int pos = base + lane;
+    bool in = pos < u.b;
+    m_enter = 0;
+    m_cluster = 0;
+    if (in) {
+      in = (pairs.flags[u.s0 + pos] & 2) != 0;
+      m_enter = pairs.enter[u.s0 + pos];
+      m_cluster = pairs.cluster[u.s0 + pos];
+    }
+    listed = __ballot_sync(kFull, in);
+  }
+
+  // the next listed slot after position `after` that keep(enter, position,
+  // cluster) lets some lane walk; cluster() is the slot's cluster (a
+  // shuffle, every lane calls it or none)
+  template <class Keep>
+  __device__ __forceinline__ Job next(int after, Keep keep) {
+    for (;;) {
+      const int skip = after - base + 1;
+      unsigned cand = skip <= 0 ? listed : (skip >= 32 ? 0u : listed & (kFull << skip));
+      while (cand) {
+        const int i = __ffs(cand) - 1;
+        const int e = __shfl_sync(kFull, m_enter, i);
+        const auto cluster = [&] { return __shfl_sync(kFull, m_cluster, i); };
+        if (__any_sync(kFull, keep(__int_as_float(e), base + i, cluster)))
+          return Job{base + i, e, cluster(), 0};
+        cand &= cand - 1;
+      }
+      if (base + 32 >= u.b) return Job{-1, 0, 0, 0};
+      base += 32;
+      after = base - 1;
+      load();
+    }
+  }
+};
+
+// cp.async of one chunk of the share (at most kChunk triangles of each of
+// the planes a test reads) into a stage
+template <bool WOOP>
+__device__ __forceinline__ void fetch_chunk(const float* table, int c, int vec, const Unit& u,
+                                            const Job& job, float* stage, int lane) {
+  using P = Planes<WOOP>;
+  const int jb = u.j0 + job.chunk * kChunk;
+  const int n = min(kChunk, u.j1 - jb);
+  const float* row = table + job.cluster * (static_cast<int64_t>(P::kWidth) * c) + jb;
+  if (vec) {  // 16-byte copies: 4 triangles of a plane
+    const int quads = n >> 2;
+#pragma unroll
+    for (int i = lane; i < P::kCount * 8; i += 32) {
+      const int pl = i >> 3, k = i & 7;
+      if (k < quads) cp_async(stage + pl * kChunk + 4 * k, row + P::offset(pl) * c + 4 * k, 1);
+    }
+  } else if (lane < n) {
+#pragma unroll
+    for (int pl = 0; pl < P::kCount; ++pl)
+      cp_async(stage + pl * kChunk + lane, row + P::offset(pl) * c + lane, 0);
+  }
+}
+
+// The walk of one unit over its piece, shared by K11 / K13 and K12: the
+// slots that keep(enter, position, cluster) lets some lane walk, chunk by
+// chunk, in the warp's ring of two stages (the next chunk in flight by cp.async
+// while the current one is tested). At a slot's first chunk, start(job)
+// merges what other units published and says whether the warp walks the
+// slot; test(stage, n, job) tests a landed chunk of n triangles.
+template <bool WOOP, class Keep, class Start, class TestChunk>
+__device__ __forceinline__ void walk_piece(const Pairs& pairs, const Unit& u, const float* table,
+                                           int c, int vec,
+                                           float (*stages)[Planes<WOOP>::kCount * kChunk],
+                                           int lane, Keep keep, Start start, TestChunk test) {
+  Slots slots{pairs, u, lane, u.a, 0, 0, 0u};
+  slots.load();
+  Job cur = slots.next(u.a - 1, keep);
+  if (cur.pos >= 0) fetch_chunk<WOOP>(table, c, vec, u, cur, stages[0], lane);
+  asm volatile("cp.async.commit_group;\n" ::);
+  int st = 0;
+  bool walk = false;
+  while (cur.pos >= 0) {
+    if (cur.chunk == 0) walk = start(cur);
+    const Job nxt = (walk && cur.chunk + 1 < u.chunks)
+                        ? Job{cur.pos, cur.enter, cur.cluster, cur.chunk + 1}
+                        : slots.next(cur.pos, keep);
+    if (nxt.pos >= 0) fetch_chunk<WOOP>(table, c, vec, u, nxt, stages[st ^ 1], lane);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    __syncwarp();
+    if (walk) test(stages[st], min(kChunk, u.j1 - (u.j0 + cur.chunk * kChunk)), cur);
+    __syncwarp();
+    cur = nxt;
+    st ^= 1;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// K11 (WOOP false) and K13 (WOOP true): the closest-hit walk
 template <bool WOOP>
 __global__ void __launch_bounds__(kWalkWarps * 32)
     pair_walk_kernel(const float* __restrict__ rays, Pairs pairs, int tiles, int tile_rays,
@@ -253,30 +414,11 @@ __global__ void __launch_bounds__(kWalkWarps * 32)
   constexpr int kStage = P::kCount * kChunk;
   __shared__ __align__(16) float stages[kWalkWarps][2][kStage];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int64_t unit = static_cast<int64_t>(blockIdx.x) * kWalkWarps + warp;
-  const int groups = tile_rays >> 5;
-  const int share_id = static_cast<int>(unit % subsets);
-  unit /= subsets;
-  const int group = static_cast<int>(unit % groups);
-  unit /= groups;
-  const int tile = static_cast<int>(unit % tiles);
-  const int64_t piece = unit / tiles;
-  if (piece >= kPieces || !pairs.tile_fit[tile]) return;
-  const int s0 = pairs.tile_offset[tile];
-  const int len = static_cast<int>(
-      max(int64_t{0}, min(static_cast<int64_t>(pairs.tile_region[tile]),
-                          static_cast<int64_t>(pairs.budget) - s0)));
-  const int per = max(kMinPiece, (len + kPieces - 1) / kPieces);
-  if (piece * per >= len) return;
-  const int a = static_cast<int>(piece * per);
-  const int b = min(len, a + per);
-  const int share = ((c + subsets - 1) / subsets + 3) & ~3;
-  const int j0 = share_id * share;
-  if (j0 >= c) return;
-  const int j1 = min(c, j0 + share);
-  const int chunks = (j1 - j0 + kChunk - 1) / kChunk;
-
-  const int64_t r = static_cast<int64_t>(tile) * tile_rays + group * 32 + lane;
+  Unit u;
+  if (!decode_unit(static_cast<int64_t>(blockIdx.x) * kWalkWarps + warp, pairs, tiles,
+                   tile_rays, c, subsets, lane, u))
+    return;
+  const int64_t r = u.r;
   const Ray ray = load_ray(rays, r);
   float bt = ray.tmax;  // the running best (t, position); -1: nothing below tmax
   int bp = -1;
@@ -292,130 +434,60 @@ __global__ void __launch_bounds__(kWalkWarps * 32)
   };
   merge(__ldcg(keys + r));
   unsigned long long snap = kNoHit;
-
-  // the slots' flags, enter and cluster, 32 positions from `base`, a lane each
-  int base = a, m_enter = 0, m_cluster = 0;
-  unsigned listed = 0;
-  auto load_meta = [&]() {
-    const int pos = base + lane;
-    bool in = pos < b;
-    m_enter = 0;
-    m_cluster = 0;
-    if (in) {
-      in = (pairs.flags[s0 + pos] & 2) != 0;
-      m_enter = pairs.enter[s0 + pos];
-      m_cluster = pairs.cluster[s0 + pos];
-    }
-    listed = __ballot_sync(kFull, in);
+  bool improved = false;
+  unsigned long long tests = 0;
+  // a slot may improve a lane's best when (enter, position) is below it
+  auto keep = [&](float enter, int pos, auto) { return below(enter, pos, bt, bp); };
+  // the horizon, with the best published a slot ago
+  auto start = [&](const Job& cur) {
+    merge(snap);
+    const bool walk = __any_sync(kFull, below(__int_as_float(cur.enter), cur.pos, bt, bp));
+    snap = __ldcg(keys + r);
+    return walk;
   };
-  // the next listed slot after position `after` that may improve a lane's best
-  auto next_slot = [&](int after) {
-    for (;;) {
-      const int skip = after - base + 1;
-      unsigned cand = skip <= 0 ? listed : (skip >= 32 ? 0u : listed & (kFull << skip));
-      while (cand) {
-        const int i = __ffs(cand) - 1;
-        const int e = __shfl_sync(kFull, m_enter, i);
-        if (__any_sync(kFull, below(__int_as_float(e), base + i, bt, bp)))
-          return Job{base + i, e, __shfl_sync(kFull, m_cluster, i), 0};
-        cand &= cand - 1;
-      }
-      if (base + 32 >= b) return Job{-1, 0, 0, 0};
-      base += 32;
-      after = base - 1;
-      load_meta();
-    }
-  };
-  const int64_t width = static_cast<int64_t>(P::kWidth) * c;
-  auto fetch = [&](const Job& job, float* stage) {
-    const int jb = j0 + job.chunk * kChunk;
-    const int n = min(kChunk, j1 - jb);
-    const float* row = table + job.cluster * width + jb;
-    if (vec) {  // 16-byte copies: 4 triangles of a plane
-      const int quads = n >> 2;
+  auto test = [&](float* stage, int n, const Job& cur) {
+    // a lane a triangle: the edges once for the 32 rays (the same
+    // subtractions as the plain version's), and tmap -1 past the chunk's
+    // end, so that the 4-wide loop rejects the tail
+    if (lane >= n) {
+      stage[(P::kCount - 1) * kChunk + lane] = -1.0f;
+    } else if (!WOOP) {
 #pragma unroll
-      for (int i = lane; i < P::kCount * 8; i += 32) {
-        const int pl = i >> 3, k = i & 7;
-        if (k < quads)
-          cp_async(stage + pl * kChunk + 4 * k, row + P::offset(pl) * c + 4 * k, 1);
-      }
-    } else if (lane < n) {
+      for (int e = 3; e < 9; ++e) stage[e * kChunk + lane] -= stage[(e % 3) * kChunk + lane];
+    }
+    __syncwarp();
+    // a test is accepted below lim: the running best t, or the next float
+    // above it when the best is a later position's (which loses a tie)
+    const float lim0 = cur.pos < bp ? nextafterf(bt, CUDART_INF_F) : bt;
+    float lim = lim0;
+    for (int jj = 0; jj < n; jj += 4) {
+      float4 q[P::kCount];
 #pragma unroll
       for (int pl = 0; pl < P::kCount; ++pl)
-        cp_async(stage + pl * kChunk + lane, row + P::offset(pl) * c + lane, 0);
+        q[pl] = *reinterpret_cast<const float4*>(stage + pl * kChunk + jj);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        float pl[P::kCount];
+#pragma unroll
+        for (int i = 0; i < P::kCount; ++i)
+          pl[i] = m == 0 ? q[i].x : m == 1 ? q[i].y : m == 2 ? q[i].z : q[i].w;
+        const Test h = plane_test<WOOP, true>(ray, pl);
+        if (h.inside && h.t < lim) lim = h.t;
+      }
+    }
+    if (lim < lim0) {
+      bt = lim;
+      bp = cur.pos;
+      improved = true;
+    }
+    tests += static_cast<unsigned long long>(n);
+    if (cur.chunk + 1 == u.chunks && improved) {
+      atomicMin(keys + r, (static_cast<unsigned long long>(ordered(bt)) << 32) |
+                              static_cast<uint32_t>(bp));
+      improved = false;
     }
   };
-
-  load_meta();
-  Job cur = next_slot(a - 1);
-  if (cur.pos >= 0) fetch(cur, stages[warp][0]);
-  asm volatile("cp.async.commit_group;\n" ::);
-  int st = 0;
-  bool walk = false, improved = false;
-  unsigned long long tests = 0;
-  while (cur.pos >= 0) {
-    if (cur.chunk == 0) {  // the horizon, with the best published a slot ago
-      merge(snap);
-      walk = __any_sync(kFull, below(__int_as_float(cur.enter), cur.pos, bt, bp));
-      snap = __ldcg(keys + r);
-    }
-    const Job nxt = (walk && cur.chunk + 1 < chunks)
-                        ? Job{cur.pos, cur.enter, cur.cluster, cur.chunk + 1}
-                        : next_slot(cur.pos);
-    if (nxt.pos >= 0) fetch(nxt, stages[warp][st ^ 1]);
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncwarp();
-    if (walk) {
-      float* stage = stages[warp][st];
-      const int n = min(kChunk, j1 - (j0 + cur.chunk * kChunk));
-      // a lane a triangle: the edges once for the 32 rays (the same
-      // subtractions as the plain version's), and tmap -1 past the chunk's
-      // end, so that the 4-wide loop rejects the tail
-      if (lane >= n) {
-        stage[(P::kCount - 1) * kChunk + lane] = -1.0f;
-      } else if (!WOOP) {
-#pragma unroll
-        for (int e = 3; e < 9; ++e)
-          stage[e * kChunk + lane] -= stage[(e % 3) * kChunk + lane];
-      }
-      __syncwarp();
-      // a test is accepted below lim: the running best t, or the next float
-      // above it when the best is a later position's (which loses a tie)
-      const float lim0 = cur.pos < bp ? nextafterf(bt, CUDART_INF_F) : bt;
-      float lim = lim0;
-      for (int jj = 0; jj < n; jj += 4) {
-        float4 q[P::kCount];
-#pragma unroll
-        for (int pl = 0; pl < P::kCount; ++pl)
-          q[pl] = *reinterpret_cast<const float4*>(stage + pl * kChunk + jj);
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          float pl[P::kCount];
-#pragma unroll
-          for (int i = 0; i < P::kCount; ++i)
-            pl[i] = m == 0 ? q[i].x : m == 1 ? q[i].y : m == 2 ? q[i].z : q[i].w;
-          const Test h = plane_test<WOOP, true>(ray, pl);
-          if (h.inside && h.t < lim) lim = h.t;
-        }
-      }
-      if (lim < lim0) {
-        bt = lim;
-        bp = cur.pos;
-        improved = true;
-      }
-      tests += static_cast<unsigned long long>(n);
-      if (cur.chunk + 1 == chunks && improved) {
-        atomicMin(keys + r, (static_cast<unsigned long long>(ordered(bt)) << 32) |
-                                static_cast<uint32_t>(bp));
-        improved = false;
-      }
-    }
-    __syncwarp();
-    cur = nxt;
-    st ^= 1;
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  walk_piece<WOOP>(pairs, u, table, c, vec, stages[warp], lane, keep, start, test);
   if (counters != nullptr && lane == 0 && tests) atomicAdd(counters, tests * 32);
 }
 
@@ -472,88 +544,155 @@ __global__ void pair_resolve_kernel(const float* __restrict__ rays, Pairs pairs,
   }
 }
 
-// K12: the first design's walk, a block a tile, a thread a ray
-__global__ void pair_anyhit_kernel(const float* __restrict__ rays, Pairs pairs,
-                                   const float* __restrict__ table, int c,
-                                   uint8_t* __restrict__ out_occ) {
-  extern __shared__ float row[];
-  const int tile = blockIdx.x;
-  const int64_t r = static_cast<int64_t>(tile) * blockDim.x + threadIdx.x;
-  const float* ray = rays + r * 8;
-  const float ox = ray[0], oy = ray[1], oz = ray[2];
-  const float dx = ray[3], dy = ray[4], dz = ray[5];
-  const float tmin = ray[6], tmax = ray[7];
-  bool occ = false;
-  if (pairs.tile_fit[tile]) {
-    const int width = 10 * c;
-    const int s0 = pairs.tile_offset[tile];
-    const int s1 = min(s0 + pairs.tile_region[tile], pairs.budget);
-    for (int s = s0; s < s1; ++s) {
-      if ((pairs.flags[s] & 2) == 0) continue;  // block-uniform
-      if (__syncthreads_and(occ)) break;
-      const int64_t cl = pairs.cluster[s];
-      __syncthreads();  // the previous row has been read by every thread
-      const float* src = table + cl * width;
-      for (int i = threadIdx.x; i < width; i += blockDim.x) row[i] = src[i];
-      __syncthreads();
-      for (int j = 0; j < c; ++j) {
-        const float t0x = row[j], t0y = row[c + j], t0z = row[2 * c + j];
-        const float e1x = row[3 * c + j] - t0x;
-        const float e1y = row[4 * c + j] - t0y;
-        const float e1z = row[5 * c + j] - t0z;
-        const float e2x = row[6 * c + j] - t0x;
-        const float e2y = row[7 * c + j] - t0y;
-        const float e2z = row[8 * c + j] - t0z;
-        const float tmap = row[9 * c + j];
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const bool ok = fabsf(det) > 1e-12f;
-        const float inv_det = ok ? 1.0f / det : 0.0f;
-        const float tx = ox - t0x, ty = oy - t0y, tz = oz - t0z;
-        const float u = (tx * px + ty * py + tz * pz) * inv_det;
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        const bool inside = ok && tmap >= 0.0f && u >= 0.0f && v >= 0.0f &&
-                            u + v <= 1.0f && t > tmin;
-        occ = occ || (inside && t < tmax);
-      }
-    }
+// K12's conservative slab test of a ray (origin o, inverse direction inv)
+// against a cluster's box, each axis grown by 2^-14 of its magnitude and
+// extent (the slab's and the triangle test's rounding, a few ulps, stay
+// far inside): whether the ray's segment may meet a triangle of the
+// cluster below its capped tmax
+__device__ __forceinline__ bool may_enter(const float* __restrict__ lo,
+                                          const float* __restrict__ hi, const float (&o)[3],
+                                          const float (&inv)[3], float tmax) {
+  float tn = -CUDART_INF_F, tf = CUDART_INF_F;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float l = __ldg(lo + k), h = __ldg(hi + k);
+    const float g = (fmaxf(fabsf(l), fabsf(h)) + (h - l)) * 0x1p-14f + 0x1p-100f;
+    const float a = (l - g - o[k]) * inv[k], b = (h + g - o[k]) * inv[k];
+    tn = fmaxf(tn, fminf(a, b));  // fminf / fmaxf drop a 0 * inf NaN
+    tf = fminf(tf, fmaxf(a, b));
   }
-  out_occ[r] = occ ? 1 : 0;
+  return tn <= tf && tf >= 0.0f && tn < tmax;
 }
 
-bool bad_tile(int tile_rays, int c) {
-  return tile_rays < 32 || tile_rays > 32 * kMaxWarps || tile_rays % 32 != 0 || c < 1;
+// K12: the any-hit walk. Units and staging are the closest-hit walk's; in
+// a chunk a lane holds one triangle and the warp takes its open rays in
+// turn. A ray is open for a slot while it is active and not yet occluded,
+// its capped tmax lies above the slot's enter, and its segment may enter
+// the cluster's box. out_occ, zeroed by the entry, is both the output and
+// what units publish: a ray's byte is set to 1 where a unit finds it
+// occluded and read by the others a slot ahead.
+__global__ void __launch_bounds__(kWalkWarps * 32)
+    pair_anyhit_walk_kernel(const float* __restrict__ rays, Pairs pairs, int tiles,
+                            int tile_rays, const float* __restrict__ table, int c, int vec,
+                            int subsets, const float* __restrict__ box_min,
+                            const float* __restrict__ box_max, uint8_t* __restrict__ out_occ,
+                            unsigned long long* __restrict__ counters) {
+  constexpr int kStage = Planes<false>::kCount * kChunk;
+  __shared__ __align__(16) float stages[kWalkWarps][2][kStage];
+  __shared__ float4 group_rays[kWalkWarps][32][2];  // the warp's rays, read by broadcast
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  Unit u;
+  if (!decode_unit(static_cast<int64_t>(blockIdx.x) * kWalkWarps + warp, pairs, tiles,
+                   tile_rays, c, subsets, lane, u))
+    return;
+  const Ray ray = load_ray(rays, u.r);
+  bool occ = __ldcg(out_occ + u.r) != 0;
+  // an inactive ray (tmax 0) is below every enter (>= 0): never open
+  if (!__any_sync(kFull, !occ && ray.tmax > 0.0f)) return;
+  group_rays[warp][lane][0] = make_float4(ray.ox, ray.oy, ray.oz, ray.dx);
+  group_rays[warp][lane][1] = make_float4(ray.dy, ray.dz, ray.tmin, ray.tmax);
+  __syncwarp();
+  const float o[3] = {ray.ox, ray.oy, ray.oz};
+  const float inv[3] = {1.0f / ray.dx, 1.0f / ray.dy, 1.0f / ray.dz};
+  uint8_t snap = 0;
+  bool slot_open = false;  // the lane's ray is open for the walked slot
+  unsigned long long tests = 0;
+  // no triangle of a slot lies nearer than its enter, or outside its box
+  auto is_open = [&](float enter, int cluster) {
+    return !occ && enter < ray.tmax &&
+           may_enter(box_min + 3 * cluster, box_max + 3 * cluster, o, inv, ray.tmax);
+  };
+  auto keep = [&](float enter, int, auto cluster) { return is_open(enter, cluster()); };
+  auto start = [&](const Job& cur) {
+    occ = occ || snap != 0;
+    slot_open = is_open(__int_as_float(cur.enter), cur.cluster);
+    snap = __ldcg(out_occ + u.r);
+    return __any_sync(kFull, slot_open);
+  };
+  auto test = [&](const float* stage, int n, const Job&) {
+    // the lane's triangle in registers, its edges once for the chunk (the
+    // plain version's subtractions); past the chunk's end tmap -1
+    const float t0x = stage[lane], t0y = stage[kChunk + lane], t0z = stage[2 * kChunk + lane];
+    const float e1x = stage[3 * kChunk + lane] - t0x, e1y = stage[4 * kChunk + lane] - t0y,
+                e1z = stage[5 * kChunk + lane] - t0z;
+    const float e2x = stage[6 * kChunk + lane] - t0x, e2y = stage[7 * kChunk + lane] - t0y,
+                e2z = stage[8 * kChunk + lane] - t0z;
+    const float tmap = lane < n ? stage[9 * kChunk + lane] : -1.0f;
+    unsigned todo = __ballot_sync(kFull, slot_open && !occ);
+    tests += static_cast<unsigned long long>(__popc(todo)) * n;
+    unsigned found = 0;
+    while (todo) {  // warp-uniform: every lane tests its triangle against ray i
+      const int i = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const float4 p = group_rays[warp][i][0], q = group_rays[warp][i][1];
+      const Ray ri{p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w};
+      const Test h = mt_edges(ri, t0x, t0y, t0z, e1x, e1y, e1z, e2x, e2y, e2z, tmap);
+      if (__any_sync(kFull, h.inside && h.t < ri.tmax)) found |= 1u << i;
+    }
+    if ((found >> lane) & 1u) {
+      occ = true;
+      out_occ[u.r] = 1;
+    }
+  };
+  walk_piece<false>(pairs, u, table, c, vec, stages[warp], lane, keep, start, test);
+  if (counters != nullptr && lane == 0 && tests) atomicAdd(counters, tests);
+}
+
+// the walks' grid: up to `shares` shares of a cluster's triangles (about
+// kChunk or more each), kPieces pieces of every tile's region, kWalkWarps
+// units a block; vec: 16-byte copies
+struct Grid {
+  int subsets, vec;
+  int64_t blocks;
+};
+
+int walk_grid(int tiles, int tile_rays, const float* table, int c, int shares, Grid& g) {
+  if (tile_rays < 32 || tile_rays > 32 * kMaxWarps || tile_rays % 32 != 0 || c < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.subsets = min(shares, (c + kChunk - 1) / kChunk);
+  const int64_t warps =
+      static_cast<int64_t>(kPieces) * max(tiles, 0) * (tile_rays / 32) * g.subsets;
+  g.blocks = (warps + kWalkWarps - 1) / kWalkWarps;
+  if (g.blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  g.vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0;
+  return 0;
 }
 
 template <bool WOOP>
 int launch_closest(const float* rays, int tiles, int tile_rays, Pairs pairs, const float* table,
-                   const int32_t* tri_map, int c, unsigned long long* keys, unsigned long long* counters, float* out_t,
-                   int32_t* out_tri, float* out_u, float* out_v, void* stream) {
-  if (bad_tile(tile_rays, c)) return static_cast<int>(cudaErrorInvalidValue);
+                   const int32_t* tri_map, int c, unsigned long long* keys,
+                   unsigned long long* counters, float* out_t, int32_t* out_tri, float* out_u,
+                   float* out_v, void* stream) {
+  Grid g;
+  if (const int bad = walk_grid(tiles, tile_rays, table, c, kShares, g)) return bad;
   if (tiles < 1) return 0;
-  // about kChunk triangles a share
-  const int subsets = min(kShares, (c + kChunk - 1) / kChunk);
   const auto s = static_cast<cudaStream_t>(stream);
   const int64_t mp = static_cast<int64_t>(tiles) * tile_rays;
-  const int64_t warps = static_cast<int64_t>(kPieces) * tiles * (tile_rays / 32) * subsets;
-  const int64_t blocks = (warps + kWalkWarps - 1) / kWalkWarps;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0;
   cudaError_t e = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * mp, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  pair_walk_kernel<WOOP><<<static_cast<unsigned>(blocks), kWalkWarps * 32, 0, s>>>(
-      rays, pairs, tiles, tile_rays, table, c, vec, subsets, keys, counters);
+  pair_walk_kernel<WOOP><<<static_cast<unsigned>(g.blocks), kWalkWarps * 32, 0, s>>>(
+      rays, pairs, tiles, tile_rays, table, c, g.vec, g.subsets, keys, counters);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t rblocks = (mp * 32 + 255) / 256;
   pair_resolve_kernel<WOOP><<<static_cast<unsigned>(rblocks), 256, 0, s>>>(
       rays, pairs, tile_rays, mp, table, tri_map, c, keys, out_t, out_tri, out_u, out_v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_anyhit(const float* rays, int tiles, int tile_rays, Pairs pairs, const float* table,
+                  int c, const float* box_min, const float* box_max,
+                  unsigned long long* counters, uint8_t* out_occ, void* stream) {
+  Grid g;
+  if (const int bad = walk_grid(tiles, tile_rays, table, c, kAnyShares, g)) return bad;
+  if (tiles < 1) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      cudaMemsetAsync(out_occ, 0, static_cast<size_t>(tiles) * tile_rays, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  pair_anyhit_walk_kernel<<<static_cast<unsigned>(g.blocks), kWalkWarps * 32, 0, s>>>(
+      rays, pairs, tiles, tile_rays, table, c, g.vec, g.subsets, box_min, box_max, out_occ,
+      counters);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -568,8 +707,11 @@ Pairs make_pairs(const int32_t* tile_offset, const int32_t* tile_region, const u
 // rays: (tiles * tile_rays, 8) packed [o, d, tmin, tmax] (inactive rays:
 // tmin = FLT_MAX, tmax = 0); table: (K, 10*C) cl_tri_table, or (K, 16*C)
 // cl_woop_table for pair_woop. Outputs per packed ray. keys: (tiles *
-// tile_rays,) scratch of the closest-hit walks; counters: null, or one
-// zeroed counter to which the walk adds the ray-triangle tests it runs.
+// tile_rays,) scratch of the closest-hit walks; out_occ: (tiles *
+// tile_rays,) bytes, zeroed by pair_anyhit; box_min / box_max: (K, 3)
+// cl_aabb_min / cl_aabb_max, which K12 tests each ray against; counters: null, or one zeroed
+// counter to which the walk adds the ray-triangle tests it runs (lanes x
+// triangles of each walked chunk; K12: open rays x triangles).
 extern "C" int pair_closest(const float* rays, int tiles, int tile_rays,
                             const int32_t* tile_offset, const int32_t* tile_region,
                             const uint8_t* tile_fit, const int32_t* cluster,
@@ -599,17 +741,11 @@ extern "C" int pair_anyhit(const float* rays, int tiles, int tile_rays,
                            const int32_t* tile_offset, const int32_t* tile_region,
                            const uint8_t* tile_fit, const int32_t* cluster,
                            const int32_t* flags, const int32_t* enter, int budget,
-                           const float* table, int c, uint8_t* out_occ, void* stream) {
-  if (bad_tile(tile_rays, c)) return static_cast<int>(cudaErrorInvalidValue);
-  if (tiles < 1) return 0;
-  const size_t smem = sizeof(float) * 10 * static_cast<size_t>(c);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pair_anyhit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  pair_anyhit_kernel<<<tiles, tile_rays, smem, static_cast<cudaStream_t>(stream)>>>(
-      rays, make_pairs(tile_offset, tile_region, tile_fit, cluster, flags, enter, budget), table,
-      c, out_occ);
-  return static_cast<int>(cudaGetLastError());
+                           const float* table, int c, const float* box_min,
+                           const float* box_max, unsigned long long* counters,
+                           uint8_t* out_occ, void* stream) {
+  return launch_anyhit(
+      rays, tiles, tile_rays,
+      make_pairs(tile_offset, tile_region, tile_fit, cluster, flags, enter, budget), table, c,
+      box_min, box_max, counters, out_occ, stream);
 }

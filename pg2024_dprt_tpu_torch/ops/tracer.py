@@ -16,12 +16,14 @@ Pipeline (the host prep is plain PyTorch, as it is plain XLA in JAX):
      to back by conservative enter distance (stable sorts: the slot order
      decides ties at equal t across clusters). Tiles that do not fit the
      static budget are reported (`dropped`) and forced to miss;
-  2. the kernels (csrc/pair_trace.cu): K11 `pair_closest` (replaces
-     pallas_tracer.py::_kernel) or K13 `pair_woop` (_woop_kernel), a walk
-     split across the card into warps of 32 rays x a share of each
-     cluster's triangles x a piece of the region, merged per ray by a
-     64-bit atomic min, then a resolve pass; K12 `pair_anyhit`
-     (_occl_kernel), one block per tile.
+  2. the kernels (csrc/pair_trace.cu), each a walk split across the card
+     into warps of 32 rays x a share of each cluster's triangles x a piece
+     of the region: K11 `pair_closest` (replaces pallas_tracer.py::_kernel)
+     or K13 `pair_woop` (_woop_kernel), merged per ray by a 64-bit atomic
+     min, then a resolve pass; K12 `pair_anyhit` (_occl_kernel), a lane a
+     triangle that tests the warp's open rays in turn: a ray is dropped
+     once it is occluded (its byte of the output, which the other warps
+     read) and skips the slots whose cluster box its segment misses.
 
 Beside each kernel is its plain PyTorch version, which computes the same
 function densely: for each slot index r, every tile's r-th slot gets the
@@ -251,12 +253,15 @@ def pair_anyhit(scene, packed, pairs: PairList, tile_rays: int) -> torch.Tensor:
     return _launch("pair_anyhit", scene, packed, pairs, tile_rays)
 
 
-def pair_walk_tests(scene, packed, pairs: PairList, tile_rays: int, woop: bool = False) -> int:
-    """The ray-triangle tests (lanes x triangles) that K11's walk (K13's
-    with woop=True) runs on these inputs: one launch with the kernel's
-    counter on. CUDA tensors only."""
+def pair_walk_tests(scene, packed, pairs: PairList, tile_rays: int, woop: bool = False,
+                    any_hit: bool = False) -> int:
+    """The ray-triangle tests that K11's walk (K13's with woop=True, K12's
+    with any_hit=True) runs on these inputs: one launch with the kernel's
+    counter on. K11 / K13 count lanes x triangles of each walked chunk, K12
+    open rays x triangles. CUDA tensors only."""
     counters = torch.zeros(1, dtype=torch.int64, device=packed.device)
-    _launch("pair_woop" if woop else "pair_closest", scene, packed, pairs, tile_rays, counters)
+    name = "pair_anyhit" if any_hit else "pair_woop" if woop else "pair_closest"
+    _launch(name, scene, packed, pairs, tile_rays, counters)
     return int(counters[0])
 
 
@@ -266,7 +271,7 @@ def _launch(name, scene, packed, pairs: PairList, tile_rays: int, counters=None)
         raise ValueError(f"rays on {dev}: the kernels take CUDA tensors")
     if tile_rays % 32 or not 32 <= tile_rays <= 1024:
         raise ValueError(f"tile_rays {tile_rays}: the kernels take a multiple of 32 "
-                         "up to 1024 (K12 runs a block of one thread per ray)")
+                         "up to 1024 (the JAX tracer's tiles; a warp walks 32 rays)")
     mp = packed.shape[0]
     if mp % tile_rays:
         raise ValueError(f"{mp} packed rays are not whole tiles of {tile_rays}")
@@ -287,9 +292,12 @@ def _launch(name, scene, packed, pairs: PairList, tile_rays: int, counters=None)
         ("pair_flags", torch.int32, (b,)), ("pair_enter", torch.int32, (b,)))]
     rays = _checked("packed rays", packed, torch.float32, (mp, 8), dev)
     args = [_ptr(rays), tiles, tile_rays, *map(_ptr, ins), b, _ptr(table)]
+    count = None if counters is None else _ptr(counters)
     if name == "pair_anyhit":
-        occ = torch.empty(mp, dtype=torch.bool, device=dev)
-        rc = _lib().pair_anyhit(*args, c, _ptr(occ), _stream(packed))
+        boxes = [_checked(f, getattr(scene, f), torch.float32, (k, 3), dev)
+                 for f in ("cl_aabb_min", "cl_aabb_max")]
+        occ = torch.empty(mp, dtype=torch.bool, device=dev)  # zeroed by the entry
+        rc = _lib().pair_anyhit(*args, c, *map(_ptr, boxes), count, _ptr(occ), _stream(packed))
         out = occ
     else:
         tri_map = _checked("cl_tri_map", scene.cl_tri_map, torch.int32, (k * c,), dev)
@@ -297,8 +305,7 @@ def _launch(name, scene, packed, pairs: PairList, tile_rays: int, counters=None)
         u, v = torch.empty_like(t), torch.empty_like(t)
         tri = torch.empty(mp, dtype=torch.int32, device=dev)
         keys = torch.empty(mp, dtype=torch.int64, device=dev)  # the walk's scratch
-        rc = getattr(_lib(), name)(*args, _ptr(tri_map), c, _ptr(keys),
-                                   None if counters is None else _ptr(counters), _ptr(t),
+        rc = getattr(_lib(), name)(*args, _ptr(tri_map), c, _ptr(keys), count, _ptr(t),
                                    _ptr(tri), _ptr(u), _ptr(v), _stream(packed))
         out = (t, tri, u, v)
     _check(rc, name)
@@ -315,7 +322,7 @@ def _lib():
         closest = head + [p, i, p, p, p, p, p, p, p]
         lib.pair_closest.argtypes = closest
         lib.pair_woop.argtypes = closest
-        lib.pair_anyhit.argtypes = head + [i, p, p]
+        lib.pair_anyhit.argtypes = head + [i, p, p, p, p, p]
         for fn in (lib.pair_closest, lib.pair_woop, lib.pair_anyhit):
             fn.restype = i
         lib._pg_typed = True

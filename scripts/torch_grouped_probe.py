@@ -4,7 +4,7 @@
 them, on one GPU.
 
     python scripts/torch_grouped_probe.py [--root DIR ...]
-        [--parts waves,frame,dist,rule,route,k3,nets,tiles,keys,march,flat,pairs]
+        [--parts waves,frame,dist,rule,route,k3,nets,tiles,keys,march,flat,pairs,anyhit]
         [--ablate]
 
 Each --root is a checkout of this repository (default: the one holding this
@@ -123,12 +123,21 @@ chip_smoke.py's (phase 7 and phase 9), from this script's checkout. Parts:
          the tree has them; CUDA events where the profiler drops a long
          kernel's launches), its CUDA-graph ms and
          its wrapper's ms, the digest of every output (two trees equal bit
-         for bit where the digests are); where the tree's K11 / K13 count
-         them, the walk's ray-triangle tests and their floor at 40
-         operations each at the card's FP32 rate without FMA; where the
-         tree has a walk and a resolve kernel, each one's device ms. Then
+         for bit where the digests are); where the tree's walks count
+         them (its tracer's pair_walk_tests, and its any_hit mode for K12),
+         the walk's ray-triangle tests and their floor at 40 operations each at the
+         card's FP32 rate without FMA; where the tree has a walk and a
+         resolve kernel, each one's device ms. Each tree's kernels are
+         matched by the CUDA function names its own chip_smoke.py gives
+         (PAIR_FUNCTIONS). Then
          the digests of the three kernels on every case of
-         tests/test_torch_kernels_gpu.py PAIR_CASES.
+         tests/test_torch_kernels_gpu.py PAIR_CASES, and K12's on its
+         ANYHIT_EDGES.
+  anyhit K12 built with other walk constants (ANYHIT_VARIANTS: its shares
+         of a cluster's triangles, the pieces of a region), each from a
+         copy of csrc/pair_trace.cu under build/variants/, on phase 8's
+         five runs: device and CUDA-graph ms, lane tests, flags equal to
+         the package's K12.
 
 --ablate measures, on a tree whose K9 / K10 run the per-thread walks of
 csrc/resident_trace.cuh (closest_hit_grouped / any_hit_grouped), where those
@@ -176,6 +185,13 @@ AUTO_LIGHT = 8.0
 # the CUDA functions of K11-K13 in a tree whose csrc/pair_trace.cu is the
 # first design's (one template, pair_kernel<mode>, a block a tile)
 PAIR_FUNCTIONS_FIRST = {n: ("pair_kernel",) for n in ("pair_closest", "pair_anyhit", "pair_woop")}
+
+# K12 built with other walk constants of csrc/pair_trace.cu (--parts
+# anyhit): (name, {constant: value})
+ANYHIT_VARIANTS = (("as built", {}), ("shares 1", {"kAnyShares": 1}),
+                   ("shares 2", {"kAnyShares": 2}), ("shares 4", {"kAnyShares": 4}),
+                   ("shares 1, pieces 16", {"kAnyShares": 1, "kPieces": 16}),
+                   ("shares 1, pieces 64", {"kAnyShares": 1, "kPieces": 64}))
 
 # the CUDA functions of K9 / K10
 K9_FUNCTIONS = ("grouped_closest_kernel",)
@@ -1173,10 +1189,24 @@ def _pair_outputs(got, anyhit):
     return (got,) if anyhit else tuple(got)
 
 
+def _tree_pair_functions(root):
+    """The CUDA functions that the tree at `root` launches for K11-K13: its
+    chip_smoke.py's PAIR_FUNCTIONS, or the first design's where it has none."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_tree",
+                                                  os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, "PAIR_FUNCTIONS", PAIR_FUNCTIONS_FIRST)
+
+
 def part_pairs(pt, torch, np, cs, root, dev):
     trc = pt.ops.tracer
-    with open(os.path.join(root, "pg2024_dprt_tpu_torch", "csrc", "pair_trace.cu")) as fh:
-        functions = cs.PAIR_FUNCTIONS if "pair_walk_kernel" in fh.read() else PAIR_FUNCTIONS_FIRST
+    functions = _tree_pair_functions(root)
+    walk_modes = set()
+    if hasattr(trc, "pair_walk_tests"):
+        walk_modes = {"closest", "woop"}
+        if "any_hit" in inspect.signature(trc.pair_walk_tests).parameters:
+            walk_modes.add("anyhit")
     scene, _, _, waves = cs.pair_setup(pt, torch, np, dev)
     out = {"runs": {}, "cases": {}}
     for wname, srt, region in cs.PAIR_RUNS:
@@ -1190,15 +1220,14 @@ def part_pairs(pt, torch, np, cs, root, dev):
             call = lambda kern=getattr(trc, name): kern(scene, prep.packed, prep.pairs, tm)
             digest = _digest(torch, *_pair_outputs(call(), anyhit))
             r = {"digest": digest}
-            r["device_ms"], r["ms_by"] = cs.device_reading(
-                torch, call, functions[name], 5 if anyhit else 20)
+            r["device_ms"], r["ms_by"] = cs.device_reading(torch, call, functions[name], 20)
             r["wrapper_ms"] = cs.cuda_ms(torch, call, reps=7)
             r["graph_ms"] = cs.graph_ms(torch, call, reps=20)
             if len(functions[name]) > 1:
                 r["functions_ms"] = {f: cs.device_ms(torch, call, f) for f in functions[name]}
-            if not anyhit and hasattr(trc, "pair_walk_tests"):
-                r["walk_tests"] = trc.pair_walk_tests(scene, prep.packed, prep.pairs, tm,
-                                                      woop=mode == "woop")
+            if mode in walk_modes:
+                kind = {"any_hit": True} if anyhit else {"woop": mode == "woop"}
+                r["walk_tests"] = trc.pair_walk_tests(scene, prep.packed, prep.pairs, tm, **kind)
                 r["walk_floor_ms"] = r["walk_tests"] * cs.MT_OPS / cs.FP32_NO_FMA_OPS_PER_S * 1e3
             rec[name] = r
         out["runs"][label] = rec
@@ -1210,7 +1239,64 @@ def part_pairs(pt, torch, np, cs, root, dev):
             name: _digest(torch, *_pair_outputs(
                 getattr(trc, name)(scene_c, packed, pairs, case[2]), mode == "anyhit"))
             for name, mode in cs.PAIR_KERNELS}
+    for edge in tests.ANYHIT_EDGES:
+        scene_e, packed, pairs, tm, _ = tests.anyhit_edge_case(dev, *edge)
+        out["cases"][f"anyhit {edge}"] = {
+            "pair_anyhit": _digest(torch, trc.pair_anyhit(scene_e, packed, pairs, tm))}
     print(f"probe pairs cases: {out['cases']}", flush=True)
+    return out
+
+
+def part_anyhit(pt, torch, np, cs, root, dev):
+    """K12 built as ANYHIT_VARIANTS (copies of csrc/pair_trace.cu with other
+    constants, into build/variants/), timed on phase 8's five runs: device
+    ms (profiler), CUDA-graph ms, lane tests, and whether its flags equal
+    the package's K12."""
+    import re
+
+    from pg2024_dprt_tpu_torch.ops import _build
+
+    trc = pt.ops.tracer
+    pkg = os.path.join(root, "pg2024_dprt_tpu_torch")
+    src = open(os.path.join(pkg, "csrc", "pair_trace.cu")).read()
+    dst = os.path.join(pkg, "build", "variants")
+    os.makedirs(dst, exist_ok=True)
+    scene, _, _, waves = cs.pair_setup(pt, torch, np, dev)
+    preps = {}
+    for wname, srt, region in cs.PAIR_RUNS:
+        kw = dict(cs.PAIR_KW, region=region, sort_rays=srt)
+        preps[f"{wname}{' sorted' if srt else ''} region {region}"] = trc.prepare_pairs(
+            scene, *waves[wname], **kw)
+    tm = cs.PAIR_KW["tile_rays"]
+    want = {k: trc.pair_anyhit(scene, p.packed, p.pairs, tm) for k, p in preps.items()}
+    out = {}
+    for i, (name, consts) in enumerate(ANYHIT_VARIANTS):
+        text = src
+        for const, value in consts.items():
+            text, n = re.subn(rf"constexpr int {const} = \d+;",
+                              f"constexpr int {const} = {value};", text)
+            if n != 1:
+                raise SystemExit(f"--parts anyhit: pair_trace.cu has no constant {const}")
+        cu = os.path.join(dst, f"pair_trace_{i}.cu")
+        with open(cu, "w") as fh:
+            fh.write(text)
+        so = os.path.join(dst, f"libpair_trace_{i}.so")
+        run = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-I", os.path.join(pkg, "csrc"),
+                              "-o", so, cu], capture_output=True, text=True)
+        if run.returncode != 0:
+            raise SystemExit(f"nvcc failed on {cu}\n" + run.stdout + run.stderr)
+        rec = {}
+        with _swapped(_build, "pair_trace", ctypes.CDLL(so)):
+            for label, prep in preps.items():
+                call = lambda prep=prep: trc.pair_anyhit(scene, prep.packed, prep.pairs, tm)
+                rec[label] = {
+                    "equal": bool(torch.equal(call(), want[label])),
+                    "device_ms": cs.device_ms(torch, call, cs.PAIR_FUNCTIONS["pair_anyhit"]),
+                    "graph_ms": cs.graph_ms(torch, call, reps=20),
+                    "walk_tests": trc.pair_walk_tests(scene, prep.packed, prep.pairs, tm,
+                                                      any_hit=True)}
+        out[name] = rec
+        print(f"probe anyhit {name}: {rec}", flush=True)
     return out
 
 
@@ -1239,7 +1325,7 @@ def child(root, parts, ablate):
     dev = pt.core.resolve_device()
     out = {"root": root, "card": cs.card_line()}
     scenes = (_scenes(pt, dev, instanced=bool({"waves", "frame", "dist"} & parts) or ablate)
-              if parts - {"pairs"} or ablate else None)
+              if parts - {"pairs", "anyhit"} or ablate else None)
     waves = _waves(pt, torch, np, cs, dev, scenes) if ("waves" in parts or ablate) else None
     if "waves" in parts:
         out["waves"] = part_waves(pt, torch, cs, waves)
@@ -1259,6 +1345,8 @@ def child(root, parts, ablate):
         out["flat"] = part_flat(pt, torch, np, cs, root, dev, scenes[0])
     if "pairs" in parts:
         out["pairs"] = part_pairs(pt, torch, np, cs, root, dev)
+    if "anyhit" in parts:
+        out["anyhit"] = part_anyhit(pt, torch, np, cs, root, dev)
     if {"route", "tiles", "nets", "keys"} & parts:
         cases = _route_cases(pt, torch, np, cs, dev, scenes[2])
         if "keys" in parts:

@@ -959,7 +959,7 @@ def test_pair_kernels_match_plain_on_gpu(tpc, region, tile_rays, camera, twice, 
     """K11, K12 and K13 against their plain versions on the same pair list:
     every output equal (t bit for bit). region 8 leaves tiles unfit (forced
     misses); 2,048 triangles a cluster: 16 staged chunks a slot in K11 /
-    K13's walk, 128 KB rows for K12 (opt-in shared memory); 100 a cluster:
+    K13's walk and 64 in K12's (one share); 100 a cluster:
     shares and chunks that are not whole; 37: 4-byte copies and the
     scalar tail; coincident copies of every triangle: ties at equal t that
     the slot, then the lane order decides; tile_rays 32 and 1,024, and a
@@ -989,6 +989,124 @@ def test_pair_kernels_match_plain_on_gpu(tpc, region, tile_rays, camera, twice, 
             assert bool((got[0][dead] == 0).all()) and bool((got[1][dead] == -1).all())
     if region == 8:
         assert int(pairs.dropped) > 0 and not bool(pairs.tile_fit.all())
+
+
+def _wall_case(device, tile_rays=512):
+    """The soup behind a quad that covers the upper part of a 64x64 camera
+    view: the quad's cluster is every upper tile's first slot, and tiles 1
+    and 2 (rows 8-23) have every ray occluded there, with later slots
+    listed."""
+    from pg2024_dprt_tpu_torch.ops import tracer as ttr
+
+    q = np.array([[-1.0, 0.55, 1.6], [2.0, 0.55, 1.6], [2.0, 2.0, 1.6], [-1.0, 2.0, 1.6]],
+                 np.float32)
+    wall = tscene.MeshGeometry(v0=q[[0, 0]], v1=q[[1, 2]], v2=q[[2, 3]])
+    scene = device_scene_from_meshes([random_tri_soup(5000, seed=60), wall],
+                                     tris_per_cluster=128, device=device)
+    side = 64
+    cam = Camera.look_at([0.5, 0.5, 3.0], [0.5, 0.5, 0.5], [0, 1, 0], 45.0, side, side,
+                         device=device)
+    pix = torch.arange(side * side, device=device)
+    zeros = torch.zeros(side * side, device=device)
+    o, d = cam.generate_rays(pix // side, pix % side, zeros, zeros)
+    n = o.shape[0]
+    rays = (o, d, torch.full((n,), T_MIN, device=device), torch.full((n,), 3.4e38, device=device),
+            torch.ones(n, dtype=torch.bool, device=device))
+    return scene, rays
+
+
+def _first_slot_only(pairs):
+    """The pair list with each tile's first listed slot and no other."""
+    flags = pairs.pair_flags.clone()
+    listed = (flags & 2) != 0
+    pos = torch.arange(flags.shape[0], device=flags.device)
+    first = torch.full_like(pairs.tile_offset, flags.shape[0])
+    idx = torch.where(listed, pos, flags.shape[0]).to(torch.int32)
+    first = first.scatter_reduce(0, pairs.pair_tile.long(), idx, reduce="amin")
+    later = listed & (pos != first[pairs.pair_tile.long()])
+    flags[later] -= 2
+    return pairs._replace(pair_flags=flags)
+
+
+def _listed_slots(pairs, tile):
+    return int(((pairs.pair_flags & 2) != 0)[pairs.pair_tile == tile].sum())
+
+
+# K12's edges: (name, triangles a cluster, camera wavefront)
+ANYHIT_EDGES = [("tmax_at_t", 128, True), ("tmax_at_t", 128, False),
+                ("tmax_above_t", 128, True), ("tmax_above_t", 128, False),
+                ("first_slot", 128, True), ("no_hit", 128, True),
+                ("tmax_above_t", 2048, True)]
+
+
+def anyhit_edge_case(device, edge, tpc, camera):
+    """(scene, packed, pairs, tile_rays, expected flags or None) of one of
+    K12's edges, checked on the plain versions. tmax_at_t: each ray's
+    packed tmax set to its plain closest t, so t < tmax fails at equality
+    and no ray is occluded; tmax_above_t: the next float above that t for
+    the hit rays, so that every hit ray is occluded (at 2,048 triangles a
+    cluster, where K12's first design staged an 80 KB row); first_slot:
+    tiles whose every ray is occluded by their first listed slot, with
+    later slots listed; no_hit: a tile whose rays start past the scene
+    (tmin 10) walks its listed slots and hits nothing."""
+    from pg2024_dprt_tpu_torch.ops import tracer as ttr
+
+    tm = 512
+    if edge in ("first_slot", "no_hit"):
+        scene, rays = _wall_case(device)
+        if edge == "no_hit":
+            tmin = rays[2].clone()
+            tmin[5 * tm:6 * tm] = 10.0
+            rays = (rays[0], rays[1], tmin, *rays[3:])
+        prep = ttr.prepare_pairs(scene, *rays, tile_rays=tm, region=96)
+        packed, pairs = prep.packed, prep.pairs
+        want = ttr.pair_trace_plain(scene, packed, pairs, tm, mode="anyhit")
+        if edge == "first_slot":
+            first = ttr.pair_trace_plain(scene, packed, _first_slot_only(pairs), tm,
+                                         mode="anyhit")
+            for tile in (1, 2):
+                assert bool(first[tile * tm:(tile + 1) * tm].all())
+                assert _listed_slots(pairs, tile) >= 10
+        else:
+            assert not bool(want[5 * tm:6 * tm].any()) and _listed_slots(pairs, 5) >= 10
+        return scene, packed, pairs, tm, None
+    scene, _, packed, pairs = _pair_case(device, tpc, 4096, 96, tm, camera)
+    t, tri = ttr.pair_trace_plain(scene, packed, pairs, tm)[:2]
+    hit = tri >= 0
+    assert int(hit.sum()) > 200
+    packed = packed.clone()
+    if edge == "tmax_at_t":
+        packed[:, 7] = t
+        want = torch.zeros_like(hit)
+    else:
+        packed[:, 7] = torch.where(hit, torch.nextafter(t, torch.full_like(t, float("inf"))),
+                                   packed[:, 7])
+        want = hit
+    assert torch.equal(ttr.pair_trace_plain(scene, packed, pairs, tm, mode="anyhit"), want)
+    return scene, packed, pairs, tm, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge,tpc,camera", ANYHIT_EDGES)
+def test_pair_anyhit_edges_match_plain_on_gpu(edge, tpc, camera):
+    """K12 against its plain version where its walk decides most: a hit
+    exactly at tmax (no ray occluded) and just below it (every hit ray
+    occluded; these two also hold the enter skip to its assumption at the
+    tightest bound), tiles occluded whole by their first slot (the later
+    pieces and shares find the rays published), a tile that walks its
+    listed slots with no hit, and 2,048 triangles a cluster (64 chunks a
+    slot)."""
+    _need_cuda()
+    from pg2024_dprt_tpu_torch.ops import tracer as ttr
+
+    scene, packed, pairs, tm, want = anyhit_edge_case("cuda", edge, tpc, camera)
+    tops.reset_launch_counts()
+    got = ttr.pair_anyhit(scene, packed, pairs, tm)
+    torch.cuda.synchronize()
+    assert {n: v for n, v in tops.LAUNCHES.items() if v} == {"pair_anyhit": 1}
+    assert torch.equal(got, ttr.pair_trace_plain(scene, packed, pairs, tm, mode="anyhit"))
+    if want is not None:
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

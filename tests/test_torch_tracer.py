@@ -166,19 +166,36 @@ def test_prep_pairs_is_integer_exact(kind):
 @pytest.mark.parametrize("kind,mode", [("soup", "closest"), ("cornell", "closest"),
                                        ("limited", "closest"), ("anyhit", "anyhit"),
                                        ("soup", "woop"), ("soup", "sorted"),
-                                       ("starved", "closest")])
+                                       ("starved", "closest"), ("anyhit", "anyhit_at_t")])
 def test_trace_pairs_matches_trace_pallas(kind, mode):
     """trace_pairs against trace_pallas in interpret mode on the cases of
     tests/test_pallas_tracer.py, the Woop body and the sorted wavefront, and
     the starved budget (region 8), where both drop the same pairs and force
-    the same tiles to miss."""
+    the same tiles to miss; and the any-hit trace with each ray's t_max at
+    its closest t (the port's), where t < t_max fails at equality: the
+    port occludes no ray, and JAX's flags differ from its only on rays
+    whose closest t JAX rounds otherwise, within the t tolerance (on this
+    case 2 of 3 of JAX's t differ from the port's by a few ulps)."""
     js, ts, o, d, tmax, act, kw = _case(kind)
-    kw = dict(kw, woop=mode == "woop", sort_rays=mode == "sorted", any_hit=mode == "anyhit")
+    if mode == "anyhit_at_t":
+        hits, _ = tops.trace_pairs(ts, *_t(o, d), T_MIN, *_t(tmax, act), **kw)
+        jhits, _ = trace_pallas(js, *_j(o, d), T_MIN, *_j(tmax, act), **kw)
+        hit = hits.is_hit.numpy()
+        np.testing.assert_array_equal(hit, np.asarray(jhits.is_hit))
+        assert int(hit.sum()) > 30
+        tmax = np.where(hit, hits.t.numpy(), tmax).astype(np.float32)
+    any_hit = mode.startswith("anyhit")
+    kw = dict(kw, woop=mode == "woop", sort_rays=mode == "sorted", any_hit=any_hit)
     want, jd = trace_pallas(js, *_j(o, d), T_MIN, *_j(tmax, act), **kw)
     got, td = tops.trace_pairs(ts, *_t(o, d), T_MIN, *_t(tmax, act), **kw)
     assert td == int(jd)
     assert (td > 0) == (kind == "starved")
-    if mode == "anyhit":
+    if mode == "anyhit_at_t":
+        assert not got.any()
+        near = hit & np.isclose(np.asarray(jhits.t), tmax, rtol=1e-5)
+        assert not (np.asarray(want) & ~near).any()
+        return
+    if any_hit:
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         assert 30 < int(got.sum()) < int(act.sum())
         return
