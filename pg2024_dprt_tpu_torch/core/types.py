@@ -92,7 +92,8 @@ class HitRecord(NamedTuple):
     """Closest-hit payload."""
 
     t: torch.Tensor          # (N,) f32 hit distance (F32_MAX on miss)
-    tri_index: torch.Tensor  # (N,) i32 canonical (BVH-order) triangle index, -1 miss
+    tri_index: torch.Tensor  # (N,) i32 canonical (BVH-order) triangle index, -1 miss,
+    #                          -2 - piece for a curve hit (ops/trace_api.py)
     u: torch.Tensor          # (N,) f32 barycentric (weights v1)
     v: torch.Tensor          # (N,) f32 barycentric (weights v2)
     is_hit: torch.Tensor     # (N,) bool

@@ -5,6 +5,13 @@ from .frame import (
     render_sample_fused,
 )
 from .cluster_tracer import occlusion_clusters, traverse_clusters
+from .curve_exact import (
+    intersect_bspline_exact,
+    pieces_for_tolerance,
+    scan_count_for,
+    tessellation_error_bound,
+)
+from .curve_intersect import PAIR_BUDGET, CurveHit, intersect_curves, occlude_curves
 from .march import march_proxies_plain, proxy_march
 from .mlp import (
     DENSE_WEIGHT_LIMIT,

@@ -52,9 +52,10 @@ def fused_frame_supported(scene, lights, env, cfg) -> bool:
 
       * no cutout textures: the kernel's trace is closest-hit only, the
         re-trace past transparent hits stays composed (ops/trace_api.py);
-      * no curves (the port has none yet) and no instancing (instanced
-        scenes compose, through the instance-aware trace kernels, as in
-        JAX);
+      * no curves: K3's trace has no curve stage, so curve scenes compose
+        (ops/trace_api.py merges the curve test into K1 / K2's hits), as
+        in JAX; and no instancing (instanced scenes compose, through the
+        instance-aware trace kernels, as in JAX);
       * at least one light (the NEE light pick indexes the table);
       * bounces <= 8, the salt table's width.
 

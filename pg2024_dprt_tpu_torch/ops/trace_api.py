@@ -20,6 +20,10 @@ reachable through `_pairs_escalating`, its escalating entry. On instanced
 scenes only the resident family traces (the other back ends would trace
 the base geometry), so "stackless" and "cluster" raise ValueError there.
 
+A scene's curves (scene.curves, round B-spline hair: scene/curves.py,
+ops/curve_intersect.py) are merged into every back end's closest hit and
+ORed into its occlusion, as in JAX (`_merge_curve_hits`).
+
 Every entry point returns a `diag` count of rays whose result may still be
 affected by tracer residue. The plain entry points return 0, as in JAX:
 the resident and stackless back ends have no budget, and the cluster back
@@ -34,6 +38,7 @@ import torch
 
 from ..scene.textures import sample_textures
 from .cluster_tracer import occlusion_clusters, traverse_clusters
+from .curve_intersect import intersect_curves, occlude_curves
 from .resident import F32_MAX, trace_resident
 from .tracer import REGION, trace_pairs
 from .traversal import traverse_bvh
@@ -72,30 +77,56 @@ def _pairs_escalating(scene, origin, direction, t_min, t_max, active,
     return res
 
 
+def _merge_curve_hits(scene, origin, direction, t_min, t_max, active, res):
+    """The triangle closest hit merged with the scene's curve primitives
+    (scene.curves, round B-spline hair): a curve hit strictly nearer than
+    the triangle hit wins, with tri_index = -2 - piece and u = v = 0;
+    shading decodes it (render/shade.py surface_attributes)."""
+    if scene.curves is None:
+        return res
+    hits, diag = res
+    ch = intersect_curves(scene.curves, origin, direction, t_min, t_max, active,
+                          with_normal=False)
+    closer = ch.is_hit & ((~hits.is_hit) | (ch.t < hits.t))
+    return hits._replace(
+        t=torch.where(closer, ch.t, hits.t),
+        tri_index=torch.where(closer, -2 - ch.piece, hits.tri_index),
+        u=torch.where(closer, 0.0, hits.u),
+        v=torch.where(closer, 0.0, hits.v),
+        is_hit=hits.is_hit | closer), diag
+
+
 def trace_closest_checked(scene, origin, direction, t_min, t_max, active,
                           tracer: str = "auto", sort_rays: bool = False):
-    """Closest hit. Returns (HitRecord, diag). sort_rays applies to the
-    resident kernels."""
+    """Closest hit of the triangles and the scene's curves. Returns
+    (HitRecord, diag). sort_rays applies to the resident kernels."""
     tracer = resolve_tracer(tracer, scene)
     if tracer == "stackless":
-        return traverse_bvh(scene, origin, direction, t_min, t_max, active), 0
-    if tracer == "cluster":
-        return traverse_clusters(scene, origin, direction, t_min, t_max, active), 0
-    return trace_resident(scene, origin, direction, t_min, t_max, active,
-                          sort_rays=sort_rays)
+        res = traverse_bvh(scene, origin, direction, t_min, t_max, active), 0
+    elif tracer == "cluster":
+        res = traverse_clusters(scene, origin, direction, t_min, t_max, active), 0
+    else:
+        res = trace_resident(scene, origin, direction, t_min, t_max, active,
+                             sort_rays=sort_rays)
+    return _merge_curve_hits(scene, origin, direction, t_min, t_max, active, res)
 
 
 def trace_occlusion_checked(scene, origin, direction, t_min, t_max, active,
                             tracer: str = "auto", sort_rays: bool = False):
-    """Any-hit test. Returns ((N,) bool occluded, diag); the stackless back
-    end answers it with its closest hit, as in JAX."""
+    """Any-hit test of the triangles and the scene's curves. Returns ((N,)
+    bool occluded, diag); the stackless back end answers it with its
+    closest hit, as in JAX."""
     tracer = resolve_tracer(tracer, scene)
     if tracer == "stackless":
-        return traverse_bvh(scene, origin, direction, t_min, t_max, active).is_hit, 0
-    if tracer == "cluster":
-        return occlusion_clusters(scene, origin, direction, t_min, t_max, active), 0
-    return trace_resident(scene, origin, direction, t_min, t_max, active,
-                          any_hit=True, sort_rays=sort_rays)
+        occ, diag = traverse_bvh(scene, origin, direction, t_min, t_max, active).is_hit, 0
+    elif tracer == "cluster":
+        occ, diag = occlusion_clusters(scene, origin, direction, t_min, t_max, active), 0
+    else:
+        occ, diag = trace_resident(scene, origin, direction, t_min, t_max, active,
+                                   any_hit=True, sort_rays=sort_rays)
+    if scene.curves is not None:
+        occ = occ | occlude_curves(scene.curves, origin, direction, t_min, t_max, active)
+    return occ, diag
 
 
 def _hit_alpha(scene, hits):
@@ -134,7 +165,10 @@ def trace_closest_cutout(scene, origin, direction, t_min, t_max, active,
         hits, d = trace_closest_checked(scene, origin, direction, t_lo, t_max,
                                         pending, tracer, sort_rays)
         diag = diag + d
-        transparent = hits.is_hit & (_hit_alpha(scene, hits) < alpha_threshold)
+        # curve winners (tri_index <= -2) are opaque: the alpha gathered for
+        # them is triangle 0's
+        transparent = (hits.is_hit & (hits.tri_index >= 0)
+                       & (_hit_alpha(scene, hits) < alpha_threshold))
         settled = pending & (~transparent)
         final = hits if final is None else type(hits)(*(
             torch.where(settled, h, f) for h, f in zip(hits, final)))

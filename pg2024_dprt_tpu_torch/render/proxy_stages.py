@@ -47,8 +47,8 @@ def march_proxies(proxies: ProxyTable, origin, direction, t_cap, active, my_node
 def _use_fused_route(scene: DeviceScene, models: ProxyModels, tracer: str,
                      proxies: ProxyTable = None, max_hits: int = 1) -> bool:
     """True when the one-kernel routing stage (ops/route.py) applies: CUDA
-    tensors with the resident tracer, a scene without cutout textures and
-    without instanced local geometry, separate vis/depth nets of one
+    tensors with the resident tracer, a scene without cutout textures,
+    curves or instanced local geometry, separate vis/depth nets of one
     architecture (per-object pairs, or the shared multi-geo pair, which K7
     runs in its multi-geo mode). The semantic conditions of the JAX gate;
     its weight budget is a limit of the TPU kernel's fast memory and is
@@ -63,6 +63,11 @@ def _use_fused_route(scene: DeviceScene, models: ProxyModels, tracer: str,
     if getattr(scene, "cl_xf", None) is not None:
         return False
     if scene.has_cutout:
+        return False
+    if getattr(scene, "curves", None) is not None:
+        # K7's in-kernel trace has no curve stage: curve scenes compose, so
+        # that the hair stays in the frame. (The JAX gate lacks this test,
+        # and a TPU route kernel would drop the curves.)
         return False
     return _route.fused_route_takes(models, proxies, max_hits)
 

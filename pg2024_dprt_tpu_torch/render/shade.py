@@ -16,7 +16,7 @@ import torch
 
 from ..core import math as cmath
 from ..core.rng import rnd, rnd2, rnd3, tea, tea_int
-from ..core.types import BSDF_WATER, PathState
+from ..core.types import BSDF_DIFFUSE, BSDF_WATER, PathState
 from ..scene.textures import sample_textures
 
 F32_MAX = 3.402823466e38
@@ -41,7 +41,8 @@ def surface_attributes(scene, origin, direction, hits) -> SurfaceAttributes:
     rows (scene.tri_shade layout: scene/geometry.py). An instanced scene's
     hit ids are virtual (instance * num_base_tris + base id): the base row
     is read and the normal goes to world space through the instance's
-    world-to-object linear map transposed."""
+    world-to-object linear map transposed. A curve hit (tri_index <= -2)
+    takes its piece's round-cone normal and the strand colour, diffuse."""
     tri = hits.tri_index.clamp(min=0).long()
     inst_lin = None
     if scene.instanced:
@@ -72,6 +73,27 @@ def surface_attributes(scene, origin, direction, hits) -> SurfaceAttributes:
 
     t = torch.where(hits.is_hit, hits.t, 0.0)
     point = origin + t[:, None] * direction
+
+    if scene.curves is not None:
+        # curve winners (ops/trace_api.py): tri_index = -2 - piece. The
+        # round-cone normal at the hit point (the axial coordinate y =
+        # (point - pa) . ba, as the intersector's), diffuse in the strand
+        # colour
+        is_curve = hits.tri_index <= -2
+        piece = torch.where(is_curve, -2 - hits.tri_index, 0).long()
+        cs = scene.curves
+        pa, pb = cs.p0[piece], cs.p1[piece]
+        ba = pb - pa
+        oa = point - pa
+        y = cmath.dot(oa, ba)
+        rr = cs.r0[piece] - cs.r1[piece]
+        d2 = cmath.dot(ba, ba) - rr * rr
+        n_side = d2[:, None] * oa - ba * y[:, None]
+        n_curve = torch.where((y <= 0.0)[:, None], oa,
+                              torch.where((y >= d2)[:, None], point - pb, n_side))
+        normal = torch.where(is_curve[:, None], cmath.normalize(n_curve), normal)
+        albedo = torch.where(is_curve[:, None], cs.color[None, :], albedo)
+        bsdf_type = torch.where(is_curve, BSDF_DIFFUSE, bsdf_type)
 
     cos = cmath.dot(normal, -direction)
     is_inside = cos < 0.0

@@ -1,6 +1,7 @@
 from .bvh import FlatBVH, build_bvh
 from .convert import (
     camera_from_arrays,
+    curve_set_from_arrays,
     device_scene_from_arrays,
     environment_from_arrays,
     light_table_from_arrays,
@@ -11,6 +12,7 @@ from .convert import (
     proxy_models_from_arrays,
     proxy_table_from_arrays,
 )
+from .curves import CurveSet
 from .geometry import (
     CL_GROUP,
     DeviceScene,

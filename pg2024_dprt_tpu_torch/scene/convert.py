@@ -4,7 +4,7 @@ These functions build the port's records from the JAX records' fields given
 as numpy arrays (e.g. `{k: np.asarray(v) for k, v in
 jax_scene._asdict().items()}`), so both packages can trace and shade
 identical tables whatever each package's scene build would produce, and run identical
-nets: the scene, lights, environment and camera; the proxy-box table; the
+nets: the scene (its curves too), lights, environment and camera; the proxy-box table; the
 vis/depth nets' weights (param dicts under the JAX names, weights (in, out),
 also as the flat .npz checkpoints the JAX trainer writes, one net a file or
 the three trained families of artifacts/ab_scaled/ in one file). Nothing
@@ -21,12 +21,11 @@ from ..core.camera import Camera
 from ..core.device import resolve_device
 from ..models.mlp import MLPConfig, PROD_DEPTH, PROD_VIS, param_shapes, bias_name
 from ..models.proxy import ProxyModels
+from .curves import CurveSet
 from .geometry import DeviceScene, ProxyTable
 from .lights import EnvironmentMap, LightTable
 from .textures import PackedTextures
 
-# fields that carry data the port cannot render yet
-_UNSUPPORTED = ("curves",)
 # DeviceScene fields a JAX scene may leave unset (None)
 _OPTIONAL = ("cl_gboxes", "cl_mboxes", "cl_xf", "cl_tri_table", "cl_woop_table",
              "node_min", "node_max", "node_first", "node_count", "node_skip",
@@ -36,25 +35,35 @@ _OPTIONAL = ("cl_gboxes", "cl_mboxes", "cl_xf", "cl_tri_table", "cl_woop_table",
 def device_scene_from_arrays(arrays: dict, device=None) -> DeviceScene:
     """Port DeviceScene from the JAX DeviceScene's fields. Fields the port
     does not keep (TPU-only tables, per-triangle shading arrays that
-    tri_shade packs) are ignored; curve scenes
-    raise NotImplementedError. Instanced scenes carry `cl_xf` and their
+    tri_shade packs) are ignored. Instanced scenes carry `cl_xf` and their
     instance-level cluster and group tables across. `albedo_textures`, when
     present, is the dict of the JAX PackedTextures' fields
-    (packed_textures_from_arrays)."""
-    for name in _UNSUPPORTED:
-        if arrays.get(name) is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+    (packed_textures_from_arrays), and `curves` the dict of the JAX
+    CurveSet's fields (curve_set_from_arrays)."""
     dev = resolve_device(device)
     tex = arrays.get("albedo_textures")
+    curves = arrays.get("curves")
     fields = {}
     for name in DeviceScene._fields:
         a = arrays.get(name)
-        if name == "albedo_textures" or (a is None and name in _OPTIONAL):
+        if name in ("albedo_textures", "curves") or (a is None and name in _OPTIONAL):
             continue
         fields[name] = torch.as_tensor(np.array(arrays[name]), device=dev)
     return DeviceScene(
         **fields,
-        albedo_textures=None if tex is None else packed_textures_from_arrays(tex, dev))
+        albedo_textures=None if tex is None else packed_textures_from_arrays(tex, dev),
+        curves=None if curves is None else curve_set_from_arrays(curves, dev))
+
+
+def curve_set_from_arrays(arrays: dict, device=None) -> CurveSet:
+    """Port CurveSet from the JAX CurveSet's fields (p0, p1, r0, r1,
+    seg_id, color), piece for piece."""
+    dev = resolve_device(device)
+    dtypes = {"seg_id": np.int32}
+    return CurveSet(**{
+        name: torch.as_tensor(np.array(arrays[name], dtypes.get(name, np.float32)),
+                              device=dev)
+        for name in CurveSet._fields})
 
 
 def packed_textures_from_arrays(arrays: dict, device=None):

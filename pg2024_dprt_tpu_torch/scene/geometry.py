@@ -22,6 +22,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.types import BSDF_DIFFUSE
 from .bvh import FlatBVH, build_bvh
+from .curves import CurveSet
 from .textures import PackedTextures, build_textures
 
 # cluster-group fan-out of the two-level cull (grouped trace kernels K9/K10)
@@ -179,9 +180,12 @@ class DeviceScene(NamedTuple):
       * node_min/max/first/count/skip: the threaded BVH (scene/bvh.py);
       * v0/v1/v2 (T, 3) in BVH order and tri_valid (T,) bool.
 
-    Left out of the port so far (callers that ask for them get
-    NotImplementedError): curves and the tables only TPU kernels read
-    (cl_mt_table_t, cl_shade_table(_t), the texture scanline pool)."""
+    curves: the scene's round B-spline pieces (scene/curves.py CurveSet),
+    or None. The trace entry points merge them with the triangle hits
+    (ops/trace_api.py); a curve hit's id is -2 - piece.
+
+    Left out of the port: the tables only TPU kernels read (cl_mt_table_t,
+    cl_shade_table(_t), the texture scanline pool)."""
 
     cl_aabb_min: torch.Tensor  # (K, 3) f32 (+inf/-inf for empty clusters)
     cl_aabb_max: torch.Tensor  # (K, 3) f32
@@ -206,6 +210,7 @@ class DeviceScene(NamedTuple):
     v1: Optional[torch.Tensor] = None
     v2: Optional[torch.Tensor] = None
     tri_valid: Optional[torch.Tensor] = None      # (T,) bool
+    curves: Optional[CurveSet] = None
 
     @property
     def instanced(self) -> bool:
@@ -252,9 +257,8 @@ def device_scene_from_meshes(
     `device` (CUDA unless the caller passes another).
 
     tris_per_cluster=None scales the cluster size with the scene, by the
-    JAX package's rule, so both packages cut the same clusters."""
-    if curves is not None:
-        raise NotImplementedError("curves are not ported yet")
+    JAX package's rule, so both packages cut the same clusters. `curves`, a
+    CurveSet, goes to the scene's device."""
     dev = resolve_device(device)
     host = concat_geometry(meshes)
     if tris_per_cluster is None:
@@ -266,7 +270,8 @@ def device_scene_from_meshes(
                                 cluster_capacity)
     return DeviceScene(
         **{k: torch.as_tensor(v, device=dev) for k, v in arrays.items()},
-        albedo_textures=build_textures(textures, device=dev) if textures else None)
+        albedo_textures=build_textures(textures, device=dev) if textures else None,
+        curves=None if curves is None else curves.to(dev))
 
 
 def _pack_device_scene(host: dict, bvh: FlatBVH, tri_capacity=None,

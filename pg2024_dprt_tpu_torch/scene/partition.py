@@ -4,7 +4,8 @@ splits a scene into P partitions for the distributed frame
 
 It returns a `PartitionedScene`:
 
-  * `scenes`: one `DeviceScene` per partition. JAX stacks them into one
+  * `scenes`: one `DeviceScene` per partition (with the curve pieces it
+    owns, when the scene has curves). JAX stacks them into one
     padded (P, ...) block for `shard_map`; the port runs every partition on
     one device and keeps a list of unpadded scenes (an empty partition is a
     scene with no triangles, or one instance whose clusters are all empty);
@@ -28,6 +29,7 @@ import torch
 
 from ..core.device import resolve_device
 from .bvh import build_bvh
+from .curves import CurveSet
 from .geometry import (DeviceScene, MeshGeometry, ProxyTable, _instance_tables,
                        _pack_device_scene, concat_geometry)
 from .textures import build_textures
@@ -105,6 +107,43 @@ def _table(aabb_min, aabb_max, vis_grid, dev) -> ProxyTable:
         vis_grid=None if vis_grid is None else torch.as_tensor(np.stack(vis_grid), device=dev))
 
 
+def _split_curves(curves, aabb_min: np.ndarray, aabb_max: np.ndarray):
+    """Give each curve piece to the partition whose triangle box is nearest
+    its midpoint (0 inside a box; the first of equal distances), as JAX's
+    _split_curves does. A partition holds its own pieces in their global
+    order and no padding; one that owns none gets None.
+
+    Returns (per-partition CurveSet or None, (P, 3) f32 lo, (P, 3) f32 hi of
+    each partition's piece boxes, +inf / -inf where it owns none)."""
+    f64 = lambda x: x.detach().cpu().numpy().astype(np.float64)
+    p0, p1, r0, r1 = f64(curves.p0), f64(curves.p1), f64(curves.r0), f64(curves.r1)
+    seg = curves.seg_id.cpu().numpy()
+    mid = 0.5 * (p0 + p1)                                   # (M,3)
+    # distance from piece midpoint to each partition box (0 inside)
+    lo_ok = np.where(np.isfinite(aabb_min), aabb_min, np.inf)
+    hi_ok = np.where(np.isfinite(aabb_max), aabb_max, -np.inf)
+    clamped = np.clip(mid[:, None, :], lo_ok[None], hi_ok[None])  # (M,P,3)
+    dist = np.linalg.norm(np.where(np.isfinite(clamped),
+                                   clamped - mid[:, None, :], np.inf), axis=-1)
+    owner = np.argmin(dist, axis=1)                         # (M,)
+
+    sets, clo, chi = [], [], []
+    for p in range(aabb_min.shape[0]):
+        idx = np.where(owner == p)[0]
+        if idx.shape[0]:
+            t = lambda a, dt=np.float32: torch.as_tensor(
+                np.ascontiguousarray(a[idx], dt), device=curves.p0.device)
+            sets.append(CurveSet(p0=t(p0), p1=t(p1), r0=t(r0), r1=t(r1),
+                                 seg_id=t(seg, np.int32), color=curves.color))
+            clo.append(np.minimum(p0[idx] - r0[idx, None], p1[idx] - r1[idx, None]).min(0))
+            chi.append(np.maximum(p0[idx] + r0[idx, None], p1[idx] + r1[idx, None]).max(0))
+        else:
+            sets.append(None)
+            clo.append(np.full(3, np.inf))
+            chi.append(np.full(3, -np.inf))
+    return sets, np.asarray(clo, np.float32), np.asarray(chi, np.float32)
+
+
 def build_partitioned_scene(
     meshes: Sequence[MeshGeometry],
     num_partitions: int,
@@ -116,12 +155,16 @@ def build_partitioned_scene(
     device=None,
 ) -> PartitionedScene:
     """The P partition scenes and the proxy table on `device` (CUDA unless
-    the caller passes another). With `visibility_grids` every partition gets
-    a conservative grid of (width, height, angle) = `grid_res`, built from
-    its triangle boxes. Curves raise NotImplementedError: they are not
-    ported."""
-    if curves is not None:
-        raise NotImplementedError("curves are not ported yet")
+    the caller passes another).
+
+    `curves`, a CurveSet of the whole scene: each piece goes to the nearest
+    partition (`_split_curves`), and merges with that partition's local
+    traces as on one device. The proxy boxes widen to cover their
+    partition's pieces, or a migrating ray would never route to the rank
+    that owns a hair hit. With `visibility_grids` every partition gets a
+    conservative grid of (width, height, angle) = `grid_res` over its
+    (widened) box, built from its triangle boxes and its pieces'
+    swept-sphere boxes."""
     dev = resolve_device(device)
     if assignment is None:
         assignment = partition_meshes(meshes, num_partitions)
@@ -131,39 +174,57 @@ def build_partitioned_scene(
     # the global material table: a partition's triangles keep global mesh ids
     global_host = concat_geometry(list(meshes))
     tex = build_textures(textures, device=dev) if textures else None
-    width, height, angle = grid_res
-    scenes, aabb_min, aabb_max, grids = [], [], [], []
+    hosts, tables, aabb_min, aabb_max = [], [], [], []
     for part in assignment:
         host = concat_geometry([meshes[i] for i in part])
         if part:
             host["tri_mesh_id"] = np.asarray(part, np.int32)[host["tri_mesh_id"]]
         for k in ("mesh_base_color", "mesh_bsdf_type", "mesh_texture_index"):
             host[k] = global_host[k]
-        arrays = _pack_device_scene(host, build_bvh(host["v0"], host["v1"], host["v2"]),
-                                    tris_per_cluster=PARTITION_TRIS_PER_CLUSTER)
-        scenes.append(DeviceScene(
-            **{k: torch.as_tensor(v, device=dev) for k, v in arrays.items()},
-            albedo_textures=tex))
+        tables.append(_pack_device_scene(
+            host, build_bvh(host["v0"], host["v1"], host["v2"]),
+            tris_per_cluster=PARTITION_TRIS_PER_CLUSTER))
+        host["tmin"] = np.minimum(np.minimum(host["v0"], host["v1"]), host["v2"])
+        host["tmax"] = np.maximum(np.maximum(host["v0"], host["v1"]), host["v2"])
+        hosts.append(host)
         if host["v0"].shape[0] > 0:
-            tmin = np.minimum(np.minimum(host["v0"], host["v1"]), host["v2"])
-            tmax = np.maximum(np.maximum(host["v0"], host["v1"]), host["v2"])
-            lo, hi = tmin.min(0), tmax.max(0)
+            aabb_min.append(host["tmin"].min(0))
+            aabb_max.append(host["tmax"].max(0))
         else:
-            lo = np.full(3, np.inf, np.float32)
-            hi = np.full(3, -np.inf, np.float32)
-        aabb_min.append(lo)
-        aabb_max.append(hi)
-        if visibility_grids:
-            if host["v0"].shape[0] == 0:
-                grids.append(np.zeros((6, height, width, angle), bool))
-            else:
-                from .visibility_grid import build_conservative_grid
+            aabb_min.append(np.full(3, np.inf, np.float32))
+            aabb_max.append(np.full(3, -np.inf, np.float32))
+    aabb_min = np.asarray(aabb_min, np.float32)
+    aabb_max = np.asarray(aabb_max, np.float32)
 
-                grids.append(build_conservative_grid(tmin, tmax, lo, hi, width, height,
-                                                     angle))
-    return PartitionedScene(scenes=scenes,
-                            proxies=_table(aabb_min, aabb_max,
-                                           grids if visibility_grids else None, dev),
+    curve_sets = [None] * num_partitions
+    if curves is not None:
+        curve_sets, clo, chi = _split_curves(curves.to(dev), aabb_min, aabb_max)
+        aabb_min = np.minimum(aabb_min, clo)
+        aabb_max = np.maximum(aabb_max, chi)
+
+    grids = None
+    if visibility_grids:
+        from .visibility_grid import build_conservative_grid
+
+        width, height, angle = grid_res
+        grids = []
+        for host, cs, lo, hi in zip(hosts, curve_sets, aabb_min, aabb_max):
+            if (host["v0"].shape[0] == 0 and cs is None) or not np.all(np.isfinite(lo)):
+                grids.append(np.zeros((6, height, width, angle), bool))
+                continue
+            tmin, tmax = host["tmin"], host["tmax"]
+            if cs is not None:
+                # the pieces are content too: their swept-sphere boxes keep
+                # the grid conservative for hair hits
+                cp0, cp1 = cs.p0.cpu().numpy(), cs.p1.cpu().numpy()
+                cr0, cr1 = cs.r0.cpu().numpy()[:, None], cs.r1.cpu().numpy()[:, None]
+                tmin = np.concatenate([tmin, np.minimum(cp0 - cr0, cp1 - cr1)], axis=0)
+                tmax = np.concatenate([tmax, np.maximum(cp0 + cr0, cp1 + cr1)], axis=0)
+            grids.append(build_conservative_grid(tmin, tmax, lo, hi, width, height, angle))
+    scenes = [DeviceScene(**{k: torch.as_tensor(v, device=dev) for k, v in arrays.items()},
+                          albedo_textures=tex, curves=cs)
+              for arrays, cs in zip(tables, curve_sets)]
+    return PartitionedScene(scenes=scenes, proxies=_table(aabb_min, aabb_max, grids, dev),
                             num_partitions=num_partitions)
 
 

@@ -1437,3 +1437,54 @@ def test_flat_walk_of_another_width_raises_on_gpu(monkeypatch):
         tops.resident_closest(scene, *rays)
     with pytest.raises(RuntimeError, match="resident_anyhit"):
         tops.resident_anyhit(scene, *rays)
+
+
+# --------------------------------------------------------------------------
+# curves: the dense curve test (ops/curve_intersect.py) is plain PyTorch on
+# every device, and the fused route kernel's gate sends curve scenes to the
+# composed path. Tolerance: exact (the test's operations are elementwise,
+# its square root correctly rounded on both devices, its reductions min and
+# argmin).
+
+
+def _curve_case(device, n=20000, seed=71):
+    rng = np.random.RandomState(seed)
+    pts = np.cumsum(rng.randn(40, 3) * 0.3, axis=0)
+    curves = tscene.CurveSet.from_strand(pts, 0.05, device=device)
+    o = (pts.mean(0) + rng.randn(n, 3) * 3.0).astype(np.float32)
+    d = pts[rng.randint(0, 40, n)] + rng.randn(n, 3) * 0.1 - o
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    tmax = np.where(rng.rand(n) < 0.2, rng.rand(n) * 3.0, 1e30).astype(np.float32)
+    on = lambda a: torch.as_tensor(a, device=device)
+    return curves, (on(o), on(d), T_MIN, on(tmax), on(rng.rand(n) < 0.9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 4096])
+def test_curve_test_on_gpu_equals_cpu(budget):
+    """intersect_curves (with and without normals) and occlude_curves on
+    CUDA tensors equal the same calls on CPU tensors on every field, at each
+    device's own chunking and at chunks of 4,096 pairs."""
+    _need_cuda()
+    cc, rc = _curve_case("cpu")
+    cg, rg = _curve_case("cuda")
+    for with_normal in (True, False):
+        want = tops.intersect_curves(cc, *rc, with_normal=with_normal, pair_budget=budget)
+        got = tops.intersect_curves(cg, *rg, with_normal=with_normal, pair_budget=budget)
+        for f in want._fields:
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+        assert int(want.is_hit.sum()) > 1000
+    assert torch.equal(tops.occlude_curves(cg, *rg, pair_budget=budget).cpu(),
+                       tops.occlude_curves(cc, *rc, pair_budget=budget))
+
+
+@pytest.mark.cuda
+def test_fused_route_gate_rejects_curve_scenes_on_gpu():
+    """_use_fused_route takes the CUDA scene without curves and refuses the
+    same scene with a strand: K7's in-kernel trace has no curve stage."""
+    _need_cuda()
+    scene, table, m, _ = _route_case("cuda", 0.0, n=256)
+    strand = [[0.2, 0.1, 0.5], [0.4, 0.3, 0.5], [0.6, 0.4, 0.5], [0.8, 0.6, 0.5]]
+    hair = scene._replace(curves=tscene.CurveSet.from_strand(strand, 0.02, device="cuda"))
+    assert tps._use_fused_route(scene, m, "auto", table, MH)
+    assert not tps._use_fused_route(hair, m, "auto", table, MH)

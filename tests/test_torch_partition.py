@@ -281,9 +281,15 @@ def test_build_partitioned_scene_instanced_matches_jax(parts, grids):
 
 
 def test_partitioned_scene_refuses_curves_and_raises_without_a_device():
+    # curves are ported (tests/test_torch_curves.py holds the split against
+    # JAX's): a strand over both rooms lands in both partitions
     meshes = _port_meshes(_rooms(2))
-    with pytest.raises(NotImplementedError, match="curves"):
-        tscene.build_partitioned_scene(meshes, 2, curves=object(), device="cpu")
+    strand = tscene.CurveSet.from_strand(
+        [[0.2, 0.9, 0.5], [1.0, 1.4, 0.5], [2.2, 1.5, 0.4], [3.4, 1.2, 0.5]], 0.1,
+        device="cpu")
+    part = tscene.build_partitioned_scene(meshes, 2, curves=strand, device="cpu")
+    pieces = [s.curves.num_pieces for s in part.scenes if s.curves is not None]
+    assert len(pieces) == 2 and sum(pieces) == strand.num_pieces
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tscene.build_partitioned_scene(meshes, 2)

@@ -425,11 +425,13 @@ def test_cutout_scene_branch_matches_jax():
 class _Stub:
     """A scene as the gate reads it."""
 
-    def __init__(self, device="cuda", has_cutout=False, cl_xf=None):
+    def __init__(self, device="cuda", has_cutout=False, cl_xf=None, curves=None):
         self.cl_mt_table = types.SimpleNamespace(device=torch.device(device))
         self.has_cutout = has_cutout
         if cl_xf is not None:
             self.cl_xf = cl_xf
+        if curves is not None:
+            self.curves = curves
 
 
 def test_fused_route_gate_case_by_case():
@@ -442,6 +444,8 @@ def test_fused_route_gate_case_by_case():
     assert not tps._use_fused_route(_Stub(), pair, "stackless")
     assert not tps._use_fused_route(_Stub(has_cutout=True), pair, "auto")
     assert not tps._use_fused_route(_Stub(cl_xf=torch.zeros(1)), pair, "auto")
+    # K7's in-kernel trace has no curve stage (JAX's gate lacks this test)
+    assert not tps._use_fused_route(_Stub(curves=object()), pair, "auto")
     assert not tps._use_fused_route(
         _Stub(), dataclasses.replace(pair, combined=True), "auto")
     assert not tps._use_fused_route(

@@ -10,6 +10,7 @@ import torch
 from pg2024_dprt_tpu.core import Camera as JCamera
 from pg2024_dprt_tpu.scene import native_bvh as j_native
 from pg2024_dprt_tpu.scene import procedural as jproc
+from pg2024_dprt_tpu.scene.curves import CurveSet as JCurveSet
 from pg2024_dprt_tpu.scene.geometry import device_scene_from_meshes as j_build
 from pg2024_dprt_tpu.scene.lights import EnvironmentMap as JEnv
 from pg2024_dprt_tpu_torch import scene as tscene
@@ -18,8 +19,10 @@ from pg2024_dprt_tpu_torch.scene import native_bvh as t_native
 
 # the tensor tables of a flat DeviceScene (albedo_textures is a record of its
 # own, held against JAX in tests/test_torch_textures.py; cl_xf is set on
-# instanced scenes only, held against JAX in tests/test_torch_instancing.py)
-_TABLES = [f for f in tscene.DeviceScene._fields if f not in ("albedo_textures", "cl_xf")]
+# instanced scenes only, held against JAX in tests/test_torch_instancing.py;
+# curves is a record of its own, held against JAX in tests/test_torch_curves.py)
+_TABLES = [f for f in tscene.DeviceScene._fields
+           if f not in ("albedo_textures", "cl_xf", "curves")]
 
 
 def jax_arrays(rec) -> dict:
@@ -68,14 +71,19 @@ def test_convert_carries_jax_scene_across():
     for name in tl._fields:
         np.testing.assert_array_equal(getattr(tl, name).numpy(), np.asarray(getattr(lights, name)))
     assert ts.cl_xf is None and not ts.instanced
-    # instanced scenes carry across (tests/test_torch_instancing.py); curves
-    # are not ported
+    # instanced scenes carry across (tests/test_torch_instancing.py), and so
+    # do curves, piece for piece (tests/test_torch_curves.py)
     carried = tscene.device_scene_from_arrays(
         {**jax_arrays(js), "cl_xf": np.zeros((1, 1, 16), np.float32)}, device="cpu")
     assert carried.instanced and tuple(carried.cl_xf.shape) == (1, 1, 16)
-    with pytest.raises(NotImplementedError):
-        tscene.device_scene_from_arrays({**jax_arrays(js), "curves": object()},
-                                        device="cpu")
+    assert ts.curves is None and carried.curves is None
+    jcurves = JCurveSet.from_strand(np.asarray([[0.1, 0.2, 0.3], [0.4, 0.6, 0.3],
+                                                [0.6, 0.5, 0.4], [0.9, 0.8, 0.3]]), 0.05)
+    hair = tscene.device_scene_from_arrays({**jax_arrays(js), "curves": jax_arrays(jcurves)},
+                                           device="cpu")
+    for name in jcurves._fields:
+        np.testing.assert_array_equal(getattr(hair.curves, name).numpy(),
+                                      np.asarray(getattr(jcurves, name)))
     jc = JCamera.look_at([0.5, 0.5, 2.4], [0.5, 0.5, 0.0], [0, 1, 0], 40.0, 24, 16)
     tc = tscene.camera_from_arrays(
         {f: np.asarray(getattr(jc, f)) for f in ("origin", "forward", "right", "up",
@@ -106,5 +114,12 @@ def test_unported_scene_features_raise():
     textured = tscene.device_scene_from_meshes(meshes, textures=[np.zeros((2, 2, 4))],
                                                device="cpu")
     assert textured.textured and textured.has_cutout
-    with pytest.raises(NotImplementedError):
-        tscene.device_scene_from_meshes(meshes, curves=object(), device="cpu")
+    # curves are ported: the scene carries the set; a strand too short for
+    # one cubic window raises
+    strand = [[0.2, 0.1, 0.5], [0.4, 0.3, 0.5], [0.6, 0.4, 0.5], [0.8, 0.6, 0.5]]
+    hair = tscene.device_scene_from_meshes(
+        meshes, curves=tscene.CurveSet.from_strand(strand, 0.02, device="cpu"),
+        device="cpu")
+    assert hair.curves.num_pieces == 8 and hair.curves.p0.device.type == "cpu"
+    with pytest.raises(ValueError):
+        tscene.CurveSet.from_strand(strand[:3], 0.02, device="cpu")

@@ -120,8 +120,9 @@ def test_scene_build_with_textures_equals_jax():
     assert ts.textured and ts.has_cutout
     ja = _arrays(js)
     for name in tscene.DeviceScene._fields:
-        # cl_xf is set on instanced scenes only (tests/test_torch_instancing.py)
-        if name not in ("albedo_textures", "cl_xf"):
+        # cl_xf is set on instanced scenes only (tests/test_torch_instancing.py),
+        # curves on curve scenes only (tests/test_torch_curves.py)
+        if name not in ("albedo_textures", "cl_xf", "curves"):
             np.testing.assert_array_equal(getattr(ts, name).numpy(), ja[name], err_msg=name)
     assert ts.cl_xf is None
     assert (ts.tri_shade[:, 19] >= 0).sum() == 2
