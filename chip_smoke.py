@@ -274,6 +274,26 @@ Phases, each reported on its own line; any failure exits non-zero:
      off the thresholds): no route launch (K7 has no curve stage),
      proxy_march and the nets instead (the curveless frame launches K7),
      equal to the port's CPU run of the same frame.
+ 13. (run right after phase 9, on its scenes) the distributed frame with
+     one partition a rank (parallel/mesh.py RankMesh over
+     torch.distributed; the ranks spawned by parallel/spawn.py run_ranks,
+     joined with a deadline, a rank that fails or hangs failing the phase).
+     The parent writes each rank's inputs once (its own partition's scene,
+     every proxy and net) and 8 gloo ranks run on cuda:0 (NCCL refuses two
+     ranks on one GPU; gloo takes CUDA tensors): 13a 9a's rooms_p8 exact
+     frame and its grid variant, 13b 9c's neural frame with the PROD
+     pairs. Each image is held against phase 9's in-process frame by phase
+     4's criterion and every rank holds the same image; the migration
+     rounds per bounce, paths moved, overflow waits, tracer diag, truncated
+     paths (0) and grid-culled candidates equal phase 9's; the launches
+     summed over the ranks equal the in-process frame's (13b: route_secondary
+     3 and route_shadow 4 on every rank); the frame ms (rank 0's CUDA events
+     between all-rank barriers, median of 3) beside phase 9's, and the
+     collectives and bytes a rank hands them, per frame by stage and per
+     migration round. 13c a one-rank NCCL world on cuda:0: the P = 1
+     distributed frame of 9a's grid rooms against the single-device
+     composed frame by the same criterion; a line says that NCCL with
+     several cards was not run.
 Then the whole script's seconds, the kernels line (JSON, fourteen entries: K1-K13
 and K7's multi-geo mode, route_multigeo; `ms` is each kernel's own device
 time from the profiler and `wrapper_ms` the CUDA-event time of the call that
@@ -288,8 +308,9 @@ values beyond tolerance, K7's decisions outside the knife-edge set, K8's
 rays with another key, K9/K10's against the plain
 version on the phase-7 subsets; K9 / K10 are timed on the instanced frame's
 wavefronts, their plain ms on the 1,024-ray subset; the route_multigeo
-entry carries phase 9's numbers), the card line, and the final {"ok": true,
-"device": {...}} line. No earlier phase was cut to make room for phases 7-12;
+entry carries phase 9's and phase 13's numbers, `distributed_phase` and
+`rank_phase`), the card line, and the final {"ok": true,
+"device": {...}} line. No earlier phase was cut to make room for phases 7-13;
 K1 / K2's entries carry their launches on the fur frame
 (`curve_frame_launches`) and K1's phase 12's numbers (`phase12`).
 
@@ -2841,6 +2862,8 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
     print(f"phase9 9a distributed vs single device: {ndis} outlier pixels of {npix}, max abs err "
           f"elsewhere {err:.3g} ok", flush=True)
     out["rooms_p8_exact"] = {"ms": ms, "launches": counts, **st}
+    # phase 13 runs these frames again, one partition a rank
+    rank_cases = {"exact": (part, None, cfg, img, st, counts, ms)}
     prof = pt.utils.profile.render_device_profile(
         lambda s: frame(part, None, cfg, s), dist.distributed.STAGES, reps=3)
     print(f"phase9 9a profile: idle share {prof['idle_share_unprofiled']:.3f} (profiled "
@@ -2896,6 +2919,7 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
           f"single device ok; paths moved {st_g['paths_moved']} with grids, {st_n['paths_moved']} "
           f"without", flush=True)
     out["rooms_p8_grids"] = {**st_g, "paths_moved_without": st_n["paths_moved"]}
+    rank_cases["grids"] = (part_g, None, cfg_g, img_g, st_g, counts_g, None)
 
     # ---- 9b instanced_p8: phase 7's instanced frame over 8 partitions
     inst_img, lights_i, env_i, cam_i, cfg_i = inst
@@ -2987,6 +3011,8 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
         print(f"phase9 9c {label}: K7's bound on partition {my_id}'s bounce-1 wavefronts: "
               f"secondary {b_sec[0]:.6f} ms ({b_sec[1]}), shadow {b_shd[0]:.6f} ms "
               f"({b_shd[1]})", flush=True)
+        if not m.multi_geo:
+            rank_cases["neural"] = (part, m, cfg_n, img_n, st_n, counts_n, ms_n)
         row = {"ms": ms_n, "launches": counts_n, "stage_ms": stage_ms, "knife_edges": edges,
                "bounce1_queries": counted_q, "disagreements": outside, **st_n,
                "k7_modes_ms": modes, "k7_bound_ms": b_sec[0], "k7_bound_by": b_sec[1],
@@ -3116,7 +3142,257 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
               f"error {e:.3g}, mean ratio {ratio:.6f} (gates: < {AB_MEAN_ERR} and (0.99, 1.01); "
               f"control > {AB_CONTROL_ERR}) ok; launches {counts_s}", flush=True)
     out["ab_trained"] = ab
+    out["_rank_setup"] = {"lights": lights, "env": env, "cam": cam, "cases": rank_cases,
+                          "grid_meshes": g_meshes, "single_grid_frame": want_g}
     return mg_entry, out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the distributed frame with one partition a rank (parallel/mesh.py
+# RankMesh over torch.distributed): 8 gloo ranks on the one card, and a
+# one-rank NCCL world
+
+RANK_DEADLINE_S = 420
+NCCL_DEADLINE_S = 180
+RANK_REPS = 3
+
+
+class CountingMesh:
+    """A mesh that counts its collectives and the bytes each rank hands to
+    them, by the stage that called them (`tag`: migration, exchange, ring,
+    or frame: the psums that end a sample)."""
+
+    def __init__(self, mesh):
+        self.mesh, self.tag = mesh, "frame"
+        self.calls, self.bytes = {}, {}
+
+    def __getattr__(self, name):
+        return getattr(self.mesh, name)
+
+    def _count(self, op, x):
+        key = f"{self.tag} {op}"
+        self.calls[key] = self.calls.get(key, 0) + 1
+        self.bytes[key] = self.bytes.get(key, 0) + x.numel() * x.element_size()
+
+    def all_to_all(self, x):
+        self._count("all_to_all", x)
+        return self.mesh.all_to_all(x)
+
+    def psum(self, x):
+        self._count("psum", x)
+        return self.mesh.psum(x)
+
+
+@contextlib.contextmanager
+def tagged(pt, mesh):
+    """Tag the collectives of the migration loop (its termination psums),
+    exchange_paths and ring_shadow_occlusion; the rest are the frame's."""
+    dist = pt.parallel.distributed
+    saved = {name: getattr(dist, name) for name in
+             ("_migration_loop", "exchange_paths", "ring_shadow_occlusion")}
+
+    def wrap(fn, tag):
+        def call(*a, **k):
+            outer, mesh.tag = mesh.tag, tag
+            try:
+                return fn(*a, **k)
+            finally:
+                mesh.tag = outer
+        return call
+
+    for name, tag in (("_migration_loop", "migration"), ("exchange_paths", "exchange"),
+                      ("ring_shadow_occlusion", "ring")):
+        setattr(dist, name, wrap(saved[name], tag))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def rank_worker(workdir: str, device: str, backend: str, labels, reps: int):
+    """What each rank of phase 13 runs: its own inputs from workdir (its
+    partition's scene, every proxy and net), then per case one counted frame
+    and `reps` timed frames (CUDA events between all-rank barriers).
+    Returns per case the stats, this rank's launches, the collectives and
+    bytes by stage, the frame ms, and (rank 0) the image."""
+    import torch
+    import torch.distributed as tdist
+
+    import pg2024_dprt_tpu_torch as pt
+    import pg2024_dprt_tpu_torch.ops
+    import pg2024_dprt_tpu_torch.parallel
+
+    rank = tdist.get_rank()
+    inputs = torch.load(os.path.join(workdir, f"rank{rank}.pt"), weights_only=False)
+    out = {}
+    for label in labels:
+        part, models, lights, env, cam, cfg = inputs[label]
+        mesh = CountingMesh(pt.parallel.make_rank_mesh(part.num_partitions, device=device,
+                                                       backend=backend))
+
+        def frame(s=0):
+            return pt.parallel.render_image_distributed(part, models, lights, env, cam, cfg,
+                                                        mesh=mesh, base_sample=s,
+                                                        return_stats=True)
+
+        tdist.barrier()
+        pt.ops.reset_launch_counts()
+        with tagged(pt, mesh):
+            img, stats = frame()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in pt.ops.LAUNCHES.items() if v}
+        calls, nbytes = dict(mesh.calls), dict(mesh.bytes)
+        times = []
+        for s in range(1, reps + 1):
+            tdist.barrier()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            frame(s)
+            end.record()
+            end.synchronize()
+            tdist.barrier()
+            times.append(start.elapsed_time(end))
+        out[label] = {"stats": stats, "launches": launches, "calls": calls, "bytes": nbytes,
+                      "ms": times, "image_sum": float(img.double().sum()),
+                      "image": img.cpu() if rank == 0 else None}
+    return out
+
+
+def rank_inputs(pt, torch, workdir, setup, labels, ranks):
+    """Each rank's inputs on the host, written once: the case's partitioned
+    scene with only that rank's partition scene (the others None), every
+    proxy and net, lights, env, camera and config."""
+    host = lambda x: pt.render.engine._on("cpu", x)
+    os.makedirs(workdir, exist_ok=True)
+    for r in range(ranks):
+        per_rank = {}
+        for label in labels:
+            part, models, cfg = setup["cases"][label][:3]
+            mine = part._replace(
+                scenes=[host(s) if i == r else None for i, s in enumerate(part.scenes)],
+                proxies=part.proxies.to("cpu"),
+                nn_proxies=None if part.nn_proxies is None else part.nn_proxies.to("cpu"))
+            per_rank[label] = (mine, None if models is None else models.to("cpu"),
+                               host(setup["lights"]), host(setup["env"]), host(setup["cam"]),
+                               cfg)
+        torch.save(per_rank, os.path.join(workdir, f"rank{r}.pt"))
+
+
+def rank_phase(pt, torch, dev, setup, workdir):
+    """Phase 13: 13a / 13b phase 9's rooms_p8 frames (exact, exact with
+    grids, neural with the PROD pairs) with one partition a gloo rank on the
+    one card, held against phase 9's in-process frames; 13c a one-rank NCCL
+    world's P = 1 frame against the single-device composed frame. Returns
+    the phase's numbers."""
+    import shutil
+
+    labels = ("exact", "grids", "neural")
+    cases = setup["cases"]
+    ranks = cases["exact"][0].num_partitions
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    rank_inputs(pt, torch, os.path.join(workdir, "inputs"), setup, labels, ranks)
+    hand_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    per_rank = pt.parallel.run_ranks(
+        rank_worker, ranks, (os.path.join(workdir, "inputs"), "cuda:0", "gloo", labels,
+                             RANK_REPS), os.path.join(workdir, "gloo"), backend="gloo",
+        deadline_s=RANK_DEADLINE_S)
+    world_s = time.perf_counter() - t0
+    print(f"phase13 {ranks} gloo ranks on cuda:0: inputs written in {hand_s:.1f} s, the world "
+          f"ran {world_s:.1f} s (spawn, imports, 1 + {RANK_REPS} frames a case)", flush=True)
+    out = {"ranks": ranks, "backend": "gloo", "handoff_s": hand_s, "world_s": world_s}
+    for label in labels:
+        part, models, cfg, want, want_st, want_counts, want_ms = cases[label]
+        rows = [r[label] for r in per_rank]
+        npix = cfg.frame_buffer_size
+        name = f"13{'b' if label == 'neural' else 'a'} rooms_p8 {label}"
+        st = rows[0]["stats"]
+        check(all(r["stats"] == st for r in rows), f"{name}: the ranks' stats differ")
+        check(all(r["image_sum"] == rows[0]["image_sum"] for r in rows),
+              f"{name}: the ranks hold different images")
+        img = rows[0]["image"].to(dev)
+        ndis, err = compare_frames(f"{name} ranks vs in-process", as_pixels(img),
+                                   as_pixels(want), npix)
+        keys = ("migration_rounds", "paths_moved", "migration_overflow_waits", "tracer_diag",
+                "migration_truncated", "grid_culled")
+        check({k: st[k] for k in keys} == {k: want_st[k] for k in keys},
+              f"{name}: stats {({k: st[k] for k in keys})} against in-process "
+              f"{({k: want_st[k] for k in keys})}")
+        check(st["migration_truncated"] == 0 and (label != "grids" or st["grid_culled"] > 0),
+              f"{name}: truncated {st['migration_truncated']}, culled {st['grid_culled']}")
+        launches = [r["launches"] for r in rows]
+        summed = {}
+        for c in launches:
+            for k, v in c.items():
+                summed[k] = summed.get(k, 0) + v
+        check(summed == want_counts, f"{name}: launches over the ranks {summed} against the "
+                                     f"in-process frame's {want_counts}")
+        if label == "neural":
+            check(all(c.get("route_secondary") == cfg.bounces - 1
+                      and c.get("route_shadow") == cfg.bounces for c in launches),
+                  f"{name}: K7 launches per rank {launches}")
+        rounds = sum(st["migration_rounds"][0])
+        calls, nbytes = rows[0]["calls"], rows[0]["bytes"]
+        ms = statistics.median(rows[0]["ms"])
+        per_round = {k: (calls[k] / rounds, nbytes[k] / rounds) for k in calls
+                     if k.startswith(("exchange", "migration"))}
+        kinds = {json.dumps(c, sort_keys=True) for c in launches}
+        print(f"phase13 {name}: {ndis} outlier pixels of {npix} against phase 9's in-process "
+              f"frame, max abs err elsewhere {err:.3g}; rounds per bounce "
+              f"{st['migration_rounds'][0]}, paths moved {st['paths_moved']}, overflow waits "
+              f"{st['migration_overflow_waits']}, tracer diag {st['tracer_diag']}, truncated "
+              f"{st['migration_truncated']}, grid-culled {st['grid_culled']}: equal to phase 9 "
+              f"ok", flush=True)
+        print(f"phase13 {name}: launches per rank "
+              + (f"{launches[0]} on each of the {ranks}" if len(kinds) == 1 else f"{launches}")
+              + " (their sum equals the in-process frame's) ok", flush=True)
+        print(f"phase13 {name}: frame {ms:.3f} ms (rank 0, median of {RANK_REPS} between "
+              f"all-rank barriers; ranks' medians "
+              f"{[round(statistics.median(r['ms']), 3) for r in rows]})"
+              + (f", in-process {want_ms:.3f} ms (phase 9)" if want_ms else "")
+              + "; per frame on rank 0: "
+              + ", ".join(f"{k} {calls[k]} calls {nbytes[k]} B" for k in sorted(calls))
+              + "; per migration round: "
+              + ", ".join(f"{k} {c:g} calls {b:.0f} B" for k, (c, b) in sorted(per_round.items())),
+              flush=True)
+        out[label] = {"ms": ms, "rank_ms": [r["ms"] for r in rows], "in_process_ms": want_ms,
+                      "launches_per_rank": launches, "outliers": ndis, "max_abs_err": err,
+                      "collectives": calls, "bytes": nbytes, "rounds": rounds,
+                      **{k: st[k] for k in keys}}
+
+    # 13c: the one NCCL run one card allows: a world of one rank, P = 1
+    meshes = setup["grid_meshes"]
+    part1 = pt.scene.build_partitioned_scene(meshes, 1, device=dev)
+    cfg1 = cases["grids"][2]
+    cfg1 = dataclasses.replace(cfg1, use_visibility_grids=False)
+    setup1 = {"lights": setup["lights"], "env": setup["env"], "cam": setup["cam"],
+              "cases": {"p1": (part1, None, cfg1)}}
+    rank_inputs(pt, torch, os.path.join(workdir, "inputs1"), setup1, ("p1",), 1)
+    t0 = time.perf_counter()
+    (one,) = pt.parallel.run_ranks(
+        rank_worker, 1, (os.path.join(workdir, "inputs1"), "cuda:0", "nccl", ("p1",), 1),
+        os.path.join(workdir, "nccl"), backend="nccl", deadline_s=NCCL_DEADLINE_S)
+    row = one["p1"]
+    npix = cfg1.frame_buffer_size
+    ndis, err = compare_frames("13c NCCL P = 1 vs the single-device composed frame",
+                               as_pixels(row["image"].to(dev)),
+                               as_pixels(setup["single_grid_frame"]), npix)
+    check(row["stats"]["migration_truncated"] == 0 and row["stats"]["paths_moved"] == 0,
+          f"13c: stats {row['stats']}")
+    print(f"phase13 13c one NCCL rank, P = 1 (one partition of "
+          f"{sum(m.num_triangles for m in meshes)} triangles): {ndis} outlier pixels of "
+          f"{npix} against render_image of the same meshes (fused_frame='off'), max abs err "
+          f"elsewhere {err:.3g} ok; collectives {row['calls']}; world "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print("phase13 NCCL with several cards was not run: this machine has one card, and NCCL "
+          "refuses two ranks on one GPU", flush=True)
+    out["nccl_p1"] = {"outliers": ndis, "max_abs_err": err, "collectives": row["calls"],
+                      "bytes": row["bytes"], "ms": row["ms"]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4087,8 +4363,14 @@ def main() -> int:
 
         # ---- phase 9: the distributed frame, K7's multi-geo mode
         mg_entry, dist_out = distributed_phase(pt, torch, np, dev, counted, inst)
+        rank_setup = dist_out.pop("_rank_setup")
         mg_entry["distributed_phase"] = json.loads(json.dumps(dist_out, default=float))
         kernels.append(mg_entry)
+
+        # ---- phase 13: the distributed frame with one partition a rank
+        thirteen = rank_phase(pt, torch, dev, rank_setup, os.path.join(SMOKE_OUT, "ranks"))
+        del rank_setup
+        mg_entry["rank_phase"] = json.loads(json.dumps(thirteen, default=float))
 
         # ---- phase 12: curves through the composed frame, the partitioner
         # and the distributed frame (before phase 10, whose aftermath makes

@@ -49,8 +49,10 @@ from .route import (
 )
 from .trace_api import (
     resolve_tracer,
+    trace_closest,
     trace_closest_checked,
     trace_closest_cutout,
+    trace_occlusion,
     trace_occlusion_checked,
     trace_occlusion_cutout,
 )

@@ -129,6 +129,18 @@ def trace_occlusion_checked(scene, origin, direction, t_min, t_max, active,
     return occ, diag
 
 
+def trace_closest(scene, origin, direction, t_min, t_max, active, tracer: str = "auto"):
+    """Closest hit of the triangles and the scene's curves; returns the
+    HitRecord of trace_closest_checked."""
+    return trace_closest_checked(scene, origin, direction, t_min, t_max, active, tracer)[0]
+
+
+def trace_occlusion(scene, origin, direction, t_min, t_max, active, tracer: str = "auto"):
+    """Any-hit test; returns the (N,) bool occluded flags of
+    trace_occlusion_checked."""
+    return trace_occlusion_checked(scene, origin, direction, t_min, t_max, active, tracer)[0]
+
+
 def _hit_alpha(scene, hits):
     """Opacity at a hit (texture alpha channel); 1.0 where untextured. Only
     cutout scenes reach it, and instanced scenes have no textures, so the

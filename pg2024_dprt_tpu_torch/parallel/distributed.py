@@ -1,6 +1,7 @@
 """The distributed frame (counterpart of pg2024_dprt_tpu/parallel/distributed.py):
 the paper's system of partitions, path migration, proxies and a summed
-image, on the in-process mesh of parallel/mesh.py.
+image, on either mesh of parallel/mesh.py: all partitions in one process
+(InProcessMesh) or one partition a rank of torch.distributed (RankMesh).
 
 Per sample:
   * camera paths are generated on partition 0 only;
@@ -22,12 +23,14 @@ Per sample:
         re-traces at the destination, as JAX does;
       - shadows: the neural stage (`shadow_direct_light_nn`) or the exact
         ring (`ring_shadow_occlusion`);
-  * the partitions' images are summed.
+  * at the end of the sample the images and the stats go through one
+    `mesh.psum` each, as JAX's do, so every process holds the whole image.
 
 Each partition runs JAX's per-device program on its own path buffer of
-npix rows, one partition after another on the one device; the collectives
-are the mesh's. Every trace passes `sort_rays` as JAX does (the migration
-loop and the neural re-trace sort from bounce 1 on, the ring always).
+npix rows; a process runs the partitions it holds (`mesh.local`) one after
+another on its device, and the collectives are the mesh's. Every trace
+passes `sort_rays` as JAX does (the migration loop and the neural re-trace
+sort from bounce 1 on, the ring always).
 
 Each bounce's stages run under `torch.profiler.record_function` ranges
 (STAGES: "neural_route", "migration", "settle_shade", "shadows"), so one
@@ -123,12 +126,14 @@ def _trace_and_route(scene, proxies, env, paths: PathState, my_id: int, eps: flo
 
 def _migration_loop(mesh, scenes, proxies, env, paths, cfg: RenderConfig,
                     sort_rays: bool = True):
-    """The migration loop over every partition's buffer (a list). Returns
-    (paths, env_image_add, diag, truncated, overflow_waits, grid_culled,
-    rounds, moved): `truncated` counts paths still bound elsewhere when
-    `max_migrations` stops the loop (they shade as misses), `overflow_waits`
-    the path-rounds denied by a full bucket or a receiver without room (each
-    retried), `moved` the paths shipped over all rounds."""
+    """The migration loop over the buffers of the partitions this process
+    holds (a list). Returns (paths, env_image_add, diag, truncated,
+    overflow_waits, grid_culled, rounds, moved), the counts this process's:
+    `truncated` counts paths still bound elsewhere when `max_migrations`
+    stops the loop (they shade as misses), `overflow_waits` the path-rounds
+    denied by a full bucket or a receiver without room (each retried),
+    `moved` the paths shipped over all rounds. The rounds are the same in
+    every process: the termination test is a psum."""
     p = mesh.size
     npix = cfg.frame_buffer_size
     bucket = max(1, int(paths[0].capacity * cfg.bucket_fraction) // max(1, p))
@@ -137,9 +142,9 @@ def _migration_loop(mesh, scenes, proxies, env, paths, cfg: RenderConfig,
     rounds = 0
     pending = 1
     while pending > 0 and rounds < cfg.max_migrations:
-        step = [_trace_and_route(scenes[i], proxies, env, paths[i], i, cfg.t_epsilon, npix,
+        step = [_trace_and_route(scenes[i], proxies, env, pi, i, cfg.t_epsilon, npix,
                                  cfg.tracer, sort_rays, cfg.use_visibility_grids)
-                for i in range(p)]
+                for i, pi in zip(mesh.local, paths)]
         paths = [s[0] for s in step]
         for _, env_add, d, gc in step:
             env_img = env_img + env_add
@@ -148,22 +153,23 @@ def _migration_loop(mesh, scenes, proxies, env, paths, cfg: RenderConfig,
         paths, moved_now, waiting, arrivals = exchange_paths(mesh, paths, bucket_size=bucket)
         # the loop's one host sync: the termination test
         pending = int(mesh.psum(waiting + arrivals))
-        overflow = overflow + mesh.psum(waiting)
-        moved = moved + mesh.psum(moved_now)
+        overflow = overflow + waiting.sum()
+        moved = moved + moved_now.sum()
         rounds += 1
     truncated = sum(((b.is_valid & (b.target_node >= 0) & (b.target_node != i)).sum()
-                     for i, b in enumerate(paths)), 0)
+                     for i, b in zip(mesh.local, paths)), 0)
     return paths, env_img, diag, truncated, overflow, culled, rounds, moved
 
 
-def _settle_and_shade(scenes, lights, env, paths, sample_count: int, bounce: int,
+def _settle_and_shade(mesh, scenes, lights, env, paths, sample_count: int, bounce: int,
                       cfg: RenderConfig, stats: dict):
-    """Every partition shades the paths settled on it. Returns (next paths,
-    shadow paths, env image add), one list entry per partition."""
+    """Every local partition shades the paths settled on it. Returns (next
+    paths, shadow paths, env image add), one list entry per local
+    partition."""
     npix = cfg.frame_buffer_size
     rr = bool(cfg.russian_roulette) and cfg.russian_roulette <= bounce + 1 < cfg.bounces
     next_paths, shadows, env_img = [], [], 0
-    for i, pi in enumerate(paths):
+    for i, pi in zip(mesh.local, paths):
         live = pi.is_valid & (~pi.is_shadow)
         if cfg.use_neural_proxies and bounce > 0:
             # the nets decided only where a path settles: the real closest
@@ -190,12 +196,12 @@ def _settle_and_shade(scenes, lights, env, paths, sample_count: int, bounce: int
 
 def _shadows(mesh, scenes, proxies, nn_prox, models, shadows, cfg: RenderConfig,
              stats: dict):
-    """The direct light of every partition's shadow rays: the neural stage
-    per partition, or the exact ring over all of them."""
+    """The direct light of the local partitions' shadow rays: the neural
+    stage per partition, or the exact ring over all of them."""
     npix = cfg.frame_buffer_size
     direct = torch.zeros((npix, 3), dtype=torch.float32, device=shadows[0].origin.device)
     if cfg.use_neural_proxies:
-        for i, sp in enumerate(shadows):
+        for i, sp in zip(mesh.local, shadows):
             add, d = shadow_direct_light_nn(
                 scenes[i], nn_prox, models, sp, i, cfg.max_proxy_hits, cfg.t_epsilon,
                 cfg.shadow_path_count, npix, tracer=cfg.tracer)
@@ -217,10 +223,11 @@ def _shadows(mesh, scenes, proxies, nn_prox, models, shadows, cfg: RenderConfig,
 def render_sample_distributed(partitioned, models, lights, env, camera, sample_count: int,
                               cfg: RenderConfig, mesh):
     """One spp over the mesh's partitions. Returns (direct image, env image,
-    stats): the images (npix, 3) summed over partitions; stats a dict of
-    tracer_diag, migration_truncated, migration_overflow_waits, grid_culled
-    (tensors or ints), migration_rounds (one count per bounce) and
-    paths_moved."""
+    stats): the images (npix, 3) summed over every partition; stats a dict
+    of tracer_diag, migration_truncated, migration_overflow_waits,
+    grid_culled and paths_moved (0-d tensors, summed over every partition)
+    and migration_rounds (one count per bounce). Only the scenes of the
+    partitions this process holds (`mesh.local`) are read."""
     p = mesh.size
     if partitioned.num_partitions != p:
         raise ValueError(f"{partitioned.num_partitions} partitions on a mesh of {p}")
@@ -233,19 +240,21 @@ def render_sample_distributed(partitioned, models, lights, env, camera, sample_c
 
     cam_paths = generate_camera_paths(camera, sample_count).with_routing()
     none_valid = torch.zeros_like(cam_paths.is_valid)
+    # camera paths start valid on partition 0 only
     paths = [cam_paths if i == 0 else cam_paths._replace(is_valid=none_valid)
-             for i in range(p)]
+             for i in mesh.local]
     direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     stats = dict(tracer_diag=0, migration_truncated=0, migration_overflow_waits=0,
-                 grid_culled=0, migration_rounds=[], paths_moved=0)
+                 grid_culled=0, paths_moved=0)
+    rounds_per_bounce = []
 
     for bounce in range(cfg.bounces):
         if bounce > 0 and cfg.use_neural_proxies:
             with record_function("neural_route"):
-                for i in range(p):
-                    paths[i], env_add, d = secondary_route(
-                        scenes[i], nn_prox, models, env, paths[i], i, cfg.max_proxy_hits,
+                for n, i in enumerate(mesh.local):
+                    paths[n], env_add, d = secondary_route(
+                        scenes[i], nn_prox, models, env, paths[n], i, cfg.max_proxy_hits,
                         cfg.t_epsilon, npix, tracer=cfg.tracer)
                     env_img += env_add
                     stats["tracer_diag"] = stats["tracer_diag"] + d
@@ -258,14 +267,20 @@ def render_sample_distributed(partitioned, models, lights, env, camera, sample_c
                      ("migration_overflow_waits", ov), ("grid_culled", gc),
                      ("paths_moved", moved)):
             stats[k] = stats[k] + v
-        stats["migration_rounds"].append(rounds)
+        rounds_per_bounce.append(rounds)
         with record_function("settle_shade"):
-            paths, shadows, env_add = _settle_and_shade(scenes, lights, env, paths,
+            paths, shadows, env_add = _settle_and_shade(mesh, scenes, lights, env, paths,
                                                         sample_count, bounce, cfg, stats)
             env_img += env_add
         with record_function("shadows"):
             direct += _shadows(mesh, scenes, proxies, nn_prox, models, shadows, cfg, stats)
-    return direct, env_img, stats
+
+    # the image and stats reduce across partitions (JAX's psums), once each
+    direct, env_img = mesh.psum(torch.stack([direct, env_img])[None])
+    keys = list(stats)
+    totals = mesh.psum(torch.stack([torch.as_tensor(stats[k], device=dev).to(torch.int64)
+                                    for k in keys])[None])
+    return direct, env_img, {**dict(zip(keys, totals)), "migration_rounds": rounds_per_bounce}
 
 
 def render_image_distributed(partitioned, models, lights, env, camera, cfg: RenderConfig,
@@ -274,16 +289,21 @@ def render_image_distributed(partitioned, models, lights, env, camera, cfg: Rend
     """Full frame over the partitions: the average over spp. Returns
     (height, width, 3) float32, or (image, stats) with return_stats: stats
     has tracer_diag, migration_truncated, migration_overflow_waits and
-    grid_culled (ints, summed over samples, as JAX reports them), and
-    migration_rounds (per sample, per bounce) and paths_moved.
+    grid_culled (ints, summed over samples and partitions, as JAX reports
+    them), and migration_rounds (per sample, per bounce) and paths_moved.
+    On a RankMesh every rank returns the whole image and the same stats.
 
-    Runs on the mesh's device; without a mesh, on a new mesh of the
-    scene's partitions on `device` (CUDA unless the caller passes another).
-    The inputs are moved there."""
+    Runs on the mesh's device; without a mesh, on a new in-process mesh of
+    the scene's partitions on `device` (CUDA unless the caller passes
+    another). The inputs are moved there: of the partition scenes only
+    those of the partitions this process holds (`mesh.local`); the others
+    may be None. Every process keeps every partition's proxies and nets:
+    any path may route through any partition's box."""
     mesh = mesh or make_mesh(partitioned.num_partitions, device)
     dev = mesh.device
     partitioned = partitioned._replace(
-        scenes=[_on(dev, s) for s in partitioned.scenes],
+        scenes=[_on(dev, s) if i in mesh.local else s
+                for i, s in enumerate(partitioned.scenes)],
         proxies=partitioned.proxies.to(dev),
         nn_proxies=None if partitioned.nn_proxies is None else partitioned.nn_proxies.to(dev))
     models = models.to(dev) if models is not None else None

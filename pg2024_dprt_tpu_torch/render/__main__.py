@@ -15,11 +15,19 @@ in-process mesh on that one device, so the JAX CLI's --cpu-mesh (a virtual
 CPU mesh of P devices) is --device cpu here; --neural first trains every
 partition's vis / depth nets (train/) and then routes through them.
 
+Under torchrun the partitions are ranks, one a process (parallel/mesh.py
+RankMesh): --partitions must equal the world size, each rank renders its
+partition on cuda:LOCAL_RANK over NCCL (or on the CPU over gloo with
+--device cpu), and rank 0 prints the report and writes the frames.
+--neural is not taken under torchrun yet.
+
 Examples:
     python -m pg2024_dprt_tpu_torch.render cornell --size 256 --spp 8 --out /tmp/r
     python -m pg2024_dprt_tpu_torch.render bunny.obj --spp 4 --format both
     python -m pg2024_dprt_tpu_torch.render rooms:8 --partitions 8 --neural
     python -m pg2024_dprt_tpu_torch.render rooms:2 --partitions 2 --device cpu
+    torchrun --standalone --nproc-per-node 8 -m pg2024_dprt_tpu_torch.render rooms:8 \
+        --partitions 8
 """
 from __future__ import annotations
 
@@ -214,7 +222,23 @@ def main(argv=None):
                         "visibility grids pre-filter migrations and ring-shadow hops "
                         "(image unchanged)")
     args = p.parse_args(argv)
-    dev = resolve_device(args.device)
+    from ..parallel.mesh import make_rank_mesh
+
+    rank_mesh = None
+    if all(k in os.environ for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")):   # torchrun
+        if args.neural:
+            raise ValueError("--neural under torchrun is not ported yet (ROADMAP.md, Queue 1: "
+                             "train each partition's nets once and share them across the "
+                             "ranks); run --neural without torchrun")
+        world = int(os.environ["WORLD_SIZE"])
+        if args.partitions != world:
+            raise ValueError(f"under torchrun --partitions ({args.partitions}) must equal the "
+                             f"world size ({world}): one partition a rank")
+        rank_mesh = make_rank_mesh(world, device=None if args.device in (None, "cuda")
+                                   else args.device)
+        dev = rank_mesh.device
+    else:
+        dev = resolve_device(args.device)
 
     w = args.width or args.size
     h = args.height or args.size
@@ -247,18 +271,22 @@ def main(argv=None):
 
     from .frames import render_frames
 
-    if args.partitions > 1:
+    if args.partitions > 1 or rank_mesh is not None:
         from ..parallel import make_mesh
         from ..scene.partition import build_partitioned_scene, build_partitioned_scene_instanced
 
+        # a rank builds on the host; the frame moves its own partition to
+        # its device
+        build_dev = dev if rank_mesh is None else "cpu"
         if instanced_spec:
             part = build_partitioned_scene_instanced(
                 base_meshes, transforms, args.partitions,
-                visibility_grids=args.visibility_grids, device=dev)
+                visibility_grids=args.visibility_grids, device=build_dev)
         else:
             part = build_partitioned_scene(meshes, args.partitions, textures=textures,
-                                           visibility_grids=args.visibility_grids, device=dev)
-        mesh = make_mesh(args.partitions, dev)
+                                           visibility_grids=args.visibility_grids,
+                                           device=build_dev)
+        mesh = rank_mesh or make_mesh(args.partitions, dev)
         # exact mode reads no nets (JAX passes random ones for its compiled
         # program's structure)
         models = None
@@ -285,6 +313,12 @@ def main(argv=None):
                                timing=timing, light_velocity=args.light_velocity,
                                camera_velocity=args.dolly, device=dev)
 
+    if rank_mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        if rank_mesh.rank != 0:
+            return images
     os.makedirs(args.out, exist_ok=True)
     for i, img in enumerate(images):
         if args.format in ("exr", "both"):

@@ -20,6 +20,11 @@ and unprofiled runs of the same frame:
 `render_device_profile` gives the same numbers for any frame function and
 its stage ranges (chip_smoke.py profiles the distributed frame with it).
 Needs CUDA.
+
+`profile_sample` is the reference's per-stage report: the host seconds of
+the Traversal, Shade and Shadow stages of each bounce of one composed
+sample, as Timing sections, with the card waited for between stages. It
+runs on the device of its inputs, the CPU included.
 """
 from __future__ import annotations
 
@@ -31,7 +36,11 @@ from collections import defaultdict
 
 import torch
 
+from ..ops.trace_api import trace_closest_cutout, trace_occlusion_cutout
 from ..render.engine import render_image
+from ..render.pathgen import generate_camera_paths
+from ..render.shade import shade
+from .timing import TimedSection, Timing, _block_until_ready
 
 STAGES = ("fused_frame", "camera_paths", "closest_trace", "shade", "shadow_trace",
           "accumulate")
@@ -118,6 +127,45 @@ def render_device_profile(render, stages=STAGES, top: int = 8, reps: int = 5) ->
             "idle_share_unprofiled": (1.0 - busy / unprofiled) if spans else None,
             "device_events": len(spans),
             "top_kernels_ms": {name[:80]: v for name, v in kernels}}
+
+
+def profile_sample(scene, lights, env, camera, cfg, sample_count: int = 0) -> Timing:
+    """Host seconds of each stage of one composed sample (JAX's stages in
+    JAX's order): per bounce the closest-hit trace (Traversal), shading
+    (Shade) and the shadow test with its accumulation (Shadow), each
+    fenced."""
+    timing = Timing()
+    npix = cfg.frame_buffer_size
+    paths = generate_camera_paths(camera, sample_count)
+    dev = paths.origin.device
+    direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+    env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+
+    for bounce in range(cfg.bounces):
+        with timing.section(TimedSection.Traversal):
+            hits, _ = trace_closest_cutout(scene, paths.origin, paths.direction, cfg.t_epsilon,
+                                           paths.tmax, paths.is_valid, tracer=cfg.tracer)
+            _block_until_ready(hits)
+
+        with timing.section(TimedSection.Shade):
+            next_paths, shadow_paths, env_add = shade(scene, lights, env, paths, hits,
+                                                      sample_count, bounce,
+                                                      cfg.shadow_path_count, npix)
+            _block_until_ready(env_add)
+        env_img = env_img + env_add
+
+        with timing.section(TimedSection.Shadow):
+            occ, _ = trace_occlusion_cutout(scene, shadow_paths.origin, shadow_paths.direction,
+                                            cfg.t_epsilon, shadow_paths.tmax * (1.0 - 1e-3),
+                                            shadow_paths.is_valid, tracer=cfg.tracer)
+            contrib = torch.where((shadow_paths.is_valid & ~occ)[:, None],
+                                  shadow_paths.throughput / cfg.shadow_path_count, 0.0)
+            direct = direct.index_add(0, shadow_paths.pixel_index, contrib)
+            _block_until_ready(direct)
+
+        paths = next_paths
+
+    return timing
 
 
 def main(argv) -> int:

@@ -89,6 +89,45 @@ def test_cli_distributed_partitions(tmp_path):
     assert img.shape == (16, 16, 3) and float(np.mean(img)) > 1e-4
 
 
+def test_cli_torchrun_ranks_match_in_process(tmp_path):
+    """rooms:2 under torchrun, one partition a gloo rank on the CPU: rank 0's
+    frame equals the in-process CLI's (held against JAX above) within rtol
+    1e-3 / atol 1e-4, and only rank 0 writes and reports."""
+    import subprocess
+    import sys
+
+    from pg2024_dprt_tpu_torch.utils import read_exr
+
+    args = ["rooms:2", "--size", "16", "--spp", "1", "--bounces", "2", "--partitions", "2",
+            "--device", "cpu", "--format", "exr"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["PYTHONPATH"] = root
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "pg2024_dprt_tpu_torch.render", *args, "--out", str(tmp_path / "ranks")],
+        cwd=root, env=env, capture_output=True, text=True, timeout=240)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert run.stdout.count("wrote 1 frame(s)") == 1
+    got, names = read_exr(str(tmp_path / "ranks" / "frame0.exr"))
+    got = got[:, :, [names.index(c) for c in "RGB"]]
+    want = main(args + ["--out", str(tmp_path / "one")])[0]
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+    assert float(np.mean(got)) > 1e-4
+
+
+def test_cli_under_torchrun_refuses_neural_and_other_counts(monkeypatch, tmp_path):
+    """Under torchrun's environment --neural raises (not ported yet) and
+    --partitions must equal the world size; both before any process group."""
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    base = ["rooms:2", "--size", "8", "--device", "cpu", "--out", str(tmp_path / "r")]
+    with pytest.raises(ValueError, match="--neural under torchrun.*ROADMAP"):
+        main(base + ["--partitions", "2", "--neural"])
+    with pytest.raises(ValueError, match="must equal the world size"):
+        main(base + ["--partitions", "3"])
+
+
 def test_cli_neural_partitions_train_their_nets(tmp_path, capsys):
     """--neural trains a vis and a depth net per partition (train/), then
     routes through them."""

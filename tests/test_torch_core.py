@@ -182,6 +182,7 @@ def test_kernel_sources_include_only_cuda_and_their_own_headers():
             "pg2024_dprt_tpu_torch/parallel/mesh.py",
             "pg2024_dprt_tpu_torch/parallel/exchange.py",
             "pg2024_dprt_tpu_torch/parallel/distributed.py",
+            "pg2024_dprt_tpu_torch/parallel/spawn.py",
             "pg2024_dprt_tpu_torch/scene/partition.py",
             "pg2024_dprt_tpu_torch/scene/visibility_grid.py",
             "pg2024_dprt_tpu_torch/scene/obj.py",

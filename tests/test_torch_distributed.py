@@ -8,12 +8,17 @@ Tolerance for images: rtol 1e-3 / atol 1e-4, the frame tolerance of
 tests/test_torch_render.py (both packages draw the same TEA/LCG numbers;
 the images differ by float32 rounding). The stats (tracer diag, truncated
 paths, overflow waits, grid-culled candidates) are integers and equal.
+The rank frames (one partition a gloo rank on the CPU, parallel/mesh.py
+RankMesh, spawned by parallel/spawn.py run_ranks; the ranks' code is
+tests/torch_rank_workers.py) are held against the same JAX frames, and
+their migration rounds against the in-process frame's.
 Neural mode: the nets' vis heads are shifted by +10 (every marched proxy
 predicts a hit) and the depth heads by +10 (predicted remote hits lie far
 behind the local ones), so that no routing decision sits within the nets'
 rounding of a threshold, as the JAX package's own neural tests do.
 """
 import dataclasses
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -31,12 +36,13 @@ from pg2024_dprt_tpu.render import RenderConfig as JConfig
 from pg2024_dprt_tpu.scene import build_partitioned_scene as j_partition
 from pg2024_dprt_tpu.scene import two_room_scene as j_rooms
 from pg2024_dprt_tpu.scene.lights import EnvironmentMap as JEnv
+import torch_rank_workers as w
 from pg2024_dprt_tpu_torch import models as tmodels
 from pg2024_dprt_tpu_torch import ops as tops
 from pg2024_dprt_tpu_torch import scene as tscene
 from pg2024_dprt_tpu_torch.core import Camera
 from pg2024_dprt_tpu_torch.models import mlp as tmlp
-from pg2024_dprt_tpu_torch.parallel import make_mesh, render_image_distributed
+from pg2024_dprt_tpu_torch.parallel import make_mesh, render_image_distributed, run_ranks
 from pg2024_dprt_tpu_torch.render import RenderConfig, render_image
 
 SIDE = 24
@@ -132,6 +138,33 @@ def test_distributed_frame_matches_jax(jax_frames, case):
                               env, cam, dataclasses.replace(cfg, fused_frame="off"),
                               device="cpu")
         np.testing.assert_allclose(got.numpy(), single.numpy(), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["exact_p2", "exact_p4_grids_buckets", "neural_p2_separate"])
+def test_rank_frame_matches_jax(jax_frames, case, tmp_path):
+    """One partition a rank: every rank returns JAX's image and stats, and
+    the in-process frame's migration rounds."""
+    parts, fields, grids, kind = CASES[case]
+    _, _, tm, tlights = _meshes(parts)
+    part = tscene.build_partitioned_scene(tm, parts, visibility_grids=grids,
+                                          grid_res=(8, 8, 8), device="cpu")
+    cfg = RenderConfig(width=SIDE, height=SIDE, spp=1, bounces=2, **fields)
+    models = _models(kind, parts)[0] if kind else None
+    env = tscene.EnvironmentMap.constant(ENV, device="cpu")
+    cam = Camera.look_at(*CAM, device="cpu")
+    ranks = run_ranks(w.rank_frame, parts,
+                      (pickle.dumps((part, models, tlights, env, cam, cfg)),),
+                      str(tmp_path), deadline_s=240)
+    _, in_process = render_image_distributed(part, models, tlights, env, cam, cfg,
+                                             mesh=make_mesh(parts, device="cpu"),
+                                             return_stats=True)
+    want, want_stats = jax_frames[case]
+    for img, stats in ranks:
+        np.testing.assert_array_equal(img, ranks[0][0])
+        np.testing.assert_allclose(img, want, rtol=1e-3, atol=1e-4)
+        assert {k: stats[k] for k in JAX_STATS} == {k: want_stats[k] for k in JAX_STATS}
+        assert stats["migration_rounds"] == in_process["migration_rounds"]
+        assert stats["paths_moved"] == in_process["paths_moved"] > 0
 
 
 def test_neural_frame_launch_counts_and_devices():

@@ -140,3 +140,19 @@ def test_renderer_and_unported_options():
     with pytest.raises(ValueError, match="retired"):
         render_image(ts, tl, te, tc, RenderConfig(width=16, height=16, tracer="pallas"),
                      device="cpu")
+
+
+def test_profile_sample_has_jax_sections():
+    """utils/profile.py profile_sample: JAX's section names, one entry per
+    bounce each (host seconds have no parity)."""
+    from pg2024_dprt_tpu.utils.profile import profile_sample as j_profile
+    from pg2024_dprt_tpu_torch.utils.profile import profile_sample
+
+    (js, jl, je, jc), port = _soup_pair(size=16)
+    kw = dict(width=16, height=16, spp=1, bounces=3)
+    got = profile_sample(*port, RenderConfig(**kw), sample_count=1)
+    want = j_profile(js, jl, je, jc, JConfig(**kw), sample_count=1)
+    assert set(got.totals) == set(want.totals) == {"Traversal", "Shade", "Shadow"}
+    assert dict(got.counts) == dict(want.counts) == {k: 3 for k in want.counts}
+    assert all(v > 0.0 for v in got.totals.values())
+    assert "Traversal" in got.report()

@@ -319,3 +319,27 @@ def test_resolve_tracer_case_table(name, instanced):
         np.testing.assert_array_equal(hits.is_hit.numpy(), ref.is_hit.numpy())
         np.testing.assert_array_equal(occ.numpy(), ref.is_hit.numpy())
         np.testing.assert_allclose(hits.t.numpy(), ref.t.numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("port_tracer,jax_tracer", [("stackless", "stackless"),
+                                                     ("cluster", "cluster"),
+                                                     ("auto", "stackless")])
+def test_trace_closest_and_occlusion_match_jax(port_tracer, jax_tracer):
+    """The two public entry points without diag (the first results of the
+    _checked entries) against JAX's on the soup case: hits by the module's
+    criterion, occlusion flags exact. The port's "auto" is the resident
+    plain version, held against JAX's stackless walk."""
+    from pg2024_dprt_tpu.ops.trace_api import trace_closest as j_closest
+    from pg2024_dprt_tpu.ops.trace_api import trace_occlusion as j_occlusion
+
+    js, ts, o, d, tmax, act, _ = _case("soup")
+    tmax = np.where(np.arange(len(tmax)) % 3 == 0, 0.4, tmax).astype(np.float32)
+    got = tops.trace_closest(ts, *_t(o, d), T_MIN, *_t(tmax, act), tracer=port_tracer)
+    want = j_closest(js, *_j(o, d), T_MIN, *_j(tmax, act), tracer=jax_tracer)
+    assert int(np.asarray(want.is_hit).sum()) > 20
+    _assert_hits_match(got, want)
+    occ = tops.trace_occlusion(ts, *_t(o, d), T_MIN, *_t(tmax, act), tracer=port_tracer)
+    want_occ = np.asarray(j_occlusion(js, *_j(o, d), T_MIN, *_j(tmax, act),
+                                      tracer=jax_tracer))
+    np.testing.assert_array_equal(occ.numpy(), want_occ)
+    np.testing.assert_array_equal(occ.numpy(), got.is_hit.numpy())
