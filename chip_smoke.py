@@ -293,7 +293,23 @@ Phases, each reported on its own line; any failure exits non-zero:
      migration round. 13c a one-rank NCCL world on cuda:0: the P = 1
      distributed frame of 9a's grid rooms against the single-device
      composed frame by the same criterion; a line says that NCCL with
-     several cards was not run.
+     several cards was not run. 13d (run after phase 10, whose 10f nets
+     and frame it is held against, so no in-process training runs twice):
+     10f's rooms:8 --neural through the CLI's main(argv) on 8 gloo ranks on
+     cuda:0 (the CLI's mesh with gloo in place of NCCL): each rank trains
+     its own partition's pair at 10f's settings (30,000 samples, 25 epochs
+     a net), receives the other seven through one all_to_all and renders
+     10f's frame. Every rank's gathered nets equal rank 0's bit for bit;
+     rank 0's against 10f's in-process nets (the largest absolute
+     difference per net, and whether they are bit-equal); the image
+     against 10f's by phase 4's criterion, the same on every rank; K7
+     launched 3 + 4 a sample on every rank in the frame, one datagen trace
+     a rank in training, and the launches summed over the ranks equal to
+     10f's; rank 0 alone prints each partition's losses (once) and writes
+     the frame; rank 0's Train seconds beside 10f's, both warm (each rank
+     fits two small nets before the timed CLI, as phases 10a-10e trained
+     before 10f; those fits' seconds are a cold rank's extra cost), with
+     the card's name and power limit.
 Then the whole script's seconds, the kernels line (JSON, fourteen entries: K1-K13
 and K7's multi-geo mode, route_multigeo; `ms` is each kernel's own device
 time from the profiler and `wrapper_ms` the CUDA-event time of the call that
@@ -309,9 +325,9 @@ rays with another key, K9/K10's against the plain
 version on the phase-7 subsets; K9 / K10 are timed on the instanced frame's
 wavefronts, their plain ms on the 1,024-ray subset; the route_multigeo
 entry carries phase 9's and phase 13's numbers, `distributed_phase` and
-`rank_phase`), the card line, and the final {"ok": true,
-"device": {...}} line. No earlier phase was cut to make room for phases 7-13;
-K1 / K2's entries carry their launches on the fur frame
+`rank_phase`, and the route entry 13d's, `phase13d`), the card line, and
+the final {"ok": true, "device": {...}} line. No earlier phase was cut to
+make room for phases 7-13; K1 / K2's entries carry their launches on the fur frame
 (`curve_frame_launches`) and K1's phase 12's numbers (`phase12`).
 
 Without CUDA, or run alone outside the repository, it exits non-zero and
@@ -3462,6 +3478,49 @@ def cli_run(torch, counted, cli, argv):
     return images, counts, secs, sections
 
 
+@contextlib.contextmanager
+def captured_training(pt, torch, cli):
+    """Wrap the CLI module's train_partition_proxies: the dict it yields
+    gets the nets it returned (on their device: the caller copies them to
+    the host after the CLI, outside its Train section), its seconds, the
+    seconds spent in train.fit and train.generate_proxy_dataset (the rest
+    is the host build and the nets' exchange; a synchronize closes each of
+    those calls, as each ends by reading results on the host anyway) and
+    the launch counts at its end (the CLI launches nothing before it)."""
+    saved = cli.train_partition_proxies
+    inner = {"fit": pt.train.fit, "generate_proxy_dataset": pt.train.generate_proxy_dataset}
+    rec, spent = {}, dict.fromkeys(inner, 0.0)
+
+    def timed(name):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner[name](*a, **k)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    def call(*a, **k):
+        t0 = time.perf_counter()
+        models = saved(*a, **k)
+        torch.cuda.synchronize()
+        rec.update(models=models, train_s=time.perf_counter() - t0,
+                   fit_s=spent["fit"], datagen_s=spent["generate_proxy_dataset"],
+                   train_launches={n: v for n, v in pt.ops.LAUNCHES.items() if v})
+        return models
+
+    cli.train_partition_proxies = call
+    for name in inner:
+        setattr(pt.train, name, timed(name))
+    try:
+        yield rec
+    finally:
+        cli.train_partition_proxies = saved
+        for name, fn in inner.items():
+            setattr(pt.train, name, fn)
+
+
 def training_phase(pt, torch, np, dev, counted, side=64, rays=TRAIN_RAYS,
                    steps=TRAIN_STEPS, cli_size=256):
     """Phase 10 (10a-10f; see the module docstring). Returns its numbers."""
@@ -3654,7 +3713,9 @@ def training_phase(pt, torch, np, dev, counted, side=64, rays=TRAIN_RAYS,
                    "card_s": g_s, "cpu_s": c_s, "launches": counts}
 
     # ---- 10f: the command-line renderer on the card, in-process
-    from pg2024_dprt_tpu_torch.render.__main__ import main as cli
+    from pg2024_dprt_tpu_torch.render import __main__ as cli_module
+
+    cli = cli_module.main
 
     cli_out = os.path.join(SMOKE_OUT, "cli")
     imgs, counts, secs, sections = cli_run(torch, counted, cli, [
@@ -3672,7 +3733,9 @@ def training_phase(pt, torch, np, dev, counted, side=64, rays=TRAIN_RAYS,
     rooms = ["rooms:8", "--partitions", "8", "--size", str(cli_size), "--cam-pos", ROOMS_CAM[0],
              "--cam-target", ROOMS_CAM[1], "--out", cli_out]
     ex_imgs, counts_e, secs_e, _ = cli_run(torch, counted, cli, rooms)
-    imgs, counts, secs, sections = cli_run(torch, counted, cli, rooms + ["--neural"])
+    with captured_training(pt, torch, cli_module) as trained:
+        imgs, counts, secs, sections = cli_run(torch, counted, cli, rooms + ["--neural"])
+    trained["models"] = trained["models"].to("cpu")
     ex, nn = ex_imgs[0], imgs[0]
     lit = float((ex.sum(-1) > 0).mean())
     ratio = float(nn.mean() / ex.mean())
@@ -3695,7 +3758,196 @@ def training_phase(pt, torch, np, dev, counted, side=64, rays=TRAIN_RAYS,
                                 "tm_err": tm_err, "exact_seconds": secs_e,
                                 "train_s": sections.get("Train", 0.0) / 1e3,
                                 "frame_s": sections.get("Sample", 0.0) / 1e3}
+    # what 13d holds its ranks against
+    out["_rank_training"] = {"argv": rooms + ["--neural"], "image": nn, "launches": counts,
+                             "train_section_s": sections.get("Train", 0.0) / 1e3, **trained}
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13d: the CLI's --neural with one partition a rank, after 10f
+
+def rank_cli_worker(argv):
+    """What each rank of 13d runs: the CLI's main(argv) as under torchrun,
+    its RankMesh on cuda:0 over gloo (LOCAL_RANK 0 on every rank: NCCL, the
+    CLI's backend for a CUDA device, refuses two ranks on one GPU), with
+    the launch counts reset just before and read just after. Returns its
+    stdout, launches, seconds and image, and the nets it gathered with its
+    training seconds and the launches up to their end."""
+    import functools
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    import pg2024_dprt_tpu_torch as pt
+    import pg2024_dprt_tpu_torch.models
+    import pg2024_dprt_tpu_torch.ops
+    import pg2024_dprt_tpu_torch.parallel.mesh
+    import pg2024_dprt_tpu_torch.train
+    from pg2024_dprt_tpu_torch.render import __main__ as cli
+
+    os.environ.update(RANK=str(tdist.get_rank()), WORLD_SIZE=str(tdist.get_world_size()),
+                      LOCAL_RANK="0")
+    mesh_mod = pt.parallel.mesh
+    mesh_mod.make_rank_mesh = functools.partial(mesh_mod.make_rank_mesh, backend="gloo")
+    # one small fit of each kind first, so that the timed Train counts no
+    # first call (cuBLAS's, the optimizer's), as 10f's does not: phases
+    # 10a-10e trained in its process before it; their seconds are what a
+    # cold rank pays
+    dev = argv[argv.index("--device") + 1] if "--device" in argv else "cuda:0"
+    rng = np.random.RandomState(tdist.get_rank())
+    x, y = rng.rand(8192, 5).astype(np.float32), (rng.rand(8192) > 0.5).astype(np.float32)
+    t0 = time.perf_counter()
+    for kind in ("vis", "depth"):
+        pt.train.fit(x, y, pt.models.MLPConfig(width=64, depth=2),
+                     pt.train.TrainConfig(nn_type=kind, epochs=1, batch=4096, learn_rate=5e-3),
+                     device=dev)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    buf = io.StringIO()
+    tdist.barrier()
+    pt.ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with captured_training(pt, torch, cli) as rec, contextlib.redirect_stdout(buf):
+        images = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    rec["models"] = rec["models"].to("cpu")
+    return {"stdout": buf.getvalue(), "seconds": seconds, "warmup_s": warmup_s,
+            "launches": {k: v for k, v in pt.ops.LAUNCHES.items() if v},
+            "image": torch.as_tensor(images[0]), **rec}
+
+
+def flat_nets(torch, models):
+    """{(partition, kind): one net's params} of a ProxyModels."""
+    return {(p, kind): {k: v[p] for k, v in params.items()}
+            for kind, params in (("vis", models.vis_params), ("depth", models.depth_params))
+            for p in range(models.num_objects)}
+
+
+def same_bits(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+        for k in a)
+
+
+def rank_training_phase(pt, torch, dev, ten, workdir):
+    """Phase 13d: 10f's rooms:8 --neural through the CLI with one partition
+    a gloo rank on the one card: each rank trains its own partition's nets,
+    receives the others' and renders 10f's frame. Held against 10f's
+    in-process nets, image and launches. Returns the phase's numbers."""
+    import shutil
+
+    argv = list(ten["argv"])
+    argv[argv.index("--out") + 1] = os.path.join(workdir, "out")
+    ranks = int(argv[argv.index("--partitions") + 1])
+    shutil.rmtree(workdir, ignore_errors=True)
+    t0 = time.perf_counter()
+    rows = pt.parallel.run_ranks(rank_cli_worker, ranks, (argv,), os.path.join(workdir, "gloo"),
+                                 backend="gloo", deadline_s=RANK_DEADLINE_S)
+    world_s = time.perf_counter() - t0
+    name = f"13d CLI rooms:{ranks} --neural, one partition a rank"
+
+    # the nets: every rank's bit for bit rank 0's; each against 10f's
+    nets = [flat_nets(torch, r["models"]) for r in rows]
+    check(all(n.keys() == nets[0].keys() and all(same_bits(torch, n[k], nets[0][k]) for k in n)
+              for n in nets), f"{name}: the ranks gathered different nets")
+    want = flat_nets(torch, ten["models"])
+    check(nets[0].keys() == want.keys(), f"{name}: nets {sorted(nets[0])} against 10f's")
+    diffs = {k: max(float((nets[0][k][n] - want[k][n]).abs().max()) for n in want[k])
+             for k in want}
+    equal = {k: same_bits(torch, nets[0][k], want[k]) for k in want}
+    row_floats = 2 * pt.models.flatten_params(want[(0, "vis")], ten["models"].vis_cfg).numel() + 2
+    print(f"phase13 {name}: {ranks} gloo ranks on cuda:0, the world ran {world_s:.1f} s (spawn, "
+          f"imports, the host build, training, one frame); every rank gathered the same "
+          f"{len(want)} nets bit for bit ok; each rank hands the nets' all_to_all "
+          f"{ranks * row_floats * 4} B ({ranks} rows of {row_floats} f32)", flush=True)
+    print(f"phase13 {name}: against 10f's in-process nets: "
+          + ("bit-equal, every net" if all(equal.values()) else
+             f"{sum(equal.values())} of {len(equal)} bit-equal")
+          + "; largest abs difference per net "
+          + ", ".join(f"p{p} {kind} {diffs[(p, kind)]:.3g}" for p, kind in sorted(want)),
+          flush=True)
+
+    # the frame: rank 0's against 10f's; every rank holds the same image
+    img0 = rows[0]["image"]
+    check(all(torch.equal(r["image"], img0) for r in rows), f"{name}: the ranks' images differ")
+    npix = img0.shape[0] * img0.shape[1]
+    ndis, err = compare_frames(f"{name} vs 10f's in-process frame", as_pixels(img0.to(dev)),
+                               as_pixels(torch.as_tensor(ten["image"]).to(dev)), npix)
+
+    # the launches: the frame's K7 on every rank; over the ranks, 10f's
+    spp = int(argv[argv.index("--spp") + 1]) if "--spp" in argv else 4
+    bounces = int(argv[argv.index("--bounces") + 1]) if "--bounces" in argv else 4
+    frame = [{k: v - r["train_launches"].get(k, 0) for k, v in r["launches"].items()
+              if v != r["train_launches"].get(k, 0)} for r in rows]
+    check(all(f.get("route_secondary") == (bounces - 1) * spp
+              and f.get("route_shadow") == bounces * spp for f in frame),
+          f"{name}: K7 launches of the frame per rank {frame}")
+    summed, trained = {}, {}
+    for r in rows:
+        for k, v in r["launches"].items():
+            summed[k] = summed.get(k, 0) + v
+        for k, v in r["train_launches"].items():
+            trained[k] = trained.get(k, 0) + v
+    check(summed == ten["launches"], f"{name}: launches over the ranks {summed} against 10f's "
+                                     f"{ten['launches']}")
+    check(trained == ten["train_launches"] and all(r["train_launches"] for r in rows),
+          f"{name}: training launches over the ranks {trained} against 10f's "
+          f"{ten['train_launches']}")
+
+    # the report: rank 0 alone prints the losses (each partition's once),
+    # its Train section and the one frame it writes
+    outs = [r["stdout"] for r in rows]
+    for p in range(ranks):
+        for kind in ("vis", "depth"):
+            check(outs[0].count(f"partition {p}: {kind} loss") == 1,
+                  f"{name}: rank 0 printed partition {p}'s {kind} loss "
+                  f"{outs[0].count(f'partition {p}: {kind} loss')} times")
+    check(outs[0].count("wrote 1 frame(s)") == 1 and not any(
+        "loss" in o or "wrote" in o for o in outs[1:]), f"{name}: the other ranks printed")
+    check(os.path.getsize(os.path.join(workdir, "out", "frame0.png")) > 0,
+          f"{name}: rank 0 wrote no frame")
+    sections = {}
+    for line in outs[0].splitlines():
+        label, _, rest = line.partition(": ")
+        if rest.endswith(" calls") and " ms over " in rest:
+            sections[label] = float(rest.split(" ms over ")[0]) / 1e3
+    train_s = sections.get("Train", 0.0)
+    rank_train = [r["train_s"] for r in rows]
+    span = lambda key: f"{min(r[key] for r in rows):.2f}-{max(r[key] for r in rows):.2f}"
+    print(f"phase13 {name}: {ndis} outlier pixels of {npix} against 10f's in-process frame, "
+          f"max abs err elsewhere {err:.3g} ok; launches per rank {rows[0]['launches']}"
+          + ("" if len({json.dumps(r['launches'], sort_keys=True) for r in rows}) == 1
+             else f" (ranks differ: {[r['launches'] for r in rows]})")
+          + f", of them training {rows[0]['train_launches']}; K7 {(bounces - 1) * spp} + "
+          f"{bounces * spp} a rank ({bounces - 1} + {bounces} a sample); sums over the ranks "
+          f"equal 10f's ok; rank 0 alone printed the losses (each once) and wrote the frame ok",
+          flush=True)
+    print(f"phase13 {name}: Train {train_s:.2f} s on rank 0 (each rank's training "
+          f"{min(rank_train):.2f}-{max(rank_train):.2f} s, its gather included) against 10f's "
+          f"in-process {ten['train_section_s']:.2f} s for all {ranks} partitions: "
+          f"{ten['train_section_s'] / max(train_s, 1e-9):.2f}x; a rank's 2 fits took "
+          f"{span('fit_s')} s and its datagen {span('datagen_s')} s, 10f's {2 * ranks} fits "
+          f"{ten['fit_s']:.2f} s and its {ranks} datagens {ten['datagen_s']:.2f} s; a rank's "
+          f"warm-up (its process's first 2 fits, 8,192 rows, 1 epoch, before the timed CLI) "
+          f"{span('warmup_s')} s; frame "
+          f"{sections.get('Sample', 0.0):.2f} s on rank 0; the CLI {rows[0]['seconds']:.1f} s on "
+          f"rank 0; {card_line()}", flush=True)
+    return {"ranks": ranks, "world_s": world_s, "train_s_rank0": train_s,
+            "train_s_ranks": rank_train, "train_s_in_process": ten["train_section_s"],
+            "fit_s_ranks": [r["fit_s"] for r in rows], "fit_s_in_process": ten["fit_s"],
+            "datagen_s_ranks": [r["datagen_s"] for r in rows],
+            "datagen_s_in_process": ten["datagen_s"],
+            "warmup_s_ranks": [r["warmup_s"] for r in rows],
+            "frame_s_rank0": sections.get("Sample"), "outliers": ndis, "max_abs_err": err,
+            "nets_bit_equal_to_10f": all(equal.values()),
+            "max_abs_diff_per_net": {f"p{p} {k}": v for (p, k), v in sorted(diffs.items())},
+            "launches_per_rank": [r["launches"] for r in rows],
+            "train_launches_per_rank": [r["train_launches"] for r in rows],
+            "share_bytes_per_rank": ranks * row_floats * 4}
 
 
 # ---------------------------------------------------------------------------
@@ -4391,6 +4643,12 @@ def main() -> int:
         # ---- phase 11's reading again, after phase 10
         readings["after_phase10"] = flat_reading(pt, torch, dev, reading_cases, "after phase 10")
         kernels[0]["phase11_readings"] = readings
+
+        # ---- phase 13d: 10f's --neural frame with one partition a rank,
+        # held against 10f's nets and frame (so no training runs twice)
+        route_entry["phase13d"] = json.loads(json.dumps(rank_training_phase(
+            pt, torch, dev, ten.pop("_rank_training"), os.path.join(SMOKE_OUT, "ranks_cli")),
+            default=float))
     except PhaseError as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

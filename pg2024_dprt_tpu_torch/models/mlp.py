@@ -119,6 +119,37 @@ def param_names(cfg: MLPConfig):
     return names
 
 
+def param_layout(cfg: MLPConfig) -> Dict[str, tuple]:
+    """Every param's shape by name, in sorted name order: weights (in, out),
+    biases (out,)."""
+    shapes = {}
+    for wn, fi, fo in param_shapes(cfg):
+        shapes[wn], shapes[bias_name(wn)] = (fi, fo), (fo,)
+    return dict(sorted(shapes.items()))
+
+
+def flatten_params(params: Dict, cfg: MLPConfig) -> torch.Tensor:
+    """One net's params as one f32 vector, in param_layout's order, so that
+    unflatten_params reads it back from `cfg` alone."""
+    layout = param_layout(cfg)
+    got = {k: tuple(v.shape) for k, v in params.items()}
+    if got != layout:
+        raise ValueError(f"params {got} are not those of {cfg}: {layout}")
+    return torch.cat([params[k].reshape(-1).to(torch.float32) for k in layout])
+
+
+def unflatten_params(vec: torch.Tensor, cfg: MLPConfig) -> Dict[str, torch.Tensor]:
+    """flatten_params' inverse: views of `vec` under the param names."""
+    out, at = {}, 0
+    for k, shape in param_layout(cfg).items():
+        n = math.prod(shape)
+        out[k] = vec[at:at + n].reshape(shape)
+        at += n
+    if at != vec.numel():
+        raise ValueError(f"a vector of {vec.numel()} values holds {at} params of {cfg}")
+    return out
+
+
 def macs_per_row(cfg: MLPConfig) -> int:
     """Multiply-adds of one forward pass of one row."""
     return sum(fi * fo for _, fi, fo in param_shapes(cfg))

@@ -46,7 +46,9 @@ def _rank_main(rank: int, world_size: int, init_method: str, backend: str, fn, a
         try:
             result = fn(*args)
         finally:
-            dist.destroy_process_group()
+            # fn may end the group itself (the CLI under torchrun does)
+            if dist.is_initialized():
+                dist.destroy_process_group()
         out.put((rank, None, pickle.dumps(result)))
     except BaseException:
         out.put((rank, traceback.format_exc(), None))

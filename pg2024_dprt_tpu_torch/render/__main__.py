@@ -18,8 +18,10 @@ partition's vis / depth nets (train/) and then routes through them.
 Under torchrun the partitions are ranks, one a process (parallel/mesh.py
 RankMesh): --partitions must equal the world size, each rank renders its
 partition on cuda:LOCAL_RANK over NCCL (or on the CPU over gloo with
---device cpu), and rank 0 prints the report and writes the frames.
---neural is not taken under torchrun yet.
+--device cpu), and rank 0 prints the report and writes the frames. With
+--neural each rank trains its own partition's nets on its device (an
+instanced scene's one base pair: rank 0) and receives every other rank's
+before the frame.
 
 Examples:
     python -m pg2024_dprt_tpu_torch.render cornell --size 256 --spp 8 --out /tmp/r
@@ -27,16 +29,18 @@ Examples:
     python -m pg2024_dprt_tpu_torch.render rooms:8 --partitions 8 --neural
     python -m pg2024_dprt_tpu_torch.render rooms:2 --partitions 2 --device cpu
     torchrun --standalone --nproc-per-node 8 -m pg2024_dprt_tpu_torch.render rooms:8 \
-        --partitions 8
+        --partitions 8 --neural
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import sys
 
 import numpy as np
+import torch
 
 from ..core.camera import Camera
 from ..core.device import resolve_device
@@ -114,63 +118,104 @@ def auto_camera(lo, hi, fov: float, width: int, height: int, device=None):
     return Camera.look_at(eye, center, [0.0, 1.0, 0.0], fov, width, height, device=device)
 
 
-def train_partition_proxies(meshes, part, parts: int, samples: int, epochs: int,
-                            width: int = 64, depth: int = 2, device=None):
+def _pair_row(vis, depth, cfg, losses):
+    """A trained vis / depth pair and its two final test losses as one f32
+    row: both nets flattened (models/mlp.py flatten_params), then the
+    losses."""
+    from ..models.mlp import flatten_params
+
+    v = flatten_params(vis, cfg)
+    return torch.cat([v, flatten_params(depth, cfg),
+                      torch.tensor(losses, dtype=torch.float32, device=v.device)])
+
+
+def _share_pairs(mesh, rows: dict, cfg):
+    """Every partition's pair on every process: `rows` maps some of this
+    process's partitions to their _pair_row (a partition left out sends
+    zeros). One all_to_all of an (L, P, n) block, each row copied to every
+    destination, so out[0, s] is partition s's row: it moves bits unchanged
+    (a psum with zeros would turn -0.0 into 0.0). Returns (vis params, depth
+    params, (vis loss, depth loss)) a partition, in partition order."""
+    from ..models.mlp import param_layout, unflatten_params
+
+    n = sum(math.prod(s) for s in param_layout(cfg).values())
+    block = torch.zeros((len(mesh.local), 2 * n + 2), dtype=torch.float32, device=mesh.device)
+    for i, p in enumerate(mesh.local):
+        if p in rows:
+            block[i] = rows[p]
+    got = mesh.all_to_all(block[:, None].expand(-1, mesh.size, -1))[0]
+    return [(unflatten_params(r[:n], cfg), unflatten_params(r[n:2 * n], cfg), tuple(loss))
+            for r, loss in zip(got, got[:, 2 * n:].tolist())]
+
+
+def train_partition_proxies(meshes, part, mesh, samples: int, epochs: int,
+                            width: int = 64, depth: int = 2):
     """The offline stage of the neural workflow: train a vis and a depth net
-    per partition on its real geometry (rays cast at the partition's proxy
-    box, seeds 100 + p), on `device` (CUDA unless given), and stack them."""
+    for each partition this process holds (`mesh.local`, of `mesh.size`) on
+    its real geometry (rays cast at the partition's proxy box, seeds
+    100 + p) on the mesh's device, then hand every process every partition's
+    nets and stack them in partition order. The process that holds
+    partition 0 prints every partition's losses."""
     from ..models.mlp import MLPConfig, stack_params
     from ..models.proxy import ProxyModels
     from ..scene.partition import partition_meshes
     from ..train import TrainConfig, balance_vis, depth_only, fit, generate_proxy_dataset
 
-    dev = resolve_device(device)
-    assignment = partition_meshes(meshes, parts)
+    assignment = partition_meshes(meshes, mesh.size)
     cfg = MLPConfig(width=width, depth=depth)
-    vis_list, depth_list = [], []
-    for p, idxs in enumerate(assignment):
-        sub = device_scene_from_meshes([meshes[i] for i in idxs], device=dev)
+    rows = {}
+    for p in mesh.local:
+        sub = device_scene_from_meshes([meshes[i] for i in assignment[p]], device=mesh.device)
         lo = part.proxies.aabb_min[p].cpu().numpy()
         hi = part.proxies.aabb_max[p].cpu().numpy()
         feats, d = generate_proxy_dataset(sub, lo, hi, samples, seed=100 + p)
         xv, yv = balance_vis(feats, d)
-        vp, hist = fit(xv, yv, cfg, TrainConfig(nn_type="vis", epochs=epochs, batch=4096,
-                                                learn_rate=5e-3), device=dev)
-        print(f"partition {p}: vis loss {hist['test_loss'][-1]:.4f}", flush=True)
+        vp, hv = fit(xv, yv, cfg, TrainConfig(nn_type="vis", epochs=epochs, batch=4096,
+                                              learn_rate=5e-3), device=mesh.device)
         xd, yd = depth_only(feats, d)
         if xd.shape[0] < 256:
             xd, yd = feats, d
-        dp, hist = fit(xd, yd, cfg, TrainConfig(nn_type="depth", epochs=epochs, batch=4096,
-                                                learn_rate=5e-3), device=dev)
-        print(f"partition {p}: depth loss {hist['test_loss'][-1]:.4f}", flush=True)
-        vis_list.append(vp)
-        depth_list.append(dp)
-    return ProxyModels(vis_params=stack_params(vis_list), depth_params=stack_params(depth_list),
-                       num_objects=parts, vis_cfg=cfg, depth_cfg=cfg)
+        dp, hd = fit(xd, yd, cfg, TrainConfig(nn_type="depth", epochs=epochs, batch=4096,
+                                              learn_rate=5e-3), device=mesh.device)
+        rows[p] = _pair_row(vp, dp, cfg, (hv["test_loss"][-1], hd["test_loss"][-1]))
+    pairs = _share_pairs(mesh, rows, cfg)
+    if 0 in mesh.local:
+        for p, (_, _, (lv, ld)) in enumerate(pairs):
+            print(f"partition {p}: vis loss {lv:.4f}", flush=True)
+            print(f"partition {p}: depth loss {ld:.4f}", flush=True)
+    return ProxyModels(vis_params=stack_params([v for v, _, _ in pairs]),
+                       depth_params=stack_params([d for _, d, _ in pairs]),
+                       num_objects=mesh.size, vis_cfg=cfg, depth_cfg=cfg)
 
 
-def _train_base_object(base_meshes, samples: int, epochs: int, device):
+def _train_base_object(base_meshes, mesh, samples: int, epochs: int):
     """Neural instancing: ONE vis / depth pair trained on the shared base
-    object serves every instance through the instance-level proxy rows."""
+    object serves every instance through the instance-level proxy rows. The
+    process that holds partition 0 trains it on the mesh's device and hands
+    it to every process."""
     from ..models.mlp import MLPConfig, stack_params
     from ..models.proxy import ProxyModels
     from ..scene.partition import _meshes_aabb
     from ..train.loop import TrainConfig, train_proxy_for_partition
 
-    blo, bhi = _meshes_aabb(base_meshes)
-    base_scene = device_scene_from_meshes(base_meshes, device=device)
     mcfg = MLPConfig(width=64, depth=2)
-    nets = {}
-    for nn_type in ("vis", "depth"):
-        nets[nn_type] = train_proxy_for_partition(
-            base_scene, blo, bhi, nn_type, mlp_cfg=mcfg,
-            train_cfg=TrainConfig(nn_type=nn_type, epochs=epochs, batch=4096,
-                                  learn_rate=5e-3),
-            num_samples=samples)
-    print(f"base-object nets: vis {nets['vis'][1]['test_loss'][-1]:.4f} "
-          f"depth {nets['depth'][1]['test_loss'][-1]:.4f}", flush=True)
-    return ProxyModels(stack_params([nets["vis"][0]]), stack_params([nets["depth"][0]]), 1,
-                       mcfg, mcfg)
+    rows = {}
+    if 0 in mesh.local:
+        blo, bhi = _meshes_aabb(base_meshes)
+        base_scene = device_scene_from_meshes(base_meshes, device=mesh.device)
+        nets = {}
+        for nn_type in ("vis", "depth"):
+            nets[nn_type] = train_proxy_for_partition(
+                base_scene, blo, bhi, nn_type, mlp_cfg=mcfg,
+                train_cfg=TrainConfig(nn_type=nn_type, epochs=epochs, batch=4096,
+                                      learn_rate=5e-3),
+                num_samples=samples)
+        rows[0] = _pair_row(nets["vis"][0], nets["depth"][0], mcfg,
+                            (nets["vis"][1]["test_loss"][-1], nets["depth"][1]["test_loss"][-1]))
+    vp, dp, (lv, ld) = _share_pairs(mesh, rows, mcfg)[0]
+    if 0 in mesh.local:
+        print(f"base-object nets: vis {lv:.4f} depth {ld:.4f}", flush=True)
+    return ProxyModels(stack_params([vp]), stack_params([dp]), 1, mcfg, mcfg)
 
 
 def main(argv=None):
@@ -226,10 +271,6 @@ def main(argv=None):
 
     rank_mesh = None
     if all(k in os.environ for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")):   # torchrun
-        if args.neural:
-            raise ValueError("--neural under torchrun is not ported yet (ROADMAP.md, Queue 1: "
-                             "train each partition's nets once and share them across the "
-                             "ranks); run --neural without torchrun")
         world = int(os.environ["WORLD_SIZE"])
         if args.partitions != world:
             raise ValueError(f"under torchrun --partitions ({args.partitions}) must equal the "
@@ -291,14 +332,15 @@ def main(argv=None):
         # program's structure)
         models = None
         if args.neural:
+            # each process trains the partitions it holds, on its device,
+            # and receives every other partition's nets
             with timing.section("Train"):
                 if instanced_spec:
-                    models = _train_base_object(base_meshes, args.proxy_samples,
-                                                args.proxy_epochs, dev)
+                    models = _train_base_object(base_meshes, mesh, args.proxy_samples,
+                                                args.proxy_epochs)
                 else:
-                    models = train_partition_proxies(meshes, part, args.partitions,
-                                                     args.proxy_samples, args.proxy_epochs,
-                                                     device=dev)
+                    models = train_partition_proxies(meshes, part, mesh, args.proxy_samples,
+                                                     args.proxy_epochs)
             cfg = dataclasses.replace(cfg, use_neural_proxies=True)
         images = render_frames(
             None, lights, env, camera, cfg, num_frames=args.frames, timing=timing,

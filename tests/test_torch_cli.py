@@ -89,53 +89,93 @@ def test_cli_distributed_partitions(tmp_path):
     assert img.shape == (16, 16, 3) and float(np.mean(img)) > 1e-4
 
 
-def test_cli_torchrun_ranks_match_in_process(tmp_path):
-    """rooms:2 under torchrun, one partition a gloo rank on the CPU: rank 0's
-    frame equals the in-process CLI's (held against JAX above) within rtol
-    1e-3 / atol 1e-4, and only rank 0 writes and reports."""
+def _torchrun(args, out):
+    """The port's CLI under torch.distributed.run, 2 processes; returns the
+    finished run (stdout, stderr) and rank 0's frame from its EXR."""
     import subprocess
     import sys
 
     from pg2024_dprt_tpu_torch.utils import read_exr
 
-    args = ["rooms:2", "--size", "16", "--spp", "1", "--bounces", "2", "--partitions", "2",
-            "--device", "cpu", "--format", "exr"]
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
     env["PYTHONPATH"] = root
     run = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
-         "-m", "pg2024_dprt_tpu_torch.render", *args, "--out", str(tmp_path / "ranks")],
+         "-m", "pg2024_dprt_tpu_torch.render", *args, "--format", "exr", "--out", out],
         cwd=root, env=env, capture_output=True, text=True, timeout=240)
     assert run.returncode == 0, run.stderr[-3000:]
+    got, names = read_exr(os.path.join(out, "frame0.exr"))
+    return run, got[:, :, [names.index(c) for c in "RGB"]]
+
+
+def test_cli_torchrun_ranks_match_in_process(tmp_path):
+    """rooms:2 under torchrun, one partition a gloo rank on the CPU: rank 0's
+    frame equals the in-process CLI's (held against JAX above) within rtol
+    1e-3 / atol 1e-4, and only rank 0 writes and reports."""
+    args = ["rooms:2", "--size", "16", "--spp", "1", "--bounces", "2", "--partitions", "2",
+            "--device", "cpu"]
+    run, got = _torchrun(args, str(tmp_path / "ranks"))
     assert run.stdout.count("wrote 1 frame(s)") == 1
-    got, names = read_exr(str(tmp_path / "ranks" / "frame0.exr"))
-    got = got[:, :, [names.index(c) for c in "RGB"]]
     want = main(args + ["--out", str(tmp_path / "one")])[0]
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
     assert float(np.mean(got)) > 1e-4
 
 
-def test_cli_under_torchrun_refuses_neural_and_other_counts(monkeypatch, tmp_path):
-    """Under torchrun's environment --neural raises (not ported yet) and
-    --partitions must equal the world size; both before any process group."""
+NEURAL = ["rooms:2", "--size", "16", "--spp", "1", "--bounces", "2", "--partitions", "2",
+          "--neural", "--proxy-samples", "2000", "--proxy-epochs", "2", "--device", "cpu"]
+
+
+def _loss_lines(out: str):
+    return [line for line in out.splitlines() if " loss " in line]
+
+
+@pytest.fixture(scope="module")
+def neural_in_process(_one_torch_thread, tmp_path_factory):
+    """The in-process CLI's rooms:2 --neural run on the CPU, one torch
+    thread (as each torchrun rank): (images, stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        images = main(NEURAL + ["--out", str(tmp_path_factory.mktemp("neural"))])
+    return images, buf.getvalue()
+
+
+def test_cli_torchrun_neural_ranks_match_in_process(tmp_path, neural_in_process):
+    """rooms:2 --neural under torchrun, one partition a gloo rank on the CPU:
+    each rank trains its own partition's nets and receives the other's.
+    Rank 0's frame equals the in-process CLI's within rtol 1e-3 / atol 1e-4;
+    each partition's losses are printed once, equal to the in-process run's
+    (the nets are the same), and one frame is written."""
+    images, out = neural_in_process
+    run, got = _torchrun(NEURAL, str(tmp_path / "ranks"))
+    for p in range(2):
+        for kind in ("vis", "depth"):
+            assert run.stdout.count(f"partition {p}: {kind} loss") == 1, run.stdout
+    assert _loss_lines(run.stdout) == _loss_lines(out)
+    assert run.stdout.count("wrote 1 frame(s)") == 1 and run.stdout.count("Train:") == 1
+    np.testing.assert_allclose(got, images[0], rtol=1e-3, atol=1e-4)
+    assert float(np.mean(got)) > 1e-4
+
+
+def test_cli_under_torchrun_refuses_other_partition_counts(monkeypatch, tmp_path):
+    """Under torchrun's environment --partitions must equal the world size,
+    with or without --neural; it raises before any process group."""
     for k, v in (("RANK", "0"), ("WORLD_SIZE", "2"), ("LOCAL_RANK", "0")):
         monkeypatch.setenv(k, v)
     base = ["rooms:2", "--size", "8", "--device", "cpu", "--out", str(tmp_path / "r")]
-    with pytest.raises(ValueError, match="--neural under torchrun.*ROADMAP"):
-        main(base + ["--partitions", "2", "--neural"])
-    with pytest.raises(ValueError, match="must equal the world size"):
-        main(base + ["--partitions", "3"])
+    for extra in ([], ["--neural"]):
+        with pytest.raises(ValueError, match="must equal the world size"):
+            main(base + ["--partitions", "3"] + extra)
 
 
-def test_cli_neural_partitions_train_their_nets(tmp_path, capsys):
+def test_cli_neural_partitions_train_their_nets(neural_in_process):
     """--neural trains a vis and a depth net per partition (train/), then
     routes through them."""
-    images = main(["rooms:2", "--size", "16", "--spp", "1", "--bounces", "2",
-                   "--partitions", "2", "--neural", "--proxy-samples", "2000",
-                   "--proxy-epochs", "2", "--out", str(tmp_path / "r"), "--device", "cpu"])
+    images, out = neural_in_process
     assert images[0].shape == (16, 16, 3) and np.all(np.isfinite(images[0]))
-    out = capsys.readouterr().out
     assert out.count("vis loss") == 2 and out.count("depth loss") == 2 and "Train:" in out
 
 

@@ -139,15 +139,71 @@ def rank_frame(blob: bytes):
     return img.numpy(), stats
 
 
+# the CLI's offline stage on small scenes: each partition's nets (rooms:2)
+# and the instanced scene's one base pair
+NET_SPECS = {"rooms": "rooms:2", "instanced": "instanced:2,512"}
+NET_SAMPLES, NET_EPOCHS = 2000, 2
+
+
+def spec_nets(spec: str, mesh):
+    """The CLI's offline stage (render/__main__.py) for SCENE `spec` on
+    `mesh`, on the CPU: each partition's pair (rooms) or the base pair
+    (instanced). Returns the gathered params (numpy), the datagen seeds
+    and fits this process ran, in order, and what it printed."""
+    import contextlib
+    import io
+
+    from pg2024_dprt_tpu_torch import train
+    from pg2024_dprt_tpu_torch.render import __main__ as cli
+
+    calls = []
+    fit, gen = train.loop.fit, train.loop.generate_proxy_dataset
+
+    def counted_fit(*a, **k):
+        calls.append(("fit", (a[3] if len(a) > 3 else k["cfg"]).nn_type))
+        return fit(*a, **k)
+
+    def counted_gen(*a, **k):
+        calls.append(("datagen", a[4] if len(a) > 4 else k.get("seed", 0)))
+        return gen(*a, **k)
+
+    sites = [(m, name) for m in (train, train.loop) for name in ("fit", "generate_proxy_dataset")]
+    saved = [getattr(m, name) for m, name in sites]
+    for (m, name), fn in zip(sites, (counted_fit, counted_gen) * 2):
+        setattr(m, name, fn)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            meshes = cli.load_scene(spec, device="cpu")[0]
+            if isinstance(meshes, tuple):
+                models = cli._train_base_object(meshes[0], mesh, NET_SAMPLES, NET_EPOCHS)
+            else:
+                part = tscene.build_partitioned_scene(meshes, mesh.size, device="cpu")
+                models = cli.train_partition_proxies(meshes, part, mesh, NET_SAMPLES, NET_EPOCHS)
+    finally:
+        for (m, name), fn in zip(sites, saved):
+            setattr(m, name, fn)
+    return {"vis": {k: v.numpy() for k, v in models.vis_params.items()},
+            "depth": {k: v.numpy() for k, v in models.depth_params.items()},
+            "num_objects": models.num_objects, "calls": calls, "stdout": buf.getvalue()}
+
+
+def trained_nets():
+    """Every NET_SPECS case's spec_nets on this rank's mesh."""
+    mesh = make_rank_mesh(device="cpu")
+    return {name: spec_nets(spec, mesh) for name, spec in NET_SPECS.items()}
+
+
 def fails(kind: str):
-    """Rank 1 raises or hangs; rank 0 waits for it in a collective."""
+    """Rank 1 raises (its message holds the wall-clock time of the raise) or
+    hangs; rank 0 waits for it in a collective."""
     import time
 
     import torch.distributed as dist
 
     if dist.get_rank() == 1:
         if kind == "raises":
-            raise RuntimeError("rank 1 fails on purpose")
+            raise RuntimeError(f"rank 1 fails on purpose at {time.time()!r}")
         time.sleep(3600)
     dist.barrier()
     return "done"
