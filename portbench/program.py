@@ -1,0 +1,64 @@
+"""The system under test: the port's public entries, given the benchmark's
+meshes and nets.
+
+`Program` builds what a user of the port builds for a configuration (the
+device scene, or the partitioned scene, its mesh and the proxy models; the
+lights, sky, camera and render request) and renders one frame a call:
+`render_image` for a configuration without partitions, and
+`render_image_distributed` for one with them. Everything the port derives
+(cluster tables, partitions, proxy boxes, packed nets) stays the port's;
+the reference works it out again.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class Program:
+    def __init__(self, config: dict, neural: bool, meshes: list, nets, device):
+        from pg2024_dprt_tpu_torch.core.camera import Camera
+        from pg2024_dprt_tpu_torch.models import MLPConfig, ProxyModels
+        from pg2024_dprt_tpu_torch.parallel import make_mesh, render_image_distributed
+        from pg2024_dprt_tpu_torch.render import RenderConfig, render_image
+        from pg2024_dprt_tpu_torch.scene import (EnvironmentMap, LightTable, MeshGeometry,
+                                                 build_partitioned_scene,
+                                                 device_scene_from_meshes)
+
+        self.device = torch.device(device)
+        req, cam, lights, sky = (config[k] for k in ("request", "camera", "lights", "sky"))
+        self.cfg = RenderConfig(
+            width=req["width"], height=req["height"], spp=req["spp"], bounces=req["bounces"],
+            shadow_path_count=req["shadow_path_count"], max_proxy_hits=req["max_proxy_hits"],
+            t_epsilon=req["t_epsilon"], nee_mode=req["nee_mode"], use_neural_proxies=neural)
+        self.camera = Camera.look_at(cam["eye"], cam["target"], cam["up"], cam["fov_degrees"],
+                                     req["width"], req["height"], device=self.device)
+        self.lights = LightTable.from_arrays(lights["triangles"], lights["radiance"],
+                                             device=self.device)
+        self.env = EnvironmentMap.constant(sky["color"], sky["height"], sky["width"],
+                                           device=self.device)
+        geo = [MeshGeometry(v0=m["v0"], v1=m["v1"], v2=m["v2"], base_color=m["base_color"],
+                            name=m["name"]) for m in meshes]
+        scene = config["scene"]
+        self.partitions = scene.get("partitions", 0)
+        if self.partitions:
+            self.scene = build_partitioned_scene(geo, self.partitions, device=self.device)
+            self.mesh = make_mesh(self.partitions, self.device)
+            spec = config["nets"]
+            ncfg = MLPConfig(width=spec["width"], depth=spec["depth"],
+                             head_hidden=spec["head_hidden"], final_activation="leaky_relu")
+            self.models = ProxyModels(nets["vis"], nets["depth"], self.partitions, ncfg, ncfg)
+            self._render = lambda b: render_image_distributed(
+                self.scene, self.models, self.lights, self.env, self.camera, self.cfg,
+                mesh=self.mesh, base_sample=b, return_stats=True, device=self.device)
+        else:
+            self.scene = device_scene_from_meshes(geo, tris_per_cluster=scene["tris_per_cluster"],
+                                                  device=self.device)
+            self._render = lambda b: (render_image(self.scene, self.lights, self.env, self.camera,
+                                                   self.cfg, base_sample=b,
+                                                   device=self.device), None)
+
+    def frame(self, base_sample: int):
+        """(image (H, W, 3), stats or None) of the frame at `base_sample`:
+        the distributed frame's stats (migration rounds per bounce, paths
+        moved), None for the single-device frame."""
+        return self._render(int(base_sample))

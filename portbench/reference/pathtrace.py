@@ -1,0 +1,469 @@
+"""The plain reference path tracer: what a frame of the benchmark's cells
+must show at the pixels the check samples.
+
+Plain PyTorch, written from the renderer's published semantics (a pinhole
+camera with TEA-seeded jitter, Moller-Trumbore closest hits with an exact
+re-validation of the winner, Lambertian shading with a cosine-weighted
+throughput, next-event estimation by resampled importance sampling over
+`shadow_path_count` light candidates, a constant-texel lat-long sky). It
+imports nothing of the program: every table it needs (triangle edges and
+normals, the scene box, the per-triangle albedo, the partition of each
+triangle) it works out from the meshes the benchmark made, and it traces
+every ray against every triangle, so no acceleration structure of the
+program's is trusted.
+
+Paths are independent of each other, so the reference renders only the
+pixels it is asked for: `render_pixels` returns their (P, 3) values for one
+sample. Every float it computes is in `dtype` (float32 as the
+configurations state; the control passes bfloat16); the random numbers are
+the TEA / LCG words of the renderer, bit for bit.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+EPS = 1e-8
+RIS_SALT = 0x52495331
+_MASK = 0xFFFFFFFF
+# elements of one dense (rays x triangles) block of the trace
+BLOCK_ELEMENTS = {"cuda": 1 << 26, "cpu": 1 << 20}
+
+
+# --------------------------------------------------------------------------
+# random numbers: TEA-4 seeds, an LCG stream (uint32 words in int64)
+
+def tea(val0, val1, rounds: int = 4):
+    v0 = torch.as_tensor(val0, dtype=torch.int64) & _MASK
+    v1 = torch.as_tensor(val1, dtype=torch.int64, device=v0.device) & _MASK
+    s0 = 0
+    for _ in range(rounds):
+        s0 = (s0 + 0x9E3779B9) & _MASK
+        v0 = (v0 + (((((v1 << 4) & _MASK) + 0xA341316C) ^ ((v1 + s0) & _MASK))
+                    ^ ((v1 >> 5) + 0xC8013EA4))) & _MASK
+        v1 = (v1 + (((((v0 << 4) & _MASK) + 0xAD90777D) ^ ((v0 + s0) & _MASK))
+                    ^ ((v0 >> 5) + 0x7E95761E))) & _MASK
+    return v0
+
+
+def tea_int(val0: int, val1: int, rounds: int = 4) -> int:
+    v0, v1, s0 = val0 & _MASK, val1 & _MASK, 0
+    for _ in range(rounds):
+        s0 = (s0 + 0x9E3779B9) & _MASK
+        v0 = (v0 + ((((v1 << 4) + 0xA341316C) ^ (v1 + s0)) ^ ((v1 >> 5) + 0xC8013EA4))) & _MASK
+        v1 = (v1 + ((((v0 << 4) + 0xAD90777D) ^ (v0 + s0)) ^ ((v0 >> 5) + 0x7E95761E))) & _MASK
+    return v0
+
+
+def draws(seed, count: int, dtype):
+    """`count` floats in [0, 1) from each seed's LCG stream."""
+    out = []
+    for _ in range(count):
+        seed = (1664525 * seed + 1013904223) & _MASK
+        out.append(((seed & 0x00FFFFFF).to(torch.float32) / float(0x01000000)).to(dtype))
+    return out
+
+
+# --------------------------------------------------------------------------
+# vector math on (..., 3) tensors, products summed left to right
+
+def dot(a, b):
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
+def cross(a, b):
+    return torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                        a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                        a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+
+
+def norm(v):
+    return torch.sqrt(dot(v, v))
+
+
+def normalize(v):
+    return v / torch.clamp(norm(v), min=EPS)[..., None]
+
+
+def frame_of(n):
+    """Orthonormal tangent and bitangent around the unit normal n (Duff et
+    al. 2017)."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    sign = torch.where(nz >= 0.0, 1.0, -1.0).to(n.dtype)
+    a = -1.0 / (sign + nz)
+    b = nx * ny * a
+    t = torch.stack([1.0 + sign * nx * nx * a, sign * b, -sign * nx], dim=-1)
+    bt = torch.stack([b, sign + ny * ny * a, -ny], dim=-1)
+    return t, bt
+
+
+def spherical(d):
+    """(phi in [0, 2pi), theta in [0, pi]) of a direction, y up."""
+    theta = torch.arccos(torch.clamp(d[..., 1], -1.0, 1.0))
+    phi = torch.atan2(d[..., 2], d[..., 0])
+    return torch.where(phi < 0.0, phi + 2.0 * math.pi, phi), theta
+
+
+def safe_inv(d):
+    return 1.0 / torch.where(d.abs() < 1e-12, torch.where(d >= 0, 1e-12, -1e-12).to(d.dtype), d)
+
+
+# --------------------------------------------------------------------------
+# the scene as the reference holds it
+
+@dataclass
+class RefScene:
+    """Every triangle of the scene (or of one partition), in the benchmark's
+    mesh order: `tab` (12, T) rows v0, e1 = v1 - v0, e2 = v2 - v0, n = e1 x
+    e2; `normal` (T, 3) the unit geometric normal, `albedo` (T, 3);
+    `part` (T,) the partition of each triangle; `box` (2, 3) its vertices'
+    bounds."""
+
+    tab: torch.Tensor
+    normal: torch.Tensor
+    albedo: torch.Tensor
+    part: torch.Tensor
+    box: torch.Tensor
+
+    def select(self, mask) -> "RefScene":
+        return RefScene(self.tab[:, mask], self.normal[mask], self.albedo[mask],
+                        self.part[mask], self.box)
+
+
+def ref_scene(meshes, parts, device, dtype=torch.float32) -> RefScene:
+    """`meshes`: dicts of float32 (T, 3) arrays v0, v1, v2 and a base_color;
+    `parts`: each mesh's partition."""
+    v0, v1, v2 = (np.concatenate([m[k] for m in meshes]).astype(np.float32)
+                  for k in ("v0", "v1", "v2"))
+    e1, e2 = v1 - v0, v2 - v0
+    n = np.cross(e1, e2).astype(np.float32)
+    gn = np.cross(v1 - v0, v2 - v0)
+    gn = (gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-12)).astype(np.float32)
+    albedo = np.concatenate([np.tile(np.asarray(m["base_color"], np.float32), (m["v0"].shape[0], 1))
+                             for m in meshes])
+    part = np.concatenate([np.full(m["v0"].shape[0], p, np.int64) for m, p in zip(meshes, parts)])
+    lo = np.minimum(np.minimum(v0, v1), v2).min(0)
+    hi = np.maximum(np.maximum(v0, v1), v2).max(0)
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
+    return RefScene(tab=f(np.concatenate([v0, e1, e2, n], axis=1).T), normal=f(gn),
+                    albedo=f(albedo), part=torch.as_tensor(part, device=device),
+                    box=f(np.stack([lo, hi])))
+
+
+# --------------------------------------------------------------------------
+# tracing: every ray against every triangle
+
+def _limits(box, o, d, tmin, tmax, active):
+    """The ray's interval: inactive rays closed, tmax capped just past the
+    scene box's exit."""
+    inv = safe_inv(d)
+    t0 = (box[0] - o) * inv
+    t1 = (box[1] - o) * inv
+    ex = torch.clamp(torch.maximum(t0, t1).amin(dim=-1), max=torch.finfo(o.dtype).max)
+    cap = torch.clamp(ex, min=0.0) * 1.001 + 1e-4
+    big = torch.full_like(tmin, torch.finfo(tmin.dtype).max)
+    return (torch.where(active, tmin, big),
+            torch.where(active, torch.minimum(tmax, cap), torch.zeros_like(tmax)))
+
+
+def _mt(o, d, tmin, tab):
+    """(R, S) distances and acceptance of rays against triangle columns
+    (triple-product Moller-Trumbore)."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, nx, ny, nz = (tab[q][None, :] for q in range(12))
+    rdx, rdy, rdz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    sx, sy, sz = o[:, 0:1] - v0x, o[:, 1:2] - v0y, o[:, 2:3] - v0z
+    mx = sy * rdz - sz * rdy
+    my = sz * rdx - sx * rdz
+    mz = sx * rdy - sy * rdx
+    det = -(rdx * nx + rdy * ny + rdz * nz)
+    u = e2x * mx + e2y * my + e2z * mz
+    v = -(e1x * mx + e1y * my + e1z * mz)
+    t_raw = nx * sx + ny * sy + nz * sz
+    adet = det.abs()
+    ok = adet > 1e-12
+    t = t_raw * torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)),
+                            torch.zeros_like(det))
+    neg = det < 0.0
+    su = torch.where(neg, -u, u)
+    sv = torch.where(neg, -v, v)
+    return t, ok & (su >= 0.0) & (sv >= 0.0) & (su + sv <= adet) & (t > tmin[:, None])
+
+
+def _blocks(o, s):
+    budget = BLOCK_ELEMENTS.get(o.device.type, BLOCK_ELEMENTS["cpu"])
+    sc = max(1, min(s, budget // 64))
+    return max(1, budget // sc), sc
+
+
+def _active_only(trace, defaults):
+    """`trace` run on the active rays alone, each inactive ray given its
+    `defaults` entry: a ray's result does not depend on the other rays."""
+    def wrapped(scene, o, d, tmin, tmax, active):
+        if bool(active.all()):
+            return trace(scene, o, d, tmin, tmax, active)
+        rows = active.nonzero(as_tuple=True)[0]
+        part = trace(scene, o[rows], d[rows], tmin[rows], tmax[rows], active[rows])
+        part = part if isinstance(part, tuple) else (part,)
+        out = []
+        for value, default in zip(part, defaults(o)):
+            full = torch.full((o.shape[0],), default, dtype=value.dtype, device=o.device)
+            full[rows] = value
+            out.append(full)
+        return tuple(out) if len(out) > 1 else out[0]
+    return wrapped
+
+
+def closest(scene: RefScene, o, d, tmin, tmax, active):
+    """(t, tri, u, v, hit): the nearest accepted triangle in (tmin, tmax),
+    re-validated by the exact edge test with a slack of 1e-5; an inactive
+    ray has none."""
+    return _active_only(_closest, lambda o: (torch.finfo(o.dtype).max, -1, 0.0, 0.0, False))(
+        scene, o, d, tmin, tmax, active)
+
+
+def _closest(scene: RefScene, o, d, tmin, tmax, active):
+    tmin, tmax = _limits(scene.box, o, d, tmin, tmax, active)
+    n, s = o.shape[0], scene.tab.shape[1]
+    best_t = torch.full((n,), float("inf"), dtype=o.dtype, device=o.device)
+    best = torch.full((n,), -1, dtype=torch.int64, device=o.device)
+    rc, sc = _blocks(o, s)
+    for r0 in range(0, n, rc):
+        r = slice(r0, min(n, r0 + rc))
+        for s0 in range(0, s, sc):
+            t, acc = _mt(o[r], d[r], tmin[r], scene.tab[:, s0:s0 + sc])
+            t = torch.where(acc & (t < tmax[r, None]), t, float("inf"))
+            tm, j = t.min(dim=1)
+            better = tm < best_t[r]
+            best_t[r] = torch.where(better, tm, best_t[r])
+            best[r] = torch.where(better, j + s0, best[r])
+    found = best >= 0
+    w = scene.tab[:, best.clamp(min=0)]
+    v0, e1, e2 = w[0:3].T, w[3:6].T, w[6:9].T
+    p = cross(d, e2)
+    det = dot(e1, p)
+    ok = det.abs() > 1e-12
+    inv = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)), torch.zeros_like(det))
+    s_ = o - v0
+    u = dot(s_, p) * inv
+    q = cross(s_, e1)
+    v = dot(d, q) * inv
+    t = dot(e2, q) * inv
+    slack = 1e-5
+    hit = found & ok & (u >= -slack) & (v >= -slack) & (u + v <= 1.0 + 2.0 * slack) & (t > 0.0)
+    zero = torch.zeros_like(t)
+    return (torch.where(hit, t, torch.full_like(t, torch.finfo(t.dtype).max)), torch.where(hit, best, -1),
+            torch.where(hit, u, zero), torch.where(hit, v, zero), hit)
+
+
+def occluded(scene: RefScene, o, d, tmin, tmax, active):
+    """Whether any triangle is accepted in (tmin, tmax); an inactive ray is
+    not occluded."""
+    return _active_only(_occluded, lambda o: (False,))(scene, o, d, tmin, tmax, active)
+
+
+def _occluded(scene: RefScene, o, d, tmin, tmax, active):
+    tmin, tmax = _limits(scene.box, o, d, tmin, tmax, active)
+    n, s = o.shape[0], scene.tab.shape[1]
+    occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    rc, sc = _blocks(o, s)
+    for r0 in range(0, n, rc):
+        r = slice(r0, min(n, r0 + rc))
+        for s0 in range(0, s, sc):
+            t, acc = _mt(o[r], d[r], tmin[r], scene.tab[:, s0:s0 + sc])
+            occ[r] |= (acc & (t < tmax[r, None])).any(dim=1)
+    return occ
+
+
+# --------------------------------------------------------------------------
+# camera, sky, lights, shading
+
+@dataclass
+class View:
+    """The frame's camera, lights, sky and render request, on the device."""
+
+    origin: torch.Tensor
+    forward: torch.Tensor
+    right: torch.Tensor
+    up: torch.Tensor
+    tan_half_fov: torch.Tensor
+    width: int
+    height: int
+    light_tris: torch.Tensor   # (L, 3, 3)
+    light_radiance: torch.Tensor  # (L, 3)
+    sky: torch.Tensor          # (H, W, 3) lat-long texels
+    bounces: int
+    shadow_path_count: int
+    t_epsilon: float
+
+
+def make_view(camera: dict, lights: dict, sky: dict, request: dict, device,
+              dtype=torch.float32) -> View:
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    eye, target, up = f32(camera["eye"]), f32(camera["target"]), f32(camera["up"])
+    forward = normalize(target - eye)
+    right = normalize(cross(forward, up))
+    true_up = cross(right, forward)
+    tan_half = torch.tan(f32(camera["fov_degrees"]) * (math.pi / 180.0) * 0.5)
+    texels = np.broadcast_to(np.asarray(sky["color"], np.float32),
+                             (sky["height"], sky["width"], 3)).copy()
+    c = lambda x: x.to(dtype)
+    return View(c(eye), c(forward), c(right), c(true_up), c(tan_half),
+                request["width"], request["height"],
+                c(f32(lights["triangles"])), c(f32(lights["radiance"])), c(f32(texels)),
+                request["bounces"], request["shadow_path_count"], request["t_epsilon"])
+
+
+def camera_rays(view: View, pix, sample: int):
+    dt = view.origin.dtype
+    xi1, xi2 = draws(tea(pix, int(sample)), 2, dt)
+    rows, cols = pix // view.width, pix % view.width
+    px = (cols.to(dt) + xi1) / view.width * 2.0 - 1.0
+    py = 1.0 - (rows.to(dt) + xi2) / view.height * 2.0
+    aspect = view.width / view.height
+    d = (view.forward[None, :] + px[:, None] * (view.tan_half_fov * aspect) * view.right[None, :]
+         + py[:, None] * view.tan_half_fov * view.up[None, :])
+    d = normalize(d)
+    return view.origin.expand_as(d), d
+
+
+def sky_radiance(view: View, d):
+    """Bilinear lookup of the lat-long sky at u = phi / 2pi, v = theta / pi."""
+    phi, theta = spherical(d)
+    phi = torch.where(phi > 2.0 * math.pi, phi - 2.0 * math.pi, phi)
+    h, w = view.sky.shape[0], view.sky.shape[1]
+    x = phi / (2.0 * math.pi) * w - 0.5
+    y = theta / math.pi * h - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0)[:, None], (y - y0)[:, None]
+    x0i = torch.remainder(x0.to(torch.int64), w)
+    x1i = torch.remainder(x0i + 1, w)
+    y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
+    y1i = torch.clamp(y0i + 1, 0, h - 1)
+    img = view.sky
+    return (img[y0i, x0i] * (1 - fx) * (1 - fy) + img[y0i, x1i] * fx * (1 - fy)
+            + img[y1i, x0i] * (1 - fx) * fy + img[y1i, x1i] * fx * fy)
+
+
+@dataclass
+class Shaded:
+    """One shading pass's results for each path."""
+
+    point: torch.Tensor
+    next_dir: torch.Tensor
+    next_throughput: torch.Tensor
+    next_live: torch.Tensor
+    shadow_dir: torch.Tensor
+    shadow_dist: torch.Tensor
+    shadow_contrib: torch.Tensor
+    shadow_live: torch.Tensor
+
+
+def shade(view: View, pix, sample: int, bounce: int, d, throughput, hit, point, nrm,
+          albedo) -> Shaded:
+    """The hit's shading: the diffuse bounce and one NEE shadow ray chosen
+    among `shadow_path_count` light candidates by weighted reservoir
+    sampling (its contribution carries W / w_j)."""
+    dt = d.dtype
+    n = pix.shape[0]
+    inside = dot(nrm, -d) < 0.0
+    nrm = torch.where(inside[:, None], -nrm, nrm)
+    bounce_salt = tea_int(int(sample), int(bounce))
+    xi1, xi2 = draws(tea(pix, bounce_salt), 2, dt)
+    r = torch.sqrt(torch.clamp(1.0 - xi1 * xi1, min=0.0))
+    phi = 2.0 * math.pi * xi2
+    wi_local = torch.stack([r * torch.cos(phi), r * torch.sin(phi), xi1], dim=-1)
+    tg, bt = frame_of(nrm)
+    wi = normalize(wi_local[:, 0:1] * tg + wi_local[:, 1:2] * bt + wi_local[:, 2:3] * nrm)
+    cos_theta = wi_local[:, 2].abs()
+    next_tp = throughput * (2.0 * cos_theta)[:, None] * albedo
+
+    s = view.shadow_path_count
+    seeds = tea(pix.repeat_interleave(s) * s
+                + torch.arange(s, dtype=torch.int64, device=pix.device).repeat(n), bounce_salt)
+    sx1, sx2, sx3 = draws(seeds, 3, dt)
+    count = view.light_tris.shape[0]
+    li = torch.clamp(torch.floor(sx1 * count).long(), max=count - 1)
+    p0, p1, p2 = (view.light_tris[li, k] for k in range(3))
+    su = torch.sqrt(sx2)
+    b0, b1 = 1.0 - su, sx3 * su
+    lpoint = p0 + b0[:, None] * (p1 - p0) + b1[:, None] * (p2 - p0)
+    cr = cross(p1 - p0, p2 - p0)
+    area = 0.5 * norm(cr)
+    lnormal = cr / torch.clamp(2.0 * area[:, None], min=EPS)
+    area_pdf = 1.0 / torch.clamp(area, min=EPS) / count
+    rep = lambda a: a.repeat_interleave(s, dim=0)
+    to_light = lpoint - rep(point)
+    dist = norm(to_light)
+    wl = to_light / torch.clamp(dist[:, None], min=1e-12)
+    contrib = (view.light_radiance[li] * rep(throughput) * rep(albedo)
+               * torch.clamp(dot(lnormal, -wl), min=0.0)[:, None]
+               * torch.clamp(dot(wl, rep(nrm)), min=0.0)[:, None]
+               / area_pdf[:, None] / torch.clamp(dist * dist, min=1e-12)[:, None] / math.pi)
+    c_sum = contrib[:, 0] + contrib[:, 1] + contrib[:, 2]
+    valid = rep(hit) & (c_sum > 0.0)
+    w_all = torch.where(valid, c_sum, torch.zeros_like(c_sum)).reshape(n, s)
+    cums = [w_all[:, 0]]
+    for j in range(1, s):
+        cums.append(cums[-1] + w_all[:, j])
+    cum = torch.stack(cums, dim=1)
+    w_tot = cum[:, -1]
+    (u_draw,) = draws(tea(pix, tea_int(bounce_salt, RIS_SALT)), 1, dt)
+    pick = (cum > (u_draw * w_tot)[:, None]).to(torch.int32).argmax(dim=1)
+    row = torch.arange(n, device=pix.device) * s + pick
+    w_sel = w_all.reshape(n * s)[row]
+    live1 = (w_tot > 0.0) & hit
+    scale = torch.where(live1, w_tot / torch.clamp(w_sel, min=1e-30), torch.zeros_like(w_tot))
+    return Shaded(point=point, next_dir=wi, next_throughput=torch.where(hit[:, None], next_tp, 0.0),
+                  next_live=hit, shadow_dir=wl[row], shadow_dist=dist[row],
+                  shadow_contrib=torch.where(live1[:, None], contrib[row] * scale[:, None], 0.0),
+                  shadow_live=live1)
+
+
+def surface(scene: RefScene, o, d, t, tri, u, v, hit):
+    """(point, interpolated unit normal, albedo) at each hit."""
+    safe = tri.clamp(min=0)
+    n0 = scene.normal[safe]
+    uu, vv = u[:, None], v[:, None]
+    ww = 1.0 - uu - vv
+    nrm = normalize(ww * n0 + uu * n0 + vv * n0)
+    point = o + torch.where(hit, t, torch.zeros_like(t))[:, None] * d
+    return point, nrm, scene.albedo[safe]
+
+
+def render_pixels(view: View, scene: RefScene, pix, sample: int, trace_log=None):
+    """(P, 3) value of each pixel in `pix` for one sample: the direct light
+    of every bounce's shadow ray that reaches the light, plus the sky of
+    the paths that leave the scene. `trace_log`, a list, receives each
+    bounce's closest-hit and shadow rays with their results."""
+    dt = view.origin.dtype
+    n = pix.shape[0]
+    o, d = camera_rays(view, pix, sample)
+    o = o.contiguous()
+    tp = torch.ones((n, 3), dtype=dt, device=pix.device)
+    live = torch.ones((n,), dtype=torch.bool, device=pix.device)
+    tmax = torch.full((n,), torch.finfo(dt).max, dtype=dt, device=pix.device)
+    eps = torch.full((n,), view.t_epsilon, dtype=dt, device=pix.device)
+    direct = torch.zeros((n, 3), dtype=dt, device=pix.device)
+    env = torch.zeros((n, 3), dtype=dt, device=pix.device)
+    for bounce in range(view.bounces):
+        t, tri, u, v, hit = closest(scene, o, d, eps, tmax, live)
+        miss = live & ~hit
+        env = env + torch.where(miss[:, None], tp * sky_radiance(view, d), 0.0)
+        hit = live & hit
+        point, nrm, albedo = surface(scene, o, d, t, tri, u, v, hit)
+        sh = shade(view, pix, sample, bounce, d, tp, hit, point, nrm, albedo)
+        occ = occluded(scene, sh.point, sh.shadow_dir, eps, sh.shadow_dist * (1.0 - 1e-3),
+                       sh.shadow_live)
+        if trace_log is not None:
+            trace_log.append(dict(bounce=bounce, closest=(o, d, eps, tmax, live), t=t, tri=tri,
+                                  hit=hit,
+                                  shadow=(sh.point, sh.shadow_dir, eps,
+                                          sh.shadow_dist * (1.0 - 1e-3), sh.shadow_live),
+                                  occluded=occ))
+        ok = sh.shadow_live & ~occ
+        direct = direct + torch.where(ok[:, None], sh.shadow_contrib / view.shadow_path_count, 0.0)
+        o, d, tp, live = sh.point, sh.next_dir, sh.next_throughput, sh.next_live
+    return (direct + env).to(torch.float32)
