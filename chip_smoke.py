@@ -1937,8 +1937,7 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
           f"{counts_i} (no frame_sample: the frame gate sends instanced scenes to the composed "
           f"path); {inst_ms:.1f} ms (median of {inst_reps}); image mean "
           f"{float(img.mean()):.5f}", flush=True)
-    prof_i = pt.utils.profile.render_device_profile(render, pt.utils.profile.STAGES, top=256,
-                                                    reps=3)
+    prof_i = pt.utils.profile.render_device_profile(render, top=256, reps=3)
     trace_ms = {name: kernel_device_ms(prof_i, KERNEL_FUNCTIONS[name]) for name in (closest,
                                                                                    anyhit)}
     print(f"phase7 instanced frame profile: idle share {prof_i['idle_share_unprofiled']:.3f} "
@@ -2881,7 +2880,7 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
     # phase 13 runs these frames again, one partition a rank
     rank_cases = {"exact": (part, None, cfg, img, st, counts, ms)}
     prof = pt.utils.profile.render_device_profile(
-        lambda s: frame(part, None, cfg, s), dist.distributed.STAGES, reps=3)
+        lambda s: frame(part, None, cfg, s), reps=3)
     print(f"phase9 9a profile: idle share {prof['idle_share_unprofiled']:.3f} (profiled "
           f"{prof['idle_share_profiled']:.3f}), busy {prof['busy_ms']:.1f} ms of "
           f"{prof['unprofiled_wall_ms']:.1f}, stages "
@@ -3061,7 +3060,7 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
                                 "wrapper_ms": kb_ms, "bound_ms": kb_bound, "bound_by": kb_by}
         if not m.multi_geo:
             prof = pt.utils.profile.render_device_profile(
-                lambda s: frame(part, m, cfg_n, s), dist.distributed.STAGES, reps=3)
+                lambda s: frame(part, m, cfg_n, s), reps=3)
             print(f"phase9 9c profile ({label}): idle share {prof['idle_share_unprofiled']:.3f} "
                   f"(profiled {prof['idle_share_profiled']:.3f}), stages "
                   + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}),
@@ -3594,7 +3593,7 @@ def training_phase(pt, torch, np, dev, counted, side=64, rays=TRAIN_RAYS,
     # where a step's time goes: one profiled fit of the probe's steps, its
     # device events and their busy time against the wall
     split = pt.utils.profile.render_device_profile(
-        lambda _s: train.fit(xv0, yv0, cfg_m, probe, device=dev), stages=(), top=3, reps=1)
+        lambda _s: train.fit(xv0, yv0, cfg_m, probe, device=dev), top=3, reps=1)
     busy_step = split["busy_ms"] / probe_steps
     wall_step = split["unprofiled_wall_ms"] / probe_steps
     print(f"phase10 10b step split (one profiled fit of {probe_steps} steps): "
@@ -4084,10 +4083,8 @@ def curve_phase(pt, torch, np, dev, counted, side=256, grid=32, cpu_rays=None,
     render(scene, cfg, 7)
     torch.cuda.synchronize()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    prof = pt.utils.profile.render_device_profile(lambda s: render(scene, cfg, s),
-                                                  stages=(pt.ops.curve_intersect.CURVE_RANGE,),
-                                                  reps=1)
-    curve_dev = prof["stages_ms"][pt.ops.curve_intersect.CURVE_RANGE]
+    prof = pt.utils.profile.render_device_profile(lambda s: render(scene, cfg, s), reps=1)
+    curve_dev = prof["stages_ms"].get(pt.ops.curve_intersect.CURVE_RANGE, 0.0)
     share = curve_dev / prof["busy_ms"]
     pairs = sum(tally.values())
     m = curves.num_pieces

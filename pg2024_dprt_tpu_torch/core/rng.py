@@ -11,12 +11,15 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timing import to_device
+
 _MASK = 0xFFFFFFFF
 
 
 def as_u32(x, device=None) -> torch.Tensor:
-    """Python int or integer tensor -> int64 tensor of its uint32 value."""
-    return torch.as_tensor(x, dtype=torch.int64, device=device) & _MASK
+    """Python int or integer tensor -> int64 tensor of its uint32 value (a
+    Python int copied to a CUDA device is a host sync, utils/timing.py)."""
+    return to_device(x, torch.int64, device) & _MASK
 
 
 def tea(val0, val1, rounds: int = 4) -> torch.Tensor:

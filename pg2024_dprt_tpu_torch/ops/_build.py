@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import time
 
+from ..utils.timing import span
+
 _PKG = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -97,8 +99,9 @@ def load(name: str) -> ctypes.CDLL:
     sources."""
     lib = _LIBS.get(name)
     if lib is None:
-        if _stale(name):
-            build([name])
-        lib = ctypes.CDLL(_so_path(name))
+        with span("kernels.load"):
+            if _stale(name):
+                build([name])
+            lib = ctypes.CDLL(_so_path(name))
         _LIBS[name] = lib
     return lib

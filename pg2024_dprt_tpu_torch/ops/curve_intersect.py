@@ -22,9 +22,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..scene.curves import CurveSet
+from ..utils.timing import span
 
 F32_MAX = 3.402823466e38
 # most (ray, piece) pairs one chunk of the dense test holds, by device type;
@@ -32,7 +32,7 @@ F32_MAX = 3.402823466e38
 # MiB on CUDA, where larger chunks mean fewer launches, and 4 MiB on the CPU,
 # where chunks that stay in cache run several times faster
 PAIR_BUDGET = {"cuda": 2 ** 24, "cpu": 2 ** 20}
-# the profiler range around every call of the dense test: a profiled frame
+# the span around every call of the dense test: a profiled frame
 # reads the test's share of the device time from it (chip_smoke.py phase 12)
 CURVE_RANGE = "curve_test"
 
@@ -136,7 +136,7 @@ def intersect_curves(curves: CurveSet, origin, direction, t_min, t_max, active,
     with_normal=False skips the surface-normal derivation and returns zeros
     in `normal`: the trace_api merge uses it (HitRecord carries no normal;
     shading re-derives it from the winning piece, render/shade.py)."""
-    with record_function(CURVE_RANGE):
+    with span(CURVE_RANGE):
         return _intersect(curves, origin, direction, t_min, t_max, active, with_normal,
                           pair_budget)
 
@@ -194,7 +194,7 @@ def _intersect(curves, origin, direction, t_min, t_max, active, with_normal, pai
 def occlude_curves(curves: CurveSet, origin, direction, t_min, t_max, active,
                    pair_budget: int = None):
     """Any-hit against the curve table: (N,) bool occluded."""
-    with record_function(CURVE_RANGE):
+    with span(CURVE_RANGE):
         n = origin.shape[0]
         occ = torch.zeros((n,), dtype=torch.bool, device=origin.device)
         if curves.num_pieces == 0:

@@ -33,6 +33,7 @@ from ..core import math as cmath
 from ..core.rng import rnd, rnd2, rnd3, tea, tea_int
 from ..render.pathgen import tiled_pixel_order
 from ..render.shade import RIS_SALT, RR_FLOOR, RR_SALT, bsdf_sample, surface_attributes
+from ..utils.timing import launch_span, to_device
 from . import _build
 from .resident import (
     F32_MAX, LAUNCHES, _check, _checked, _ptr, _stream, group_args,
@@ -113,49 +114,50 @@ def render_frame_fused(scene, lights, env, camera, base_sample: int, cfg,
                                         cfg, spp)
     if dev.type != "cuda":
         raise ValueError(f"camera on {dev}: the kernel takes CUDA tensors")
-    npix = cfg.frame_buffer_size
-    grouped = use_grouped(scene, grouped)
-    tab, k, c = scene_tables(scene, dev, grouped)
-    f32, i32 = torch.float32, torch.int32
-    t_n = scene.tri_shade.shape[0]
-    l_n = lights.count
-    eh, ew = env.image.shape[0], env.image.shape[1]
-    cam = [_checked(f"camera.{name}", getattr(camera, name), f32, shape, dev)
-           for name, shape in (("origin", (3,)), ("forward", (3,)), ("right", (3,)),
-                               ("up", (3,)), ("tan_half_fov", ()))]
-    tri_shade = _checked("tri_shade", scene.tri_shade, f32, (t_n, 24), dev)
-    lts = [_checked(f"lights.{name}", getattr(lights, name), f32, (l_n, 3), dev)
-           for name in ("p0", "p1", "p2", "radiance")]
-    env_img = _checked("env.image", env.image, f32, (eh, ew, 3), dev)
-    if scene.textured:
-        tex = scene.albedo_textures
-        n_tex = tex.count
-        texs = [_checked("texels", tex.texels, f32, (tex.texels.shape[0], 4), dev)] + [
-            _checked(f"textures.{name}", getattr(tex, name), i32, (n_tex,), dev)
-            for name in ("offset", "height", "width")]
-    else:
-        n_tex, texs = 0, [None] * 4
-    pix_ids = _pixel_ids(cfg.width, cfg.height, str(dev))
-    salts = salt_table(base_sample, spp, cfg.bounces)
-    # uint32 values as the int32 bit patterns the kernel reads
-    salts = torch.where(salts >= 2**31, salts - 2**32, salts).to(i32).to(dev)
-    direct = torch.empty((npix, 3), dtype=f32, device=dev)
-    env_out = torch.empty((npix, 3), dtype=f32, device=dev)
-    s = cfg.shadow_path_count
-    ptr = lambda x: None if x is None else _ptr(x)
-    rc = _lib().frame_sample(
-        _ptr(pix_ids), npix, cfg.width, cfg.height, *map(_ptr, cam),
-        cfg.width / cfg.height,
-        _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]), _ptr(tab["cl_tri_map"]),
-        _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c,
-        *(group_args(tab) if grouped else (None, None, 0)), _ptr(tri_shade),
-        *map(_ptr, lts), l_n, _ptr(env_img), eh, ew, env.rotation_offset,
-        *map(ptr, texs), n_tex, _ptr(salts), spp, cfg.bounces, s,
-        int(cfg.nee_mode == "ris"), int(cfg.russian_roulette), cfg.t_epsilon,
-        _ptr(direct), _ptr(env_out), _stream(camera.origin))
-    _check(rc, "frame_sample")
-    if npix:
-        LAUNCHES["frame_sample"] += 1
+    with launch_span("frame_sample", cfg.frame_buffer_size):
+        npix = cfg.frame_buffer_size
+        grouped = use_grouped(scene, grouped)
+        tab, k, c = scene_tables(scene, dev, grouped)
+        f32, i32 = torch.float32, torch.int32
+        t_n = scene.tri_shade.shape[0]
+        l_n = lights.count
+        eh, ew = env.image.shape[0], env.image.shape[1]
+        cam = [_checked(f"camera.{name}", getattr(camera, name), f32, shape, dev)
+               for name, shape in (("origin", (3,)), ("forward", (3,)), ("right", (3,)),
+                                   ("up", (3,)), ("tan_half_fov", ()))]
+        tri_shade = _checked("tri_shade", scene.tri_shade, f32, (t_n, 24), dev)
+        lts = [_checked(f"lights.{name}", getattr(lights, name), f32, (l_n, 3), dev)
+               for name in ("p0", "p1", "p2", "radiance")]
+        env_img = _checked("env.image", env.image, f32, (eh, ew, 3), dev)
+        if scene.textured:
+            tex = scene.albedo_textures
+            n_tex = tex.count
+            texs = [_checked("texels", tex.texels, f32, (tex.texels.shape[0], 4), dev)] + [
+                _checked(f"textures.{name}", getattr(tex, name), i32, (n_tex,), dev)
+                for name in ("offset", "height", "width")]
+        else:
+            n_tex, texs = 0, [None] * 4
+        pix_ids = _pixel_ids(cfg.width, cfg.height, str(dev))
+        salts = salt_table(base_sample, spp, cfg.bounces)
+        # uint32 values as the int32 bit patterns the kernel reads
+        salts = to_device(torch.where(salts >= 2**31, salts - 2**32, salts).to(i32), device=dev)
+        direct = torch.empty((npix, 3), dtype=f32, device=dev)
+        env_out = torch.empty((npix, 3), dtype=f32, device=dev)
+        s = cfg.shadow_path_count
+        ptr = lambda x: None if x is None else _ptr(x)
+        rc = _lib().frame_sample(
+            _ptr(pix_ids), npix, cfg.width, cfg.height, *map(_ptr, cam),
+            cfg.width / cfg.height,
+            _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]), _ptr(tab["cl_tri_map"]),
+            _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c,
+            *(group_args(tab) if grouped else (None, None, 0)), _ptr(tri_shade),
+            *map(_ptr, lts), l_n, _ptr(env_img), eh, ew, env.rotation_offset,
+            *map(ptr, texs), n_tex, _ptr(salts), spp, cfg.bounces, s,
+            int(cfg.nee_mode == "ris"), int(cfg.russian_roulette), cfg.t_epsilon,
+            _ptr(direct), _ptr(env_out), _stream(camera.origin))
+        _check(rc, "frame_sample")
+        if npix:
+            LAUNCHES["frame_sample"] += 1
     return direct, env_out, 0
 
 

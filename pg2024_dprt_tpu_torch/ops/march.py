@@ -31,6 +31,7 @@ import torch
 
 from ..core import math as cmath
 from ..core.types import NNQuery
+from ..utils.timing import launch_span
 from . import _build
 from .resident import F32_MAX, LAUNCHES, _check, _checked, _ptr, _stream, stamped
 
@@ -72,18 +73,19 @@ def proxy_march(proxies, origin, direction, t_cap, active, my_node: int,
         raise ValueError(f"max_hits {max_hits} < 0")
     if 5 * n * max_hits >= 2**31:
         raise ValueError("query feature count exceeds int32")
-    f32 = torch.float32
-    rays = [_checked(name, x, dt, shape, dev) for name, x, dt, shape in (
-        ("origin", origin, f32, (n, 3)), ("direction", direction, f32, (n, 3)),
-        ("t_cap", t_cap, f32, (n,)), ("active", active, torch.bool, (n,)))]
-    table = ProxyTableArgs.of(proxies, dev)
-    out = query_columns(n * max_hits, dev)
-    rc = _lib().proxy_march(
-        *map(_ptr, rays), n, *table.pointers, table.p, int(my_node), int(max_hits),
-        float(eps), *(_ptr(out[name]) for name in _KERNEL_COLUMNS), _stream(origin))
-    _check(rc, "proxy_march")
-    if n and max_hits:
-        LAUNCHES["proxy_march"] += 1
+    with launch_span("proxy_march", n * max_hits):
+        f32 = torch.float32
+        rays = [_checked(name, x, dt, shape, dev) for name, x, dt, shape in (
+            ("origin", origin, f32, (n, 3)), ("direction", direction, f32, (n, 3)),
+            ("t_cap", t_cap, f32, (n,)), ("active", active, torch.bool, (n,)))]
+        table = ProxyTableArgs.of(proxies, dev)
+        out = query_columns(n * max_hits, dev)
+        rc = _lib().proxy_march(
+            *map(_ptr, rays), n, *table.pointers, table.p, int(my_node), int(max_hits),
+            float(eps), *(_ptr(out[name]) for name in _KERNEL_COLUMNS), _stream(origin))
+        _check(rc, "proxy_march")
+        if n and max_hits:
+            LAUNCHES["proxy_march"] += 1
     zeros = out.pop("zeros")
     return NNQuery(pixel_index=zeros, shadow_path_id=zeros, **out)
 

@@ -42,6 +42,7 @@ import torch
 
 from ..models.mlp import MLPConfig, bias_name, param_shapes, same_architecture
 from ..models.proxy import apply_grouped_reference
+from ..utils.timing import launch_span
 from . import _build
 from .resident import LAUNCHES, _check, _checked, _ptr, _stream
 
@@ -227,21 +228,22 @@ def grouped_mlp_pair(models, features, obj_id, valid):
     tensors."""
     if features.device.type == "cpu":
         return grouped_mlp_pair_plain(models, features, obj_id, valid)
-    x, obj, val, packed, arch = _kernel_args(models, features, obj_id, valid)
-    num_objects = models.num_objects
-    q, dev = x.shape[0], x.device
-    in_range = val & (obj >= 0) & (obj < num_objects)
-    key = torch.where(in_range, obj.to(torch.int64), num_objects)
-    sorted_key, perm = torch.sort(key, stable=True)
-    seg = torch.searchsorted(
-        sorted_key, torch.arange(num_objects + 1, dtype=torch.int64, device=dev))
-    xs = x[perm]
-    out_sorted = torch.zeros((q, 2), dtype=torch.float32, device=dev)
-    rc = _lib().mlp_pair(_ptr(xs), _ptr(seg), q, num_objects, *map(_ptr, packed),
-                         *arch, chunk_rows(models.vis_cfg), _ptr(out_sorted), _stream(x))
-    _check(rc, "mlp_pair")
-    if q:
-        LAUNCHES["mlp_pair"] += 1
+    with launch_span("mlp_pair", features.shape[0]):
+        x, obj, val, packed, arch = _kernel_args(models, features, obj_id, valid)
+        num_objects = models.num_objects
+        q, dev = x.shape[0], x.device
+        in_range = val & (obj >= 0) & (obj < num_objects)
+        key = torch.where(in_range, obj.to(torch.int64), num_objects)
+        sorted_key, perm = torch.sort(key, stable=True)
+        seg = torch.searchsorted(
+            sorted_key, torch.arange(num_objects + 1, dtype=torch.int64, device=dev))
+        xs = x[perm]
+        out_sorted = torch.zeros((q, 2), dtype=torch.float32, device=dev)
+        rc = _lib().mlp_pair(_ptr(xs), _ptr(seg), q, num_objects, *map(_ptr, packed),
+                             *arch, chunk_rows(models.vis_cfg), _ptr(out_sorted), _stream(x))
+        _check(rc, "mlp_pair")
+        if q:
+            LAUNCHES["mlp_pair"] += 1
     out = torch.empty_like(out_sorted)
     out[perm] = out_sorted
     return out[:, 0], out[:, 1]
@@ -252,15 +254,16 @@ def grouped_mlp_dense(models, features, obj_id, valid):
     order: K6 for CUDA tensors, the plain version for CPU tensors."""
     if features.device.type == "cpu":
         return grouped_mlp_dense_plain(models, features, obj_id, valid)
-    x, obj, val, packed, arch = _kernel_args(models, features, obj_id, valid)
-    q = x.shape[0]
-    out = torch.empty((q, 2), dtype=torch.float32, device=x.device)
-    rc = _lib().mlp_dense(_ptr(x), _ptr(obj), _ptr(val), q, models.num_objects,
-                          dense_parts(q, models.num_objects, x.device), *map(_ptr, packed),
-                          *arch, chunk_rows(models.vis_cfg), _ptr(out), _stream(x))
-    _check(rc, "mlp_dense")
-    if q:
-        LAUNCHES["mlp_dense"] += 1
+    with launch_span("mlp_dense", features.shape[0]):
+        x, obj, val, packed, arch = _kernel_args(models, features, obj_id, valid)
+        q = x.shape[0]
+        out = torch.empty((q, 2), dtype=torch.float32, device=x.device)
+        rc = _lib().mlp_dense(_ptr(x), _ptr(obj), _ptr(val), q, models.num_objects,
+                              dense_parts(q, models.num_objects, x.device), *map(_ptr, packed),
+                              *arch, chunk_rows(models.vis_cfg), _ptr(out), _stream(x))
+        _check(rc, "mlp_dense")
+        if q:
+            LAUNCHES["mlp_dense"] += 1
     return out[:, 0], out[:, 1]
 
 

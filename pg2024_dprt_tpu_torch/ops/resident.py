@@ -29,7 +29,9 @@ tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 `LAUNCHES` counts the kernel launches of each wrapper (those of
 ops/frame.py, ops/march.py, ops/mlp.py, ops/route.py and ops/tracer.py as
 well; the route kernel counts each of its two entry points, and its
-multi-geo launches once more under route_multigeo).
+multi-geo launches once more under route_multigeo). Each counted launch
+runs under a span of its key (utils/timing.py `launch_span`) around the
+wrapper's host work; route_multigeo has no span of its own.
 
 The closest-hit winner is the lexicographic minimum of (t, slot) with slot =
 cluster * C + lane, so kernel and plain version agree whatever order the
@@ -46,6 +48,7 @@ import weakref
 import torch
 
 from ..core.types import HitRecord
+from ..utils.timing import launch_span, to_device
 from . import _build
 
 F32_MAX = 3.402823466e38
@@ -169,8 +172,8 @@ def trace_resident(scene, origin, direction, t_min, t_max, active,
     `grouped` picks the flat (K1/K2) or the grouped (K9/K10) kernels by
     `trace_grouped`. The result is the same per ray either way."""
     n = origin.shape[0]
-    t_min = torch.as_tensor(t_min, dtype=torch.float32, device=origin.device).expand(n)
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=origin.device).expand(n)
+    t_min = to_device(t_min, torch.float32, origin.device).expand(n)
+    t_max = to_device(t_max, torch.float32, origin.device).expand(n)
     rays = (origin, direction, t_min, t_max, active)
     perm = schedule_order(scene, *rays) if sort_rays else None
     if perm is not None:
@@ -220,38 +223,40 @@ def grouped_anyhit(scene, o, d, tmin, tmax, active) -> torch.Tensor:
 
 
 def _closest(name, scene, o, d, tmin, tmax, active) -> HitRecord:
-    grouped = name == "grouped_closest"
-    rays, tab, n, k, c = _kernel_inputs(scene, o, d, tmin, tmax, active, grouped)
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    tri = torch.empty(n, dtype=torch.int32, device=o.device)
-    hit = torch.empty(n, dtype=torch.bool, device=o.device)
-    xf, kb, tb = instancing_args(scene, tab)
-    rc = getattr(_lib(), name)(
-        *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
-        _ptr(tab["cl_tri_map"]), _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]),
-        k, c, xf, kb, tb, *(group_args(tab) if grouped else (flat_lanes(k, n),)),
-        _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit), _stream(o))
-    _check(rc, name)
-    if n:
-        LAUNCHES[name] += 1
+    with launch_span(name, o.shape[0]):
+        grouped = name == "grouped_closest"
+        rays, tab, n, k, c = _kernel_inputs(scene, o, d, tmin, tmax, active, grouped)
+        t = torch.empty(n, dtype=torch.float32, device=o.device)
+        u = torch.empty_like(t)
+        v = torch.empty_like(t)
+        tri = torch.empty(n, dtype=torch.int32, device=o.device)
+        hit = torch.empty(n, dtype=torch.bool, device=o.device)
+        xf, kb, tb = instancing_args(scene, tab)
+        rc = getattr(_lib(), name)(
+            *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
+            _ptr(tab["cl_tri_map"]), _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]),
+            k, c, xf, kb, tb, *(group_args(tab) if grouped else (flat_lanes(k, n),)),
+            _ptr(t), _ptr(u), _ptr(v), _ptr(tri), _ptr(hit), _stream(o))
+        _check(rc, name)
+        if n:
+            LAUNCHES[name] += 1
     return HitRecord(t=t, tri_index=tri, u=u, v=v, is_hit=hit)
 
 
 def _anyhit(name, scene, o, d, tmin, tmax, active) -> torch.Tensor:
-    grouped = name == "grouped_anyhit"
-    rays, tab, n, k, c = _kernel_inputs(scene, o, d, tmin, tmax, active, grouped)
-    occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    xf, kb, _ = instancing_args(scene, tab)
-    rc = getattr(_lib(), name)(
-        *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
-        _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c, xf, kb,
-        *(group_args(tab) if grouped else (flat_lanes(k, n, True),)), _ptr(occ),
-        _stream(o))
-    _check(rc, name)
-    if n:
-        LAUNCHES[name] += 1
+    with launch_span(name, o.shape[0]):
+        grouped = name == "grouped_anyhit"
+        rays, tab, n, k, c = _kernel_inputs(scene, o, d, tmin, tmax, active, grouped)
+        occ = torch.empty(n, dtype=torch.bool, device=o.device)
+        xf, kb, _ = instancing_args(scene, tab)
+        rc = getattr(_lib(), name)(
+            *map(_ptr, rays), n, _ptr(tab["cl_boxes"]), _ptr(tab["cl_mt_table"]),
+            _ptr(tab["cl_count"]), _ptr(tab["scene_aabb"]), k, c, xf, kb,
+            *(group_args(tab) if grouped else (flat_lanes(k, n, True),)), _ptr(occ),
+            _stream(o))
+        _check(rc, name)
+        if n:
+            LAUNCHES[name] += 1
     return occ
 
 
@@ -266,17 +271,18 @@ def schedule_keys(scene, o, d, tmin, tmax, active) -> torch.Tensor:
                          f"{SCHEDULE_CLUSTER_BITS}-bit cluster indices")
     if o.device.type == "cpu":
         return schedule_keys_plain(scene, o, d, tmin, tmax, active)
-    grouped = use_grouped(scene)
-    rays, tab, n, k, _ = _kernel_inputs(scene, o, d, tmin, tmax, active, grouped)
-    key = torch.empty(n, dtype=torch.int32, device=o.device)
-    xf, kb, _ = instancing_args(scene, tab)
-    rc = _lib().schedule_keys(*map(_ptr, rays), n, _ptr(tab["cl_boxes"]),
-                              _ptr(tab["scene_aabb"]), k, xf, kb,
-                              *(group_args(tab) if grouped else (None, None, 0)),
-                              _ptr(key), _stream(o))
-    _check(rc, "schedule_keys")
-    if n:
-        LAUNCHES["schedule_keys"] += 1
+    with launch_span("schedule_keys", o.shape[0]):
+        grouped = use_grouped(scene)
+        rays, tab, n, k, _ = _kernel_inputs(scene, o, d, tmin, tmax, active, grouped)
+        key = torch.empty(n, dtype=torch.int32, device=o.device)
+        xf, kb, _ = instancing_args(scene, tab)
+        rc = _lib().schedule_keys(*map(_ptr, rays), n, _ptr(tab["cl_boxes"]),
+                                  _ptr(tab["scene_aabb"]), k, xf, kb,
+                                  *(group_args(tab) if grouped else (None, None, 0)),
+                                  _ptr(key), _stream(o))
+        _check(rc, "schedule_keys")
+        if n:
+            LAUNCHES["schedule_keys"] += 1
     return key
 
 

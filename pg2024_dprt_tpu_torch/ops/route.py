@@ -40,6 +40,7 @@ import ctypes
 
 import torch
 
+from ..utils.timing import launch_span, to_device
 from . import _build
 from .march import ProxyTableArgs, march_proxies_plain
 from ..models.proxy import apply_multigeo
@@ -153,7 +154,7 @@ def consume_shadow(q, vis, depth, survives, max_hits: int,
 # kernel wrappers
 
 def _expand(x, n, device):
-    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(n).contiguous()
+    return to_device(x, torch.float32, device).expand(n).contiguous()
 
 
 _REFUSAL = ("the fused route takes separate single-output vis/depth nets of one "
@@ -221,19 +222,20 @@ def route_fused(scene, proxies, models, origin, direction, t_min, t_max, active,
     if origin.device.type == "cpu":
         return route_fused_plain(scene, proxies, models, origin, direction, t_min,
                                  t_max, active, my_id, max_hits, eps)
-    args, n, perm, keep = _route_args(scene, proxies, models, origin, direction, t_min,
-                                      t_max, active, my_id, max_hits, eps, sort_rays,
-                                      grouped)
-    dev = origin.device
-    node = torch.empty((n,), dtype=torch.int32, device=dev)
-    new_t = torch.empty((n,), dtype=torch.float32, device=dev)
-    flags = [torch.empty((n,), dtype=torch.bool, device=dev) for _ in range(4)]
-    rc = _lib().route_secondary(*args, _ptr(node), _ptr(new_t), *map(_ptr, flags),
-                                _stream(origin))
-    _check(rc, "route_secondary")
-    if n:
-        LAUNCHES["route_secondary"] += 1
-        LAUNCHES["route_multigeo"] += int(models.multi_geo)
+    with launch_span("route_secondary", origin.shape[0]):
+        args, n, perm, keep = _route_args(scene, proxies, models, origin, direction, t_min,
+                                          t_max, active, my_id, max_hits, eps, sort_rays,
+                                          grouped)
+        dev = origin.device
+        node = torch.empty((n,), dtype=torch.int32, device=dev)
+        new_t = torch.empty((n,), dtype=torch.float32, device=dev)
+        flags = [torch.empty((n,), dtype=torch.bool, device=dev) for _ in range(4)]
+        rc = _lib().route_secondary(*args, _ptr(node), _ptr(new_t), *map(_ptr, flags),
+                                    _stream(origin))
+        _check(rc, "route_secondary")
+        if n:
+            LAUNCHES["route_secondary"] += 1
+            LAUNCHES["route_multigeo"] += int(models.multi_geo)
     return _in_order(dict(settled_node=node, new_t=new_t, has_node=flags[0],
                           env_miss=flags[1], no_route=flags[2], local_hit=flags[3]), perm)
 
@@ -249,19 +251,20 @@ def shadow_route_fused(scene, proxies, models, origin, direction, t_min, t_max,
     if origin.device.type == "cpu":
         return shadow_route_fused_plain(scene, proxies, models, origin, direction,
                                         t_min, t_max, active, my_id, max_hits, eps)
-    args, n, perm, keep = _route_args(scene, proxies, models, origin, direction, t_min,
-                                      t_max, active, my_id, max_hits, eps, sort_rays,
-                                      grouped)
-    dev = origin.device
-    weight = torch.empty((n,), dtype=torch.float32, device=dev)
-    occluded = torch.empty((n,), dtype=torch.bool, device=dev)
-    survives = torch.empty((n,), dtype=torch.bool, device=dev)
-    rc = _lib().route_shadow(*args, _ptr(weight), _ptr(occluded), _ptr(survives),
-                             _stream(origin))
-    _check(rc, "route_shadow")
-    if n:
-        LAUNCHES["route_shadow"] += 1
-        LAUNCHES["route_multigeo"] += int(models.multi_geo)
+    with launch_span("route_shadow", origin.shape[0]):
+        args, n, perm, keep = _route_args(scene, proxies, models, origin, direction, t_min,
+                                          t_max, active, my_id, max_hits, eps, sort_rays,
+                                          grouped)
+        dev = origin.device
+        weight = torch.empty((n,), dtype=torch.float32, device=dev)
+        occluded = torch.empty((n,), dtype=torch.bool, device=dev)
+        survives = torch.empty((n,), dtype=torch.bool, device=dev)
+        rc = _lib().route_shadow(*args, _ptr(weight), _ptr(occluded), _ptr(survives),
+                                 _stream(origin))
+        _check(rc, "route_shadow")
+        if n:
+            LAUNCHES["route_shadow"] += 1
+            LAUNCHES["route_multigeo"] += int(models.multi_geo)
     return _in_order(dict(weight=weight, occluded_local=occluded, survives=survives), perm)
 
 

@@ -41,6 +41,7 @@ import torch
 
 from ..core.math import safe_inv
 from ..core.types import HitRecord
+from ..utils.timing import launch_span
 from . import _build
 from .resident import (F32_MAX, LAUNCHES, _check, _checked, _ptr, _stream, morton_key,
                        unsorted)
@@ -275,42 +276,43 @@ def _launch(name, scene, packed, pairs: PairList, tile_rays: int, counters=None)
     mp = packed.shape[0]
     if mp % tile_rays:
         raise ValueError(f"{mp} packed rays are not whole tiles of {tile_rays}")
-    woop = name == "pair_woop"
-    _check_scene(scene, woop)
-    tiles, k, c = mp // tile_rays, scene.num_clusters, scene.tris_per_cluster
-    if k * c >= 2**31 or mp >= 2**31:
-        raise ValueError("slot or ray count exceeds int32")
-    table = _checked("cl_woop_table" if woop else "cl_tri_table",
-                     scene.cl_woop_table if woop else scene.cl_tri_table,
-                     torch.float32, (k, (16 if woop else 10) * c), dev)
-    b = pairs.budget
-    # held until the launch is enqueued (a contiguous copy would otherwise be
-    # freed before the kernel reads it)
-    ins = [_checked(f, getattr(pairs, f), dt, shape, dev) for f, dt, shape in (
-        ("tile_offset", torch.int32, (tiles,)), ("tile_region", torch.int32, (tiles,)),
-        ("tile_fit", torch.bool, (tiles,)), ("pair_cluster", torch.int32, (b,)),
-        ("pair_flags", torch.int32, (b,)), ("pair_enter", torch.int32, (b,)))]
-    rays = _checked("packed rays", packed, torch.float32, (mp, 8), dev)
-    args = [_ptr(rays), tiles, tile_rays, *map(_ptr, ins), b, _ptr(table)]
-    count = None if counters is None else _ptr(counters)
-    if name == "pair_anyhit":
-        boxes = [_checked(f, getattr(scene, f), torch.float32, (k, 3), dev)
-                 for f in ("cl_aabb_min", "cl_aabb_max")]
-        occ = torch.empty(mp, dtype=torch.bool, device=dev)  # zeroed by the entry
-        rc = _lib().pair_anyhit(*args, c, *map(_ptr, boxes), count, _ptr(occ), _stream(packed))
-        out = occ
-    else:
-        tri_map = _checked("cl_tri_map", scene.cl_tri_map, torch.int32, (k * c,), dev)
-        t = torch.empty(mp, dtype=torch.float32, device=dev)
-        u, v = torch.empty_like(t), torch.empty_like(t)
-        tri = torch.empty(mp, dtype=torch.int32, device=dev)
-        keys = torch.empty(mp, dtype=torch.int64, device=dev)  # the walk's scratch
-        rc = getattr(_lib(), name)(*args, _ptr(tri_map), c, _ptr(keys), count, _ptr(t),
-                                   _ptr(tri), _ptr(u), _ptr(v), _stream(packed))
-        out = (t, tri, u, v)
-    _check(rc, name)
-    if mp:
-        LAUNCHES[name] += 1
+    with launch_span(name, mp):
+        woop = name == "pair_woop"
+        _check_scene(scene, woop)
+        tiles, k, c = mp // tile_rays, scene.num_clusters, scene.tris_per_cluster
+        if k * c >= 2**31 or mp >= 2**31:
+            raise ValueError("slot or ray count exceeds int32")
+        table = _checked("cl_woop_table" if woop else "cl_tri_table",
+                         scene.cl_woop_table if woop else scene.cl_tri_table,
+                         torch.float32, (k, (16 if woop else 10) * c), dev)
+        b = pairs.budget
+        # held until the launch is enqueued (a contiguous copy would otherwise be
+        # freed before the kernel reads it)
+        ins = [_checked(f, getattr(pairs, f), dt, shape, dev) for f, dt, shape in (
+            ("tile_offset", torch.int32, (tiles,)), ("tile_region", torch.int32, (tiles,)),
+            ("tile_fit", torch.bool, (tiles,)), ("pair_cluster", torch.int32, (b,)),
+            ("pair_flags", torch.int32, (b,)), ("pair_enter", torch.int32, (b,)))]
+        rays = _checked("packed rays", packed, torch.float32, (mp, 8), dev)
+        args = [_ptr(rays), tiles, tile_rays, *map(_ptr, ins), b, _ptr(table)]
+        count = None if counters is None else _ptr(counters)
+        if name == "pair_anyhit":
+            boxes = [_checked(f, getattr(scene, f), torch.float32, (k, 3), dev)
+                     for f in ("cl_aabb_min", "cl_aabb_max")]
+            occ = torch.empty(mp, dtype=torch.bool, device=dev)  # zeroed by the entry
+            rc = _lib().pair_anyhit(*args, c, *map(_ptr, boxes), count, _ptr(occ), _stream(packed))
+            out = occ
+        else:
+            tri_map = _checked("cl_tri_map", scene.cl_tri_map, torch.int32, (k * c,), dev)
+            t = torch.empty(mp, dtype=torch.float32, device=dev)
+            u, v = torch.empty_like(t), torch.empty_like(t)
+            tri = torch.empty(mp, dtype=torch.int32, device=dev)
+            keys = torch.empty(mp, dtype=torch.int64, device=dev)  # the walk's scratch
+            rc = getattr(_lib(), name)(*args, _ptr(tri_map), c, _ptr(keys), count, _ptr(t),
+                                       _ptr(tri), _ptr(u), _ptr(v), _stream(packed))
+            out = (t, tri, u, v)
+        _check(rc, name)
+        if mp:
+            LAUNCHES[name] += 1
     return out
 
 

@@ -32,15 +32,32 @@ another on its device, and the collectives are the mesh's. Every trace
 passes `sort_rays` as JAX does (the migration loop and the neural re-trace
 sort from bounce 1 on, the ring always).
 
-Each bounce's stages run under `torch.profiler.record_function` ranges
-(STAGES: "neural_route", "migration", "settle_shade", "shadows"), so one
-profiled frame attributes device time to them (utils/profile.py
-render_device_profile); without a profiler the ranges do nothing.
+A frame runs under the root span "render_image_distributed", whose id is
+its base_sample, and each bounce's stages under the spans "neural_route",
+"migration", "settle_shade" and "shadows" (utils/timing.py; the profiler
+annotations whose device time the benchmark reads). Inside them:
+  * migration: one "migration.round" a round, holding "migration.trace"
+    (every local partition's `_trace_and_route`), "migration.exchange"
+    (`exchange_paths`) and "migration.sync" (the termination test's read);
+  * settle_shade: "settle_shade.retrace" (neural mode, from bounce 1) and
+    "settle_shade.shade", per local partition;
+  * shadows: "shadows.nn" or "shadows.ring";
+and "reduce" around the end-of-sample psums and the stats read. The kernel
+wrappers' spans sit inside these (utils/profile.py credits each device
+operation and idle gap to the innermost span).
+
+Beside JAX's counts the stats count the bytes handed to the mesh's
+`all_to_all` and the bytes of the rows their receivers use
+(`exchange_bytes`, `exchange_useful_bytes`: parallel/exchange.py), the live
+paths routed by `secondary_route` and those it settles on another
+partition (`route_queries`, `route_remote`), all summed over every
+partition by the stats' psum, and the frame's host syncs (`host_syncs`:
+utils/timing.py, every place this process's host waited for the card, the
+stats read included).
 """
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..core.types import HitRecord, PathState
 from ..ops.trace_api import trace_closest_cutout as trace_closest
@@ -50,11 +67,11 @@ from ..render.pathgen import generate_camera_paths
 from ..render.proxy_stages import _segment_sum, secondary_route, shadow_direct_light_nn
 from ..render.shade import shade
 from ..scene.visibility_grid import query_conservative_grids
-from .exchange import exchange_paths, ring_shadow_occlusion
+from ..utils.timing import host_read, host_syncs, span
+from .exchange import exchange_bytes, exchange_paths, ring_bytes, ring_shadow_occlusion
 from .mesh import make_mesh
 
 F32_MAX = 3.402823466e38
-STAGES = ("neural_route", "migration", "settle_shade", "shadows")
 
 
 def _trace_and_route(scene, proxies, env, paths: PathState, my_id: int, eps: float,
@@ -124,6 +141,11 @@ def _trace_and_route(scene, proxies, env, paths: PathState, my_id: int, eps: flo
     return new_paths, env_add, diag, grid_culled
 
 
+def _bucket(paths, cfg: RenderConfig, p: int) -> int:
+    """Rows a partition ships to each destination a round."""
+    return max(1, int(paths[0].capacity * cfg.bucket_fraction) // max(1, p))
+
+
 def _migration_loop(mesh, scenes, proxies, env, paths, cfg: RenderConfig,
                     sort_rays: bool = True):
     """The migration loop over the buffers of the partitions this process
@@ -134,28 +156,32 @@ def _migration_loop(mesh, scenes, proxies, env, paths, cfg: RenderConfig,
     denied by a full bucket or a receiver without room (each retried),
     `moved` the paths shipped over all rounds. The rounds are the same in
     every process: the termination test is a psum."""
-    p = mesh.size
     npix = cfg.frame_buffer_size
-    bucket = max(1, int(paths[0].capacity * cfg.bucket_fraction) // max(1, p))
+    bucket = _bucket(paths, cfg, mesh.size)
     env_img = 0
     diag = culled = overflow = moved = 0
     rounds = 0
     pending = 1
     while pending > 0 and rounds < cfg.max_migrations:
-        step = [_trace_and_route(scenes[i], proxies, env, pi, i, cfg.t_epsilon, npix,
-                                 cfg.tracer, sort_rays, cfg.use_visibility_grids)
-                for i, pi in zip(mesh.local, paths)]
-        paths = [s[0] for s in step]
-        for _, env_add, d, gc in step:
-            env_img = env_img + env_add
-            diag = diag + d
-            culled = culled + gc
-        paths, moved_now, waiting, arrivals = exchange_paths(mesh, paths, bucket_size=bucket)
-        # the loop's one host sync: the termination test
-        pending = int(mesh.psum(waiting + arrivals))
-        overflow = overflow + waiting.sum()
-        moved = moved + moved_now.sum()
-        rounds += 1
+        with span("migration.round"):
+            with span("migration.trace"):
+                step = [_trace_and_route(scenes[i], proxies, env, pi, i, cfg.t_epsilon, npix,
+                                         cfg.tracer, sort_rays, cfg.use_visibility_grids)
+                        for i, pi in zip(mesh.local, paths)]
+            paths = [s[0] for s in step]
+            for _, env_add, d, gc in step:
+                env_img = env_img + env_add
+                diag = diag + d
+                culled = culled + gc
+            with span("migration.exchange"):
+                paths, moved_now, waiting, arrivals = exchange_paths(mesh, paths,
+                                                                     bucket_size=bucket)
+            # the loop's one host read: the termination test
+            with span("migration.sync"):
+                pending = host_read(mesh.psum(waiting + arrivals))
+            overflow = overflow + waiting.sum()
+            moved = moved + moved_now.sum()
+            rounds += 1
     truncated = sum(((b.is_valid & (b.target_node >= 0) & (b.target_node != i)).sum()
                      for i, b in zip(mesh.local, paths)), 0)
     return paths, env_img, diag, truncated, overflow, culled, rounds, moved
@@ -174,10 +200,11 @@ def _settle_and_shade(mesh, scenes, lights, env, paths, sample_count: int, bounc
         if cfg.use_neural_proxies and bounce > 0:
             # the nets decided only where a path settles: the real closest
             # hit is a full trace at the destination
-            hits, d = trace_closest(
-                scenes[i], pi.origin, pi.direction, cfg.t_epsilon,
-                torch.full((pi.capacity,), F32_MAX, device=pi.origin.device), live,
-                tracer=cfg.tracer, sort_rays=True)
+            with span("settle_shade.retrace"):
+                hits, d = trace_closest(
+                    scenes[i], pi.origin, pi.direction, cfg.t_epsilon,
+                    torch.full((pi.capacity,), F32_MAX, device=pi.origin.device), live,
+                    tracer=cfg.tracer, sort_rays=True)
             stats["tracer_diag"] = stats["tracer_diag"] + d
         else:
             # exact mode shades from the carried payload; a truncated path
@@ -185,9 +212,10 @@ def _settle_and_shade(mesh, scenes, lights, env, paths, sample_count: int, bounc
             here = live & pi.is_hit & (pi.current_node == i)
             hits = HitRecord(t=pi.tmax, tri_index=torch.where(here, pi.hit_tri, -1),
                              u=pi.hit_u, v=pi.hit_v, is_hit=here)
-        nxt, shadow, env_add = shade(
-            scenes[i], lights, env, pi, hits, sample_count, bounce,
-            cfg.shadow_path_count, npix, nee_mode=cfg.nee_mode, rr=rr)
+        with span("settle_shade.shade"):
+            nxt, shadow, env_add = shade(
+                scenes[i], lights, env, pi, hits, sample_count, bounce,
+                cfg.shadow_path_count, npix, nee_mode=cfg.nee_mode, rr=rr)
         env_img = env_img + env_add
         next_paths.append(nxt.with_routing())
         shadows.append(shadow)
@@ -201,16 +229,23 @@ def _shadows(mesh, scenes, proxies, nn_prox, models, shadows, cfg: RenderConfig,
     npix = cfg.frame_buffer_size
     direct = torch.zeros((npix, 3), dtype=torch.float32, device=shadows[0].origin.device)
     if cfg.use_neural_proxies:
-        for i, sp in zip(mesh.local, shadows):
-            add, d = shadow_direct_light_nn(
-                scenes[i], nn_prox, models, sp, i, cfg.max_proxy_hits, cfg.t_epsilon,
-                cfg.shadow_path_count, npix, tracer=cfg.tracer)
-            direct += add
-            stats["tracer_diag"] = stats["tracer_diag"] + d
+        with span("shadows.nn"):
+            for i, sp in zip(mesh.local, shadows):
+                add, d = shadow_direct_light_nn(
+                    scenes[i], nn_prox, models, sp, i, cfg.max_proxy_hits, cfg.t_epsilon,
+                    cfg.shadow_path_count, npix, tracer=cfg.tracer)
+                direct += add
+                stats["tracer_diag"] = stats["tracer_diag"] + d
         return direct
-    shadows, occ, d, gc = ring_shadow_occlusion(
-        mesh, scenes, shadows, cfg.t_epsilon, tracer=cfg.tracer,
-        proxies=proxies if cfg.use_visibility_grids else None)
+    with span("shadows.ring"):
+        shadows, occ, d, gc = ring_shadow_occlusion(
+            mesh, scenes, shadows, cfg.t_epsilon, tracer=cfg.tracer,
+            proxies=proxies if cfg.use_visibility_grids else None)
+    # every partition receives each valid ray and returns its flag
+    shipped, row = ring_bytes(mesh, shadows)
+    stats["exchange_bytes"] += shipped
+    stats["exchange_useful_bytes"] = stats["exchange_useful_bytes"] + (
+        torch.stack([sp.is_valid for sp in shadows]).sum() * (mesh.size * row))
     stats["tracer_diag"] = stats["tracer_diag"] + d
     stats["grid_culled"] = stats["grid_culled"] + gc
     for sp, oc in zip(shadows, occ):
@@ -225,9 +260,10 @@ def render_sample_distributed(partitioned, models, lights, env, camera, sample_c
     """One spp over the mesh's partitions. Returns (direct image, env image,
     stats): the images (npix, 3) summed over every partition; stats a dict
     of tracer_diag, migration_truncated, migration_overflow_waits,
-    grid_culled and paths_moved (0-d tensors, summed over every partition)
-    and migration_rounds (one count per bounce). Only the scenes of the
-    partitions this process holds (`mesh.local`) are read."""
+    grid_culled, paths_moved, exchange_bytes, exchange_useful_bytes,
+    route_queries and route_remote (0-d int64 tensors, summed over every
+    partition) and migration_rounds (one count per bounce). Only the scenes
+    of the partitions this process holds (`mesh.local`) are read."""
     p = mesh.size
     if partitioned.num_partitions != p:
         raise ValueError(f"{partitioned.num_partitions} partitions on a mesh of {p}")
@@ -246,40 +282,52 @@ def render_sample_distributed(partitioned, models, lights, env, camera, sample_c
     direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     stats = dict(tracer_diag=0, migration_truncated=0, migration_overflow_waits=0,
-                 grid_culled=0, paths_moved=0)
-    rounds_per_bounce = []
+                 grid_culled=0, paths_moved=0, exchange_bytes=0, exchange_useful_bytes=0,
+                 route_queries=0, route_remote=0)
+    rounds_per_bounce, routed = [], []
 
     for bounce in range(cfg.bounces):
         if bounce > 0 and cfg.use_neural_proxies:
-            with record_function("neural_route"):
+            with span("neural_route"):
                 for n, i in enumerate(mesh.local):
                     paths[n], env_add, d = secondary_route(
                         scenes[i], nn_prox, models, env, paths[n], i, cfg.max_proxy_hits,
-                        cfg.t_epsilon, npix, tracer=cfg.tracer)
+                        cfg.t_epsilon, npix, tracer=cfg.tracer, routed=routed)
                     env_img += env_add
                     stats["tracer_diag"] = stats["tracer_diag"] + d
-        with record_function("migration"):
+        with span("migration"):
+            shipped, row = exchange_bytes(mesh, paths, _bucket(paths, cfg, p))
             # bounce-0 wavefronts are camera coherent: no schedule sort there
             paths, env_add, d, tr, ov, gc, rounds, moved = _migration_loop(
                 mesh, scenes, proxies, env, paths, cfg, sort_rays=bounce >= 1)
             env_img += env_add
+        stats["exchange_bytes"] += rounds * shipped
+        stats["exchange_useful_bytes"] = stats["exchange_useful_bytes"] + moved * row
         for k, v in (("tracer_diag", d), ("migration_truncated", tr),
                      ("migration_overflow_waits", ov), ("grid_culled", gc),
                      ("paths_moved", moved)):
             stats[k] = stats[k] + v
         rounds_per_bounce.append(rounds)
-        with record_function("settle_shade"):
+        with span("settle_shade"):
             paths, shadows, env_add = _settle_and_shade(mesh, scenes, lights, env, paths,
                                                         sample_count, bounce, cfg, stats)
             env_img += env_add
-        with record_function("shadows"):
+        with span("shadows"):
             direct += _shadows(mesh, scenes, proxies, nn_prox, models, shadows, cfg, stats)
 
-    # the image and stats reduce across partitions (JAX's psums), once each
-    direct, env_img = mesh.psum(torch.stack([direct, env_img])[None])
-    keys = list(stats)
-    totals = mesh.psum(torch.stack([torch.as_tensor(stats[k], device=dev).to(torch.int64)
-                                    for k in keys])[None])
+    # the image and stats reduce across partitions (JAX's psums), once each;
+    # a count still on the host goes to the device by a fill, not a copy
+    with span("reduce"):
+        if routed:
+            # (the routed live paths, those settled elsewhere) of every call
+            stats["route_queries"], stats["route_remote"] = torch.stack(
+                [torch.stack(masks) for masks in zip(*routed)]).sum(dim=(1, 2))
+        direct, env_img = mesh.psum(torch.stack([direct, env_img])[None])
+        keys = list(stats)
+        totals = mesh.psum(torch.stack([
+            stats[k].to(torch.int64) if torch.is_tensor(stats[k])
+            else torch.full((), stats[k], dtype=torch.int64, device=dev)
+            for k in keys])[None])
     return direct, env_img, {**dict(zip(keys, totals)), "migration_rounds": rounds_per_bounce}
 
 
@@ -290,8 +338,12 @@ def render_image_distributed(partitioned, models, lights, env, camera, cfg: Rend
     (height, width, 3) float32, or (image, stats) with return_stats: stats
     has tracer_diag, migration_truncated, migration_overflow_waits and
     grid_culled (ints, summed over samples and partitions, as JAX reports
-    them), and migration_rounds (per sample, per bounce) and paths_moved.
-    On a RankMesh every rank returns the whole image and the same stats.
+    them), migration_rounds (per sample, per bounce), paths_moved, the
+    counters of the module docstring (exchange_bytes,
+    exchange_useful_bytes, route_queries, route_remote, summed the same
+    way) and host_syncs (this process's, the stats read included; the
+    stats are read with one copy). On a RankMesh every rank returns the
+    whole image and the same stats but host_syncs.
 
     Runs on the mesh's device; without a mesh, on a new in-process mesh of
     the scene's partitions on `device` (CUDA unless the caller passes
@@ -299,30 +351,34 @@ def render_image_distributed(partitioned, models, lights, env, camera, cfg: Rend
     those of the partitions this process holds (`mesh.local`); the others
     may be None. Every process keeps every partition's proxies and nets:
     any path may route through any partition's box."""
-    mesh = mesh or make_mesh(partitioned.num_partitions, device)
-    dev = mesh.device
-    partitioned = partitioned._replace(
-        scenes=[_on(dev, s) if i in mesh.local else s
-                for i, s in enumerate(partitioned.scenes)],
-        proxies=partitioned.proxies.to(dev),
-        nn_proxies=None if partitioned.nn_proxies is None else partitioned.nn_proxies.to(dev))
-    models = models.to(dev) if models is not None else None
-    lights, env, camera = (_on(dev, r) for r in (lights, env, camera))
-    npix = cfg.frame_buffer_size
-    direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
-    env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
-    totals = dict(tracer_diag=0, migration_truncated=0, migration_overflow_waits=0,
-                  grid_culled=0, paths_moved=0)
-    rounds = []
-    for s in range(cfg.spp):
-        d, e, st = render_sample_distributed(partitioned, models, lights, env, camera,
-                                             base_sample + s, cfg, mesh)
-        direct += d
-        env_img += e
-        for k in totals:
-            totals[k] = totals[k] + st[k]
-        rounds.append(st["migration_rounds"])
-    img = ((direct + env_img) / cfg.spp).reshape(cfg.height, cfg.width, 3)
-    if return_stats:
-        return img, {**{k: int(v) for k, v in totals.items()}, "migration_rounds": rounds}
-    return img
+    with span("render_image_distributed", frame=base_sample):
+        syncs = host_syncs()
+        mesh = mesh or make_mesh(partitioned.num_partitions, device)
+        dev = mesh.device
+        partitioned = partitioned._replace(
+            scenes=[_on(dev, s) if i in mesh.local else s
+                    for i, s in enumerate(partitioned.scenes)],
+            proxies=partitioned.proxies.to(dev),
+            nn_proxies=(None if partitioned.nn_proxies is None
+                        else partitioned.nn_proxies.to(dev)))
+        models = models.to(dev) if models is not None else None
+        lights, env, camera = (_on(dev, r) for r in (lights, env, camera))
+        npix = cfg.frame_buffer_size
+        direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+        env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+        totals, rounds = {}, []
+        for s in range(cfg.spp):
+            d, e, st = render_sample_distributed(partitioned, models, lights, env, camera,
+                                                 base_sample + s, cfg, mesh)
+            direct += d
+            env_img += e
+            rounds.append(st.pop("migration_rounds"))
+            for k, v in st.items():
+                totals[k] = totals[k] + v if k in totals else v
+        img = ((direct + env_img) / cfg.spp).reshape(cfg.height, cfg.width, 3)
+        if not return_stats:
+            return img
+        with span("reduce"):
+            values = host_read(torch.stack(list(totals.values())))
+        return img, {**dict(zip(totals, values)), "host_syncs": host_syncs() - syncs,
+                     "migration_rounds": rounds}

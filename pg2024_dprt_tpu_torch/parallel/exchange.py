@@ -25,6 +25,9 @@ Both work on the buffers of the partitions this process holds
 them along a leading axis and moves rows only through `mesh.all_to_all`,
 every field of a row packed into one byte block (one collective for the
 rows, not one a field).
+
+`exchange_bytes` and `ring_bytes` give, from the buffers' shapes alone, the
+bytes each hands to `mesh.all_to_all` and the bytes of one row.
 """
 from __future__ import annotations
 
@@ -36,6 +39,10 @@ from ..core.types import PathState
 from ..ops.compaction import compact_by_key, counts_per_key, segment_offsets
 from ..ops.trace_api import trace_occlusion_cutout as trace_occlusion
 from ..scene.visibility_grid import query_conservative_grids
+from ..utils.timing import to_device
+
+# the fields of a shadow ray that the ring ships
+RING_FIELDS = ("origin", "direction", "tmax", "is_valid")
 
 
 def _grid_gate(proxies, j: int, origin, direction, tmax, eps: float):
@@ -55,6 +62,30 @@ def _grid_gate(proxies, j: int, origin, direction, tmax, eps: float):
         proxies.vis_grid[j:j + 1], lo[None], hi[None], origin, direction,
         t_enter[:, None], t_near[:, None, :])[:, 0]
     return seg_hit & (vis | (t_enter <= eps))
+
+
+def row_bytes(fields) -> int:
+    """Bytes of one row of buffers of N rows (each field's bytes a row, as
+    `_pack` lays them side by side)."""
+    return sum(math.prod(f.shape[1:]) * f.element_size() for f in fields)
+
+
+def exchange_bytes(mesh, buffers, bucket_size: int = 0) -> tuple:
+    """(bytes one round of `exchange_paths` hands to `mesh.all_to_all` for
+    these buffers, bytes of one path row): the handshake's two (L, P) int64
+    blocks and every bucket slot, pad rows included."""
+    p, count = mesh.size, len(buffers)
+    b = bucket_size or -(-buffers[0].capacity // p)
+    row = row_bytes(buffers[0].with_routing())
+    return 2 * count * p * 8 + count * p * b * row, row
+
+
+def ring_bytes(mesh, shadow_paths) -> tuple:
+    """(bytes `ring_shadow_occlusion` hands to `mesh.all_to_all` for these
+    buffers, bytes of one ray): every local shadow ray to every partition,
+    and an occlusion flag back for each."""
+    row = row_bytes([getattr(shadow_paths[0], f) for f in RING_FIELDS]) + 1
+    return len(shadow_paths) * mesh.size * shadow_paths[0].capacity * row, row
 
 
 def _pack(fields) -> torch.Tensor:
@@ -111,7 +142,7 @@ def exchange_paths(mesh, buffers, bucket_size: int = 0):
     paths = _stack(buffers)
     dev = paths.origin.device
     count = len(buffers)
-    me = torch.tensor(mesh.local, device=dev)[:, None]
+    me = to_device(mesh.local, torch.int64, dev)[:, None]
 
     target = paths.target_node
     want_move = paths.is_valid & (target >= 0) & (target != me)
@@ -181,8 +212,7 @@ def ring_shadow_occlusion(mesh, scenes, shadow_paths, eps: float, tracer: str = 
     p = mesh.size
     count = len(shadow_paths)
     n = shadow_paths[0].capacity
-    fields = [torch.stack([getattr(sp, f) for sp in shadow_paths])
-              for f in ("origin", "direction", "tmax", "is_valid")]
+    fields = [torch.stack([getattr(sp, f) for sp in shadow_paths]) for f in RING_FIELDS]
     # every local buffer to every partition: (l, p, n, bytes) -> (l, s, n, bytes)
     block = _pack(fields)
     got = mesh.all_to_all(block[:, None].expand(count, p, n, block.shape[-1]))

@@ -26,6 +26,7 @@ moves data between partitions only through these two.
 from __future__ import annotations
 
 import os
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Optional
 
@@ -33,6 +34,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.device import resolve_device
+from ..utils.timing import host_sync
 
 NODES_AXIS = "nodes"
 
@@ -61,7 +63,8 @@ class RankMesh:
     """One partition a rank of the default process group: partition id =
     rank, P = world size. The collectives run on the tensors' own device;
     gloo takes CUDA tensors for both collectives (checked on the H100 with
-    PyTorch 2.11) and stages them through the host itself."""
+    PyTorch 2.11) and stages them through the host itself: each such
+    collective is a host sync (utils/timing.py)."""
     size: int
     device: torch.device
     rank: int
@@ -83,14 +86,20 @@ class RankMesh:
             send = send.to(torch.uint8)
         send = send.contiguous()
         out = torch.empty_like(send)
-        dist.all_to_all_single(out, send)
+        with self._staged(send):
+            dist.all_to_all_single(out, send)
         return (out.bool() if x.dtype == torch.bool else out)[None]
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """x[l, ...] summed over l and over every rank."""
         y = x.sum(dim=0)
-        dist.all_reduce(y, op=dist.ReduceOp.SUM)
+        with self._staged(y):
+            dist.all_reduce(y, op=dist.ReduceOp.SUM)
         return y
+
+    def _staged(self, x: torch.Tensor):
+        """A host sync where gloo stages a CUDA tensor through the host."""
+        return host_sync(x.device) if self.backend == "gloo" and x.is_cuda else nullcontext()
 
 
 def make_mesh(num_partitions: int, device=None) -> InProcessMesh:

@@ -15,11 +15,11 @@ Two paths render a frame, chosen by `cfg.fused_frame` (`_fused_active`):
       3. any-hit of the shadow paths (K2 / K10 for "auto"); unoccluded ones add their
          contribution / shadow_path_count to the direct image.
 
-Each composed stage runs under a `torch.profiler.record_function` range
-("camera_paths", "closest_trace", "shade", "shadow_trace", "accumulate"),
-and the fused frame under "fused_frame", so one profiled frame attributes
-device time to the stages (utils/profile.py); without a profiler the ranges
-do nothing.
+A frame runs under the root span "render_image" (utils/timing.py), whose
+id is its base_sample; each composed stage under a span ("camera_paths",
+"closest_trace", "shade", "shadow_trace", "accumulate"), and the fused
+frame under "fused_frame", so one profiled frame attributes device time to
+the stages (utils/profile.py).
 
 The composed path accumulates with `index_add_`, which on CUDA adds with
 atomics: the order of the adds, and so the last bits of a pixel that several
@@ -31,12 +31,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from ..core.camera import Camera
 from ..core.device import resolve_device
 from ..ops.trace_api import trace_closest_cutout as trace_closest
 from ..ops.trace_api import trace_occlusion_cutout as trace_occlusion
+from ..utils.timing import host_read, span
 from .config import RenderConfig
 from .pathgen import generate_camera_paths
 from .shade import shade
@@ -67,11 +67,11 @@ def render_sample(scene, lights, env, camera: Camera, sample_count: int,
     if _fused_active(scene, lights, env, cfg):
         from ..ops.frame import render_sample_fused
 
-        with record_function("fused_frame"):
+        with span("fused_frame"):
             return render_sample_fused(scene, lights, env, camera, sample_count, cfg)
     npix = cfg.frame_buffer_size
     dev = camera.origin.device
-    with record_function("camera_paths"):
+    with span("camera_paths"):
         paths = generate_camera_paths(camera, sample_count)
     direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
@@ -81,21 +81,21 @@ def render_sample(scene, lights, env, camera: Camera, sample_count: int,
     for bounce in range(cfg.bounces):
         rr = bool(cfg.russian_roulette) and \
             cfg.russian_roulette <= bounce + 1 < cfg.bounces
-        with record_function("closest_trace"):
+        with span("closest_trace"):
             hits, d1 = trace_closest(scene, paths.origin, paths.direction,
                                      cfg.t_epsilon, paths.tmax, paths.is_valid,
                                      tracer=cfg.tracer)
-        with record_function("shade"):
+        with span("shade"):
             next_paths, shadow, env_add = shade(
                 scene, lights, env, paths, hits, sample_count, bounce,
                 cfg.shadow_path_count, npix, nee_mode=cfg.nee_mode, rr=rr)
             env_img += env_add
         # tmax is shaved so the light sample point never blocks itself
-        with record_function("shadow_trace"):
+        with span("shadow_trace"):
             occluded, d2 = trace_occlusion(scene, shadow.origin, shadow.direction,
                                            cfg.t_epsilon, shadow.tmax * (1.0 - 1e-3),
                                            shadow.is_valid, tracer=cfg.tracer)
-        with record_function("accumulate"):
+        with span("accumulate"):
             unoccluded = shadow.is_valid & (~occluded)
             contrib = torch.where(unoccluded[:, None],
                                   shadow.throughput / cfg.shadow_path_count, 0.0)
@@ -123,28 +123,29 @@ def render_image(scene, lights, env, camera, cfg: RenderConfig, base_sample: int
     (CUDA unless the caller passes another); the inputs are moved there.
 
     On the fused path all spp run in ONE kernel launch."""
-    dev = resolve_device(device)
-    scene, lights, env, camera = (_on(dev, r) for r in (scene, lights, env, camera))
-    npix = cfg.frame_buffer_size
-    if _fused_active(scene, lights, env, cfg):
-        from ..ops.frame import render_frame_fused
+    with span("render_image", frame=base_sample):
+        dev = resolve_device(device)
+        scene, lights, env, camera = (_on(dev, r) for r in (scene, lights, env, camera))
+        npix = cfg.frame_buffer_size
+        if _fused_active(scene, lights, env, cfg):
+            from ..ops.frame import render_frame_fused
 
-        with record_function("fused_frame"):
-            direct, env_img, diag = render_frame_fused(
-                scene, lights, env, camera, base_sample, cfg, spp=cfg.spp)
-    else:
-        direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
-        env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
-        diag = 0
-        for s in range(cfg.spp):
-            d, e, dg = render_sample(scene, lights, env, camera, base_sample + s, cfg)
-            direct += d
-            env_img += e
-            diag += dg
-    img = ((direct + env_img) / cfg.spp).reshape(cfg.height, cfg.width, 3)
-    if return_stats:
-        return img, {"tracer_diag": int(diag)}
-    return img
+            with span("fused_frame"):
+                direct, env_img, diag = render_frame_fused(
+                    scene, lights, env, camera, base_sample, cfg, spp=cfg.spp)
+        else:
+            direct = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+            env_img = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+            diag = 0
+            for s in range(cfg.spp):
+                d, e, dg = render_sample(scene, lights, env, camera, base_sample + s, cfg)
+                direct += d
+                env_img += e
+                diag += dg
+        img = ((direct + env_img) / cfg.spp).reshape(cfg.height, cfg.width, 3)
+        if return_stats:
+            return img, {"tracer_diag": int(host_read(diag) if torch.is_tensor(diag) else diag)}
+        return img
 
 
 class Renderer:

@@ -107,10 +107,13 @@ def _segment_sum(values, index, num_segments: int):
 
 def secondary_route(scene: DeviceScene, proxies: ProxyTable, models: ProxyModels,
                     env, paths: PathState, my_id: int, max_hits: int, eps: float,
-                    frame_buffer_size: int, tracer: str = "auto"):
+                    frame_buffer_size: int, tracer: str = "auto", routed: list = None):
     """Local closest hit + proxy march + vis/depth nets -> per-path routing
     decision (target_node / tmax / is_hit). Returns (updated paths,
-    env_image_add (frame_buffer_size, 3), diag)."""
+    env_image_add (frame_buffer_size, 3), diag). With `routed` (a list),
+    appends this call's (live, remote) path masks: the live paths it routed
+    and those it settled on another partition, for the caller to count
+    (parallel/distributed.py counts a sample's at once, with no sync)."""
     paths = paths.with_routing()
     live = paths.is_valid & (~paths.is_shadow)
     diag = 0
@@ -131,6 +134,8 @@ def secondary_route(scene: DeviceScene, proxies: ProxyTable, models: ProxyModels
                                        my_id, max_hits)
 
     has_node, env_miss, no_route = dec["has_node"], dec["env_miss"], dec["no_route"]
+    if routed is not None:
+        routed.append((live, has_node & (dec["settled_node"] != my_id)))
     # environment fallback: no local hit, no proxy hit at all -> radiance + kill
     env_add = _segment_sum(
         torch.where(env_miss[:, None], paths.throughput * env.sample(paths.direction), 0.0),

@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from ..utils.timing import spanned
+
 MAX_LEAF = 4
 _SAH_BINS = 16
 
@@ -41,6 +43,7 @@ class FlatBVH(NamedTuple):
         return self.bounds_min.shape[0]
 
 
+@spanned("scene.bvh")
 def build_bvh(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, max_leaf: int = MAX_LEAF,
               use_native: bool = True) -> FlatBVH:
     """Build from triangle vertex arrays (T,3). Returns flattened arrays.

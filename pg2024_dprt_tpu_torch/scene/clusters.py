@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 
 from .bvh import FlatBVH
+from ..utils.timing import spanned
 
 
 class ClusterTable(NamedTuple):
@@ -29,6 +30,7 @@ class ClusterTable(NamedTuple):
     tris_per_cluster: int  # C
 
 
+@spanned("scene.clusters")
 def build_clusters(bvh: FlatBVH, max_tris: int = 128, max_clusters: int = 0) -> ClusterTable:
     """Cut the flattened BVH into clusters. Returns a table padded so every
     cluster owns exactly `max_tris` slots in the cluster-major layout."""

@@ -33,6 +33,7 @@ from .curves import CurveSet
 from .geometry import (DeviceScene, MeshGeometry, ProxyTable, _instance_tables,
                        _pack_device_scene, concat_geometry)
 from .textures import build_textures
+from ..utils.timing import spanned
 
 # JAX packs every partition at this cluster width (_pack_device_scene's
 # default); the tables match JAX's partition by partition
@@ -96,6 +97,7 @@ def _meshes_aabb(meshes):
     return los.min(0).astype(np.float32), his.max(0).astype(np.float32)
 
 
+@spanned("scene.proxies")
 def _table(aabb_min, aabb_max, vis_grid, dev) -> ProxyTable:
     aabb_min = np.asarray(aabb_min, np.float32)
     aabb_max = np.asarray(aabb_max, np.float32)
@@ -144,6 +146,7 @@ def _split_curves(curves, aabb_min: np.ndarray, aabb_max: np.ndarray):
     return sets, np.asarray(clo, np.float32), np.asarray(chi, np.float32)
 
 
+@spanned("scene.partition")
 def build_partitioned_scene(
     meshes: Sequence[MeshGeometry],
     num_partitions: int,
@@ -228,6 +231,7 @@ def build_partitioned_scene(
                             num_partitions=num_partitions)
 
 
+@spanned("scene.partition")
 def build_partitioned_scene_instanced(
     meshes: Sequence[MeshGeometry],
     transforms,

@@ -6,19 +6,29 @@ pg2024_dprt_tpu/utils/profile.py).
 Prints one JSON object for the exact-frame benchmark configuration
 (scene/procedural.py::soup_frame) with two entries, "fused" (the default
 config: the whole frame in one launch of the frame kernel) and "composed"
-(fused_frame="off"), each from one render_image run under torch.profiler
-and unprofiled runs of the same frame:
-  * stages_ms: device ms of the kernels that run inside the device-side
-    extent of each of the engine's record_function ranges (fused_frame; or
-    camera_paths, closest_trace, shade, shadow_trace, accumulate, summed
-    over bounces), and of the kernels outside every range;
-  * the profiled frame's wall ms (CUDA events), the union of its kernels'
-    busy intervals, and the device idle share (1 - busy / wall) against that
-    wall and against the unprofiled frame's median wall ms (the profiler's
-    host overhead lengthens the profiled frame);
-  * the number of device events and the kernels with the most device time.
-`render_device_profile` gives the same numbers for any frame function and
-its stage ranges (chip_smoke.py profiles the distributed frame with it).
+(fused_frame="off"), each `frame_device_profile` of one render_image frame.
+
+`render_device_profile(render)` profiles any frame function (chip_smoke.py
+profiles the distributed frame with it): unprofiled frames timed with CUDA
+events, as many again under a `Timing` recorder (utils/timing.py), and one
+frame under torch.profiler, whose raw kineto events it reads in one sweep.
+Every device operation (kernel, copy, set) is credited to the span that
+launched it: the innermost span open on the host when its launch call ran
+(matched by the launch's correlation id). It returns
+  * spans: for each span name, the device ms and the count of the device
+    operations it launched innermost, the idle ms charged to it (a gap
+    between busy intervals goes to the span that launched the operation
+    ending the gap: the host work the device waited for), and its host
+    self ms a frame from the recorded frames; and the spans a frame;
+  * stages_ms: the device ms under each span name, nested spans included
+    (the engine's and the distributed frame's stages among them), and
+    outside every span;
+  * the profiled frame's wall ms (CUDA events), the union of its device
+    operations' busy intervals, and the device idle share (1 - busy / wall)
+    against that wall and against the unprofiled frames' median wall ms
+    (the profiler's host overhead lengthens the profiled frame); the
+    recorded frames' median wall ms beside it (the recorder's cost);
+  * the number of device operations and those with the most device time.
 Needs CUDA.
 
 `profile_sample` is the reference's per-stage report: the host seconds of
@@ -42,8 +52,7 @@ from ..render.pathgen import generate_camera_paths
 from ..render.shade import shade
 from .timing import TimedSection, Timing, _block_until_ready
 
-STAGES = ("fused_frame", "camera_paths", "closest_trace", "shade", "shadow_trace",
-          "accumulate")
+OUTSIDE = "outside_spans"
 
 
 def _frame_ms(fn, reps: int) -> float:
@@ -77,55 +86,100 @@ def _busy_ms(spans) -> float:
 
 def frame_device_profile(scene, lights, env, camera, cfg, top: int = 8,
                          reps: int = 5) -> dict:
-    """One profiled frame of render_image: per-stage device ms, wall and
-    busy ms, idle shares, device events, top kernels by device time."""
+    """One profiled frame of render_image: `render_device_profile`'s
+    numbers."""
     return render_device_profile(
-        lambda s: render_image(scene, lights, env, camera, cfg, base_sample=s), STAGES,
-        top, reps)
+        lambda s: render_image(scene, lights, env, camera, cfg, base_sample=s), top, reps)
 
 
-def render_device_profile(render, stages=STAGES, top: int = 8, reps: int = 5) -> dict:
-    """The same for any frame: `render(base_sample)` renders one frame, and
-    `stages` names the record_function ranges it runs (the distributed
-    frame's are parallel/distributed.py's STAGES)."""
+def read_device_events(events, span_names) -> tuple:
+    """From raw kineto events: (device operations as (start_us, end_us,
+    name, launch_us), host spans as (start_us, end_us, name)). A host span
+    is a CPU event that is a profiler annotation or whose name is in
+    `span_names`; an operation's launch time is its launch call's (the
+    CPU event of its correlation id whose name starts with "cu"), or its
+    own start where none is found."""
+    cuda = torch.autograd.DeviceType.CUDA
+    ops, launches, host = [], {}, []
+    for e in events:
+        s, t = e.start_ns() / 1e3, e.end_ns() / 1e3
+        if e.device_type() == cuda:
+            if not e.is_user_annotation():
+                ops.append((s, t, e.name(), e.correlation_id()))
+        elif e.is_user_annotation() or e.name() in span_names:
+            host.append((s, t, e.name()))
+        elif e.name().startswith("cu"):
+            launches[e.correlation_id()] = s
+    return [(s, t, n, launches.get(c, s)) for s, t, n, c in ops], host
+
+
+def credit(ops, host) -> tuple:
+    """One sweep over the operations in launch order and the host spans in
+    start order (spans nest on the one host thread): (per innermost span
+    [device ms, operations, idle ms], device ms under each span name nested
+    spans included). Each operation carries the idle gap that ends at its
+    start."""
+    gap_before, end = {}, None
+    for i in sorted(range(len(ops)), key=lambda i: ops[i][0]):
+        s, t = ops[i][0], ops[i][1]
+        if end is not None and s > end:
+            gap_before[i] = s - end
+        end = t if end is None else max(end, t)
+    own = defaultdict(lambda: [0.0, 0, 0.0])
+    under = defaultdict(float)
+    host = sorted(host)
+    stack, k = [], 0
+    for i in sorted(range(len(ops)), key=lambda i: ops[i][3]):
+        s, t, _, at = ops[i]
+        while k < len(host) and host[k][0] <= at:
+            while stack and stack[-1][1] <= host[k][0]:
+                stack.pop()
+            stack.append(host[k])
+            k += 1
+        while stack and stack[-1][1] <= at:
+            stack.pop()
+        row = own[stack[-1][2] if stack else OUTSIDE]
+        row[0] += (t - s) / 1e3
+        row[1] += 1
+        row[2] += gap_before.get(i, 0.0) / 1e3
+        for name in {h[2] for h in stack} or {OUTSIDE}:
+            under[name] += (t - s) / 1e3
+    return own, under
+
+
+def render_device_profile(render, top: int = 8, reps: int = 5) -> dict:
+    """The numbers of the module docstring for any frame: `render(base_sample)`
+    renders one frame."""
     from torch.profiler import ProfilerActivity, profile
 
     render(1)   # warm-up
     torch.cuda.synchronize()
-    samples = iter(range(3, 3 + reps))
+    samples = iter(range(3, 3 + 2 * reps))
     unprofiled = _frame_ms(lambda: render(next(samples)), reps)
+    timing = Timing()
+    with timing.recording():
+        recorded = _frame_ms(lambda: render(next(samples)), reps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = _frame_ms(lambda: render(2), 1)
-    # device events are kernels and copies, plus the device-side extents of
-    # the record_function ranges (user annotations); a kernel belongs to the
-    # stage whose device extent holds its start (one stream, so the extents
-    # do not overlap)
-    spans, by_name, extents = [], defaultdict(float), []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if e.name in stages or getattr(e, "is_user_annotation", False):
-            if e.name in stages:
-                extents.append((e.time_range.start, e.time_range.end, e.name))
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_name[e.name] += (e.time_range.end - e.time_range.start) / 1e3
-    stage_ms = defaultdict(float)
-    for s0, e0 in spans:
-        for a, b, name in extents:
-            if a <= s0 < b:
-                stage_ms[name] += (e0 - s0) / 1e3
-                break
-        else:
-            stage_ms["outside_ranges"] += (e0 - s0) / 1e3
-    busy = _busy_ms(spans)
+    ops, host = read_device_events(prof.profiler.kineto_results.events(), set(timing.totals))
+    own, under = credit(ops, host)
+    host_self = timing.self_seconds()
+    by_name = defaultdict(float)
+    for s, t, name, _ in ops:
+        by_name[name] += (t - s) / 1e3
+    busy = _busy_ms([(s, t) for s, t, _, _ in ops])
     kernels = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return {"stages_ms": {s: stage_ms[s] for s in tuple(stages) + ("outside_ranges",)},
+    spans = {name: {**dict(zip(("device_ms", "device_ops", "idle_ms"),
+                               own.get(name, (0.0, 0, 0.0)))),
+                    "host_self_ms": host_self.get(name, 0.0) * 1e3 / reps}
+             for name in sorted(set(own) | set(host_self))}
+    return {"spans": spans, "spans_per_frame": len(timing.spans) / reps,
+            "stages_ms": dict(under),
             "profiled_wall_ms": wall, "unprofiled_wall_ms": unprofiled,
-            "busy_ms": busy,
-            "idle_share_profiled": (1.0 - busy / wall) if spans else None,
-            "idle_share_unprofiled": (1.0 - busy / unprofiled) if spans else None,
-            "device_events": len(spans),
+            "recorded_wall_ms": recorded, "busy_ms": busy,
+            "idle_share_profiled": (1.0 - busy / wall) if ops else None,
+            "idle_share_unprofiled": (1.0 - busy / unprofiled) if ops else None,
+            "device_events": len(ops),
             "top_kernels_ms": {name[:80]: v for name, v in kernels}}
 
 

@@ -206,8 +206,8 @@ def _chip_smoke():
     return mod
 
 
-def _profile(pt, cs, render, stages):
-    prof = pt.utils.profile.render_device_profile(render, stages, top=256, reps=3)
+def _profile(pt, cs, render):
+    prof = pt.utils.profile.render_device_profile(render, top=256, reps=3)
     device_ms = lambda functions: sum(cs.kernel_device_ms(prof, f) for f in functions)
     return {"idle_share_unprofiled": prof["idle_share_unprofiled"],
             "busy_ms": prof["busy_ms"], "unprofiled_wall_ms": prof["unprofiled_wall_ms"],
@@ -273,7 +273,7 @@ def part_frame(pt, torch, cs, inst):
                                               base_sample=s)
     seeds = iter(range(1, 1000))
     ms = cs.cuda_ms(torch, lambda: render(next(seeds)), reps=7)
-    out = {"frame_ms": ms, **_profile(pt, cs, render, pt.utils.profile.STAGES)}
+    out = {"frame_ms": ms, **_profile(pt, cs, render)}
     print(f"probe instanced frame: {out}", flush=True)
     return out
 
@@ -360,7 +360,7 @@ def part_dist(pt, torch, np, cs, dev, inst):
                                           return_stats=True, device=dev)
         seeds = iter(range(1, 1000))
         ms = cs.cuda_ms(torch, lambda: frame(next(seeds)), reps=3)
-        out[name] = {"frame_ms": ms, **_profile(pt, cs, frame, dist.distributed.STAGES)}
+        out[name] = {"frame_ms": ms, **_profile(pt, cs, frame)}
         print(f"probe {name}: {out[name]}", flush=True)
     return out
 
@@ -1120,7 +1120,7 @@ def _composed_frame(pt, torch, cs, frame64):
     off = dataclasses.replace(cfg, fused_frame="off")
     prof = pt.utils.profile.render_device_profile(
         lambda s: pt.render.render_image(scene, lights, env, cam, off, base_sample=s),
-        pt.utils.profile.STAGES, top=256, reps=5)
+        top=256, reps=5)
     return {"frame_ms": prof["unprofiled_wall_ms"], "busy_ms": prof["busy_ms"],
             **{f"{kn}_device_ms": cs.kernel_device_ms(prof, fn)
                for kn, fn in FLAT_FUNCTIONS.items()}}

@@ -44,11 +44,19 @@ from pg2024_dprt_tpu_torch.core import Camera
 from pg2024_dprt_tpu_torch.models import mlp as tmlp
 from pg2024_dprt_tpu_torch.parallel import make_mesh, render_image_distributed, run_ranks
 from pg2024_dprt_tpu_torch.render import RenderConfig, render_image
+from pg2024_dprt_tpu_torch.utils.timing import Timing
 
 SIDE = 24
 CAM = ([2.5, 1.4, 5.5], [2.5, 0.6, 0.5], [0, 1, 0], 60.0, SIDE, SIDE)
 ENV = (0.25, 0.25, 0.3)
 JAX_STATS = ("tracer_diag", "migration_truncated", "migration_overflow_waits", "grid_culled")
+# the port's own counters (parallel/distributed.py)
+PORT_STATS = ("exchange_bytes", "exchange_useful_bytes", "route_queries", "route_remote",
+              "host_syncs")
+# bytes a row: a migrating path's 16 PathState fields; a shadow ray's origin,
+# direction, tmax and valid flag out, and its occlusion flag back
+PATH_ROW, SHADOW_ROW = 96, 3 * 4 + 3 * 4 + 4 + 1 + 1
+STAGES = ("neural_route", "migration", "settle_shade", "shadows")
 SMALL = tmlp.MLPConfig(width=32, depth=1)
 MULTIGEO = tmlp.MLPConfig(width=32, depth=1, in_features=6, multi_geo=True)
 
@@ -165,6 +173,71 @@ def test_rank_frame_matches_jax(jax_frames, case, tmp_path):
         assert {k: stats[k] for k in JAX_STATS} == {k: want_stats[k] for k in JAX_STATS}
         assert stats["migration_rounds"] == in_process["migration_rounds"]
         assert stats["paths_moved"] == in_process["paths_moved"] > 0
+        assert {k: stats[k] for k in PORT_STATS} == {k: in_process[k] for k in PORT_STATS}
+
+
+@pytest.mark.parametrize("kind", [None, "separate"], ids=["exact", "neural"])
+def test_frame_counters_and_spans(kind):
+    """The frame's counters against their formulas and recounts, and its
+    spans under a recorder: all closed, each inside its parent, one root
+    whose id is the base_sample, no stage inside another, the counts the
+    loop implies, a LAUNCHES key's spans as many as its launches (none on
+    the CPU), and self times that add up to the root's duration."""
+    parts, neural = 2, kind is not None
+    _, _, tm, tlights = _meshes(parts)
+    part = tscene.build_partitioned_scene(tm, parts, device="cpu")
+    cfg = RenderConfig(width=SIDE, height=SIDE, spp=1, bounces=3, use_neural_proxies=neural)
+    models = _models(kind, parts)[0] if neural else None
+    timing = Timing()
+    tops.reset_launch_counts()
+    with timing.recording():
+        _, st = render_image_distributed(
+            part, models, tlights, tscene.EnvironmentMap.constant(ENV, device="cpu"),
+            Camera.look_at(*CAM, device="cpu"), cfg, mesh=make_mesh(parts, device="cpu"),
+            base_sample=5, return_stats=True)
+    rounds = sum(map(sum, st["migration_rounds"]))
+    npix = SIDE * SIDE
+    bucket = max(1, int(npix * cfg.bucket_fraction) // parts)
+    ring = 0 if neural else cfg.bounces * parts * parts * npix * SHADOW_ROW
+    assert st["exchange_bytes"] == rounds * parts * parts * (bucket * PATH_ROW + 2 * 8) + ring
+    shadow_useful = st["exchange_useful_bytes"] - st["paths_moved"] * PATH_ROW
+    if neural:
+        assert shadow_useful == 0
+        # (these rooms send few secondary rays toward the other room's box:
+        # tests/test_torch_route.py recounts route_remote where many go)
+        assert st["route_queries"] > 0 and 0 <= st["route_remote"] <= st["route_queries"]
+    else:
+        assert shadow_useful > 0 and shadow_useful % (parts * SHADOW_ROW) == 0
+        assert st["route_queries"] == st["route_remote"] == 0
+    # one read a round (the termination test) and the stats read
+    assert st["host_syncs"] == rounds + 1
+
+    spans = timing.spans
+    names = [sp[0] for sp in spans]
+    assert [sp[0] for sp in spans if sp[3] < 0] == ["render_image_distributed"]
+    for name, start, end, parent, frame in spans:
+        assert end is not None and frame == 5
+        if parent >= 0:
+            assert spans[parent][1] <= start <= end <= spans[parent][2]
+        if name in STAGES:
+            up = parent
+            while up >= 0:
+                assert spans[up][0] not in STAGES, (name, spans[up][0])
+                up = spans[up][3]
+    count = lambda n: names.count(n)
+    for n in ("migration.round", "migration.trace", "migration.exchange", "migration.sync"):
+        assert count(n) == rounds
+    assert count("migration") == count("settle_shade") == count("shadows") == cfg.bounces
+    assert count("settle_shade.shade") == cfg.bounces * parts
+    assert count("settle_shade.retrace") == (cfg.bounces - 1) * parts * neural
+    assert count("neural_route") == (cfg.bounces - 1) * neural
+    assert count("shadows.nn" if neural else "shadows.ring") == cfg.bounces
+    assert count("reduce") == 2
+    for key, launched in tops.LAUNCHES.items():
+        assert count(key) == launched
+    root = spans[0]
+    assert sum(timing.self_seconds().values()) == pytest.approx((root[2] - root[1]) / 1e9,
+                                                                abs=1e-6)
 
 
 def test_neural_frame_launch_counts_and_devices():

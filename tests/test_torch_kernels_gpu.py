@@ -1488,3 +1488,53 @@ def test_fused_route_gate_rejects_curve_scenes_on_gpu():
     hair = scene._replace(curves=tscene.CurveSet.from_strand(strand, 0.02, device="cuda"))
     assert tps._use_fused_route(scene, m, "auto", table, MH)
     assert not tps._use_fused_route(hair, m, "auto", table, MH)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("neural", [True, False], ids=["neural", "exact"])
+def test_distributed_frame_syncs_only_where_counted_on_gpu(neural):
+    """A small rooms frame of 4 partitions under
+    torch.cuda.set_sync_debug_mode("error"), which utils/timing.py lowers
+    inside `host_sync` alone: a host sync anywhere else raises. The frame's
+    host_syncs is the count of those places, and every span named by a
+    LAUNCHES key runs once a launch of that key."""
+    _need_cuda()
+    from collections import Counter
+
+    from pg2024_dprt_tpu_torch.parallel import make_mesh, render_image_distributed
+    from pg2024_dprt_tpu_torch.utils.timing import Timing, host_syncs
+
+    parts, side = 4, 48
+    meshes, lights = tscene.two_room_scene(num_rooms=parts, tris_per_room=4000, seed=2,
+                                           device="cuda")
+    part = tscene.build_partitioned_scene(meshes, parts, device="cuda")
+    models = tmodels.random_proxy_models(5, parts, SMALL, SMALL, device="cuda")
+    env = tscene.EnvironmentMap.constant((0.25, 0.25, 0.3), device="cuda")
+    cam = Camera.look_at([2.5 * parts / 2, 1.4, 5.5], [2.5 * parts / 2, 0.6, 0.5], [0, 1, 0],
+                         60.0, side, side, device="cuda")
+    cfg = RenderConfig(width=side, height=side, spp=1, bounces=3, use_neural_proxies=neural)
+    mesh = make_mesh(parts, "cuda")
+    frame = lambda b: render_image_distributed(part, models if neural else None, lights, env,
+                                               cam, cfg, mesh=mesh, base_sample=b,
+                                               return_stats=True)
+    frame(1)        # builds and loads the kernels
+    torch.cuda.synchronize()
+    tops.reset_launch_counts()
+    timing = Timing()
+    before = host_syncs()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with timing.recording():
+            img, stats = frame(2)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(img).all())
+    rounds = sum(map(sum, stats["migration_rounds"]))
+    assert stats["host_syncs"] == host_syncs() - before > rounds
+    spans = Counter(sp[0] for sp in timing.spans)
+    launched = {k: v for k, v in tops.LAUNCHES.items() if k != "route_multigeo"}
+    assert sum(launched.values()) > 0
+    assert {k: spans[k] for k in launched} == launched
+    if neural:
+        assert launched["route_secondary"] > 0 and stats["route_queries"] > 0
+

@@ -142,6 +142,51 @@ def test_renderer_and_unported_options():
                      device="cpu")
 
 
+def test_device_profile_credits_innermost_launching_span():
+    """utils/profile.py's one sweep over raw kineto events: each device
+    operation goes to the innermost span open when its launch call ran
+    (matched by correlation id), with the idle gap that ends at its start;
+    stages_ms counts it under every enclosing span."""
+    from types import SimpleNamespace
+
+    from pg2024_dprt_tpu_torch.utils.profile import OUTSIDE, credit, read_device_events
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+
+    def ev(name, start_us, end_us, dev=cpu, corr=0, annotation=False):
+        return SimpleNamespace(name=lambda: name, start_ns=lambda: start_us * 1000,
+                               end_ns=lambda: end_us * 1000, device_type=lambda: dev,
+                               correlation_id=lambda: corr,
+                               is_user_annotation=lambda: annotation)
+
+    events = [
+        ev("migration", 0, 100, annotation=True),           # a stage: an annotation
+        ev("migration", 5, 300, dev=cuda, annotation=True),  # its device-side extent
+        ev("migration.trace", 10, 40),                        # a plain range, by name
+        ev("cudaLaunchKernel", 12, 13, corr=7),
+        ev("cudaLaunchKernel", 30, 31, corr=8),
+        ev("aten::add", 50, 60, corr=9),                      # an op: not a span
+        ev("cudaLaunchKernel", 55, 56, corr=9),
+        ev("cudaLaunchKernel", 120, 121, corr=10),
+        ev("k_a", 20, 50, dev=cuda, corr=7),
+        ev("k_b", 50, 70, dev=cuda, corr=8),
+        ev("k_c", 90, 95, dev=cuda, corr=9),
+        ev("k_d", 200, 300, dev=cuda, corr=10),
+        ev("k_e", 310, 320, dev=cuda, corr=11),               # no launch call seen
+    ]
+    ops, host = read_device_events(events, {"migration.trace"})
+    assert [o[2] for o in ops] == ["k_a", "k_b", "k_c", "k_d", "k_e"]
+    assert [o[3] for o in ops] == [12, 30, 55, 120, 310]
+    assert sorted(h[2] for h in host) == ["migration", "migration.trace"]
+    own, under = credit(ops, host)
+    assert own["migration.trace"] == [pytest.approx(0.05), 2, 0.0]
+    assert own["migration"] == [pytest.approx(0.005), 1, pytest.approx(0.02)]
+    assert own[OUTSIDE] == [pytest.approx(0.11), 2, pytest.approx(0.115)]
+    assert under["migration"] == pytest.approx(0.055)
+    assert under["migration.trace"] == pytest.approx(0.05)
+    assert under[OUTSIDE] == pytest.approx(0.11)
+
+
 def test_profile_sample_has_jax_sections():
     """utils/profile.py profile_sample: JAX's section names, one entry per
     bounce each (host seconds have no parity)."""

@@ -296,6 +296,24 @@ def test_multigeo_branch_matches_jax():
     assert ((gp.target_node >= 0) & (gp.target_node < 8)).sum() > 20
 
 
+@pytest.mark.parametrize("vis_bias", [10.0, -10.0])
+def test_secondary_route_counts_the_paths_it_routes(vis_bias):
+    """With a list, secondary_route appends the masks of the live paths it
+    routed and of those it settled on another partition (the frame's
+    route_queries and route_remote), as a recount from the paths it returns
+    finds them."""
+    m = _biased(tmodels.random_proxy_models(8, 8, SMALL, SMALL, device="cpu"), vis_bias)
+    _, (ts, tt, _), tp = _route_args(7, 256)
+    routed = [None]
+    paths, _, _ = tps.secondary_route(ts, tt, m, _envs()[1], tp, MY_ID, MH, EPS, 256,
+                                      routed=routed)
+    assert routed[0] is None and len(routed) == 2
+    live, remote = routed[1]
+    assert torch.equal(live, tp.is_valid & ~tp.is_shadow)
+    assert torch.equal(remote, live & paths.is_hit & (paths.target_node != MY_ID))
+    assert (int(remote.sum()) > 5) == (vis_bias > 0)
+
+
 def _multigeo_models(seed, vis_bias, depth_bias=0.0):
     cfg_v = tmlp.MLPConfig(width=64, depth=2, in_features=6, final_activation="none",
                            multi_geo=True)

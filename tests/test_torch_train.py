@@ -521,6 +521,42 @@ def test_fold_changes_bits_per_iteration():
     assert all(float((t - 0.5).abs().max()) < 1e-4 for t in trail)
 
 
+def test_timing_spans_nest_and_self_times_add_up():
+    """utils/timing.py: spans under a recorder nest by parent, inherit their
+    frame id, and each name's self time (its duration less its children's)
+    sums over the names to the root's duration; host reads count as host
+    syncs, copies onto the CPU do not."""
+    from pg2024_dprt_tpu_torch.utils.timing import (Timing, host_read, host_syncs, span,
+                                                    to_device)
+
+    timing = Timing()
+    with span("unrecorded"):
+        pass
+    with timing.section("Sample"):
+        with span("a"):
+            for _ in range(2):
+                with span("b"):
+                    sum(range(1000))
+        with span("c", frame=3):
+            with span("d"):
+                sum(range(1000))
+    assert [s[0] for s in timing.spans] == ["Sample", "a", "b", "b", "c", "d"]
+    assert [s[3] for s in timing.spans] == [-1, 0, 1, 1, 0, 4]
+    assert [s[4] for s in timing.spans] == [None, None, None, None, 3, 3]
+    for name, start, end, parent, _ in timing.spans[1:]:
+        assert timing.spans[parent][1] <= start <= end <= timing.spans[parent][2]
+    assert timing.counts["b"] == 2 and "unrecorded" not in timing.counts
+    own = timing.self_seconds()
+    root = timing.spans[0]
+    assert abs(sum(own.values()) - (root[2] - root[1]) / 1e9) < 1e-6
+    assert own["a"] == pytest.approx(timing.totals["a"] - timing.totals["b"], abs=1e-9)
+    assert "b: " in timing.report() and "self" in timing.report()
+    before = host_syncs()
+    assert host_read(torch.tensor([2, 3])) == [2, 3] and host_read(torch.tensor(4)) == 4
+    assert to_device(5, torch.int64, "cpu").item() == 5
+    assert host_syncs() - before == 2
+
+
 def test_timing_and_memory_report():
     from pg2024_dprt_tpu_torch.utils.memory import buffer_bytes, memory_report
     from pg2024_dprt_tpu_torch.utils.timing import TimedSection, Timing
