@@ -28,7 +28,7 @@ Phases, each reported on its own line; any failure exits non-zero:
      its flat mode (images bit-identical on the frame and on an odd-sized
      251x247 frame of the same soup with roulette; both timed),
      per-wavefront kernel ms and Mrays/s, and the composed frame with the
-     plain versions in place of K1/K2 (one run);
+     plain versions in place of K1/K2 and K14 (one run);
   4. each kernel against its plain version on the card. K1/K2 on the frame's
      camera, first-bounce and first-shadow wavefronts: hit flags agree on
      >= 99.99 % of rays, every disagreement is an edge hit (min barycentric
@@ -36,8 +36,8 @@ Phases, each reported on its own line; any failure exits non-zero:
      plain t is unique, t/u/v within rtol 1e-4 / atol 1e-5. K3 against its
      plain version on the full frame and on the textured checkerboard
      cornell with the water box, and against the composed path (K1/K2 +
-     eager shade, same seed) in "ris" and "sum" mode, with and without
-     roulette: at most 0.1 % of the pixels outside |a-b| / max(|a|, 1e-2) <
+     K14, same seed) in "ris" and "sum" mode, with and without roulette,
+     the runs with roulette against the plain version too: at most 0.1 % of the pixels outside |a-b| / max(|a|, 1e-2) <
      1e-3 (a last-bit difference of sinf/cosf/atan2f can flip an edge hit, an
      RIS pick or a roulette survival, and that pixel then differs by far more
      than rounding) and frame means within 1e-3; two K3 launches
@@ -173,6 +173,14 @@ Phases, each reported on its own line; any failure exits non-zero:
         visibility grids the same image and grid-culled > 0, on the rooms
         at the JAX benchmark's grid cell (128 triangles a room: the dense
         rooms mark nearly every grid bin);
+        K14 at the main path's shape: one exact frame of the same rooms at
+        the benchmark's 960x540, whose bounce-1 settle_shade buffer with the
+        most live rows (518,400 rows) is shaded by K14 and by its plain
+        version, in "ris" mode and in "sum" mode with roulette: masks, ids,
+        the next tmax and every valid shadow row's fields equal, the live
+        next paths and the environment image within rtol 1e-5 / atol 1e-6
+        (the GPU tests' criteria); K14's device ms, its wrapper's, the plain
+        version's, and the bound from the bytes the buffer needs;
      9b instanced_p8: phase 7's instanced frame (8 instances of a 512k soup)
         through build_partitioned_scene_instanced, held against phase 7's
         single-device image by the same criterion; truncated 0;
@@ -337,6 +345,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import json
 import os
 import statistics
@@ -559,20 +568,30 @@ def named_wavefronts(per_bounce):
 
 
 @contextlib.contextmanager
-def plain_traces(pt):
-    """Route the engine's traces through the plain versions (for timing the
-    plain frame)."""
+def plain_versions(pt):
+    """Route the engine's traces and its shading through the plain versions
+    (for timing the plain frame)."""
     res = pt.ops.resident
+    engine = importlib.import_module("pg2024_dprt_tpu_torch.render.engine")
     names = ("resident_closest", "resident_anyhit", "grouped_closest", "grouped_anyhit")
     saved = {name: getattr(res, name) for name in names}
+    shade = engine.shade
     for name in names:
         setattr(res, name, res.resident_anyhit_plain if name.endswith("anyhit")
                 else res.resident_closest_plain)
+    engine.shade = shade_plain_of(pt)
     try:
         yield
     finally:
         for name, fn in saved.items():
             setattr(res, name, fn)
+        engine.shade = shade
+
+
+def shade_plain_of(pt):
+    """render/shade.py `shade_plain`, K14's plain version (the package's
+    `render.shade` attribute is the function `shade`, not the module)."""
+    return importlib.import_module("pg2024_dprt_tpu_torch.render.shade").shade_plain
 
 
 def cull_slabs(pt, scene, o, inv, tcap, lim, rows):
@@ -1926,7 +1945,8 @@ def large_phase(pt, torch, np, dev, counted, frame_setup):
     render = lambda s=0: pt.render.render_image(scene_i, lights_i, env_i, cam_i, cfg_i,
                                                 base_sample=s)
     img, counts_i = counted(render)
-    check(counts_i == {closest: cfg_i.bounces, anyhit: cfg_i.bounces},
+    check(counts_i == {closest: cfg_i.bounces, anyhit: cfg_i.bounces,
+                       "shade_paths": cfg_i.spp * cfg_i.bounces},
           f"instanced frame launches {counts_i}")
     check(tuple(img.shape) == (256, 256, 3) and bool(torch.isfinite(img).all())
           and bool((img >= 0).all()) and float(img.max()) > 0.0,
@@ -2316,7 +2336,8 @@ def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536
                   f"{c[kern]} launches, residue {resid} pairs{extra}", flush=True)
 
     # the stackless and cluster back ends: cornell through render_image
-    # (composed path, no kernel) and the 64k frame's wavefronts against K1/K2
+    # (composed path, no trace kernel: K14 shades) and the 64k frame's
+    # wavefronts against K1/K2
     meshes, lights = pt.scene.cornell_box(device=dev)
     cscene = pt.scene.device_scene_from_meshes(meshes, device=dev)
     env = pt.scene.EnvironmentMap.constant((0.2, 0.3, 0.4), device=dev)
@@ -2331,7 +2352,8 @@ def pair_phase(pt, torch, np, dev, counted, frame_scene, frame_waves, tris=65536
                                                              device=dev))
         img = img.cpu().numpy()
         err = float(np.abs(img - golden).max())
-        check(counts == {} and np.allclose(img, golden, rtol=1e-3, atol=1e-4),
+        check(counts == {"shade_paths": cfg.spp * cfg.bounces}
+              and np.allclose(img, golden, rtol=1e-3, atol=1e-4),
               f"cornell through {tracer}: launches {counts}, max abs err {err:.3g}")
         back_ends[tracer] = {"cornell_max_abs_err": err}
         print(f"phase8 cornell 32x32 spp2 b3 tracer={tracer} vs golden: max abs err {err:.3g} "
@@ -2821,9 +2843,140 @@ def route_checks(pt, torch, label, models, cases):
     return err, outside, edges, counts
 
 
+def settle_buffer(pt, torch, dev, part, lights, env, cfg, width=960, height=540, bounce=1):
+    """What one settle_shade call of an exact frame of `part` at width x
+    height shades: of the calls at `bounce`, the one with the most live
+    rows, its inputs as the stage hands them over (copied). Returns a dict
+    of scene, paths, hits, sample, bounce, rr, partition, live, calls (the
+    frame's shade calls)."""
+    dist = importlib.import_module("pg2024_dprt_tpu_torch.parallel.distributed")
+    cam = pt.core.Camera.look_at(*ROOMS_CAMERA, width, height, device=dev)
+    c = dataclasses.replace(cfg, width=width, height=height, use_neural_proxies=False)
+    real, seen, best = dist.shade, [], {"live": -1}
+    copy = lambda t: t._replace(**{k: x.clone() for k, x in t._asdict().items()
+                                   if torch.is_tensor(x)})
+
+    def spy(scene, lights_, env_, paths, hits, sample, b, *a, **k):
+        if b == bounce:
+            live = int((paths.is_valid & ~paths.is_shadow).sum())
+            if live > best["live"]:
+                best.update(live=live, scene=scene, paths=copy(paths), hits=copy(hits),
+                            sample=sample, rr=k["rr"], partition=len(seen) % part.num_partitions)
+        seen.append(b)
+        return real(scene, lights_, env_, paths, hits, sample, b, *a, **k)
+
+    dist.shade = spy
+    try:
+        dist.render_image_distributed(part, None, lights, env, cam, c, base_sample=5, device=dev)
+    finally:
+        dist.shade = real
+    torch.cuda.synchronize()
+    return {**best, "bounce": bounce, "calls": len(seen)}
+
+
+def shade_bytes(torch, scene, paths, hits, s: int, ris: bool) -> int:
+    """The bytes K14 must move on one buffer of a flat scene (csrc/shade.cu's
+    header): per row 34 B read (flags, pixel id, origin, direction), the
+    next path's 51 B written, and one shadow row of 51 B ("ris") or S rows
+    of 59 B ("sum"); per live row 13 B more (throughput, hit flag); per live
+    hit 16 B (t, id, u, v), and once per distinct triangle the 52 B of its
+    tri_shade row that shading reads (56 with textures); per live miss the
+    12 B of its environment-image pixel."""
+    live = paths.is_valid & ~paths.is_shadow
+    hit = live & hits.is_hit
+    per_row = 34 + 51 + (51 if ris else 59 * s)
+    tris = int(torch.unique(hits.tri_index[hit]).numel())
+    return (per_row * paths.capacity + 13 * int(live.sum()) + 16 * int(hit.sum())
+            + (56 if scene.textured else 52) * tris + 12 * int((live & ~hits.is_hit).sum()))
+
+
+def shade_mismatches(torch, got, want):
+    """(fields that differ, max abs err): K14's outputs against its plain
+    version's by the GPU tests' criteria: masks, ids, the next tmax and
+    every field of a valid shadow row equal; the next path's origin,
+    direction and throughput on its live rows, and the environment image,
+    within rtol 1e-5 / atol 1e-6; a dead row's throughput 0, every origin
+    and direction finite."""
+    bad, err = [], 0.0
+    for tag, g, w in (("next", got[0], want[0]), ("shadow", got[1], want[1])):
+        if g.capacity != w.capacity:
+            bad.append(f"{tag}.capacity")
+            continue
+        bad += [f"{tag}.{f}" for f in ("is_valid", "is_delta", "is_shadow", "pixel_index",
+                                       "shadow_path_id")
+                if not torch.equal(getattr(g, f), getattr(w, f))]
+        if not bool((g.throughput[~g.is_valid] == 0).all()):
+            bad.append(f"{tag}.throughput of dead rows")
+        if not bool(torch.isfinite(g.origin).all() and torch.isfinite(g.direction).all()):
+            bad.append(f"{tag}.origin / direction not finite")
+    if bad:
+        return bad, err
+    (gn, gs, genv), (wn, ws, wenv) = got, want
+    if not torch.equal(gn.tmax, wn.tmax):
+        bad.append("next.tmax")
+    live, valid = wn.is_valid, ws.is_valid
+    pairs = [(f"next.{f}", getattr(gn, f)[live], getattr(wn, f)[live])
+             for f in ("origin", "direction", "throughput")] + [("env", genv, wenv)]
+    for name, a, b in pairs:
+        if a.numel():
+            err = max(err, float((a - b).abs().max()))
+        if not bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6)):
+            bad.append(name)
+    bad += [f"shadow.{f}" for f in ("origin", "direction", "tmax", "throughput")
+            if not torch.equal(getattr(gs, f)[valid], getattr(ws, f)[valid])]
+    return bad, err
+
+
+def shade_phase(pt, torch, dev, part, lights, env, cfg, width=960, height=540):
+    """Phase 9's K14 check at the main path's shape (the benchmark's
+    960x540); returns K14's kernels-line entry."""
+    ops, plain = pt.ops, shade_plain_of(pt)
+    buf = settle_buffer(pt, torch, dev, part, lights, env, cfg, width, height)
+    scene, paths, hits = buf["scene"], buf["paths"], buf["hits"]
+    n, s = paths.capacity, cfg.shadow_path_count
+    args = (scene, lights, env, paths, hits, buf["sample"], buf["bounce"], s, width * height)
+    where = (f"partition {buf['partition']}'s bounce-{buf['bounce']} settle_shade buffer of a "
+             f"{width}x{height} exact rooms_p8 frame ({buf['live']} live of {n} rows)")
+    check(n == width * height and buf["live"] > 0, f"K14's buffer: {where}")
+    modes = {}
+    for mode, rr in (("ris", buf["rr"]), ("sum", True)):
+        call = lambda: ops.shade_paths(*args, nee_mode=mode, rr=rr)
+        before = ops.LAUNCHES["shade_paths"]
+        got = call()
+        check(ops.LAUNCHES["shade_paths"] == before + 1, "K14 is not one launch a call")
+        want = plain(*args, nee_mode=mode, rr=rr)
+        torch.cuda.synchronize()
+        bad, err = shade_mismatches(torch, got, want)
+        check(not bad, f"K14 vs its plain version on {where}, {mode} roulette {int(rr)}: "
+                       f"{', '.join(bad)} differ")
+        check(bool(want[0].is_valid.any() and want[1].is_valid.any()),
+              f"K14's buffer, {mode} roulette {int(rr)}: no next path or no shadow row is valid")
+        d_ms, how = device_reading(torch, call, "shade_paths_kernel", reps=20)
+        w_ms = cuda_ms(torch, call, reps=7)
+        p_ms = cuda_ms(torch, lambda: plain(*args, nee_mode=mode, rr=rr), reps=3)
+        nbytes = shade_bytes(torch, scene, paths, hits, s, mode == "ris")
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        modes[mode] = {"ms": d_ms, "ms_by": how, "wrapper_ms": w_ms, "plain_ms": p_ms,
+                       "bound_ms": b_ms, "bound_by": "bytes", "bytes": nbytes,
+                       "max_abs_err": err, "roulette": bool(rr),
+                       "shadow_rows": int(want[1].is_valid.sum())}
+        print(f"phase9 K14 shade_paths vs its plain version on {where}, {mode} roulette "
+              f"{int(rr)}: masks, ids and valid shadow rows equal, live next paths and the "
+              f"environment image within 1e-5 (max abs err {err:.3g}) ok; device {d_ms:.4f} ms "
+              f"({how}), wrapper {w_ms:.4f} ms, plain {p_ms:.2f} ms, bound {b_ms:.6f} ms "
+              f"({nbytes} B; device time at {b_ms / d_ms:.3f} of the bound)", flush=True)
+    ris = modes.pop("ris")
+    return {"name": "shade_paths", "route": "cuda",
+            "source": "pg2024_dprt_tpu_torch/csrc/shade.cu",
+            "replaces": "none: the JAX package shades with XLA-fused jnp code "
+                        "(pg2024_dprt_tpu/render/shade.py:174)",
+            "launches": buf["calls"], **ris, "disagreements": 0, "library_ms": None,
+            "wavefront": where, "sum_mode": modes["sum"]}
+
+
 def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, side=256,
                       grid_tris=128, bucket_fraction=0.02, statue_side=64, route_rays=65536,
-                      min_frame_queries=1, min_queries=1000):
+                      min_frame_queries=1, min_queries=1000, shade_size=(960, 540)):
     """Phase 9; returns the kernels-line entry of K7's multi-geo mode and the
     phase's numbers. `inst` is phase 7's instanced frame (its single-device
     image, lights, env, camera, config)."""
@@ -2866,7 +3019,8 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
     (img, st), counts = counted(lambda: frame(part, None, cfg))
     t_closest = "grouped_closest" if ops.trace_grouped(part.scenes[0]) else "resident_closest"
     t_anyhit = "grouped_anyhit" if ops.trace_grouped(part.scenes[0], True) else "resident_anyhit"
-    check(set(counts) == {t_closest, t_anyhit, "schedule_keys"} and counts[t_anyhit] == P * 4,
+    check(set(counts) == {t_closest, t_anyhit, "schedule_keys", "shade_paths"}
+          and counts[t_anyhit] == P * 4 and counts["shade_paths"] == P * cfg.bounces,
           f"rooms_p8 exact launches {counts}")
     check(tuple(img.shape) == (side, side, 3) and st["migration_truncated"] == 0,
           f"rooms_p8 exact: shape {tuple(img.shape)}, truncated {st['migration_truncated']}")
@@ -2886,6 +3040,7 @@ def distributed_phase(pt, torch, np, dev, counted, inst, tris_per_room=131072, s
           f"{prof['unprofiled_wall_ms']:.1f}, stages "
           + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}), flush=True)
     out["rooms_p8_exact"]["profile"] = profile_summary(prof)
+    out["_shade_entry"] = shade_phase(pt, torch, dev, part, lights, env, cfg, *shade_size)
 
     # bucket pressure: small buckets overflow and retry; the same image
     cfg_b = dataclasses.replace(cfg, bucket_fraction=bucket_fraction, max_migrations=512)
@@ -4355,7 +4510,7 @@ def main() -> int:
             check(np.allclose(img, golden, rtol=1e-3, atol=1e-4),
                   f"cornell ({path}) differs from the golden EXR (max abs err {err2:.3g})")
             if want_counts is None:
-                check(set(counts2) == {"resident_closest", "resident_anyhit"},
+                check(set(counts2) == {"resident_closest", "resident_anyhit", "shade_paths"},
                       f"cornell composed launches {counts2}")
                 cornell_counts = counts2
             else:
@@ -4404,14 +4559,14 @@ def main() -> int:
         check(composed_counts == {
             "grouped_closest" if pt.ops.trace_grouped(scene) else "resident_closest": cfg.bounces,
             "grouped_anyhit" if pt.ops.trace_grouped(scene, True)
-            else "resident_anyhit": cfg.bounces},
+            else "resident_anyhit": cfg.bounces, "shade_paths": cfg.spp * cfg.bounces},
               f"composed frame launches {composed_counts}")
         seeds = iter(range(1, 1000))
         frame_ms = cuda_ms(torch, lambda: pt.render.render_image(
             scene, lights, env, cam, cfg, base_sample=next(seeds)), reps=7)
         composed_ms = cuda_ms(torch, lambda: pt.render.render_image(
             scene, lights, env, cam, off(cfg), base_sample=next(seeds)), reps=7)
-        with plain_traces(pt):
+        with plain_versions(pt):
             plain_frame_ms = cuda_ms(torch, lambda: pt.render.render_image(
                 scene, lights, env, cam, off(cfg), base_sample=next(seeds)), reps=1, warmup=0)
         print(f"phase3 frame 256x256 spp1 b4 ris: fused {frame_ms:.3f} ms, composed "
@@ -4502,12 +4657,22 @@ def main() -> int:
         check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
               "two K3 launches with the same arguments differ")
         print("phase4 K3 determinism: two launches bit-identical ok", flush=True)
+        # the composed path shades with K14, which shares K3's shading
+        # functions, so the runs with roulette face the plain version too
         for mode, rr in (("ris", 0), ("ris", 2), ("sum", 2)):
             c4 = dataclasses.replace(cfg, nee_mode=mode, russian_roulette=rr, spp=2)
-            ndis, e = compare_frames(f"K3 vs composed, {mode} rr{rr}", samples(c4, True, 3),
+            got4 = samples(c4, True, 3)
+            ndis, e = compare_frames(f"K3 vs composed, {mode} rr{rr}", got4,
                                      samples(c4, False, 3), npix)
+            vs_plain = ""
+            if rr:
+                ndis_p, e_p = compare_frames(
+                    f"K3 vs plain, {mode} rr{rr}", got4,
+                    pt.ops.render_frame_fused_plain(scene, lights, env, cam, 3, c4, spp=2), npix)
+                vs_plain = (f"; vs its plain version {ndis_p} outlier pixels, max abs err "
+                            f"elsewhere {e_p:.3g}")
             print(f"phase4 K3 vs the composed path, 64k frame spp2 {mode} roulette {rr}: "
-                  f"{ndis} outlier pixels of {npix}, max abs err elsewhere {e:.3g} ok",
+                  f"{ndis} outlier pixels of {npix}, max abs err elsewhere {e:.3g}{vs_plain} ok",
                   flush=True)
         frame_scene = (scene, lights, env, cam)
         meshes, lights = pt.scene.textured_cornell_box(with_water_sphere=True, device=dev)
@@ -4613,6 +4778,7 @@ def main() -> int:
         # ---- phase 9: the distributed frame, K7's multi-geo mode
         mg_entry, dist_out = distributed_phase(pt, torch, np, dev, counted, inst)
         rank_setup = dist_out.pop("_rank_setup")
+        kernels.append(dist_out.pop("_shade_entry"))
         mg_entry["distributed_phase"] = json.loads(json.dumps(dist_out, default=float))
         kernels.append(mg_entry)
 

@@ -26,10 +26,12 @@
 //   6. the next throughput and Russian roulette with the RR-salt draw;
 //   7. the sum over the launch's samples, in sample order.
 //
-// Every random draw and the order of every float operation follow the
-// composed path (render/shade.py, core/math.py), so the two frames differ
-// only where sinf/cosf/acosf/atan2f round differently from PyTorch's
-// kernels. Accumulation is deterministic: one thread owns one pixel and
+// Steps 2-6 are the device functions of shade.cuh, which the shading kernel
+// K14 (shade.cu) shares. Every random draw and the order of every float
+// operation follow the composed path (render/shade.py, core/math.py), so
+// the two frames differ only where sinf/cosf/acosf/atan2f round differently
+// from PyTorch's kernels, and where PyTorch's CUDA kernels multiply by the
+// reciprocal of a host scalar that K3 divides by (shade.cuh). Accumulation is deterministic: one thread owns one pixel and
 // adds its samples in order, so two launches give identical images (the
 // composed path's index_add_ adds with atomics).
 //
@@ -67,18 +69,21 @@
 
 #include "cycles.cuh"
 #include "resident_trace.cuh"
+#include "shade.cuh"
 
 namespace {
 
 using resident::Hit;
 using resident::Ray;
 using resident::Tables;
+using namespace shading;
+
+// K3 divides by host scalars, as it did before its shading functions moved
+// to shade.cuh, so that its images stay bit-identical to those it gave
+// (shade.cuh, "Division by a host scalar")
+using Div = Divide;
 
 constexpr int kThreads = 128;
-constexpr float kEps = 1e-8f;         // core/math.py EPS
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kTwoPi = 6.28318530717958647692f;
-constexpr float kRrFloor = 0.05f;     // render/shade.py RR_FLOOR
 // per-sample salt row: cols 0..7 bounce salts, 8 the sample id, 16..23 the
 // RIS draw salts, 24..31 the roulette draw salts (ops/frame.py salt_table)
 constexpr int kSaltCols = 32;
@@ -95,206 +100,15 @@ struct FrameArgs {
   float aspect;
   Tables scene;
   const float* __restrict__ tri_shade;  // (T, 24)
-  // lights (L, 3) x 4
-  const float* __restrict__ lp0;
-  const float* __restrict__ lp1;
-  const float* __restrict__ lp2;
-  const float* __restrict__ lrad;
-  int l_count;
-  // environment (H, W, 3)
-  const float* __restrict__ env;
-  int eh, ew;
-  float env_rot;
-  // textures: texels (T, 4), per-texture offset / height / width
-  const float* __restrict__ texels;
-  const int32_t* __restrict__ tex_offset;
-  const int32_t* __restrict__ tex_height;
-  const int32_t* __restrict__ tex_width;
-  int n_tex;
+  Lights lights;
+  EnvMap env;
+  Textures tex;
   const int32_t* __restrict__ salts;  // (spp, 32), see kSaltCols
   int spp, bounces, s, ris, rr_start;
   float eps;
   float* __restrict__ out_direct;  // (npix, 3) pixel order
   float* __restrict__ out_env;     // (npix, 3)
 };
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) { return {x, y, z}; }
-__device__ __forceinline__ V3 ld3(const float* p) { return {p[0], p[1], p[2]}; }
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
-  return {a.x + b.x, a.y + b.y, a.z + b.z};
-}
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
-  return {a.x - b.x, a.y - b.y, a.z - b.z};
-}
-__device__ __forceinline__ V3 operator*(V3 a, V3 b) {
-  return {a.x * b.x, a.y * b.y, a.z * b.z};
-}
-__device__ __forceinline__ V3 operator*(V3 a, float s) {
-  return {a.x * s, a.y * s, a.z * s};
-}
-__device__ __forceinline__ V3 operator/(V3 a, float s) {
-  return {a.x / s, a.y / s, a.z / s};
-}
-__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
-// core/math.py dot: left to right, no reduction
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ float norm(V3 a) { return sqrtf(dot(a, a)); }
-__device__ __forceinline__ V3 normalize(V3 a) {
-  return a / fmaxf(norm(a), kEps);
-}
-
-// core/math.py make_frame (Duff et al.): tangent t and bitangent b around n
-__device__ __forceinline__ void make_frame(V3 n, V3& t, V3& b) {
-  const float sign = n.z >= 0.0f ? 1.0f : -1.0f;
-  const float a = -1.0f / (sign + n.z);
-  const float bb = n.x * n.y * a;
-  t = {1.0f + sign * n.x * n.x * a, sign * bb, -sign * n.x};
-  b = {bb, sign + n.y * n.y * a, -n.y};
-}
-
-// core/rng.py tea (4 rounds) and rnd, natively in uint32
-__device__ __forceinline__ uint32_t tea(uint32_t v0, uint32_t v1) {
-  uint32_t s0 = 0;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    s0 += 0x9E3779B9u;
-    v0 += ((v1 << 4) + 0xA341316Cu) ^ (v1 + s0) ^ ((v1 >> 5) + 0xC8013EA4u);
-    v1 += ((v0 << 4) + 0xAD90777Du) ^ (v0 + s0) ^ ((v0 >> 5) + 0x7E95761Eu);
-  }
-  return v0;
-}
-
-__device__ __forceinline__ float rnd(uint32_t& seed) {
-  seed = 1664525u * seed + 1013904223u;
-  return static_cast<float>(seed & 0x00FFFFFFu) / 16777216.0f;
-}
-
-// Python-style modulo for a positive divisor
-__device__ __forceinline__ int pmod(int a, int m) {
-  const int r = a % m;
-  return r < 0 ? r + m : r;
-}
-
-__device__ __forceinline__ int clampi(int a, int lo, int hi) {
-  return a < lo ? lo : (a > hi ? hi : a);
-}
-
-// scene/lights.py EnvironmentMap.sample: lat-long bilinear, azimuth rotated
-// and wrapped, rows clamped
-__device__ V3 env_sample(const FrameArgs& a, V3 d) {
-  const float theta = acosf(fminf(fmaxf(d.y, -1.0f), 1.0f));
-  float phi = atan2f(d.z, d.x);
-  if (phi < 0.0f) phi = phi + kTwoPi;
-  phi = phi + a.env_rot;
-  if (phi > kTwoPi) phi = phi - kTwoPi;
-  const float u = phi / kTwoPi;
-  const float v = theta / kPi;
-  const int h = a.eh, w = a.ew;
-  const float x = u * static_cast<float>(w) - 0.5f;
-  const float y = v * static_cast<float>(h) - 0.5f;
-  const float x0 = floorf(x), y0 = floorf(y);
-  const float fx = x - x0, fy = y - y0;
-  const int x0i = pmod(static_cast<int>(x0), w);
-  const int x1i = pmod(x0i + 1, w);
-  const int y0i = clampi(static_cast<int>(y0), 0, h - 1);
-  const int y1i = clampi(y0i + 1, 0, h - 1);
-  const V3 c00 = ld3(a.env + 3 * (y0i * w + x0i));
-  const V3 c01 = ld3(a.env + 3 * (y0i * w + x1i));
-  const V3 c10 = ld3(a.env + 3 * (y1i * w + x0i));
-  const V3 c11 = ld3(a.env + 3 * (y1i * w + x1i));
-  const float gx = 1.0f - fx, gy = 1.0f - fy;
-  return c00 * gx * gy + c01 * fx * gy + c10 * gx * fy + c11 * fx * fy;
-}
-
-// scene/textures.py sample_textures (rgb only): bilinear, integer wrap, the
-// v flip
-__device__ V3 texture_sample(const FrameArgs& a, int ti, float uu, float vv) {
-  const int h = a.tex_height[ti], w = a.tex_width[ti], off = a.tex_offset[ti];
-  const float x = uu * static_cast<float>(w) - 0.5f;
-  const float y = (1.0f - vv) * static_cast<float>(h) - 0.5f;
-  const float x0 = floorf(x), y0 = floorf(y);
-  const float fx = x - x0, fy = y - y0;
-  const int x0i = pmod(static_cast<int>(x0), w);
-  const int x1i = pmod(x0i + 1, w);
-  const int y0i = pmod(static_cast<int>(y0), h);
-  const int y1i = pmod(y0i + 1, h);
-  const V3 c00 = ld3(a.texels + 4 * (off + y0i * w + x0i));
-  const V3 c01 = ld3(a.texels + 4 * (off + y0i * w + x1i));
-  const V3 c10 = ld3(a.texels + 4 * (off + y1i * w + x0i));
-  const V3 c11 = ld3(a.texels + 4 * (off + y1i * w + x1i));
-  const float gx = 1.0f - fx, gy = 1.0f - fy;
-  return c00 * gx * gy + c01 * fx * gy + c10 * gx * fy + c11 * fx * fy;
-}
-
-// core/math.py dielectric_reflectance
-__device__ __forceinline__ float fresnel(float cos_theta_i, float eta_i,
-                                         float eta_t) {
-  const float cos_i = fminf(fmaxf(cos_theta_i, 0.0f), 1.0f);
-  const float sin2_i = fmaxf(1.0f - cos_i * cos_i, 0.0f);
-  const float eta = eta_i / eta_t;
-  const float sin2_t = eta * eta * sin2_i;
-  const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
-  const float r_parl = (eta_t * cos_i - eta_i * cos_t) /
-                       fmaxf(eta_t * cos_i + eta_i * cos_t, kEps);
-  const float r_perp = (eta_i * cos_i - eta_t * cos_t) /
-                       fmaxf(eta_i * cos_i + eta_t * cos_t, kEps);
-  const float f = 0.5f * (r_parl * r_parl + r_perp * r_perp);
-  return sin2_t >= 1.0f ? 1.0f : f;
-}
-
-// One NEE light candidate of a shading point (render/shade.py shade).
-struct Candidate {
-  V3 wi;       // direction to the light sample
-  float dist;
-  V3 c;        // unoccluded contribution
-  float w;     // c.x + c.y + c.z where valid, else 0
-};
-
-__device__ Candidate light_candidate(
-    const FrameArgs& a, uint32_t pix, int j, uint32_t salt, V3 point,
-    V3 normal, V3 tp, V3 albedo) {
-  uint32_t seed = tea(pix * static_cast<uint32_t>(a.s) + static_cast<uint32_t>(j), salt);
-  const float sx1 = rnd(seed), sx2 = rnd(seed), sx3 = rnd(seed);
-  const float lf = static_cast<float>(a.l_count);
-  int li = static_cast<int>(floorf(sx1 * lf));
-  li = li > a.l_count - 1 ? a.l_count - 1 : li;
-  const V3 p0 = ld3(a.lp0 + 3 * li), p1 = ld3(a.lp1 + 3 * li),
-           p2 = ld3(a.lp2 + 3 * li), le = ld3(a.lrad + 3 * li);
-  // core/math.py uniform_sample_triangle
-  const float su = sqrtf(sx2);
-  const float b0 = 1.0f - su, b1 = sx3 * su;
-  const V3 e1 = p1 - p0, e2 = p2 - p0;
-  const V3 lpnt = p0 + e1 * b0 + e2 * b1;
-  const V3 cr = cross(e1, e2);
-  const float area = 0.5f * norm(cr);
-  const V3 lnorm = cr / fmaxf(2.0f * area, kEps);
-  const float area_pdf = (1.0f / fmaxf(area, kEps)) / lf;
-
-  Candidate cd;
-  const V3 to_light = lpnt - point;
-  cd.dist = norm(to_light);
-  cd.wi = to_light / fmaxf(cd.dist, 1e-12f);
-  const float cosl = fmaxf(dot(lnorm, neg(cd.wi)), 0.0f);
-  const float coss = fmaxf(dot(cd.wi, normal), 0.0f);
-  const float d2 = fmaxf(cd.dist * cd.dist, 1e-12f);
-  const V3 base = le * tp * albedo;
-  cd.c = {base.x * cosl * coss / area_pdf / d2 / kPi,
-          base.y * cosl * coss / area_pdf / d2 / kPi,
-          base.z * cosl * coss / area_pdf / d2 / kPi};
-  const float c_sum = cd.c.x + cd.c.y + cd.c.z;
-  // zero-contribution samples need no occlusion trace
-  cd.w = c_sum > 0.0f ? c_sum : 0.0f;
-  return cd;
-}
 
 __global__ void __launch_bounds__(kThreads) frame_sample_kernel(FrameArgs a) {
   // the warps' team buffers of the grouped walks (unused in the flat mode)
@@ -352,30 +166,20 @@ __global__ void __launch_bounds__(kThreads) frame_sample_kernel(FrameArgs a) {
       CYCLES_ADD(8 + b, c_closest);
       if (alive && !h.hit) {
         // ---- 4. environment on a miss; the path ends
-        env_acc = env_acc + tp * env_sample(a, d);
+        env_acc = env_acc + tp * env_sample<Div>(a.env, d);
         alive = false;
       }
 
       V3 point = {0.0f, 0.0f, 0.0f}, normal = {0.0f, 0.0f, 1.0f};
-      V3 albedo = {0.0f, 0.0f, 0.0f}, wi_world = {0.0f, 0.0f, 1.0f};
-      float weight = 0.0f, cos_theta = 0.0f;
+      V3 albedo = {0.0f, 0.0f, 0.0f};
+      BsdfSample bs = {{0.0f, 0.0f, 1.0f}, 0.0f, 0.0f};
       bool is_water = false;
       if (alive) {
         // ---- 2. attributes (render/shade.py surface_attributes)
-        const float* row = a.tri_shade + static_cast<size_t>(h.tri) * 24;
-        const float u = h.u, v = h.v;
-        const float w = 1.0f - u - v;
-        normal = normalize(ld3(row) * w + ld3(row + 3) * u + ld3(row + 6) * v);
-        albedo = ld3(row + 15);
-        is_water = static_cast<int>(row[18]) == 1;  // BSDF_WATER
-        if (a.n_tex > 0) {
-          const int ti = static_cast<int>(row[19]);
-          if (ti >= 0) {
-            const float uu = w * row[9] + u * row[11] + v * row[13];
-            const float vv = w * row[10] + u * row[12] + v * row[14];
-            albedo = texture_sample(a, ti, uu, vv);
-          }
-        }
+        const Surface sf = triangle_surface(a.tri_shade, a.tex, h.tri, h.u, h.v);
+        normal = normalize(sf.normal);
+        albedo = sf.albedo;
+        is_water = sf.is_water;
         point = o + d * h.t;
         const V3 wo_world = neg(d);
         const bool is_inside = dot(normal, wo_world) < 0.0f;
@@ -384,68 +188,22 @@ __global__ void __launch_bounds__(kThreads) frame_sample_kernel(FrameArgs a) {
         // ---- 3. BSDF sample (render/shade.py bsdf_sample)
         uint32_t seed = tea(pix, salt);
         const float xi1 = rnd(seed), xi2 = rnd(seed);
-        V3 ft, fb;
-        make_frame(normal, ft, fb);
-        V3 wi_local;
-        if (is_water) {
-          const V3 wo = {dot(wo_world, ft), dot(wo_world, fb), dot(wo_world, normal)};
-          const float eta_i = is_inside ? 1.33f : 1.0f;
-          const float eta_t = is_inside ? 1.0f : 1.33f;
-          // core/math.py refract_z
-          const float eta = eta_i / eta_t;
-          const float cos_i = fabsf(wo.z);
-          const float sin2_i = fmaxf(1.0f - cos_i * cos_i, 0.0f);
-          const float sin2_t = eta * eta * sin2_i;
-          const float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 0.0f));
-          const float sign = wo.z >= 0.0f ? 1.0f : -1.0f;
-          const bool reflecting = xi1 < fresnel(fabsf(wo.z), eta_i, eta_t);
-          wi_local = reflecting ? v3(-wo.x, -wo.y, wo.z)
-                                : v3(-eta * wo.x, -eta * wo.y, -sign * cos_t);
-          const float cos_wi = fabsf(wi_local.z);
-          const float safe_cos = fmaxf(cos_wi, 1e-12f);
-          const float eta_corr = (eta_i / eta_t) * (eta_i / eta_t);
-          weight = reflecting ? 1.0f / safe_cos : eta_corr / safe_cos;
-          if (cos_wi == 0.0f) weight = 0.0f;
-        } else {
-          // core/math.py uniform_hemisphere, weight 2
-          const float rr = sqrtf(fmaxf(1.0f - xi1 * xi1, 0.0f));
-          const float phi = kTwoPi * xi2;
-          wi_local = {rr * cosf(phi), rr * sinf(phi), xi1};
-          weight = 2.0f;
-        }
-        wi_world = normalize(ft * wi_local.x + fb * wi_local.y + normal * wi_local.z);
-        cos_theta = fabsf(wi_local.z);
+        bs = bsdf_sample(normal, wo_world, is_inside, is_water, xi1, xi2);
       }
 
       // ---- 5. NEE (delta surfaces cast no shadow paths)
       const bool nee = alive && !is_water;
       Candidate pick = {};
       if (nee && use_ris) {
-        // weighted reservoir over S candidates: running sums left to
-        // right, the first cum > u * W wins (candidate 0 when none does)
-        float w_tot = 0.0f;
-        for (int j = 0; j < a.s; ++j) {
-          w_tot = w_tot +
-              light_candidate(a, pix, j, salt, point, normal, tp, albedo).w;
-        }
-        if (w_tot > 0.0f) {
-          uint32_t useed = tea(pix, salts[16 + b]);
-          const float thresh = rnd(useed) * w_tot;
-          float cum = 0.0f;
-          for (int j = 0; j < a.s; ++j) {
-            const Candidate cd =
-                light_candidate(a, pix, j, salt, point, normal, tp, albedo);
-            cum = cum + cd.w;
-            if (j == 0 || cum > thresh) pick = cd;
-            if (cum > thresh) break;
-          }
-          pick.c = pick.c * (w_tot / fmaxf(pick.w, 1e-30f));
-        }
+        pick = ris_pick<Div>(a.lights, a.s, pix, salt, salts[16 + b], point, normal,
+                             tp, albedo);
       }
       for (int j = 0; j < n_rays; ++j) {
         Candidate cd = {};
         if (nee) {
-          cd = use_ris ? pick : light_candidate(a, pix, j, salt, point, normal, tp, albedo);
+          cd = use_ris ? pick
+                       : light_candidate<Div>(a.lights, a.s, pix, j, salt, point,
+                                              normal, tp, albedo);
         }
         const bool cast = nee && cd.w > 0.0f;
         // tmax is shaved so the light sample point never blocks itself
@@ -461,19 +219,13 @@ __global__ void __launch_bounds__(kThreads) frame_sample_kernel(FrameArgs a) {
 
       // ---- 6. next bounce state, Russian roulette
       if (alive) {
-        tp = tp * (weight * cos_theta) * albedo;
+        tp = tp * (bs.weight * bs.cos_theta) * albedo;
         if (a.rr_start && a.rr_start <= b + 1 && b + 1 < a.bounces) {
           uint32_t rseed = tea(pix, salts[24 + b]);
-          const float u_rr = rnd(rseed);
-          const float p = fminf(fmaxf(fmaxf(fmaxf(tp.x, tp.y), tp.z), kRrFloor), 1.0f);
-          if (u_rr < p) {
-            tp = tp / p;
-          } else {
-            alive = false;
-          }
+          alive = roulette(tp, rnd(rseed));
         }
         o = point;
-        d = wi_world;
+        d = bs.wi_world;
       }
       CYCLES_ADD(b, c_bounce);
     }
@@ -522,10 +274,9 @@ extern "C" int frame_sample(
     a.scene.mboxes = mboxes;
     a.scene.kg = kg;
     a.tri_shade = tri_shade;
-    a.lp0 = lp0; a.lp1 = lp1; a.lp2 = lp2; a.lrad = lrad; a.l_count = l_count;
-    a.env = env; a.eh = eh; a.ew = ew; a.env_rot = env_rot;
-    a.texels = texels; a.tex_offset = tex_offset; a.tex_height = tex_height;
-    a.tex_width = tex_width; a.n_tex = n_tex;
+    a.lights = Lights{lp0, lp1, lp2, lrad, l_count};
+    a.env = EnvMap{env, eh, ew, env_rot};
+    a.tex = Textures{texels, tex_offset, tex_height, tex_width, n_tex};
     a.salts = salts; a.spp = spp;
     a.bounces = bounces; a.s = s; a.ris = ris; a.rr_start = rr_start;
     a.eps = eps;

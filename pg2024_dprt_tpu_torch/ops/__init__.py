@@ -38,6 +38,7 @@ from .resident import (
     trace_resident,
     use_grouped,
 )
+from .shade import shade_paths
 from .route import (
     consume_secondary,
     consume_shadow,

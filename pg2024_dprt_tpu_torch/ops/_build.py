@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(_PKG, "build")
 # library name -> CUDA source in csrc/
 SOURCES = {"resident_trace": "resident_trace.cu", "frame": "frame.cu",
            "proxy_march": "proxy_march.cu", "proxy_mlp": "proxy_mlp.cu",
-           "route": "route.cu", "pair_trace": "pair_trace.cu"}
+           "route": "route.cu", "pair_trace": "pair_trace.cu", "shade": "shade.cu"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -27,8 +27,8 @@ instanced scene). K9 and K10 compute K1's and K2's contract, so their plain
 versions are K1's and K2's. A wrapper runs the plain version only for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises.
 `LAUNCHES` counts the kernel launches of each wrapper (those of
-ops/frame.py, ops/march.py, ops/mlp.py, ops/route.py and ops/tracer.py as
-well; the route kernel counts each of its two entry points, and its
+ops/frame.py, ops/march.py, ops/mlp.py, ops/route.py, ops/shade.py and
+ops/tracer.py as well; the route kernel counts each of its two entry points, and its
 multi-geo launches once more under route_multigeo). Each counted launch
 runs under a span of its key (utils/timing.py `launch_span`) around the
 wrapper's host work; route_multigeo has no span of its own.
@@ -58,7 +58,7 @@ LAUNCHES = {"resident_closest": 0, "resident_anyhit": 0, "grouped_closest": 0,
             "grouped_anyhit": 0, "schedule_keys": 0, "frame_sample": 0,
             "proxy_march": 0, "mlp_pair": 0, "mlp_dense": 0,
             "route_secondary": 0, "route_shadow": 0, "route_multigeo": 0,
-            "pair_closest": 0, "pair_anyhit": 0, "pair_woop": 0}
+            "pair_closest": 0, "pair_anyhit": 0, "pair_woop": 0, "shade_paths": 0}
 
 # the group fan-out the grouped kernels read (scene/geometry.py CL_GROUP)
 GROUP = 8

@@ -3,9 +3,11 @@ closest hits, sample the BSDF, emit the next bounce's paths and the NEE
 shadow paths (their full unoccluded contribution in `throughput`), and
 accumulate the environment radiance of misses.
 
-Everything is masked tensor math over the whole wavefront. The random
-numbers are the JAX package's, bit for bit: the same TEA seeds (pixel,
-sample, bounce and the RIS/RR stream salts) feed the same LCG draws.
+`shade_plain` is masked tensor math over the whole wavefront; `shade` runs
+it for CPU tensors and the shading kernel K14 (ops/shade.py, csrc/shade.cu)
+for CUDA tensors. The random numbers are the JAX package's, bit for bit:
+the same TEA seeds (pixel, sample, bounce and the RIS/RR stream salts) feed
+the same LCG draws.
 """
 from __future__ import annotations
 
@@ -141,7 +143,23 @@ def _paths(origin, direction, tmax, throughput, pixel_index, shadow_path_id,
 def shade(scene, lights, env, paths: PathState, hits, sample_count: int,
           bounce: int, shadow_path_count: int, frame_buffer_size: int,
           nee_mode: str = "sum", rr: bool = False):
-    """One shade pass. Returns (next_paths, shadow_paths, env_image_add).
+    """One shade pass. Returns (next_paths, shadow_paths, env_image_add), as
+    `shade_plain` computes them: for CPU tensors by `shade_plain`, for CUDA
+    tensors in one launch of the shading kernel K14 (ops/shade.py
+    `shade_paths`)."""
+    if paths.origin.device.type == "cpu":
+        fn = shade_plain
+    else:
+        from ..ops.shade import shade_paths as fn   # ops/ imports this module
+    return fn(scene, lights, env, paths, hits, sample_count, bounce, shadow_path_count,
+              frame_buffer_size, nee_mode=nee_mode, rr=rr)
+
+
+def shade_plain(scene, lights, env, paths: PathState, hits, sample_count: int,
+                bounce: int, shadow_path_count: int, frame_buffer_size: int,
+                nee_mode: str = "sum", rr: bool = False):
+    """One shade pass as masked tensor math over the whole wavefront, the
+    plain version of K14. Returns (next_paths, shadow_paths, env_image_add).
 
     * misses: throughput * env(direction) goes to the env image;
     * hits: the next path with throughput *= weight * |cos| * albedo, and

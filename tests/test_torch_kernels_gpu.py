@@ -14,6 +14,8 @@ an RIS pick or a roulette survival, and that pixel then differs by far more
 than rounding; so at most 0.1 % of the pixels may lie outside
 |a - b| / max(|a|, 1e-2) < 1e-3, and the frame means agree within 1e-3.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -855,7 +857,7 @@ def test_grouped_routing_through_launches_on_gpu():
     """trace_resident and the composed frame take K9 from
     CLOSEST_GROUPED_MIN_CLUSTERS clusters on and K10 from
     ANYHIT_GROUPED_MIN_CLUSTERS on, K1/K2 below; the frame kernel never
-    launches on an instanced scene."""
+    launches on an instanced scene (the composed frame shades with K14)."""
     from pg2024_dprt_tpu_torch.render import render_image
 
     _need_cuda()
@@ -882,7 +884,8 @@ def test_grouped_routing_through_launches_on_gpu():
             img = render_image(scene, lights, env, cam, RenderConfig(width=32, height=32,
                                                                      bounces=3))
             torch.cuda.synchronize()
-            assert {n: v for n, v in tops.LAUNCHES.items() if v} == {closest: 3, anyhit: 3}
+            assert {n: v for n, v in tops.LAUNCHES.items() if v} == {closest: 3, anyhit: 3,
+                                                                   "shade_paths": 3}
             assert bool(torch.isfinite(img).all()) and float(img.max()) > 0.0
     finally:
         tres.CLOSEST_GROUPED_MIN_CLUSTERS, tres.ANYHIT_GROUPED_MIN_CLUSTERS = saved
@@ -1538,3 +1541,238 @@ def test_distributed_frame_syncs_only_where_counted_on_gpu(neural):
     if neural:
         assert launched["route_secondary"] > 0 and stats["route_queries"] > 0
 
+
+
+# --------------------------------------------------------------------------
+# the shading kernel K14 shade_paths (ops/shade.py) against render/shade.py
+# shade_plain, the eager version, on identical paths and hits.
+#
+# Tolerances. Masks, pixel ids, shadow_path_id and every field of a valid
+# shadow row are exact: K14 runs the eager version's float operations in
+# its order, without FMA contraction, and divides by a host scalar as
+# PyTorch's CUDA kernels do (csrc/shade.cuh). On the rows that continue,
+# the next path's origin, direction and throughput, and the environment
+# image, are within rtol 1e-5 / atol 1e-6: the hemisphere's sinf / cosf,
+# the environment's acosf / atan2f, and an instanced normal's matrix
+# product (cuBLAS in the eager version) may round differently, and the
+# environment image adds with atomics in another order. The instanced scene
+# holds its shadow rows to that tolerance too: their normal is that product.
+
+def _shade_case(kind, device, side=32, sparse=False, sample=3):
+    """(scene, lights, env, paths, hits) of one shade call: camera paths of a
+    side x side frame through a 5000-triangle soup ("soup"), a rotated and
+    scaled soup in three instances ("instanced"), the checkerboard cornell
+    with its water sphere ("textured") or the cornell with a hair strand in
+    front of the camera ("curves"). sparse: a bounce-1 buffer with about 3 %
+    of its rows live (and one row in 50 of those a shadow path, which
+    shading skips)."""
+    from pg2024_dprt_tpu_torch.render.pathgen import generate_camera_paths
+    from pg2024_dprt_tpu_torch.render.shade import shade_plain
+
+    lt = np.asarray([[[0.3, 2.0, 0.3], [0.7, 2.0, 0.3], [0.7, 2.0, 0.7]],
+                     [[0.1, 2.0, 0.1], [0.3, 2.0, 0.1], [0.3, 2.0, 0.3]]], np.float32)
+    lights = tscene.LightTable.from_arrays(
+        lt, np.asarray([[60, 60, 60], [20, 50, 20]], np.float32), device=device)
+    sky = np.random.default_rng(0).uniform(0.0, 1.0, (16, 32, 3)).astype(np.float32)
+    env = tscene.EnvironmentMap.from_image(sky, rotation_offset=2.007, device=device)
+    eye, at = [0.5, 0.5, 3.0], [0.5, 0.5, 0.5]
+    if kind == "soup":
+        scene = device_scene_from_meshes([random_tri_soup(5000, seed=60)],
+                                         tris_per_cluster=128, device=device)
+    elif kind == "instanced":
+        rng = np.random.RandomState(72)
+        xf = np.zeros((3, 3, 4), np.float32)
+        for i in range(3):
+            r, _ = np.linalg.qr(rng.randn(3, 3))
+            xf[i, :, :3] = r @ np.diag(0.5 + 0.5 * rng.rand(3))
+            xf[i, :, 3] = [0.6 * i - 0.1, 0.1 * i, -0.3 * i]
+        scene = tscene.device_scene_from_instances([random_tri_soup(2000, seed=71)], xf,
+                                                   tris_per_cluster=64, device=device)
+        eye, at = [0.6, 0.3, 2.0], [0.6, 0.3, 0.0]
+    else:
+        meshes, lights = tscene.textured_cornell_box(with_water_sphere=True, device=device)
+        curves = None
+        if kind == "curves":
+            pts = np.stack([np.linspace(0.2, 0.8, 12), 0.4 + 0.1 * np.sin(np.arange(12.0)),
+                            np.full(12, 0.9)], axis=1).astype(np.float32)
+            curves = tscene.CurveSet.from_strand(pts, 0.04, device=device)
+        scene = device_scene_from_meshes(meshes, textures=[tscene.checkerboard(tiles=4)],
+                                         curves=curves, device=device)
+        eye, at = [0.5, 0.6, 2.2], [0.5, 0.4, 0.0]
+    cam = Camera.look_at(eye, at, [0, 1, 0], 45.0, side, side, device=device)
+    paths = generate_camera_paths(cam, sample)
+    eps = 1e-3
+    hits = tops.trace_closest(scene, paths.origin, paths.direction, eps, paths.tmax,
+                              paths.is_valid)
+    if sparse:
+        paths, _, _ = shade_plain(scene, lights, env, paths, hits, sample, 0, 4, side * side)
+        keep = (paths.pixel_index * 2654435761 % 1000) < 30
+        paths = paths._replace(is_valid=paths.is_valid & keep,
+                               is_shadow=keep & (paths.pixel_index % 50 == 7))
+        hits = tops.trace_closest(scene, paths.origin, paths.direction, eps, paths.tmax,
+                                  paths.is_valid)
+    return scene, lights, env, paths, hits
+
+
+# (nee_mode, rr, bounce)
+SHADE_MODES = [("ris", False, 1), ("ris", True, 2), ("sum", False, 0), ("sum", True, 1)]
+
+# the plain shade's digests on the seeded CPU case, as the eager version
+# gave them before K14 existed (soup, 32 x 32, sample 3; valid next rows,
+# valid shadow rows, the sum of the valid shadow rows' pixel ids, the sums
+# of the next throughput, the shadow throughput and the environment image)
+SHADE_DIGESTS = {
+    ("ris", False, 1): ((223, 99, 53413), (570.1965407766402, 247.48502976307645,
+                                          1186.5455722939223)),
+    ("ris", True, 2): ((158, 102, 54687), (562.3450698852539, 231.6430386789143,
+                                          1186.5455722939223)),
+    ("sum", False, 0): ((223, 352, 191674), (530.2738426923752, 248.06983870849945,
+                                            1186.5455722939223)),
+    ("sum", True, 1): ((161, 347, 189338), (572.2305282354355, 247.4850283000851,
+                                           1186.5455722939223)),
+}
+
+
+@pytest.mark.parametrize("nee_mode,rr,bounce", SHADE_MODES)
+def test_shade_on_cpu_runs_the_plain_version(nee_mode, rr, bounce):
+    """shade on CPU tensors is shade_plain: no kernel launch, the same
+    outputs as shade_plain, and the plain version's digests of the seeded
+    case as they were before the kernel (SHADE_DIGESTS)."""
+    from pg2024_dprt_tpu_torch.render.shade import shade, shade_plain
+
+    scene, lights, env, paths, hits = _shade_case("soup", "cpu")
+    args = (scene, lights, env, paths, hits, 3, bounce, 4, 1024)
+    before = dict(tops.LAUNCHES)
+    got = shade(*args, nee_mode=nee_mode, rr=rr)
+    assert tops.LAUNCHES == before
+    want = shade_plain(*args, nee_mode=nee_mode, rr=rr)
+    for a, b in zip(got[:2], want[:2]):
+        for x, y in zip(a, b):
+            assert (x is None and y is None) or torch.equal(x, y)
+    assert torch.equal(got[2], want[2])
+    nxt, sh, env_add = got
+    counts = (int(nxt.is_valid.sum()), int(sh.is_valid.sum()),
+              int(sh.pixel_index[sh.is_valid].sum()))
+    sums = (float(nxt.throughput.double().sum()), float(sh.throughput.double().sum()),
+            float(env_add.double().sum()))
+    want_counts, want_sums = SHADE_DIGESTS[(nee_mode, rr, bounce)]
+    assert counts == want_counts
+    np.testing.assert_allclose(sums, want_sums, rtol=1e-6)
+
+
+@functools.lru_cache(maxsize=2)
+def _shade_case_gpu(kind, sparse):
+    return _shade_case(kind, "cuda", side=128, sparse=sparse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nee_mode,rr,bounce", SHADE_MODES)
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+@pytest.mark.parametrize("kind", ["soup", "instanced", "textured", "curves"])
+def test_shade_kernel_matches_plain_on_gpu(kind, sparse, nee_mode, rr, bounce):
+    """K14 against shade_plain on the card, on a dense camera buffer and a
+    sparse bounce-1 buffer of 16,384 rows: one launch a call; masks, ids and
+    valid shadow rows exact; the continuing paths and the environment image
+    within rtol 1e-5 / atol 1e-6 (the section's note)."""
+    _need_cuda()
+    from pg2024_dprt_tpu_torch.render.shade import shade_plain
+
+    scene, lights, env, paths, hits = _shade_case_gpu(kind, sparse)
+    args = (scene, lights, env, paths, hits, 3, bounce, 4, 128 * 128)
+    before = dict(tops.LAUNCHES)
+    got = tops.shade_paths(*args, nee_mode=nee_mode, rr=rr)
+    assert tops.LAUNCHES == {**before, "shade_paths": before["shade_paths"] + 1}
+    want = shade_plain(*args, nee_mode=nee_mode, rr=rr)
+    torch.cuda.synchronize()
+    close = lambda a, b: torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    exact = close if kind == "instanced" else (lambda a, b: torch.testing.assert_close(
+        a, b, rtol=0, atol=0))
+    for g, w in zip(got[:2], want[:2]):
+        assert g.capacity == w.capacity
+        for f in ("is_valid", "is_delta", "is_shadow", "pixel_index", "shadow_path_id"):
+            assert torch.equal(getattr(g, f), getattr(w, f)), f
+        assert bool((g.throughput[~g.is_valid] == 0).all())
+        assert bool(torch.isfinite(g.origin).all() and torch.isfinite(g.direction).all())
+    (gn, gs, genv), (wn, ws, wenv) = got, want
+    assert torch.equal(gn.tmax, wn.tmax)
+    live = wn.is_valid
+    for f in ("origin", "direction", "throughput"):
+        close(getattr(gn, f)[live], getattr(wn, f)[live])
+    valid = ws.is_valid
+    for f in ("origin", "direction", "tmax", "throughput"):
+        exact(getattr(gs, f)[valid], getattr(ws, f)[valid])
+    close(genv, wenv)
+    assert int(valid.sum()) > 0 and int(live.sum()) > 0
+    if kind == "curves":
+        assert bool((hits.tri_index[paths.is_valid & hits.is_hit] <= -2).any())
+
+
+@pytest.mark.cuda
+def test_shade_wrapper_refuses_what_the_kernel_does_not_take():
+    """Paths or hits of another dtype, paths on the CPU (shade sends those to
+    shade_plain), a table on another device than the paths, and a light
+    table of no rows raise before any launch."""
+    _need_cuda()
+    scene, lights, env, paths, hits = _shade_case("soup", "cuda", side=16)
+    args = lambda **kw: {**dict(scene=scene, lights=lights, env=env, paths=paths,
+                                hits=hits), **kw}
+    call = lambda a: tops.shade_paths(a["scene"], a["lights"], a["env"], a["paths"],
+                                      a["hits"], 0, 0, 4, 256)
+    before = dict(tops.LAUNCHES)
+    no_lights = tscene.LightTable(*(torch.zeros((0, 3), device="cuda") for _ in range(4)))
+    for bad in (dict(paths=paths._replace(origin=paths.origin.double())),
+                dict(hits=hits._replace(tri_index=hits.tri_index.long())),
+                dict(paths=paths._replace(is_valid=paths.is_valid.to(torch.uint8))),
+                dict(paths=paths._replace(origin=paths.origin.cpu())),
+                dict(scene=scene._replace(tri_shade=scene.tri_shade.cpu())),
+                dict(env=env._replace(image=env.image.cpu())),
+                dict(lights=no_lights)):
+        with pytest.raises(ValueError):
+            call(args(**bad))
+    assert tops.LAUNCHES == before
+
+
+def _rooms_case(neural, parts=4, side=48):
+    from pg2024_dprt_tpu_torch.parallel import make_mesh, render_image_distributed
+
+    meshes, lights = tscene.two_room_scene(num_rooms=parts, tris_per_room=4000, seed=2,
+                                           device="cuda")
+    part = tscene.build_partitioned_scene(meshes, parts, device="cuda")
+    models = tmodels.random_proxy_models(5, parts, SMALL, SMALL, device="cuda")
+    env = tscene.EnvironmentMap.constant((0.25, 0.25, 0.3), device="cuda")
+    cam = Camera.look_at([2.5 * parts / 2, 1.4, 5.5], [2.5 * parts / 2, 0.6, 0.5], [0, 1, 0],
+                         60.0, side, side, device="cuda")
+    cfg = RenderConfig(width=side, height=side, spp=1, bounces=3, nee_mode="ris",
+                       russian_roulette=0, use_neural_proxies=neural)
+    mesh = make_mesh(parts, "cuda")
+    return lambda b: render_image_distributed(part, models if neural else None, lights, env,
+                                              cam, cfg, mesh=mesh, base_sample=b,
+                                              return_stats=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("neural", [True, False], ids=["neural", "exact"])
+def test_distributed_frame_with_shade_kernel_agrees_with_eager_on_gpu(neural, monkeypatch):
+    """A 4-partition rooms frame with K14 against the same frame with the
+    eager shade (monkeypatched in): the images agree within the frame
+    tolerance (_frames_agree), K14 runs once a partition and bounce, and the
+    frame waits for the card 3 times fewer a shade call (the eager version's
+    TEA seeds of the BSDF draw, the light candidates and the RIS draw)."""
+    _need_cuda()
+    from pg2024_dprt_tpu_torch.parallel import distributed
+    from pg2024_dprt_tpu_torch.render.shade import shade_plain
+
+    frame = _rooms_case(neural)
+    frame(1)        # builds and loads the kernels
+    tops.reset_launch_counts()
+    img, stats = frame(2)
+    calls = tops.LAUNCHES["shade_paths"]
+    assert calls == 4 * 3
+    monkeypatch.setattr(distributed, "shade", shade_plain)
+    tops.reset_launch_counts()
+    want, want_stats = frame(2)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["shade_paths"] == 0
+    assert want_stats["host_syncs"] - stats["host_syncs"] == 3 * calls
+    assert float(want.max()) > 0.0
+    _frames_agree([img.reshape(-1, 3)], [want.reshape(-1, 3)])
