@@ -5,9 +5,10 @@ meshes and nets.
 device scene, or the partitioned scene, its mesh and the proxy models; the
 lights, sky, camera and render request) and renders one frame a call:
 `render_image` for a configuration without partitions, and
-`render_image_distributed` for one with them. Everything the port derives
-(cluster tables, partitions, proxy boxes, packed nets) stays the port's;
-the reference works it out again.
+`render_image_distributed` for one with them, on its own in-process mesh
+or on a mesh the caller gives (`mesh`: a rank's, ranks.py). Everything
+the port derives (cluster tables, partitions, proxy boxes, packed nets)
+stays the port's; the reference works it out again.
 """
 from __future__ import annotations
 
@@ -15,11 +16,12 @@ import torch
 
 
 class Program:
-    def __init__(self, config: dict, neural: bool, meshes: list, nets, device):
+    def __init__(self, config: dict, neural: bool, meshes: list, nets, device, mesh=None):
         from pg2024_dprt_tpu_torch.core.camera import Camera
         from pg2024_dprt_tpu_torch.models import MLPConfig, ProxyModels
         from pg2024_dprt_tpu_torch.parallel import make_mesh, render_image_distributed
         from pg2024_dprt_tpu_torch.render import RenderConfig, render_image
+        from pg2024_dprt_tpu_torch.render.engine import _on
         from pg2024_dprt_tpu_torch.scene import (EnvironmentMap, LightTable, MeshGeometry,
                                                  build_partitioned_scene,
                                                  device_scene_from_meshes)
@@ -40,7 +42,19 @@ class Program:
                             name=m["name"]) for m in meshes]
         scene = config["scene"]
         self.partitions = scene.get("partitions", 0)
-        if self.partitions:
+        if mesh is not None:
+            # as the port's command line builds for a rank: every partition
+            # on the host, then the mesh's own on its device (exact frames)
+            part = build_partitioned_scene(geo, self.partitions, device="cpu")
+            self.scene = part._replace(
+                scenes=[_on(self.device, s) if i in mesh.local else None
+                        for i, s in enumerate(part.scenes)],
+                proxies=part.proxies.to(self.device))
+            self.mesh = mesh
+            self._render = lambda b: render_image_distributed(
+                self.scene, None, self.lights, self.env, self.camera, self.cfg,
+                mesh=self.mesh, base_sample=b, return_stats=True)
+        elif self.partitions:
             self.scene = build_partitioned_scene(geo, self.partitions, device=self.device)
             self.mesh = make_mesh(self.partitions, self.device)
             spec = config["nets"]

@@ -22,6 +22,9 @@ on a machine with an NVIDIA GPU. The run:
      metrics, `--trace 1` its per-layer metrics, each by its reader in
      metrics/.
 
+A cell whose configuration says `"ranks": N` runs as a world of N
+processes instead, one partition and one card a rank (ranks.py).
+
 The port's kernel builds stay in its checkout (`pg2024_dprt_tpu_torch/build/`);
 any Triton or extension cache goes to `.portbench_cache/` there.
 """
@@ -181,29 +184,70 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         trace_log)
     print(f"portbench: reference {time.perf_counter() - r0:.3f} s"
           + (f", net-decided pixels in the pool {found}" if found else ""), file=sys.stderr)
-    correct = all(v["value"] <= v["limit"] for v in numbers.values())
 
     ctx = SimpleNamespace(
         config=config, traffic=traffic, setup_s=setup_s, window_s=window_s, frames=k,
         frame_ms=frame_ms, samples_per_frame=npix * req["spp"], stats=stats, trace=tr,
         reference=ref, trace_log=trace_log, card=card() if cuda else {})
+    device_info = {"platform": "gpu" if cuda else dev.type,
+                   "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
+                   "count": 1, "memory_peak_bytes": int(peak)}
+    return finish(c, ctx, root, numbers, failed, device_info)
+
+
+def finish(c: dict, ctx, root: str, numbers: dict, failed: int, device_info: dict,
+           busy_s: float = None):
+    """(result dict, lines of the numbers compared) of a run of cell `c`:
+    its end-to-end metrics, or with a trace (`ctx.trace`) its per-layer
+    metrics, each read from `ctx` by its reader; `correct` from the numbers
+    against their limits; `device_info` with the card's power limit and,
+    traced, `busy_s` (the trace's own by default) and the traced window."""
+    from . import manifest
+
+    tr = ctx.trace
     metrics = {}
-    for m in (c["per_layer"] if trace else c["end_to_end"]):
+    for m in (c["per_layer"] if tr is not None else c["end_to_end"]):
         value = manifest.metric(m["name"], root).read(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    device_info = {"platform": "gpu" if cuda else dev.type,
-                   "kind": torch.cuda.get_device_name(0) if cuda else "cpu",
-                   "count": 1, "memory_peak_bytes": int(peak),
-                   "power_limit": ctx.card.get("power_limit", "not read")}
-    result = {"correct": bool(correct), "attempted": k, "failed": int(failed),
+    device_info["power_limit"] = ctx.card.get("power_limit", "not read")
+    correct = all(v["value"] <= v["limit"] for v in numbers.values())
+    result = {"correct": bool(correct), "attempted": ctx.frames, "failed": int(failed),
               "metrics": metrics, "device": device_info}
     if tr is not None:
-        device_info.update(busy_s=tr.busy_s, window_s=tr.window_s)
+        device_info.update(busy_s=tr.busy_s if busy_s is None else busy_s,
+                           window_s=tr.window_s)
         result["breakdown"] = tr.breakdown
     result["check"] = numbers
     lines = [f"check {key} {v['value']} limit {v['limit']}" for key, v in numbers.items()]
     return result, lines
+
+
+def set_env() -> None:
+    """One OpenMP thread a process, and any Triton or extension cache in
+    `.portbench_cache/` of the checkout."""
+    os.environ["OMP_NUM_THREADS"] = "1"
+    cache = os.path.join(ROOT, ".portbench_cache")
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(cache, "triton"))
+    os.environ.setdefault("TORCH_EXTENSIONS_DIR", os.path.join(cache, "torch_extensions"))
+
+
+def emit(result: dict, lines: list) -> int:
+    """The end of a run: 4, and no result, where a JAX module is loaded;
+    else the card, the numbers compared beside their limits on standard
+    error, and the result line on standard output."""
+    bad_modules = forbidden_modules()
+    if bad_modules:
+        print(f"portbench: {', '.join(bad_modules)} loaded in the run", file=sys.stderr)
+        return 4
+    dev = result["device"]
+    print(f"portbench: card {dev['kind']}" + (f" x{dev['count']}" if dev["count"] > 1 else "")
+          + f", power limit {dev['power_limit']}", file=sys.stderr)
+    for line in lines:
+        print(line, file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -213,19 +257,22 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
+    from . import manifest
+
+    c = manifest.cell(manifest.load_benchmark(ROOT), ROOT, args.workload)
+    set_env()
+    if "ranks" in c["config"]:
+        # a world of processes, one partition and one card a rank
+        from . import ranks
+
+        return ranks.main(args, c, time.monotonic() - (time.perf_counter() - START))
     # one process with one host thread on one core: the frames of the
     # partitioned cells are paced by the host, and a thread that moves
     # between the host's cores makes their times spread. The core is the
     # one the scheduler started the process on, from its own affinity set.
-    os.environ["OMP_NUM_THREADS"] = "1"
     os.sched_setaffinity(0, {current_core()})
-    cache = os.path.join(ROOT, ".portbench_cache")
-    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(cache, "triton"))
-    os.environ.setdefault("TORCH_EXTENSIONS_DIR", os.path.join(cache, "torch_extensions"))
 
     import torch
-
-    from . import manifest
 
     torch.set_num_threads(1)
     try:
@@ -233,24 +280,12 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"portbench: the port is not in this checkout ({e})", file=sys.stderr)
         return 2
-    chips = manifest.cell(manifest.load_benchmark(ROOT), ROOT, args.workload)["chips"]
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
-        print(f"portbench: {args.workload} needs {chips} CUDA device(s); "
+    if not torch.cuda.is_available() or torch.cuda.device_count() < c["chips"]:
+        print(f"portbench: {args.workload} needs {c['chips']} CUDA device(s); "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} found",
               file=sys.stderr)
         return 3
-    result, lines = run_cell(args.workload, args.seed, args.seconds, bool(args.trace))
-    bad_modules = forbidden_modules()
-    if bad_modules:
-        print(f"portbench: {', '.join(bad_modules)} loaded in the run", file=sys.stderr)
-        return 4
-    print(f"portbench: card {result['device']['kind']}, power limit "
-          f"{result['device']['power_limit']}", file=sys.stderr)
-    for line in lines:
-        print(line, file=sys.stderr)
-    sys.stderr.flush()
-    print(json.dumps(result), flush=True)
-    return 0
+    return emit(*run_cell(args.workload, args.seed, args.seconds, bool(args.trace)))
 
 
 if __name__ == "__main__":

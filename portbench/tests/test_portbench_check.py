@@ -16,7 +16,12 @@ from portbench.control import control_numbers
 from portbench.reference.neural import net
 from portbench.run import ROOT, run_cell
 
-CELLS = [w["name"] for w in manifest.load_benchmark(ROOT)["workloads"]]
+BENCH = manifest.load_benchmark(ROOT)
+CELLS = [w["name"] for w in BENCH["workloads"]]
+# the cells run in one process (run_cell); a rank cell's runs are
+# test_portbench_ranks.py's
+ONE_PROCESS = [name for name in CELLS
+               if "ranks" not in manifest.cell(BENCH, ROOT, name)["config"]]
 SEED = 3_000_000_017
 # the check's pixels at the tiny size: a uniform 96 of each frame, and in
 # the neural cells up to 48 of the pixels the nets decide among the rest
@@ -49,7 +54,7 @@ def run(name, seed=SEED):
     return run_cell(name, seed, 0.05, False, device="cpu", override=tiny(name))[0]
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", ONE_PROCESS)
 def test_the_port_agrees_with_the_reference(name):
     result = run(name)
     assert result["correct"], result["check"]
@@ -145,7 +150,7 @@ FAULTS = {
         port_stages, "_nn_pair",
         lambda models, feats, obj, valid: (torch.zeros(feats.shape[0]),) * 2),
 }
-CASES = [(name, fault) for name in CELLS for fault in FAULTS
+CASES = [(name, fault) for name in ONE_PROCESS for fault in FAULTS
          if not (fault == "no_exchange" and name.startswith("soup"))
          and not (fault == "no_nets" and not name.endswith("neural"))]
 
