@@ -3,7 +3,8 @@
 `python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>`
 runs one cell of `BENCHMARK.json` once and prints its result line;
 `python3 -m portbench.control` reads a cell's control; the CPU tests are
-`python -m pytest portbench/tests`. Configurations, traffic mixes, cells'
-limits and metric readers are files under `configs/`, `traffic/`,
-`workloads/` and `metrics/`, found by the names in `BENCHMARK.json`.
+`python -m pytest portbench/tests`. Configurations, scene kinds, traffic
+mixes, cells' limits and metric readers are files under `configs/`,
+`kinds/`, `traffic/`, `workloads/` and `metrics/`, found by the names in
+`BENCHMARK.json` (manifest.py).
 """

@@ -12,8 +12,9 @@ triangles (what trained vis nets predict: the configuration's
 hits, and the share of the pool's pixels whose path a net's predicted hit
 decided.
 
-`build`: at each size (the soup's `triangles`, or the rooms'
-`tris_per_room`), the seconds of the meshes, of the port's scene build
+`build`: at each size (the value of the scene kind's `SIZE` key: the
+soup's `triangles`, the rooms' `tris_per_room`), the seconds of the scene's
+inputs, of the port's scene build
 (host BVH, clusters, partitions: set-up that every run pays), and of the
 reference's trace of the check's pixels. One JSON line a reading.
 """
@@ -35,12 +36,12 @@ def nets_reading(name: str, seed: int, device: str, root: str = ROOT,
                  override: dict = None) -> dict:
     c = manifest.cell(manifest.load_benchmark(root), root, name)
     config = merged(c["config"], override or {})
-    meshes = scenes.scene_meshes(config["scene"])
+    inputs = scenes.scene_inputs(config["scene"], root)
     nets = scenes.proxy_nets(config["nets"], config["scene"]["partitions"], device)
     req, check = config["request"], c["traffic"]["check"]
     early, orders = plan(check, seed, req["width"] * req["height"])
     sample = int(seed) % (2 ** c["traffic"]["first_sample_bits"]) + 1 + early
-    ref = Reference(config, True, meshes, nets, device)
+    ref = Reference(config, True, inputs, nets, device, root=root)
     info = {}
     t0 = time.perf_counter()
     ref.pixels(sample, orders[0], info=info)
@@ -62,15 +63,15 @@ def build_reading(name: str, size: int, device: str, root: str = ROOT) -> dict:
     from .program import Program
 
     c = manifest.cell(manifest.load_benchmark(root), root, name)
-    key = "triangles" if c["config"]["scene"]["kind"] == "soup" else "tris_per_room"
+    key = manifest.kind(c["config"]["scene"]["kind"], root).SIZE
     config = merged(c["config"], {"scene": {key: int(size)}})
     neural = bool(c["traffic"]["neural"])
     t0 = time.perf_counter()
-    meshes = scenes.scene_meshes(config["scene"])
+    inputs = scenes.scene_inputs(config["scene"], root)
     nets = (scenes.proxy_nets(config["nets"], config["scene"]["partitions"], device)
             if "nets" in config else None)
     t1 = time.perf_counter()
-    program = Program(config, neural, meshes, nets, device)
+    program = Program(config, neural, inputs, nets, device, root=root)
     t2 = time.perf_counter()
     program.frame(0)
     torch.cuda.synchronize()
@@ -79,12 +80,12 @@ def build_reading(name: str, size: int, device: str, root: str = ROOT) -> dict:
     torch.cuda.empty_cache()
     req, check = config["request"], c["traffic"]["check"]
     _, orders = plan(check, 1, req["width"] * req["height"])
-    ref = Reference(config, neural, meshes, nets, device)
+    ref = Reference(config, neural, inputs, nets, device, root=root)
     t4 = time.perf_counter()
     for order in orders:
         ref.pixels(1, order)
     torch.cuda.synchronize()
-    return {"workload": name, key: int(size), "meshes_s": t1 - t0, "scene_build_s": t2 - t1,
+    return {"workload": name, key: int(size), "inputs_s": t1 - t0, "scene_build_s": t2 - t1,
             "first_frame_s": t3 - t2, "reference_s": time.perf_counter() - t4,
             "reference_pixels": sum(len(o) for o in orders),
             "peak_bytes": torch.cuda.max_memory_allocated()}

@@ -25,8 +25,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .reference.neural import bf16, mesh_partitions, partition_boxes, render_pixels_neural
-from .reference.pathtrace import make_view, ref_scene, render_pixels
+from . import manifest
+from .reference.neural import bf16, render_pixels_neural
+from .reference.pathtrace import make_view, render_pixels
+from .run import ROOT
 
 PIXEL_TOLERANCE = 1e-3
 
@@ -42,17 +44,19 @@ def plan(check: dict, seed: int, npix: int):
 
 
 class Reference:
-    """The reference renderer of one configuration's scene and nets."""
+    """The reference renderer of one configuration's scene and nets. The
+    scene, its partitions and their boxes are its kind's `reference` of the
+    benchmark's inputs (`kinds/<kind>.py`), and the frame traces through
+    that scene's queries: which primitives a ray can hit, and how, is the
+    kind's to know, as its build is on the program's side."""
 
-    def __init__(self, config: dict, neural: bool, meshes: list, nets, device,
-                 dtype=torch.float32, operand=bf16):
+    def __init__(self, config: dict, neural: bool, inputs, nets, device,
+                 dtype=torch.float32, operand=bf16, root: str = ROOT):
         self.config, self.neural, self.operand = config, neural, operand
         self.view = make_view(config["camera"], config["lights"], config["sky"],
                               config["request"], device, dtype)
-        parts = config["scene"].get("partitions", 0)
-        owner = mesh_partitions(meshes, parts) if parts else np.zeros(len(meshes), np.int64)
-        self.scene = ref_scene(meshes, owner, device, dtype)
-        self.boxes = partition_boxes(meshes, owner, parts, device) if neural else None
+        kind = manifest.kind(config["scene"]["kind"], root)
+        self.scene, self.boxes = kind.reference(inputs, config["scene"], neural, device, dtype)
         self.nets = nets
         self.device = device
 

@@ -40,7 +40,7 @@ def control_numbers(name: str, seed: int, device: str, control: str = "bf16", ro
     c = manifest.cell(manifest.load_benchmark(root), root, name)
     config = merged(c["config"], override or {})
     neural = bool(c["traffic"]["neural"])
-    meshes = scenes.scene_meshes(config["scene"])
+    inputs = scenes.scene_inputs(config["scene"], root)
     nets = (scenes.proxy_nets(config["nets"], config["scene"]["partitions"], device)
             if "nets" in config else None)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -49,14 +49,14 @@ def control_numbers(name: str, seed: int, device: str, control: str = "bf16", ro
     early, orders = plan(check, seed, req["width"] * req["height"])
     first = int(seed) % (2 ** c["traffic"]["first_sample_bits"]) + 1
     t0 = time.perf_counter()
-    full = Reference(config, neural, meshes, nets, device)
+    full = Reference(config, neural, inputs, nets, device, root=root)
     if control == "bf16":
-        low = Reference(config, neural, meshes, nets, device, dtype=torch.bfloat16)
+        low = Reference(config, neural, inputs, nets, device, dtype=torch.bfloat16, root=root)
     elif control == "fp8_nets":
-        low = Reference(config, neural, meshes, nets, device, operand=fp8)
+        low = Reference(config, neural, inputs, nets, device, operand=fp8, root=root)
     elif control == "nets_off":
         vis = dict(nets["vis"], head_b1=nets["vis"]["head_b1"] - 1e3)
-        low = Reference(config, neural, meshes, dict(nets, vis=vis), device)
+        low = Reference(config, neural, inputs, dict(nets, vis=vis), device, root=root)
     else:
         raise ValueError(f"unknown control {control!r}")
     frames = [(first + early, orders[0]), (first + early + 1, orders[1])]

@@ -5,8 +5,26 @@ mix `traffic/<traffic>.json`, a cell `workloads/<cell>.json` (its limits),
 and a metric `metrics/<metric>.py`: a reader `read(ctx)` that returns the
 metric's value, or None where it finds nothing to read. A metric's unit,
 layer, source, the metric it moves and the cells it is read in are its
-BENCHMARK.json entry's alone. Adding a configuration, a mix, a cell or a
-metric adds files and entries; no file here changes.
+BENCHMARK.json entry's alone.
+
+A configuration's scene is of a kind, `kinds/<kind>.py` by its `scene`
+entry's `kind`, which supplies what differs from kind to kind:
+
+  * `inputs(scene)`: what the benchmark makes from the scene entry's own
+    seeds and hands to both sides (for meshes: the meshes);
+  * `device_scene(inputs, scene, device)` and, where the kind can be
+    partitioned, `partitioned_scene(inputs, scene, device)`: the port's
+    build of those inputs through its public entries (program.py renders
+    it; a kind without `partitioned_scene` builds no partitioned scene);
+  * `reference(inputs, scene, neural, device, dtype)`: the reference's
+    scene of those inputs and, where `neural`, the partition boxes
+    (check.py traces through its queries, reference/pathtrace.py), written
+    under `reference/`, which imports nothing of the port;
+  * `SIZE`: the scene entry's key that sets its size.
+
+The frame loop, the view, the nets, the check and the traffic are shared.
+Adding a configuration, a scene kind, a mix, a cell or a metric adds files
+and entries; no file here changes.
 """
 from __future__ import annotations
 
@@ -55,7 +73,7 @@ def cell(bench: dict, root: str, name: str) -> dict:
 
 
 def _load(path: str, name: str):
-    spec = importlib.util.spec_from_file_location(f"portbench.metrics.{name}", path)
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -63,10 +81,25 @@ def _load(path: str, name: str):
 
 def metric(name: str, root: str):
     """The reader module of metric `name`."""
-    return _load(os.path.join(root, DIR, "metrics", f"{name}.py"), name)
+    return _load(os.path.join(root, DIR, "metrics", f"{name}.py"), f"{DIR}.metrics.{name}")
 
 
 def sibling_reader(path: str, name: str):
     """The `read` of metric `name`, whose reader lies beside the file
     `path`: for a metric that reads the same quantity as another one."""
-    return _load(os.path.join(os.path.dirname(os.path.abspath(path)), f"{name}.py"), name).read
+    return _load(os.path.join(os.path.dirname(os.path.abspath(path)), f"{name}.py"),
+                 f"{DIR}.metrics.{name}").read
+
+
+def kind_file(name: str, root: str) -> str:
+    """The file of scene kind `name`, `kinds/<name>.py`; FileNotFoundError,
+    naming the file, where there is none."""
+    path = os.path.join(root, DIR, "kinds", f"{name}.py")
+    if not (NAME.fullmatch(name) and os.path.isfile(path)):
+        raise FileNotFoundError(f"unknown scene kind {name!r}: no file {path}")
+    return path
+
+
+def kind(name: str, root: str):
+    """The module of scene kind `name` (kind_file)."""
+    return _load(kind_file(name, root), f"{DIR}.kinds.{name}")

@@ -1,30 +1,42 @@
 """The system under test: the port's public entries, given the benchmark's
-meshes and nets.
+inputs and nets.
 
-`Program` builds what a user of the port builds for a configuration (the
-device scene, or the partitioned scene, its mesh and the proxy models; the
-lights, sky, camera and render request) and renders one frame a call:
-`render_image` for a configuration without partitions, and
-`render_image_distributed` for one with them, on its own in-process mesh
-or on a mesh the caller gives (`mesh`: a rank's, ranks.py). Everything
-the port derives (cluster tables, partitions, proxy boxes, packed nets)
-stays the port's; the reference works it out again.
+`Program` builds what a user of the port builds for a configuration and
+renders one frame a call. The scene is its kind's build (`kinds/<kind>.py`:
+`device_scene`, or `partitioned_scene` for a configuration with
+partitions), through the port's public entries; the rest is shared: the
+lights, sky, camera and render request, the mesh and the proxy models, and
+the frame entry, `render_image` for a configuration without partitions and
+`render_image_distributed` for one with them, on its own in-process mesh or
+on a mesh the caller gives (`mesh`: a rank's, ranks.py). Everything the
+port derives (cluster tables, partitions, proxy boxes, packed nets) stays
+the port's; the reference works it out again.
 """
 from __future__ import annotations
 
 import torch
 
+from . import manifest
+from .run import ROOT
+
+
+def partitioned_scene(kind, inputs, scene: dict, device):
+    """The kind's partitioned scene, or ValueError where the kind has none."""
+    if not hasattr(kind, "partitioned_scene"):
+        raise ValueError(f"scene kind {scene['kind']!r} builds no partitioned scene: "
+                         f"{kind.__file__} has no partitioned_scene")
+    return kind.partitioned_scene(inputs, scene, device)
+
 
 class Program:
-    def __init__(self, config: dict, neural: bool, meshes: list, nets, device, mesh=None):
+    def __init__(self, config: dict, neural: bool, inputs, nets, device, mesh=None,
+                 root: str = ROOT):
         from pg2024_dprt_tpu_torch.core.camera import Camera
         from pg2024_dprt_tpu_torch.models import MLPConfig, ProxyModels
         from pg2024_dprt_tpu_torch.parallel import make_mesh, render_image_distributed
         from pg2024_dprt_tpu_torch.render import RenderConfig, render_image
         from pg2024_dprt_tpu_torch.render.engine import _on
-        from pg2024_dprt_tpu_torch.scene import (EnvironmentMap, LightTable, MeshGeometry,
-                                                 build_partitioned_scene,
-                                                 device_scene_from_meshes)
+        from pg2024_dprt_tpu_torch.scene import EnvironmentMap, LightTable
 
         self.device = torch.device(device)
         req, cam, lights, sky = (config[k] for k in ("request", "camera", "lights", "sky"))
@@ -38,14 +50,13 @@ class Program:
                                              device=self.device)
         self.env = EnvironmentMap.constant(sky["color"], sky["height"], sky["width"],
                                            device=self.device)
-        geo = [MeshGeometry(v0=m["v0"], v1=m["v1"], v2=m["v2"], base_color=m["base_color"],
-                            name=m["name"]) for m in meshes]
         scene = config["scene"]
+        kind = manifest.kind(scene["kind"], root)
         self.partitions = scene.get("partitions", 0)
         if mesh is not None:
             # as the port's command line builds for a rank: every partition
             # on the host, then the mesh's own on its device (exact frames)
-            part = build_partitioned_scene(geo, self.partitions, device="cpu")
+            part = partitioned_scene(kind, inputs, scene, "cpu")
             self.scene = part._replace(
                 scenes=[_on(self.device, s) if i in mesh.local else None
                         for i, s in enumerate(part.scenes)],
@@ -55,7 +66,7 @@ class Program:
                 self.scene, None, self.lights, self.env, self.camera, self.cfg,
                 mesh=self.mesh, base_sample=b, return_stats=True)
         elif self.partitions:
-            self.scene = build_partitioned_scene(geo, self.partitions, device=self.device)
+            self.scene = partitioned_scene(kind, inputs, scene, self.device)
             self.mesh = make_mesh(self.partitions, self.device)
             spec = config["nets"]
             ncfg = MLPConfig(width=spec["width"], depth=spec["depth"],
@@ -65,8 +76,7 @@ class Program:
                 self.scene, self.models, self.lights, self.env, self.camera, self.cfg,
                 mesh=self.mesh, base_sample=b, return_stats=True, device=self.device)
         else:
-            self.scene = device_scene_from_meshes(geo, tris_per_cluster=scene["tris_per_cluster"],
-                                                  device=self.device)
+            self.scene = kind.device_scene(inputs, scene, self.device)
             self._render = lambda b: (render_image(self.scene, self.lights, self.env, self.camera,
                                                    self.cfg, base_sample=b,
                                                    device=self.device), None)

@@ -37,9 +37,9 @@ Each rank:
   * joins the world over NCCL (`make_rank_mesh`), with a gloo group beside
     it for the harness's own messages, so that none of them is a device
     operation in the trace;
-  * makes the configuration's meshes (scenes.py) and builds the scene as
-    the port builds it for a rank (program.py): every partition on the
-    host, then its own on its card;
+  * makes the configuration's scene inputs (scenes.py, by its kind) and
+    builds the scene as the port builds it for a rank (program.py): every
+    partition on the host, then its own on its card;
   * rank 0 builds any stale kernel library first, and the others load
     them after a barrier, so that no two processes build into the port's
     build directory at once;
@@ -154,10 +154,10 @@ def _window(rank: int, world: int, dev, backend: str, ctl, job: dict) -> dict:
     # the world
     marks = [("ranks up", time.monotonic())]
     mesh = make_rank_mesh(world, dev, backend=backend)
-    meshes = scenes.scene_meshes(config["scene"])
+    inputs = scenes.scene_inputs(config["scene"])
     marks.append(("inputs", time.monotonic()))
-    program = Program(config, False, meshes, None, dev, mesh=mesh)
-    del meshes
+    program = Program(config, False, inputs, None, dev, mesh=mesh)
+    del inputs
     marks.append(("scene build", time.monotonic()))
     if cuda and rank == 0:
         from pg2024_dprt_tpu_torch.ops import _build
@@ -367,7 +367,7 @@ def run_ranks_cell(c: dict, seed: int, seconds: float, trace: bool, device: str 
     _, orders = plan(traffic["check"], seed, npix)
     checked = r0["checked"]
     t_ref = time.perf_counter()
-    ref = Reference(config, False, scenes.scene_meshes(config["scene"]), None, dev)
+    ref = Reference(config, False, scenes.scene_inputs(config["scene"]), None, dev)
     numbers, failed, _ = judge(
         ref, [(sample, order) for (sample, _), order in zip(checked, orders)], traffic["check"],
         limits, lambda k, ids: checked[k][1][torch.as_tensor(ids, dtype=torch.int64)])

@@ -1,9 +1,11 @@
 """The plain reference of the partitioned frame: exact migration, and the
 paper's neural proxies from bounce 1 on.
 
-A configuration with partitions splits the meshes into partitions by a
-median split of the mesh box centres; each partition's box is its
-triangles' bounds. Exact mode renders what one device renders (the nearest
+A configuration with partitions has its kind's reference split the scene
+into partitions and give each partition's box (for meshes: a median split
+of the mesh box centres, and each partition's triangles' bounds;
+triangles.py); the frame here asks the scene only through its queries
+(pathtrace.py). Exact mode renders what one device renders (the nearest
 hit over every partition, the shadow ray against every partition), so it
 is `pathtrace.render_pixels`. Neural mode (`render_pixels_neural`) follows
 each path's partition: bounce 0 settles on the partition of the nearest
@@ -28,52 +30,13 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
-from .pathtrace import (RefScene, View, closest, normalize, occluded, safe_inv,
-                        shade, sky_radiance, spherical, surface, camera_rays)
+from .pathtrace import (View, normalize, safe_inv, shade, sky_radiance, spherical,
+                        camera_rays)
 
 F32_EPS = 1.1920929e-7
 LEAKY_SLOPE = 0.01
-
-
-def median_split(centres: np.ndarray, parts: int):
-    """Index lists of a recursive median split of (N, 3) centres along
-    their widest axis."""
-    def split(idx, k):
-        if k == 1:
-            return [idx.tolist()]
-        c = centres[idx]
-        axis = int(np.argmax(c.max(0) - c.min(0))) if len(idx) > 1 else 0
-        order = idx[np.argsort(c[:, axis], kind="stable")]
-        mid = min(max(int(round(len(order) * (k // 2) / k)), 0), len(order))
-        return split(order[:mid], k // 2) + split(order[mid:], k - k // 2)
-    return split(np.arange(centres.shape[0]), parts)
-
-
-def mesh_partitions(meshes, parts: int):
-    """Each mesh's partition."""
-    lo = [np.minimum(np.minimum(m["v0"].min(0), m["v1"].min(0)), m["v2"].min(0)) for m in meshes]
-    hi = [np.maximum(np.maximum(m["v0"].max(0), m["v1"].max(0)), m["v2"].max(0)) for m in meshes]
-    centres = np.array([(a.astype(np.float32) + b.astype(np.float32)) * 0.5 for a, b in zip(lo, hi)])
-    owner = np.zeros(len(meshes), np.int64)
-    for p, idx in enumerate(median_split(centres, parts)):
-        owner[idx] = p
-    return owner
-
-
-def partition_boxes(meshes, owner, parts: int, device):
-    """((P, 3) lo, (P, 3) hi, (P,) diagonal) of each partition's triangles."""
-    lo = np.full((parts, 3), np.inf, np.float32)
-    hi = np.full((parts, 3), -np.inf, np.float32)
-    for m, p in zip(meshes, owner):
-        tmin = np.minimum(np.minimum(m["v0"], m["v1"]), m["v2"]).min(0)
-        tmax = np.maximum(np.maximum(m["v0"], m["v1"]), m["v2"]).max(0)
-        lo[p], hi[p] = np.minimum(lo[p], tmin), np.maximum(hi[p], tmax)
-    diag = np.linalg.norm(np.maximum(hi - lo, 0.0), axis=-1).astype(np.float32)
-    t = lambda a: torch.as_tensor(a, device=device)
-    return t(lo), t(hi), t(diag)
 
 
 # --------------------------------------------------------------------------
@@ -239,12 +202,12 @@ def _query_log(info, kind, local, q, vis, o, d, eps, max_hits):
     for p in range(len(local)):
         m = part == p
         if bool(m.any()):
-            truth[m] = occluded(local[p], o[ray[m]], d[ray[m]], eps[ray[m]], big[m],
-                                torch.ones_like(m[m]))
+            truth[m] = local[p].occluded(o[ray[m]], d[ray[m]], eps[ray[m]], big[m],
+                                         torch.ones_like(m[m]))
     info.setdefault(kind, []).append((vis[rows], truth))
 
 
-def render_pixels_neural(view: View, scene: RefScene, boxes, nets: dict, net_depth: int,
+def render_pixels_neural(view: View, scene, boxes, nets: dict, net_depth: int,
                          max_hits: int, pix, sample: int, operand=bf16, info=None):
     """(P, 3) value of each pixel in `pix` for one sample of the neural
     partitioned frame, the nets' operands rounded by `operand`. With a dict
@@ -273,7 +236,7 @@ def render_pixels_neural(view: View, scene: RefScene, boxes, nets: dict, net_dep
         v = torch.zeros_like(u)
         hit = torch.zeros_like(live)
         if bounce == 0:
-            t, tri, u, v, hit = closest(scene, o, d, eps, big, live)
+            t, tri, u, v, hit = scene.closest(o, d, eps, big, live)
             node = torch.where(hit, scene.part[tri.clamp(min=0)], node)
             owner_tri = tri
         else:
@@ -282,7 +245,7 @@ def render_pixels_neural(view: View, scene: RefScene, boxes, nets: dict, net_dep
                 at = live & (node == p)
                 if not bool(at.any()):
                     continue
-                lt, _, _, _, lh = closest(local[p], o, d, eps, big, at)
+                lt, _, _, _, lh = local[p].closest(o, d, eps, big, at)
                 lh = at & lh
                 lt = torch.where(lh, lt, big)
                 q = march(boxes, o, d, lt, at, p, max_hits, eps_v)
@@ -301,7 +264,7 @@ def render_pixels_neural(view: View, scene: RefScene, boxes, nets: dict, net_dep
                 at = live & (node == p)
                 if not bool(at.any()):
                     continue
-                tp_, trp, up_, vp_, hp = closest(local[p], o, d, eps, big, at)
+                tp_, trp, up_, vp_, hp = local[p].closest(o, d, eps, big, at)
                 hp = at & hp
                 t, u, v = (torch.where(hp, a, b) for a, b in ((tp_, t), (up_, u), (vp_, v)))
                 owner_tri = torch.where(hp, trp, owner_tri)
@@ -318,7 +281,7 @@ def render_pixels_neural(view: View, scene: RefScene, boxes, nets: dict, net_dep
         albedo = torch.zeros_like(o)
         for sc, tr in shade_scene_tri:
             m = hit & (tr >= 0)
-            pt_, nr_, al_ = surface(sc, o, d, t, tr, u, v, m)
+            pt_, nr_, al_ = sc.surface(o, d, t, tr, u, v, m)
             point = torch.where(m[:, None], pt_, point)
             nrm = torch.where(m[:, None], nr_, nrm)
             albedo = torch.where(m[:, None], al_, albedo)
@@ -329,7 +292,7 @@ def render_pixels_neural(view: View, scene: RefScene, boxes, nets: dict, net_dep
             at = sh.shadow_live & (node == p)
             if not bool(at.any()):
                 continue
-            occ = occluded(local[p], sh.point, sh.shadow_dir, eps, tmax_s, at)
+            occ = local[p].occluded(sh.point, sh.shadow_dir, eps, tmax_s, at)
             survives = at & ~occ
             q = march(boxes, sh.point, sh.shadow_dir, tmax_s, survives, p, max_hits, eps_v)
             vis, dep = predict(nets, net_depth, q["features"], q["part"], q["valid"], operand)

@@ -2,15 +2,23 @@
 must show at the pixels the check samples.
 
 Plain PyTorch, written from the renderer's published semantics (a pinhole
-camera with TEA-seeded jitter, Moller-Trumbore closest hits with an exact
-re-validation of the winner, Lambertian shading with a cosine-weighted
+camera with TEA-seeded jitter, Lambertian shading with a cosine-weighted
 throughput, next-event estimation by resampled importance sampling over
 `shadow_path_count` light candidates, a constant-texel lat-long sky). It
-imports nothing of the program: every table it needs (triangle edges and
-normals, the scene box, the per-triangle albedo, the partition of each
-triangle) it works out from the meshes the benchmark made, and it traces
-every ray against every triangle, so no acceleration structure of the
-program's is trusted.
+imports nothing of the program.
+
+The scene it traces is its configuration's kind's (`kinds/<kind>.py`
+`reference`, written under this folder: `triangles.py` for meshes). Which
+primitive a ray can hit, and how a hit is found and shaded, is the kind's
+to know, so the loop here asks the scene and nothing else: `closest(o, d,
+tmin, tmax, active)` -> (t, primitive, u, v, hit), `occluded(o, d, tmin,
+tmax, active)` -> whether anything is hit in (tmin, tmax), `surface(o, d,
+t, primitive, u, v, hit)` -> (point, unit normal, albedo); and, for the
+partitioned frame (neural.py), `part` (each primitive's partition) and
+`select(mask)` (the scene of the primitives in `mask`). A kind works its
+scene out from the inputs the benchmark made, not from anything the
+program built, and tests every ray against every primitive, so no
+acceleration structure of the program's is trusted.
 
 Paths are independent of each other, so the reference renders only the
 pixels it is asked for: `render_pixels` returns their (P, 3) values for one
@@ -29,8 +37,6 @@ import torch
 EPS = 1e-8
 RIS_SALT = 0x52495331
 _MASK = 0xFFFFFFFF
-# elements of one dense (rays x triangles) block of the trace
-BLOCK_ELEMENTS = {"cuda": 1 << 26, "cpu": 1 << 20}
 
 
 # --------------------------------------------------------------------------
@@ -112,93 +118,9 @@ def safe_inv(d):
 
 
 # --------------------------------------------------------------------------
-# the scene as the reference holds it
+# a helper of the kinds' queries
 
-@dataclass
-class RefScene:
-    """Every triangle of the scene (or of one partition), in the benchmark's
-    mesh order: `tab` (12, T) rows v0, e1 = v1 - v0, e2 = v2 - v0, n = e1 x
-    e2; `normal` (T, 3) the unit geometric normal, `albedo` (T, 3);
-    `part` (T,) the partition of each triangle; `box` (2, 3) its vertices'
-    bounds."""
-
-    tab: torch.Tensor
-    normal: torch.Tensor
-    albedo: torch.Tensor
-    part: torch.Tensor
-    box: torch.Tensor
-
-    def select(self, mask) -> "RefScene":
-        return RefScene(self.tab[:, mask], self.normal[mask], self.albedo[mask],
-                        self.part[mask], self.box)
-
-
-def ref_scene(meshes, parts, device, dtype=torch.float32) -> RefScene:
-    """`meshes`: dicts of float32 (T, 3) arrays v0, v1, v2 and a base_color;
-    `parts`: each mesh's partition."""
-    v0, v1, v2 = (np.concatenate([m[k] for m in meshes]).astype(np.float32)
-                  for k in ("v0", "v1", "v2"))
-    e1, e2 = v1 - v0, v2 - v0
-    n = np.cross(e1, e2).astype(np.float32)
-    gn = np.cross(v1 - v0, v2 - v0)
-    gn = (gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-12)).astype(np.float32)
-    albedo = np.concatenate([np.tile(np.asarray(m["base_color"], np.float32), (m["v0"].shape[0], 1))
-                             for m in meshes])
-    part = np.concatenate([np.full(m["v0"].shape[0], p, np.int64) for m, p in zip(meshes, parts)])
-    lo = np.minimum(np.minimum(v0, v1), v2).min(0)
-    hi = np.maximum(np.maximum(v0, v1), v2).max(0)
-    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device).to(dtype)
-    return RefScene(tab=f(np.concatenate([v0, e1, e2, n], axis=1).T), normal=f(gn),
-                    albedo=f(albedo), part=torch.as_tensor(part, device=device),
-                    box=f(np.stack([lo, hi])))
-
-
-# --------------------------------------------------------------------------
-# tracing: every ray against every triangle
-
-def _limits(box, o, d, tmin, tmax, active):
-    """The ray's interval: inactive rays closed, tmax capped just past the
-    scene box's exit."""
-    inv = safe_inv(d)
-    t0 = (box[0] - o) * inv
-    t1 = (box[1] - o) * inv
-    ex = torch.clamp(torch.maximum(t0, t1).amin(dim=-1), max=torch.finfo(o.dtype).max)
-    cap = torch.clamp(ex, min=0.0) * 1.001 + 1e-4
-    big = torch.full_like(tmin, torch.finfo(tmin.dtype).max)
-    return (torch.where(active, tmin, big),
-            torch.where(active, torch.minimum(tmax, cap), torch.zeros_like(tmax)))
-
-
-def _mt(o, d, tmin, tab):
-    """(R, S) distances and acceptance of rays against triangle columns
-    (triple-product Moller-Trumbore)."""
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, nx, ny, nz = (tab[q][None, :] for q in range(12))
-    rdx, rdy, rdz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    sx, sy, sz = o[:, 0:1] - v0x, o[:, 1:2] - v0y, o[:, 2:3] - v0z
-    mx = sy * rdz - sz * rdy
-    my = sz * rdx - sx * rdz
-    mz = sx * rdy - sy * rdx
-    det = -(rdx * nx + rdy * ny + rdz * nz)
-    u = e2x * mx + e2y * my + e2z * mz
-    v = -(e1x * mx + e1y * my + e1z * mz)
-    t_raw = nx * sx + ny * sy + nz * sz
-    adet = det.abs()
-    ok = adet > 1e-12
-    t = t_raw * torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)),
-                            torch.zeros_like(det))
-    neg = det < 0.0
-    su = torch.where(neg, -u, u)
-    sv = torch.where(neg, -v, v)
-    return t, ok & (su >= 0.0) & (sv >= 0.0) & (su + sv <= adet) & (t > tmin[:, None])
-
-
-def _blocks(o, s):
-    budget = BLOCK_ELEMENTS.get(o.device.type, BLOCK_ELEMENTS["cpu"])
-    sc = max(1, min(s, budget // 64))
-    return max(1, budget // sc), sc
-
-
-def _active_only(trace, defaults):
+def active_only(trace, defaults):
     """`trace` run on the active rays alone, each inactive ray given its
     `defaults` entry: a ray's result does not depend on the other rays."""
     def wrapped(scene, o, d, tmin, tmax, active):
@@ -214,67 +136,6 @@ def _active_only(trace, defaults):
             out.append(full)
         return tuple(out) if len(out) > 1 else out[0]
     return wrapped
-
-
-def closest(scene: RefScene, o, d, tmin, tmax, active):
-    """(t, tri, u, v, hit): the nearest accepted triangle in (tmin, tmax),
-    re-validated by the exact edge test with a slack of 1e-5; an inactive
-    ray has none."""
-    return _active_only(_closest, lambda o: (torch.finfo(o.dtype).max, -1, 0.0, 0.0, False))(
-        scene, o, d, tmin, tmax, active)
-
-
-def _closest(scene: RefScene, o, d, tmin, tmax, active):
-    tmin, tmax = _limits(scene.box, o, d, tmin, tmax, active)
-    n, s = o.shape[0], scene.tab.shape[1]
-    best_t = torch.full((n,), float("inf"), dtype=o.dtype, device=o.device)
-    best = torch.full((n,), -1, dtype=torch.int64, device=o.device)
-    rc, sc = _blocks(o, s)
-    for r0 in range(0, n, rc):
-        r = slice(r0, min(n, r0 + rc))
-        for s0 in range(0, s, sc):
-            t, acc = _mt(o[r], d[r], tmin[r], scene.tab[:, s0:s0 + sc])
-            t = torch.where(acc & (t < tmax[r, None]), t, float("inf"))
-            tm, j = t.min(dim=1)
-            better = tm < best_t[r]
-            best_t[r] = torch.where(better, tm, best_t[r])
-            best[r] = torch.where(better, j + s0, best[r])
-    found = best >= 0
-    w = scene.tab[:, best.clamp(min=0)]
-    v0, e1, e2 = w[0:3].T, w[3:6].T, w[6:9].T
-    p = cross(d, e2)
-    det = dot(e1, p)
-    ok = det.abs() > 1e-12
-    inv = torch.where(ok, 1.0 / torch.where(ok, det, torch.ones_like(det)), torch.zeros_like(det))
-    s_ = o - v0
-    u = dot(s_, p) * inv
-    q = cross(s_, e1)
-    v = dot(d, q) * inv
-    t = dot(e2, q) * inv
-    slack = 1e-5
-    hit = found & ok & (u >= -slack) & (v >= -slack) & (u + v <= 1.0 + 2.0 * slack) & (t > 0.0)
-    zero = torch.zeros_like(t)
-    return (torch.where(hit, t, torch.full_like(t, torch.finfo(t.dtype).max)), torch.where(hit, best, -1),
-            torch.where(hit, u, zero), torch.where(hit, v, zero), hit)
-
-
-def occluded(scene: RefScene, o, d, tmin, tmax, active):
-    """Whether any triangle is accepted in (tmin, tmax); an inactive ray is
-    not occluded."""
-    return _active_only(_occluded, lambda o: (False,))(scene, o, d, tmin, tmax, active)
-
-
-def _occluded(scene: RefScene, o, d, tmin, tmax, active):
-    tmin, tmax = _limits(scene.box, o, d, tmin, tmax, active)
-    n, s = o.shape[0], scene.tab.shape[1]
-    occ = torch.zeros((n,), dtype=torch.bool, device=o.device)
-    rc, sc = _blocks(o, s)
-    for r0 in range(0, n, rc):
-        r = slice(r0, min(n, r0 + rc))
-        for s0 in range(0, s, sc):
-            t, acc = _mt(o[r], d[r], tmin[r], scene.tab[:, s0:s0 + sc])
-            occ[r] |= (acc & (t < tmax[r, None])).any(dim=1)
-    return occ
 
 
 # --------------------------------------------------------------------------
@@ -422,18 +283,7 @@ def shade(view: View, pix, sample: int, bounce: int, d, throughput, hit, point, 
                   shadow_live=live1)
 
 
-def surface(scene: RefScene, o, d, t, tri, u, v, hit):
-    """(point, interpolated unit normal, albedo) at each hit."""
-    safe = tri.clamp(min=0)
-    n0 = scene.normal[safe]
-    uu, vv = u[:, None], v[:, None]
-    ww = 1.0 - uu - vv
-    nrm = normalize(ww * n0 + uu * n0 + vv * n0)
-    point = o + torch.where(hit, t, torch.zeros_like(t))[:, None] * d
-    return point, nrm, scene.albedo[safe]
-
-
-def render_pixels(view: View, scene: RefScene, pix, sample: int, trace_log=None):
+def render_pixels(view: View, scene, pix, sample: int, trace_log=None):
     """(P, 3) value of each pixel in `pix` for one sample: the direct light
     of every bounce's shadow ray that reaches the light, plus the sky of
     the paths that leave the scene. `trace_log`, a list, receives each
@@ -449,14 +299,14 @@ def render_pixels(view: View, scene: RefScene, pix, sample: int, trace_log=None)
     direct = torch.zeros((n, 3), dtype=dt, device=pix.device)
     env = torch.zeros((n, 3), dtype=dt, device=pix.device)
     for bounce in range(view.bounces):
-        t, tri, u, v, hit = closest(scene, o, d, eps, tmax, live)
+        t, tri, u, v, hit = scene.closest(o, d, eps, tmax, live)
         miss = live & ~hit
         env = env + torch.where(miss[:, None], tp * sky_radiance(view, d), 0.0)
         hit = live & hit
-        point, nrm, albedo = surface(scene, o, d, t, tri, u, v, hit)
+        point, nrm, albedo = scene.surface(o, d, t, tri, u, v, hit)
         sh = shade(view, pix, sample, bounce, d, tp, hit, point, nrm, albedo)
-        occ = occluded(scene, sh.point, sh.shadow_dir, eps, sh.shadow_dist * (1.0 - 1e-3),
-                       sh.shadow_live)
+        occ = scene.occluded(sh.point, sh.shadow_dir, eps, sh.shadow_dist * (1.0 - 1e-3),
+                             sh.shadow_live)
         if trace_log is not None:
             trace_log.append(dict(bounce=bounce, closest=(o, d, eps, tmax, live), t=t, tri=tri,
                                   hit=hit,

@@ -6,8 +6,9 @@ from the root of a checkout that holds the port (`pg2024_dprt_tpu_torch`)
 on a machine with an NVIDIA GPU. The run:
 
   1. set-up (`setup_s`, from the start of this module): imports, the
-     configuration's meshes and nets made from the seed (scenes.py), the
-     port's own build of its scene (host BVH, cluster tables, partitions),
+     configuration's scene inputs (its kind's) and nets made from its own
+     seeds (scenes.py), the port's own build of its scene (host BVH,
+     cluster tables, partitions),
      and one warm frame, which builds and loads the CUDA kernels;
   2. the window: frames back to back (a closed loop, spp 1 a frame), each
      at the next `base_sample` from a seed-derived start, each ending in a
@@ -21,6 +22,10 @@ on a machine with an NVIDIA GPU. The run:
      limits on standard error. `--trace 0` reports the cell's end-to-end
      metrics, `--trace 1` its per-layer metrics, each by its reader in
      metrics/.
+
+The configuration's scene is of a kind (`kinds/<kind>.py`, manifest.py),
+which makes the scene's inputs, the port's build of them and the
+reference's scene; an unknown kind fails the run before its set-up.
 
 A cell whose configuration says `"ranks": N` runs as a world of N
 processes instead, one partition and one card a rank (ranks.py).
@@ -110,11 +115,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
         torch.cuda.reset_peak_memory_stats()
 
     marks = [("imports", time.perf_counter())]
-    meshes = scenes.scene_meshes(config["scene"])
+    inputs = scenes.scene_inputs(config["scene"], root)
     nets = (scenes.proxy_nets(config["nets"], config["scene"]["partitions"], dev)
             if "nets" in config else None)
     marks.append(("inputs", time.perf_counter()))
-    program = Program(config, neural, meshes, nets, dev)
+    program = Program(config, neural, inputs, nets, dev, root=root)
     marks.append(("scene build", time.perf_counter()))
     req = config["request"]
     npix = req["width"] * req["height"]
@@ -176,7 +181,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
     print(f"portbench: {k} frames in {window_s:.3f} s (ms min {ms[0]:.3f} median "
           f"{ms[len(ms) // 2]:.3f} max {ms[-1]:.3f}), peak {peak} B", file=sys.stderr)
     r0 = time.perf_counter()
-    ref = Reference(config, neural, meshes, nets, dev)
+    ref = Reference(config, neural, inputs, nets, dev, root=root)
     trace_log = [] if trace else None
     numbers, failed, found = judge(
         ref, [(sample, order) for (sample, _), order in zip(checked, orders)], traffic["check"],
@@ -260,6 +265,9 @@ def main(argv=None) -> int:
     from . import manifest
 
     c = manifest.cell(manifest.load_benchmark(ROOT), ROOT, args.workload)
+    # an unknown scene kind fails here, before any set-up; its module, which
+    # imports torch, loads after the pinning
+    manifest.kind_file(c["config"]["scene"]["kind"], ROOT)
     set_env()
     if "ranks" in c["config"]:
         # a world of processes, one partition and one card a rank

@@ -1,13 +1,9 @@
-"""The benchmark's inputs: the meshes of a configuration's scene and the
-proxy nets' weights, each from the configuration's own seed. Every run of a
-configuration renders the same scene with the same nets, so a run's seed
+"""The benchmark's inputs, each from the configuration's own seeds: the
+scene's, made by its kind (`kinds/<kind>.py` `inputs`; for the kinds of
+triangle meshes, frozen copies of the generators the configurations name),
+and the proxy nets' weights, drawn on the device in one call. Every run of
+a configuration renders the same scene with the same nets, so a run's seed
 changes which samples it renders, not how much work a frame is.
-
-Frozen copies of the generators the configurations name (a random triangle
-soup; a row of rooms, each a soup of its own, under one light), so that a
-change to the program's procedural scenes does not change what the
-benchmark renders. Meshes are host numpy, as the renderer's host build
-takes them; the nets are drawn on the device in one call.
 
 Seeded nets are nearly constant over their inputs, and their means differ
 from net to net far more than each varies, so one added bias would make some
@@ -21,50 +17,23 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
+from . import manifest
 from .reference.neural import LEAKY_SLOPE, net
+from .run import ROOT
 
 # feature vectors each vis net's bias is set on
 BIAS_SAMPLES = 8192
 
 
-def soup_mesh(n: int, seed: int, extent: float, jitter: float, color, name: str) -> dict:
-    """n random small triangles in [0, extent]^3."""
-    rng = np.random.RandomState(seed)
-    base = rng.rand(n, 3).astype(np.float32) * extent
-    e1 = (rng.rand(n, 3).astype(np.float32) - 0.5) * jitter * extent
-    e2 = (rng.rand(n, 3).astype(np.float32) - 0.5) * jitter * extent
-    return dict(v0=base, v1=base + e1, v2=base + e2, base_color=tuple(color), name=name)
+def scene_inputs(scene: dict, root: str = ROOT):
+    """The inputs of a configuration's `scene` entry, made by its kind."""
+    return manifest.kind(scene["kind"], root).inputs(scene)
 
 
-def room_meshes(rooms: int, tris_per_room: int, seed: int, spacing: float,
-                jitter: float) -> list:
-    """`rooms` unit soups `spacing` apart along x, room r coloured (0.7,
-    0.6 + 0.1 (r % 3), 0.5)."""
-    rng = np.random.RandomState(seed)
-    out = []
-    for r in range(rooms):
-        offset = np.asarray([spacing * r, 0.0, 0.0], np.float32)
-        base = rng.rand(tris_per_room, 3).astype(np.float32) + offset
-        e1 = (rng.rand(tris_per_room, 3).astype(np.float32) - 0.5) * jitter
-        e2 = (rng.rand(tris_per_room, 3).astype(np.float32) - 0.5) * jitter
-        out.append(dict(v0=base, v1=base + e1, v2=base + e2,
-                        base_color=(0.7, 0.6 + 0.1 * (r % 3), 0.5), name=f"room{r}"))
-    return out
-
-
-def scene_meshes(scene: dict) -> list:
-    """The meshes of a configuration's `scene` entry."""
-    g = scene["seed"]
-    if scene["kind"] == "soup":
-        return [soup_mesh(scene["triangles"], g, scene["extent"], scene["jitter"],
-                          scene.get("color", (0.8, 0.8, 0.8)), "soup")]
-    if scene["kind"] == "rooms":
-        return room_meshes(scene["rooms"], scene["tris_per_room"], g, scene["spacing"],
-                           scene["jitter"])
-    raise ValueError(f"unknown scene kind {scene['kind']!r}")
+# the name scripts/span_report.py calls it by
+scene_meshes = scene_inputs
 
 
 def net_shapes(width: int, depth: int, head_hidden: int) -> list:

@@ -29,12 +29,11 @@ TINY_CHECK = {"pixels": 96, "pool": 384, "net_pixels": 48}
 
 
 def tiny(name):
-    """The cell's configuration cut to a CPU test: 24x16 pixels, a few
-    thousand triangles a room or soup, the rooms as far apart as the
-    cell's."""
-    if name.startswith("soup"):
-        return {"request": {"width": 24, "height": 16}, "scene": {"triangles": 3000}}
-    return {"request": {"width": 24, "height": 16}, "scene": {"tris_per_room": 3000}}
+    """The cell's configuration cut to a CPU test: 24x16 pixels, and its
+    scene kind's size key (`SIZE`: a soup's triangles, a room's) at a few
+    thousand, the rooms as far apart as the cell's."""
+    size = manifest.kind(manifest.cell(BENCH, ROOT, name)["config"]["scene"]["kind"], ROOT).SIZE
+    return {"request": {"width": 24, "height": 16}, "scene": {size: 3000}}
 
 
 @pytest.fixture(autouse=True)
@@ -68,10 +67,10 @@ def test_the_port_agrees_with_the_reference(name):
 def test_the_reference_renders_lit_geometry(name):
     c = manifest.cell(manifest.load_benchmark(ROOT), ROOT, name)
     config = dict(c["config"], **{k: dict(c["config"][k], **v) for k, v in tiny(name).items()})
-    meshes = scenes.scene_meshes(config["scene"])
+    inputs = scenes.scene_inputs(config["scene"])
     nets = (scenes.proxy_nets(config["nets"], config["scene"]["partitions"], "cpu")
             if "nets" in config else None)
-    ref = Reference(config, bool(c["traffic"]["neural"]), meshes, nets, "cpu")
+    ref = Reference(config, bool(c["traffic"]["neural"]), inputs, nets, "cpu")
     log = []
     pix = ref.pixels(5, torch.arange(16 * 12), None if ref.neural else log)
     assert bool(torch.isfinite(pix).all()) and float(pix.std()) > 0.0

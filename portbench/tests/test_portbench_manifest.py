@@ -51,6 +51,7 @@ def test_names_and_units_keep_to_their_characters(entry):
 def test_every_cell_finds_its_files(name):
     c = manifest.cell(BENCH, ROOT, name)
     assert c["config"]["name"] == c["entry"]["config"]
+    assert os.path.isfile(manifest.kind_file(c["config"]["scene"]["kind"], ROOT))
     assert set(c["config"]["reduced"]) == set(
         manifest.by_name(BENCH["configs"], c["entry"]["config"])["reduced"])
     assert "outlier_share" in c["limits"]

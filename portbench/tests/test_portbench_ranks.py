@@ -92,7 +92,7 @@ def test_the_rank_frames_equal_the_in_process_frame():
     assert unequal_pixels(results) == (0, set())
     from pg2024_dprt_tpu_torch.parallel import make_mesh
 
-    program = Program(c["config"], False, scenes.scene_meshes(c["config"]["scene"]), None,
+    program = Program(c["config"], False, scenes.scene_inputs(c["config"]["scene"]), None,
                       "cpu", mesh=make_mesh(4, "cpu"))
     for sample, img in results[0]["checked"]:
         want = program.frame(sample)[0].reshape(-1, 3)
@@ -260,7 +260,7 @@ def test_the_rank_frames_equal_the_in_process_frame_on_four_cards():
     results = run_world(job, 4, "nccl", rank_cores(4), time.monotonic() + 300.0)
     assert unequal_pixels(results) == (0, set())
     dev = torch.device("cuda", 0)
-    program = Program(c["config"], False, scenes.scene_meshes(c["config"]["scene"]), None, dev,
+    program = Program(c["config"], False, scenes.scene_inputs(c["config"]["scene"]), None, dev,
                       mesh=make_mesh(4, dev))
     for sample, img in results[0]["checked"]:
         want = program.frame(sample)[0].reshape(-1, 3).cpu()
